@@ -1,0 +1,113 @@
+"""Typed configuration: the subset of ``svdd_tpu/config.py`` that the
+SVDD-MC decode slice reads, with the same field names and defaults.
+
+The JAX module cannot be imported here (``svdd_tpu/__init__.py`` pulls
+in JAX), so the dataclasses are restated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+
+def _update(obj: Any, overrides: Dict[str, Any]) -> None:
+  for k, v in overrides.items():
+    if not hasattr(obj, k):
+      raise KeyError(f'unknown config key {k!r} on {type(obj).__name__}')
+    cur = getattr(obj, k)
+    if dataclasses.is_dataclass(cur) and isinstance(v, dict):
+      _update(cur, v)
+    else:
+      setattr(obj, k, v)
+
+
+@dataclass
+class NoiseConfig:
+  type: str = 'loglinear'
+  sigma_min: float = 1e-4
+  sigma_max: float = 20.0
+  eps: float = 1e-3
+
+
+@dataclass
+class ModelConfig:
+  name: str = 'dnaconv'
+  length: int = 200
+  hidden_dim: int = 128
+  num_cnn_stacks: int = 4
+  dropout: float = 0.0
+  clean_data: bool = False
+  cls_free_guidance: bool = False
+
+
+@dataclass
+class LoaderConfig:
+  global_batch_size: int = 512
+  eval_global_batch_size: int = 512
+  batch_size: int = 512
+  eval_batch_size: int = 512
+
+
+@dataclass
+class SamplingConfig:
+  predictor: str = 'ddpm'
+  steps: int = 128
+  noise_removal: bool = True
+
+
+@dataclass
+class Config:
+  diffusion: str = 'absorbing_state'
+  backbone: str = 'cnn'
+  parameterization: str = 'subs'
+  time_conditioning: bool = False
+  seed: int = 1
+  task: str = 'dna'
+  alphabet_size: int = 4
+
+  noise: NoiseConfig = field(default_factory=NoiseConfig)
+  model: ModelConfig = field(default_factory=ModelConfig)
+  loader: LoaderConfig = field(default_factory=LoaderConfig)
+  sampling: SamplingConfig = field(default_factory=SamplingConfig)
+
+  @property
+  def vocab_size(self) -> int:
+    return self.alphabet_size + 1   # + MASK
+
+  @property
+  def mask_index(self) -> int:
+    return self.alphabet_size
+
+  def override(self, **overrides: Any) -> 'Config':
+    cfg = dataclasses.replace(self)
+    for f in dataclasses.fields(cfg):
+      v = getattr(cfg, f.name)
+      if dataclasses.is_dataclass(v):
+        setattr(cfg, f.name, dataclasses.replace(v))
+    _update(cfg, overrides)
+    return cfg
+
+
+def dna_config(**overrides: Any) -> Config:
+  """DNA enhancer task (L=200, HepG2 reward)."""
+  cfg = Config(task='dna')
+  return cfg.override(**overrides) if overrides else cfg
+
+
+def tiny_test_config(task: str = 'dna', **overrides: Any) -> Config:
+  """Small config for CPU unit tests (``svdd_tpu.config.tiny_test_config``
+  with the fields this package reads). Only the DNA task is ported."""
+  if task != 'dna':
+    raise NotImplementedError(f'task {task!r} is not ported yet')
+  cfg = dna_config()
+  cfg.model.length = 24
+  cfg.model.hidden_dim = 32
+  cfg.model.num_cnn_stacks = 1
+  cfg.sampling.steps = 8
+  cfg.loader.global_batch_size = 8
+  cfg.loader.eval_global_batch_size = 8
+  cfg.loader.batch_size = 8
+  cfg.loader.eval_batch_size = 8
+  return cfg.override(**overrides) if overrides else cfg

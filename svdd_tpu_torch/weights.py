@@ -1,0 +1,148 @@
+"""Carry svdd_tpu (flax) variables into the port's modules.
+
+``variables`` are the flax trees as nested dicts of numpy arrays
+(``params`` plus ``buffers`` or ``batch_stats``), e.g. from
+``jax.tree.map(np.asarray, variables)``. Layouts: conv kernels stay
+(K, Cin, Cout); Dense kernels (in, out) become torch (out, in); the
+(1, h, 1, dk) relative biases flatten to (h*dk,); BatchNorm carries
+scale/bias and the running mean/var; the ``nn.scan``-stacked
+``transformer_stack`` params are split along their leading axis.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from svdd_tpu_torch.config import dna_config
+from svdd_tpu_torch.models import blocks
+from svdd_tpu_torch.models.cnn import CNNModel
+from svdd_tpu_torch.models.enformer import EnformerValueModel
+
+
+def _copy(dst: torch.Tensor, src) -> None:
+  src = torch.as_tensor(np.array(src), dtype=dst.dtype)
+  if tuple(src.shape) != tuple(dst.shape):
+    raise ValueError(f'shape mismatch: port {tuple(dst.shape)} vs '
+                     f'flax {tuple(src.shape)}')
+  with torch.no_grad():
+    dst.copy_(src)
+
+
+def _dense(mod: torch.nn.Linear, p) -> None:
+  _copy(mod.weight, np.asarray(p['kernel']).T)
+  if mod.bias is not None:
+    _copy(mod.bias, p['bias'])
+
+
+def _norm(mod, p, stats=None) -> None:
+  _copy(mod.scale, p['scale'])
+  _copy(mod.bias, p['bias'])
+  if stats is not None:
+    _copy(mod.mean, stats['mean'])
+    _copy(mod.var, stats['var'])
+
+
+def _generator():
+  return torch.Generator().manual_seed(0)
+
+
+def cnn_from_jax(variables) -> CNNModel:
+  """A CNN denoiser (on CPU, float32) holding the flax CNNModel's
+  variables."""
+  p = variables['params']
+  hidden = np.asarray(p['time_linear']['kernel']).shape[0]
+  n_layers = sum(1 for k in p if k.startswith('norm_'))
+  alphabet = np.asarray(p['final_1']['kernel']).shape[-1]
+  cfg = dna_config()
+  cfg.model.hidden_dim = hidden
+  cfg.model.num_cnn_stacks = n_layers // 5
+  model = CNNModel(cfg, alphabet_size=alphabet, generator=_generator())
+  _copy(model.gfp.W, variables['buffers']['GaussianFourierProjection_0']['W'])
+  _dense(model.time_linear, p['time_linear'])
+  _copy(model.stem_kernel, p['stem']['kernel'])
+  _copy(model.stem_bias, p['stem']['bias'])
+  for i, layer in enumerate(model.layers):
+    _copy(layer.ln_scale, p[f'norm_{i}']['scale'])
+    _copy(layer.ln_bias, p[f'norm_{i}']['bias'])
+    _copy(layer.kernel, p[f'conv_{i}']['kernel'])
+    _copy(layer.conv_bias, p[f'conv_{i}']['bias'])
+    _dense(layer.time, p[f'time_{i}'])
+  for j in (0, 1):
+    _copy(getattr(model, f'final_{j}_kernel'), p[f'final_{j}']['kernel'])
+    _copy(getattr(model, f'final_{j}_bias'), p[f'final_{j}']['bias'])
+  return model.eval()
+
+
+def _conv_block(block: blocks.ConvBlock, p, stats) -> None:
+  _copy(block.kernel, p['Conv1D_0']['kernel'])
+  _copy(block.bias, p['Conv1D_0']['bias'])
+  _norm(block.norm, p['Norm_0']['BatchNorm_0'],
+        stats['Norm_0']['BatchNorm_0'])
+  if block.pool is not None:
+    _copy(block.pool.w, p['Pool_0']['AttentionPool_0']['to_attn_logits'])
+
+
+def _transformer_trees(trunk_p):
+  """Per-block param trees, from the scan stack or transformer_{i}."""
+  if 'transformer_stack' in trunk_p:
+    stack = trunk_p['transformer_stack']['EnformerTransformerBlock_0']
+    n = np.asarray(stack['LayerNorm_0']['scale']).shape[0]
+
+    def take(tree, i):
+      if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+      return np.asarray(tree)[i]
+    return [take(stack, i) for i in range(n)]
+  n = sum(1 for k in trunk_p if k.startswith('transformer_'))
+  return [trunk_p[f'transformer_{i}'] for i in range(n)]
+
+
+def _transformer(block, p) -> None:
+  _norm(block.norm, p['LayerNorm_0'])
+  a, ap = block.attn, p['EnformerAttention_0']
+  for name in ('to_q', 'to_k', 'to_v', 'to_rel_k', 'to_out'):
+    _dense(getattr(a, name), ap[name])
+  _copy(a.rel_content_bias, np.asarray(ap['rel_content_bias']).reshape(-1))
+  _copy(a.rel_pos_bias, np.asarray(ap['rel_pos_bias']).reshape(-1))
+  fp = p['FeedForwardBlock_0']
+  _norm(block.ffn.norm, fp['LinearBlock_0']['Norm_0']['LayerNorm_0'])
+  _dense(block.ffn.up, fp['LinearBlock_0']['Dense_0'])
+  _dense(block.ffn.down, fp['LinearBlock_1']['Dense_0'])
+
+
+def enformer_value_from_jax(variables) -> EnformerValueModel:
+  """An Enformer value model (on CPU, float32) holding the flax
+  EnformerValueModel's variables (non-timed)."""
+  p = variables['params']
+  stats = variables['batch_stats']['EnformerTrunk_0']
+  trunk_p = p['EnformerTrunk_0']
+  tower_p = trunk_p['EnformerConvTower_0']
+  tower_s = stats['EnformerConvTower_0']
+  channels = np.asarray(trunk_p['pointwise']['Conv1D_0']['kernel']).shape[1]
+  n_conv = 1 + sum(1 for k in tower_p if k.startswith('conv_'))
+  trees = _transformer_trees(trunk_p)
+  n_heads, dk = (np.asarray(trees[0]['EnformerAttention_0']
+                            ['rel_content_bias']).shape[i] for i in (1, 3))
+  head_p = (p['ConvHead_0']['ChannelTransformBlock_0']
+            ['ChannelTransform_0']['Conv1D_0'])
+  n_tasks = np.asarray(head_p['kernel']).shape[-1]
+  model = EnformerValueModel(
+      n_tasks=n_tasks, n_conv=n_conv, channels=channels,
+      n_transformers=len(trees), n_heads=n_heads, key_len=dk,
+      generator=_generator())
+  tower = model.trunk.tower
+  _copy(tower.stem_kernel, tower_p['stem_conv']['kernel'])
+  _copy(tower.stem_bias, tower_p['stem_conv']['bias'])
+  _conv_block(tower.stem_block, tower_p['stem_block'],
+              tower_s['stem_block'])
+  for i, (conv, pool) in enumerate(zip(tower.convs, tower.pools), 1):
+    _conv_block(conv, tower_p[f'conv_{i}'], tower_s[f'conv_{i}'])
+    _conv_block(pool, tower_p[f'pool_{i}'], tower_s[f'pool_{i}'])
+  for block, tree in zip(model.trunk.transformers, trees):
+    _transformer(block, tree)
+  _conv_block(model.trunk.pointwise, trunk_p['pointwise'],
+              stats['pointwise'])
+  _copy(model.head.kernel, head_p['kernel'])
+  _copy(model.head.bias, head_p['bias'])
+  return model.eval()
