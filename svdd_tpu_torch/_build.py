@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'svdd_tpu_torch'
-SOURCES = ('cnn_layer', 'gumbel_candidates', 'attn_pool', 'attn_l2')
+SOURCES = ('cnn_layer', 'gumbel_candidates', 'attn_pool', 'attn_l2',
+           'cnn_layer_bwd', 'conv1d_bwd', 'attn_pool_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
 
@@ -40,9 +41,14 @@ SIGNATURES = {
     'svdd_attn_pool_im2col': ('attn_pool',
                               [_P] * 7 + [_I] * 6 + [_P]),
     'svdd_attn_l2': ('attn_l2', [_P] * 8 + [_I] * 5 + [_P]),
+    'svdd_cnn_layer_bwd': ('cnn_layer_bwd',
+                           [_P] * 18 + [_I] * 5 + [_F, _I, _P]),
+    'svdd_conv1d_bwd': ('conv1d_bwd', [_P] * 7 + [_I] * 7 + [_P]),
+    'svdd_attn_pool_bwd': ('attn_pool_bwd', [_P] * 9 + [_I] * 5 + [_P]),
 }
 KERNELS = ('cnn_layer', 'gumbel_candidates', 'attn_pool_prologue_im2col',
-           'attn_pool', 'attn_l2')
+           'attn_pool', 'attn_l2', 'cnn_layer_bwd', 'conv1d_bwd',
+           'attn_pool_bwd')
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _LIBS: dict = {}
@@ -67,7 +73,7 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
   h = hashlib.sha1()
-  for src in (SRC_DIR / f'{name}.cu', SRC_DIR / 'common.cuh'):
+  for src in (SRC_DIR / f'{name}.cu', *sorted(SRC_DIR.glob('*.cuh'))):
     h.update(src.read_bytes())
   h.update(' '.join(NVCC_FLAGS).encode())
   return BUILD_DIR / f'lib{name}-{h.hexdigest()[:12]}.so'
@@ -105,7 +111,9 @@ def build(names=SOURCES) -> float:
 
 def _lib(name: str) -> ctypes.CDLL:
   if name not in _LIBS:
-    build((name,))
+    # the first use builds every source, all nvcc runs at once, so a
+    # path's later kernels do not each wait for a build of their own
+    build()
     lib = ctypes.CDLL(str(_library_path(name)))
     lib.svdd_error_string.argtypes = [_I]
     lib.svdd_error_string.restype = ctypes.c_char_p
@@ -148,6 +156,22 @@ def dtype_code(t) -> int:
 def int_array(values) -> ctypes.Array:
   """A host int32 array for the kernels' tap-offset arguments."""
   return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def row_chunks(rows: int, tiles: int, min_rows: int = 256) -> int:
+  """Chunks of rows a weight-gradient GEMM splits its sum over rows
+  into, each chunk a block per output tile: enough blocks to fill the
+  card's 132 SMs about twice at two blocks each, and no chunk shorter
+  than ``min_rows`` rows. The chunks' partial sums are added by a
+  second, deterministic pass."""
+  return max(1, min(-(-4 * 132 // tiles), rows // min_rows))
+
+
+def require_aligned(name: str, *tensors) -> None:
+  """Kernels that read 4 channels per load need 16-byte aligned bases."""
+  for t in tensors:
+    if t is not None and t.data_ptr() % 16:
+      raise ValueError(f'{name}: tensors must start 16-byte aligned')
 
 
 def require_cuda(name: str, *tensors) -> None:

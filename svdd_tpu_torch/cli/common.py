@@ -65,6 +65,29 @@ def make_parser(description: str) -> argparse.ArgumentParser:
   return p
 
 
+def add_guidance_scale(parser: argparse.ArgumentParser,
+                       default: float) -> None:
+  """``--guidance_scale``, with the JAX CLI's default for the decoder."""
+  parser.add_argument('--guidance_scale', type=float, default=default)
+
+
+def full_f32() -> None:
+  """Float32 runs compute in full f32: TF32 off for matmuls and cuDNN
+  convolutions."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+
+def reject_saluki(args, cli_name: str) -> None:
+  """The gradient-guided decoders take (N, L, 4) one-hots; only the
+  tweedie path builds the saluki oracle's input
+  (``svdd_tpu/cli/common.py:reject_saluki``)."""
+  if args.task == 'rna_saluki':
+    raise SystemExit(
+        f'{cli_name} does not support --task rna_saluki; use '
+        'decode.py (SVDD-MC) or decode_tweedie.py (SVDD-PM)')
+
+
 def reject_unported(args) -> None:
   """Raise for flags whose machinery is not ported yet."""
   for name in CHECKPOINT_FLAGS:

@@ -13,8 +13,6 @@ from __future__ import annotations
 import logging
 import time
 
-import torch
-
 from svdd_tpu_torch.cli import common
 from svdd_tpu_torch.decode import run_decode
 
@@ -27,8 +25,7 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   if getattr(args, 'm_schedule', None):
     raise NotImplementedError('--m_schedule: scheduled-M decode is not '
                               'ported yet')
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  common.full_f32()
   cfg = cfg or common.task_config(args)
   diffusion = common.load_diffusion(args, cfg)
   reward_fn = common.load_reward_fn(args, cfg)

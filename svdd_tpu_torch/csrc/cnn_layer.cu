@@ -26,14 +26,14 @@
 // its bias (g and b themselves rounded to T), after the tap sum, after
 // the conv bias add, and once more after the residual add. In float32
 // every one of these is exact.
-#include "common.cuh"
+#include "cnn_layer.cuh"
 
 namespace {
 
-constexpr int kC = 128;        // channels (the denoiser's hidden size)
-constexpr int kTileRows = 64;  // output rows per block
-constexpr int kChunk = 16;     // input channels per weight stage
-constexpr int kThreads = 256;
+using svdd::cnn::kC;
+using svdd::cnn::kChunk;
+using svdd::cnn::kThreads;
+using svdd::cnn::kTileRows;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -49,83 +49,15 @@ __global__ void __launch_bounds__(kThreads)
 
   const int n = blockIdx.y;
   const int r0 = blockIdx.x * kTileRows;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const T* xn = x + static_cast<size_t>(n) * L * kC;
-
-  // rows of h the taps of this tile read
-  const int last = min(r0 + kTileRows, L) - 1;
-  const int lo = max(r0 + taps.off[0], 0);
-  const int hi = min(last + taps.off[k_live - 1], L - 1);
-
-  // LayerNorm: one warp per row, 4 channels per lane, f32 statistics
-  float br[4], g[4], b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int ch = lane + 32 * j;
-    br[j] = svdd::to_f(bias_row[static_cast<size_t>(n) * kC + ch]);
-    g[j] = svdd::round_to<T>(ln_g[ch]);
-    b[j] = svdd::round_to<T>(ln_b[ch]);
-  }
-  for (int r = lo + warp; r <= hi; r += kThreads / 32) {
-    float v[4];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = svdd::round_to<T>(svdd::to_f(xn[r * kC + lane + 32 * j]) + br[j]);
-      s += v[j];
-    }
-    const float mu = svdd::warp_sum(s) * (1.f / kC);
-    float q = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q += (v[j] - mu) * (v[j] - mu);
-    const float rstd = rsqrtf(svdd::warp_sum(q) * (1.f / kC) + eps);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float hn = svdd::round_to<T>((v[j] - mu) * rstd);
-      hs[r * kC + lane + 32 * j] =
-          svdd::from_f<T>(svdd::round_to<T>(hn * g[j]) + b[j]);
-    }
-  }
-
-  // tap products: thread (tx, ty) owns rows r0+ty+16i, cols tx+16j
-  const int tx = tid & 15, ty = tid >> 4;
+  int lo, hi;
+  svdd::cnn::tile_halo(taps, k_live, L, r0, &lo, &hi);
+  svdd::cnn::ln_prologue<T>(xn, bias_row + static_cast<size_t>(n) * kC, ln_g,
+                            ln_b, eps, lo, hi, hs);
   float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  svdd::cnn::tap_products<T>(hs, w, taps, k_live, L, r0, ws, acc);
 
-  for (int t = 0; t < k_live; ++t) {
-    const int off = taps.off[t];
-    const T* wt = w + static_cast<size_t>(t) * kC * kC;
-    int src[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int s = r0 + ty + 16 * i + off;
-      src[i] = (s >= 0 && s < L) ? s : -1;
-    }
-    for (int k0 = 0; k0 < kC; k0 += kChunk) {
-      __syncthreads();  // h rows written / previous chunk consumed
-      for (int e = tid; e < kChunk * kC; e += kThreads)
-        ws[e] = svdd::to_f(wt[static_cast<size_t>(k0) * kC + e]);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kChunk; ++kk) {
-        float a[4], bv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = src[i] >= 0 ? svdd::to_f(hs[src[i] * kC + k0 + kk]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = ws[kk * kC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-    }
-  }
-
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   T* on = out + static_cast<size_t>(n) * L * kC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -134,8 +66,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = tx + 16 * j;
-      const float y = svdd::round_to<T>(svdd::round_to<T>(acc[i][j]) +
-                                        svdd::round_to<T>(cb[col]));
+      const float y = svdd::cnn::conv_out<T>(acc[i][j], cb[col]);
       const float v = fmaxf(y, 0.f) + svdd::to_f(xn[row * kC + col]);
       on[row * kC + col] = svdd::from_f<T>(v);
     }
@@ -147,7 +78,7 @@ int launch(const void* x, const void* bias_row, const void* ln_g,
            const void* ln_b, const void* w, const void* cb, void* out,
            const int* offsets, int k_live, int n, int l, float eps,
            cudaStream_t stream) {
-  const size_t smem = kChunk * kC * sizeof(float) + static_cast<size_t>(l) * kC * sizeof(T);
+  const size_t smem = svdd::cnn::smem_bytes<T>(l);
   cudaError_t e = cudaFuncSetAttribute(
       cnn_layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

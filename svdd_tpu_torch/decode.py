@@ -3,7 +3,7 @@ guided sampler, score its outputs with the value net and the reward
 oracle, draw the unguided baseline and best-of-N, and write
 ``log/{task}-{reward}.npz`` with the keys ``decoding`` and ``baseline``.
 
-Ported branches: ``svdd_mc`` and ``none``.
+Ported branches: ``svdd_mc``, ``dps``, ``classifier`` and ``none``.
 """
 
 from __future__ import annotations
@@ -69,9 +69,12 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
                algo: str = 'svdd_mc',
                value_fn: Optional[Callable] = None,
                gen_batch_num: int = 1, batch_size: int = 256,
-               sample_M: int = 10, seed: int = 44,
+               sample_M: int = 10, guidance_scale: float = 1.0,
+               seed: int = 44,
                skip_best_of_n: bool = False) -> DecodeResult:
-  """One controlled decode run. algo: svdd_mc | none."""
+  """One controlled decode run. algo: svdd_mc | dps | classifier | none.
+  ``dps`` guides by ``reward_fn``'s gradient; ``classifier`` needs a
+  differentiable one-hot ``value_fn`` (``ValueFunction.as_onehot_fn``)."""
   dev = diffusion.device
   guided_gen = torch.Generator(dev).manual_seed(seed)
   base_gen = torch.Generator(dev).manual_seed(seed + 1)
@@ -80,6 +83,14 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
       raise ValueError('svdd_mc needs a value_fn')
     sampler = diffusion.controlled_sampler(value_fn, batch_size,
                                            sample_M=sample_M)
+  elif algo == 'dps':
+    sampler = diffusion.dps_sampler(reward_fn, batch_size,
+                                    guidance_scale=guidance_scale)
+  elif algo == 'classifier':
+    if value_fn is None:
+      raise ValueError('classifier guidance needs a value_fn (one-hot)')
+    sampler = diffusion.classifier_sampler(value_fn, batch_size,
+                                           guidance_scale=guidance_scale)
   elif algo == 'none':
     sampler = diffusion.sampler(batch_size)
   else:

@@ -1,6 +1,6 @@
 """The Diffusion bundle's decode half (``svdd_tpu/diffusion.py``):
-backbone + schedule + SUBS parameterization + the unguided and SVDD-MC
-samplers."""
+backbone + schedule + SUBS parameterization + the unguided, SVDD-MC,
+DPS and classifier-guidance samplers."""
 
 from __future__ import annotations
 
@@ -25,10 +25,11 @@ def build_backbone(config: Config, generator: torch.Generator,
 
 
 class Diffusion:
-  """Denoiser bundle on one device. Without ``backbone`` the weights are
-  drawn from ``config.seed``."""
+  """Denoiser bundle on one device, the card unless ``device`` says
+  otherwise. Without ``backbone`` the weights are drawn from
+  ``config.seed``."""
 
-  def __init__(self, config: Config, device='cpu', backbone=None,
+  def __init__(self, config: Config, device='cuda', backbone=None,
                compute_dtype: torch.dtype = torch.float32):
     self.config = config
     self.device = torch.device(device)
@@ -63,16 +64,28 @@ class Diffusion:
     logits = self.backbone(x, self._process_sigma(sigma))
     return self._parameterize(logits, x)
 
+  def forward_onehot(self, x_onehot: torch.Tensor, x: torch.Tensor,
+                     sigma: torch.Tensor) -> torch.Tensor:
+    """'forward2': log p(x0 | xt) from a (N, L, V) one-hot input in place
+    of the tokens' own, differentiable with respect to it (DPS)."""
+    logits = self.backbone(x, self._process_sigma(sigma), x_onehot=x_onehot)
+    return self._parameterize(logits, x)
+
   def denoise_fn(self) -> S.DenoiseFn:
     return self.forward
 
-  def _reverse(self, step_fn, batch_size: int, num_steps, eps: float):
+  def denoise_onehot_fn(self):
+    return self.forward_onehot
+
+  def _reverse(self, step_fn, batch_size: int, num_steps, eps: float,
+               grad_steps: bool = False):
     cfg = self.config
     return S.reverse_process(
         step_fn, self.forward, self.schedule, batch_size=batch_size,
         length=cfg.model.length, mask_index=self.mask_index,
         num_steps=num_steps or cfg.sampling.steps, eps=eps,
-        noise_removal=cfg.sampling.noise_removal, device=self.device)
+        noise_removal=cfg.sampling.noise_removal, device=self.device,
+        grad_steps=grad_steps)
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
               eps: float = 1e-5):
@@ -91,3 +104,20 @@ class Diffusion:
     step = G.svdd_mc_step(self.forward, value_fn, self.schedule,
                           self.mask_index, repeats=sample_M)
     return self._reverse(step, batch_size, num_steps, eps)
+
+  def dps_sampler(self, reward_fn, batch_size: int, *,
+                  guidance_scale: float = 1.0,
+                  num_steps: int | None = None, eps: float = 1e-5):
+    """DPS sampler; ``reward_fn``: (N, L, 4) -> (N,), differentiable."""
+    step = G.dps_step(self.forward_onehot, reward_fn, self.schedule,
+                      self.mask_index, guidance_scale=guidance_scale)
+    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True)
+
+  def classifier_sampler(self, value_fn_onehot, batch_size: int, *,
+                         guidance_scale: float = 1.0,
+                         num_steps: int | None = None, eps: float = 1e-5):
+    """Classifier-guidance sampler; ``value_fn_onehot``: (N, L, 4) ->
+    (N,), differentiable (``ValueFunction.as_onehot_fn``)."""
+    step = G.classifier_step(self.forward, value_fn_onehot, self.schedule,
+                             self.mask_index, guidance_scale=guidance_scale)
+    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True)

@@ -11,7 +11,11 @@ The eval tower hands each attention pool to the NEXT k=5 ConvBlock as a
 ``PoolHandoff``: that block runs the pool, its own BN affine and
 activation and the im2col in one kernel (``ops/attn_pool.py``), so the
 pooled activation never reaches device memory, and its conv is one
-matmul over the im2col columns.
+matmul over the im2col columns. That fused kernel has no backward. A
+ConvBlock given a tensor, with ``defer_pool=False``, runs the plain
+differentiable form instead: norm, act, conv (``conv1d_shifted``), then
+the pool with the residual absorbed (``attn_pool``), whose backwards
+are kernels; the tower selects it with ``fused=False``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,11 @@
 Channel-last (N, L, C) throughout. 5 * num_cnn_stacks dilated k=9
 layers, dilations (1, 1, 4, 16, 64) each repeated num_cnn_stacks times
 consecutively; each layer is relu(conv(LN(x + time_i(emb)))) + x through
-the fused kernel of ``ops/cnn_layer.py``. Conv kernels are kept in the
-flax (K, Cin, Cout) layout, which the layer kernel reads tap by tap.
+the fused kernels of ``ops/cnn_layer.py``, whose backward is a kernel
+too. Conv kernels are kept in the flax (K, Cin, Cout) layout, which the
+layer kernel reads tap by tap. A one-hot input (``x_onehot``, the
+``forward2`` path of DPS guidance) replaces the token one-hot, so a
+gradient with respect to it flows through every layer.
 """
 
 from __future__ import annotations
@@ -89,10 +92,15 @@ class CNNModel(nn.Module):
     self.final_1_bias = nn.Parameter(
         torch.zeros(alphabet_size, device=dev))
 
-  def forward(self, seq: torch.Tensor, sigma: torch.Tensor
-              ) -> torch.Tensor:
+  def forward(self, seq: torch.Tensor, sigma: torch.Tensor,
+              x_onehot: torch.Tensor | None = None) -> torch.Tensor:
+    """``x_onehot`` (N, L, V), when given, is the input in place of the
+    one-hot of ``seq``."""
     dtype = self.compute_dtype
-    feat = F.one_hot(seq.long(), self.alphabet_size).to(dtype)
+    if x_onehot is None:
+      feat = F.one_hot(seq.long(), self.alphabet_size).to(dtype)
+    else:
+      feat = x_onehot.to(dtype)
     t_feats = self.gfp(sigma.float())
     time_emb = torch.relu(self.time_linear(t_feats.to(dtype)))
     feat = torch.relu(conv1d_shifted(feat, self.stem_kernel,

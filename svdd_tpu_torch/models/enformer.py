@@ -1,8 +1,13 @@
 """Enformer value trunk for the DNA task (``svdd_tpu/models/enformer.py``).
 
 Conv tower: a k=15 stem conv, then attention-pooled NACDR conv blocks
-whose channels grow exponentially to ``channels``; each pool is handed
-to the next k=5 block's fused pool+prologue+im2col kernel. At L=200 the
+whose channels grow exponentially to ``channels``. The eval forward
+hands each pool to the next k=5 block's fused pool+prologue+im2col
+kernel. ``fused=False`` runs every block in its plain differentiable
+form instead (norm, act, conv, then the pool kernel with the residual),
+the counterpart of the JAX package's ``blocks.unfused_guard``: the
+guidance gradients take that form, whose convs and pools have backward
+kernels (``ops/conv1d.py``, ``ops/attn_pool.py``). At L=200 the
 tower pools 200 -> 100 -> 50 -> 25 -> 13 -> 7 -> 4 -> 2, so the
 transformer stack runs at length 2, where the attention goes through
 the L=2 kernel (``ops/attn_l2.py``); other lengths take the general
@@ -196,11 +201,11 @@ class EnformerConvTower(nn.Module):
                                          generator, residual=True,
                                          pool=True))
 
-  def forward(self, x):
+  def forward(self, x, fused: bool = True):
     x = conv1d_shifted(x, self.stem_kernel, self.stem_bias)
-    x = self.stem_block(x, defer_pool=len(self.convs) > 0)
+    x = self.stem_block(x, defer_pool=fused and len(self.convs) > 0)
     for i, (conv, pool) in enumerate(zip(self.convs, self.pools)):
-      x = pool(conv(x), defer_pool=i < len(self.convs) - 1)
+      x = pool(conv(x), defer_pool=fused and i < len(self.convs) - 1)
     return x
 
 
@@ -220,8 +225,8 @@ class EnformerTrunk(nn.Module):
     self.pointwise = blocks.ConvBlock(channels, 2 * channels, 1,
                                       generator)
 
-  def forward(self, x):
-    x = self.tower(x)
+  def forward(self, x, fused: bool = True):
+    x = self.tower(x, fused)
     for block in self.transformers:
       x = block(x)
     return gelu_enformer(self.pointwise(x))
@@ -229,7 +234,8 @@ class EnformerTrunk(nn.Module):
 
 class EnformerValueModel(nn.Module):
   """Trunk + average-pool ConvHead: (N, L, 4) one-hot -> (N,) value
-  (or (N, n_tasks)), in float32."""
+  (or (N, n_tasks)), in float32. ``fused=False`` takes the
+  differentiable tower (module docstring)."""
 
   def __init__(self, n_tasks: int = 1, n_conv: int = 7,
                channels: int = 1536, n_transformers: int = 11,
@@ -245,6 +251,6 @@ class EnformerValueModel(nn.Module):
                                n_transformers, n_heads, key_len)
     self.head = blocks.ConvHead(n_tasks, 2 * channels, generator)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    x = self.head(self.trunk(x.to(self.compute_dtype))).float()
+  def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    x = self.head(self.trunk(x.to(self.compute_dtype), fused)).float()
     return x[..., 0] if self.n_tasks == 1 else x

@@ -1,11 +1,16 @@
 """Enformer relative-position attention at sequence length 2.
 
 Kernel: ``csrc/attn_l2.cu``, which replaces
-``svdd_tpu/ops/attn_l2_pallas.py:attn_l2_lnc_pallas``. The port keeps
-the (N, 2, H*d) layout; the plain version follows
+``svdd_tpu/ops/attn_l2_pallas.py:attn_l2_lnc_pallas`` and, since the
+port keeps the one (N, 2, H*d) layout, computes the function of
+``attn_l2_pallas`` (:141) as well. The plain version follows
 ``attn_l2_reference``: the two logits of each query differ only
 elementwise, so their difference is reduced per head and the 2-way
 softmax is the sigmoid of it.
+
+``attn_l2`` is differentiable: ``_AttnL2`` runs the kernel forward and,
+as the JAX package does (``attn_l2_pallas.py:187-189``), differentiates
+the plain version on the saved inputs for its backward.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ def attn_l2_plain(q, k, v, bc, bp, relk, heads: int):
   return out.reshape(v.shape).to(v.dtype), w
 
 
-def attn_l2(q, k, v, bc, bp, relk, heads: int):
+def _attn_l2(q, k, v, bc, bp, relk, heads: int):
   """The attention through the CUDA kernel (CUDA tensors) or the plain
   version (CPU tensors)."""
   if q.device.type == 'cpu':
@@ -63,3 +68,31 @@ def attn_l2(q, k, v, bc, bp, relk, heads: int):
   _build.check(rc, 'svdd_attn_l2')
   _build.LAUNCHES['attn_l2'] += 1
   return out, w
+
+
+class _AttnL2(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, q, k, v, bc, bp, relk, heads):
+    ctx.save_for_backward(q, k, v, bc, bp, relk)
+    ctx.heads = heads
+    return _attn_l2(q, k, v, bc, bp, relk, heads)
+
+  @staticmethod
+  def backward(ctx, d_out, d_w):
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+      inputs = [t.detach().requires_grad_(ctx.needs_input_grad[i])
+                for i, t in enumerate(saved)]
+      outs = attn_l2_plain(*inputs, ctx.heads)
+      wanted = [t for t in inputs if t.requires_grad]
+      grads = iter(torch.autograd.grad(outs, wanted, (d_out, d_w)))
+    return (*(next(grads) if t.requires_grad else None for t in inputs),
+            None)
+
+
+def attn_l2(q, k, v, bc, bp, relk, heads: int):
+  """The attention through the CUDA kernel (CUDA tensors) or the plain
+  version (CPU tensors). Returns (out (N, 2, H*dv) in v's dtype, w
+  (N, 2, H) f32); differentiable in every tensor input."""
+  return _AttnL2.apply(q, k, v, bc, bp, relk, heads)

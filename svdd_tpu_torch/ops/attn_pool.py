@@ -1,12 +1,23 @@
 """Pairwise attention pool (pool size 2), alone and fused with the next
-conv block's BN affine, activation and im2col.
+conv block's BN affine, activation and im2col, and the pool's backward.
 
-Kernels in ``csrc/attn_pool.cu``, one source for both:
-  * ``attn_pool`` replaces
+Kernels:
+  * ``csrc/attn_pool.cu``, one source for the two forwards:
+    ``attn_pool`` replaces
     ``svdd_tpu/ops/attn_pool_pallas.py:attn_pool_wlogits_lnc_pallas``
-    (pallas_call :916);
-  * ``pool_prologue_im2col`` replaces
-    ``pool_prologue_im2col_wlogits_lnc_pallas`` (pallas_call :1071).
+    (pallas_call :916) and computes the function of
+    ``attn_pool_wlogits_pallas`` (:397) as well, since the port keeps
+    one (N, L, C) layout; ``pool_prologue_im2col`` replaces
+    ``pool_prologue_im2col_wlogits_lnc_pallas`` (pallas_call :1071) and
+    likewise computes ``pool_prologue_im2col_wlogits_pallas`` (:721);
+  * ``csrc/attn_pool_bwd.cu`` replaces ``attn_pool_wlogits_bwd_pallas``
+    (pallas_call :523): dx and dW of the pool (the residual's gradient
+    is dx).
+
+``attn_pool`` is differentiable: ``_AttnPool`` runs the forward and
+backward kernels on CUDA tensors and the plain pair on CPU tensors. The
+fused ``pool_prologue_im2col`` serves the eval forward only; a gradient
+takes the unfused tower (``models/enformer.py``).
 
 Math, per pair of rows (x0, x1) of s = x + residual (added in x's
 dtype): d = x0 - x1 in f32, logits difference ld = d @ W (d cast to
@@ -40,14 +51,40 @@ def _pooled_f32(x, w, residual=None):
   d = x0 - x1
   ld = torch.matmul(d.to(x.dtype).float(), w.to(x.dtype).float())
   wgt = torch.sigmoid(ld)
-  if l % 2:
-    wgt[:, -1] = 1.0
+  if l % 2:   # not in place: autograd differentiates this version
+    wgt = torch.cat([wgt[:, :-1], torch.ones_like(wgt[:, -1:])], dim=1)
   return x1 + d * wgt
 
 
 def attn_pool_plain(x, w, residual=None):
   """x (N, L, C), w (C, C), residual like x -> (N, ceil(L/2), C)."""
   return _pooled_f32(x, w, residual).to(x.dtype)
+
+
+def attn_pool_bwd_plain(x, w, ct, residual=None):
+  """Gradients of ``attn_pool_plain`` given ct (N, ceil(L/2), C):
+  (dx like x, dW (C, C) f32), by the formulas of
+  ``attn_pool_pallas.py:417-423``; the residual's gradient is dx. The
+  odd tail row pools alone with weight 1: its dld is 0, its dx is ct."""
+  dt = x.dtype
+  n, l, c = x.shape
+  s = x if residual is None else x + residual
+  if l % 2:
+    s = F.pad(s, (0, 0, 0, 1))
+  d = s[:, 0::2].float() - s[:, 1::2].float()
+  dq = d.to(dt).float()
+  w32 = w.to(dt).float()
+  wgt = torch.sigmoid(torch.matmul(dq, w32))
+  ct32 = ct.to(dt).float()
+  dld = ct32 * d * wgt * (1.0 - wgt)
+  if l % 2:
+    wgt[:, -1] = 1.0
+    dld[:, -1] = 0.0
+  dld = dld.to(dt).float()
+  dx0 = ct32 * wgt + torch.matmul(dld, w32.T)
+  dx = torch.stack([dx0, ct32 - dx0], dim=2).reshape(n, -1, c)[:, :l]
+  dw = dq.reshape(-1, c).T @ dld.reshape(-1, c)
+  return dx.to(dt), dw
 
 
 def im2col(y, k_taps: int):
@@ -81,14 +118,7 @@ def _check(name, x, w, residual):
                      f'x {tuple(x.shape)}')
 
 
-def _check_aligned(name, *tensors):
-  """The kernel reads 4 channels per load: 16-byte aligned bases."""
-  for t in tensors:
-    if t is not None and t.data_ptr() % 16:
-      raise ValueError(f'{name}: tensors must start 16-byte aligned')
-
-
-def attn_pool(x, w, residual=None):
+def _attn_pool(x, w, residual=None):
   """The pool through the CUDA kernel (CUDA tensors) or the plain
   version (CPU tensors)."""
   if x.device.type == 'cpu':
@@ -99,7 +129,7 @@ def attn_pool(x, w, residual=None):
   w = w.to(x.dtype).contiguous()
   res = None if residual is None else residual.to(x.dtype).contiguous()
   _build.require_cuda('attn_pool', x, w, res)
-  _check_aligned('attn_pool', x, w, res)
+  _build.require_aligned('attn_pool', x, w, res)
   out = torch.empty((n, (l + 1) // 2, c), dtype=x.dtype, device=x.device)
   rc = _build.entry('svdd_attn_pool')(
       x.data_ptr(), 0 if res is None else res.data_ptr(), w.data_ptr(),
@@ -108,6 +138,62 @@ def attn_pool(x, w, residual=None):
   _build.check(rc, 'svdd_attn_pool')
   _build.LAUNCHES['attn_pool'] += 1
   return out
+
+
+def attn_pool_bwd(x, w, ct, residual=None):
+  """(dx, dW) through the CUDA kernel (CUDA tensors) or
+  ``attn_pool_bwd_plain`` (CPU tensors)."""
+  if x.device.type == 'cpu':
+    return attn_pool_bwd_plain(x, w, ct, residual)
+  _check('attn_pool_bwd', x, w, residual)
+  n, l, c = x.shape
+  lh = (l + 1) // 2
+  if ct.shape != (n, lh, c):
+    raise ValueError(f'attn_pool_bwd: ct {tuple(ct.shape)} != '
+                     f'{(n, lh, c)}')
+  dt = x.dtype
+  x = x.contiguous()
+  wc = w.to(dt).contiguous()
+  wtr = wc.T.contiguous()
+  res = None if residual is None else residual.to(dt).contiguous()
+  ct = ct.to(dt).contiguous()
+  _build.require_cuda('attn_pool_bwd', x, wc, wtr, res, ct)
+  _build.require_aligned('attn_pool_bwd', x, wc, wtr, res, ct)
+  chunks = _build.row_chunks(n * lh, (c // 128) ** 2)
+  dx = torch.empty_like(x)
+  dw = torch.empty((c, c), dtype=torch.float32, device=x.device)
+  scratch_t = torch.empty(n * lh * c, dtype=dt, device=x.device)
+  scratch_f = torch.empty(n * lh * c + chunks * c * c,
+                          dtype=torch.float32, device=x.device)
+  rc = _build.entry('svdd_attn_pool_bwd')(
+      x.data_ptr(), 0 if res is None else res.data_ptr(), wc.data_ptr(),
+      wtr.data_ptr(), ct.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+      scratch_t.data_ptr(), scratch_f.data_ptr(), n, l, c, chunks,
+      _build.dtype_code(x), _build.stream_ptr(x))
+  _build.check(rc, 'svdd_attn_pool_bwd')
+  _build.LAUNCHES['attn_pool_bwd'] += 1
+  return dx, dw
+
+
+class _AttnPool(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, x, w, residual):
+    ctx.save_for_backward(x, w, residual)
+    return _attn_pool(x, w, residual)
+
+  @staticmethod
+  def backward(ctx, ct):
+    x, w, residual = ctx.saved_tensors
+    dx, dw = attn_pool_bwd(x, w, ct, residual)
+    # the blend sees only x + residual: both gradients are dx
+    return dx, dw.to(w.dtype), None if residual is None else dx
+
+
+def attn_pool(x, w, residual=None):
+  """The pool through the CUDA kernels (CUDA tensors) or the plain
+  versions (CPU tensors); differentiable in x, w and the residual."""
+  return _AttnPool.apply(x, w, residual)
 
 
 def pool_prologue_im2col(x, w, scale, shift, k_taps: int, act_name,
@@ -127,7 +213,7 @@ def pool_prologue_im2col(x, w, scale, shift, k_taps: int, act_name,
   scale = scale.float().contiguous()
   shift = shift.float().contiguous()
   _build.require_cuda('pool_prologue_im2col', x, w, res, scale, shift)
-  _check_aligned('pool_prologue_im2col', x, w, res)
+  _build.require_aligned('pool_prologue_im2col', x, w, res)
   out = torch.empty((n, lh, len(offsets) * c), dtype=x.dtype,
                     device=x.device)
   offs = _build.int_array(offsets)

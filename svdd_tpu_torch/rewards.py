@@ -26,15 +26,19 @@ class RewardOracle:
     return cls(EnformerValueModel(n_tasks=n_tasks, generator=generator,
                                   **kwargs), task_index=0)
 
-  def __call__(self, onehot4: torch.Tensor) -> torch.Tensor:
-    out = self.module(onehot4)
+  def __call__(self, onehot4: torch.Tensor,
+               fused: bool = True) -> torch.Tensor:
+    """(N, L, 4) -> (N,); ``fused=False`` takes the differentiable tower,
+    the form a gradient (DPS) needs."""
+    out = self.module(onehot4, fused)
     return out[:, self.task_index] if out.ndim == 2 else out
 
 
 def synthetic_motif_oracle(length: int, motif: str = 'GCGC',
                            weight: float = 1.0) -> RewardFn:
   """Deterministic reward: summed relu'd PWM match score of a fixed
-  motif over all windows, divided by the length."""
+  motif over all windows, divided by the length. Plain ops, so it is
+  differentiable on one-hots and probabilities alike (DPS)."""
   alphabet = {'A': 0, 'C': 1, 'G': 2, 'T': 3}
   k = len(motif)
   pwm = torch.full((k, 4), -0.5)

@@ -5,6 +5,11 @@ float32 CPU tensors. Schedules and move chances are computed on the
 host from them and enter device ops as scalars, and each draw takes its
 noise from ``generator``, so a step reads nothing back from the card and
 the loop queues its work without waiting.
+
+The loop runs under ``torch.inference_mode()``; a loop of gradient
+steps (DPS, classifier guidance) runs under ``torch.no_grad()`` instead,
+since tensors made in inference mode cannot enter autograd, and each
+step turns gradients on around its own gradient.
 """
 
 from __future__ import annotations
@@ -68,18 +73,20 @@ def argmax_noise_removal(denoise_fn: DenoiseFn, schedule: Schedule,
 def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     *, batch_size: int, length: int, mask_index: int,
                     num_steps: int, eps: float = 1e-5,
-                    noise_removal: bool = True, device='cpu'):
+                    noise_removal: bool = True, device='cuda',
+                    grad_steps: bool = False):
   """prior -> num_steps steps -> final argmax noise removal.
-  Returns sample(generator) -> SampleResult."""
+  Returns sample(generator) -> SampleResult. ``grad_steps``: the steps
+  take gradients, so the loop runs outside inference mode."""
   timesteps = timestep_grid(num_steps, eps)
 
-  @torch.inference_mode()
   def sample(generator: torch.Generator) -> SampleResult:
-    x = mdlm.sample_prior((batch_size, length), mask_index, device)
-    for i in range(num_steps):
-      x = step_fn(x, timesteps[i], timesteps[i + 1], generator)
-    if noise_removal:
-      x = argmax_noise_removal(denoise_fn, schedule, x, timesteps[-1])
+    with torch.no_grad() if grad_steps else torch.inference_mode():
+      x = mdlm.sample_prior((batch_size, length), mask_index, device)
+      for i in range(num_steps):
+        x = step_fn(x, timesteps[i], timesteps[i + 1], generator)
+      if noise_removal:
+        x = argmax_noise_removal(denoise_fn, schedule, x, timesteps[-1])
     return SampleResult(samples=x)
 
   return sample

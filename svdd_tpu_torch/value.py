@@ -35,10 +35,18 @@ class ValueFunction:
     return cls(build_value_module(task, model, n_tasks, generator,
                                   **kwargs), length)
 
-  def score_onehot(self, onehot4: torch.Tensor) -> torch.Tensor:
-    """(N, L, 4) one-hot -> (N,) value."""
-    return self.module(onehot4)
+  def score_onehot(self, onehot4: torch.Tensor,
+                   fused: bool = True) -> torch.Tensor:
+    """(N, L, 4) one-hot -> (N,) value; ``fused=False`` takes the
+    differentiable tower."""
+    return self.module(onehot4, fused)
 
   def score_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
     """(N, L) tokens (MASK rows zeroed in the one-hot) -> (N,)."""
     return self.score_onehot(mdlm.transform_samples(tokens))
+
+  def as_onehot_fn(self):
+    """The value on (N, L, 4) one-hots, differentiable with respect to
+    them: classifier guidance takes its gradient
+    (``svdd_tpu/value.py:as_onehot_fn``)."""
+    return lambda onehot4: self.score_onehot(onehot4, fused=False)

@@ -22,7 +22,6 @@ from scipy import stats as sps
 
 from svdd_tpu.config import tiny_test_config as jax_tiny_config
 from svdd_tpu.diffusion import Diffusion as JaxDiffusion
-from svdd_tpu.diffusion import build_backbone
 from svdd_tpu.sampling import guidance as jguidance
 from svdd_tpu.sampling import sampler as jsampler
 
@@ -32,6 +31,7 @@ from svdd_tpu_torch.config import tiny_test_config
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.sampling import guidance, sampler
 from svdd_tpu_torch.weights import cnn_from_jax
+from torch_port_helpers import random_cnn_variables
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -41,29 +41,6 @@ B, L, STEPS, M = 256, 16, 8, 4
 KS_PVAL = 1e-3
 
 
-def _random_cnn_variables(cfg, rs):
-  """Denoiser variables drawn with numpy as flax initialises them
-  (lecun-normal kernels, zero biases, unit norm scales, normal Fourier
-  weights), from the shapes of a traced init: compiling the init costs
-  seconds on one core."""
-  shapes = jax.eval_shape(build_backbone(cfg).init, jax.random.key(0),
-                          jnp.zeros((1, cfg.model.length), jnp.int32),
-                          jnp.zeros((1,)))
-
-  def fill(path, leaf):
-    name = getattr(path[-1], 'key', '')
-    if name == 'kernel':
-      return (rs.normal(size=leaf.shape)
-              / np.sqrt(np.prod(leaf.shape[:-1]))).astype(np.float32)
-    if name == 'bias':
-      return np.zeros(leaf.shape, np.float32)
-    if name == 'scale':
-      return np.ones(leaf.shape, np.float32)
-    return rs.normal(size=leaf.shape).astype(np.float32)
-
-  return jax.tree_util.tree_map_with_path(fill, dict(shapes))
-
-
 @pytest.fixture(scope='module')
 def pair():
   """A tiny JAX denoiser, the port holding its weights, and a fixed
@@ -71,7 +48,7 @@ def pair():
   cfg = jax_tiny_config('dna')
   cfg.model.length = L
   cfg.sampling.steps = STEPS
-  variables = _random_cnn_variables(cfg, np.random.default_rng(0))
+  variables = random_cnn_variables(cfg, np.random.default_rng(0))
   # sharpen the random denoiser so p(x0|xt) is peaked and the decode
   # dynamics (carry-over, the q_xs mass split) matter
   variables['params']['final_1']['kernel'] = (
@@ -80,7 +57,7 @@ def pair():
   tcfg = tiny_test_config('dna')
   tcfg.model.length = L
   tcfg.sampling.steps = STEPS
-  tdiff = Diffusion(tcfg, backbone=cnn_from_jax(variables))
+  tdiff = Diffusion(tcfg, device='cpu', backbone=cnn_from_jax(variables))
   w = np.random.default_rng(3).normal(size=(L, 4)).astype(np.float32)
   return jdiff, tdiff, w
 
@@ -209,7 +186,8 @@ def test_cli_rejects_checkpoint_flags(tmp_path):
 
 def test_port_imports_no_jax():
   code = ('import sys, chip_smoke, svdd_tpu_torch.cli.decode, '
-          'svdd_tpu_torch.weights; '
+          'svdd_tpu_torch.cli.decode_DPS, svdd_tpu_torch.cli.decode_DG, '
+          'svdd_tpu_torch.cli.decode_classfier, svdd_tpu_torch.weights; '
           "bad = [m for m in ('jax', 'flax', 'svdd_tpu') if m in sys.modules]; "
           'assert not bad, bad')
   env = dict(os.environ, PYTHONPATH=REPO)

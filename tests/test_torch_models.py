@@ -19,52 +19,10 @@ from svdd_tpu.models.enformer import EnformerValueModel as JaxEnformer
 
 from svdd_tpu_torch import mdlm, rewards
 from svdd_tpu_torch.weights import cnn_from_jax, enformer_value_from_jax
+from torch_port_helpers import random_variables
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-
-def _perturb(tree, rs):
-  """Non-trivial biases, norm scales and batch stats (flax initialises
-  biases and means to 0 and scales and variances to 1)."""
-  out = {}
-  for k, v in tree.items():
-    if isinstance(v, dict):
-      out[k] = _perturb(v, rs)
-      continue
-    v = np.asarray(v)
-    if k in ('bias', 'mean'):
-      v = v + 0.1 * rs.normal(size=v.shape).astype(v.dtype)
-    elif k == 'var':
-      v = rs.uniform(0.5, 1.5, size=v.shape).astype(v.dtype)
-    elif k == 'scale':
-      v = v * rs.uniform(0.7, 1.3, size=v.shape).astype(v.dtype)
-    out[k] = v
-  return out
-
-
-def _random_variables(init, *args, rs):
-  """Variables of the shapes ``init`` makes, drawn with numpy (tracing
-  init costs a fraction of compiling it): lecun-normal kernels, 2*I
-  pool logit weights, normal(1) rel biases and Fourier weights, then
-  the biases, scales and batch stats of ``_perturb``."""
-  shapes = jax.eval_shape(init, jax.random.key(0), *args)
-
-  def fill(path, leaf):
-    names = [getattr(k, 'key', '') for k in path]
-    shape = leaf.shape
-    if names[-1] == 'kernel':        # transformer_stack: leading axis n
-      fan_in = np.prod(shape[1 if 'transformer_stack' in names else 0:-1])
-      return (rs.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
-    if names[-1] == 'to_attn_logits':
-      return 2 * np.eye(shape[-1], dtype=np.float32)
-    if names[-1] in ('scale', 'var'):
-      return np.ones(shape, np.float32)
-    if names[-1] in ('bias', 'mean'):
-      return np.zeros(shape, np.float32)
-    return rs.normal(size=shape).astype(np.float32)
-
-  return _perturb(jax.tree_util.tree_map_with_path(fill, dict(shapes)), rs)
 
 
 def test_cnn_denoiser_matches_svdd_tpu():
@@ -73,7 +31,7 @@ def test_cnn_denoiser_matches_svdd_tpu():
   rs = np.random.default_rng(0)
   x = rs.integers(0, 5, (4, cfg.model.length)).astype(np.int32)
   sigma = rs.uniform(0, 2, 4).astype(np.float32)
-  variables = _random_variables(jmodel.init, jnp.asarray(x),
+  variables = random_variables(jmodel.init, jnp.asarray(x),
                                 jnp.asarray(sigma), rs=rs)
   want = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x),
                                           jnp.asarray(sigma)))
@@ -95,7 +53,7 @@ def test_enformer_value_model_matches_svdd_tpu(length, n_conv, channels,
   rs = np.random.default_rng(length)
   tokens = rs.integers(0, 5, (batch, length))        # 4 = MASK rows
   onehot = np.asarray(mdlm.transform_samples(torch.from_numpy(tokens)))
-  variables = _random_variables(jmodel.init, jnp.zeros((1, length, 4)),
+  variables = random_variables(jmodel.init, jnp.zeros((1, length, 4)),
                                 rs=rs)
   want = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(onehot)))
   model = enformer_value_from_jax(variables)
@@ -120,7 +78,7 @@ def test_reward_oracles_match_svdd_tpu():
       rtol=1e-6, atol=1e-6)
   kwargs = dict(channels=256, n_conv=3, n_transformers=1, n_heads=2)
   jmodule = JaxEnformer(n_tasks=3, **kwargs)
-  joracle = jrewards.RewardOracle(jmodule, _random_variables(
+  joracle = jrewards.RewardOracle(jmodule, random_variables(
       jmodule.init, jnp.zeros((1, length, 4)), rs=rs), task_index=0)
   want = np.asarray(jax.jit(lambda o: joracle(o))(onehot))
   oracle = rewards.RewardOracle(enformer_value_from_jax(joracle.variables))
