@@ -8,22 +8,28 @@ Phases, each printing one JSON line and ending in
 exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
-  2. every kernel of the SVDD-MC, DPS and classifier-guidance paths at
-     its full-size shapes, in float32 and bfloat16, against its plain
-     PyTorch version on the same inputs (the candidate draw on the noise
-     the kernel reports, and by frequencies; the cnn layer's backward on
-     the relu mask the kernel reports), with median times of both, the
-     time of one PyTorch call computing the same function where there is
-     one, and the least time the card could take for the work;
+  2. every kernel of the SVDD-MC, DPS, classifier-guidance and
+     sample_eval paths at its full-size shapes, in float32 and bfloat16,
+     against its plain PyTorch version on the same inputs (the candidate
+     draw on the noise the kernel reports, and by frequencies; the cnn
+     layer's backward on the relu mask the kernel reports), with median
+     times of both, the time of one PyTorch call computing the same
+     function where there is one, and the least time the card could take
+     for the work;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
-     outputs, then the input gradients the guided decoders take;
-  4. the decodes, each through its CLI's ``run`` at --task dna, B=512,
-     L=200, 128 steps, full-width random-weight models, with every
-     kernel's launch count read around it: SVDD-MC (M=10), DPS and
-     classifier guidance;
+     outputs, then the input gradients the guided decoders take, then
+     the full-width DiT, AR and DiMamba backbones' outputs;
+  4. the decodes, each through its CLI's ``run`` with every kernel's
+     launch count read around it: SVDD-MC (M=10), DPS and classifier
+     guidance at --task dna, B=512, L=200, 128 steps; ``main_gosai
+     --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
+     ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
+     (--task dna, 512 rows, 128 steps); all full-width random-weight
+     models;
   5. one step of each decode under torch.profiler: host ms per step,
-     the card's busy ms and idle share, and kernel ms by kind;
+     the card's busy ms and idle share, and kernel ms by kind; and one
+     DiT forward at the text preset's 512 rows;
 then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and a last line {"ok": true, "device": {...}}.
 
@@ -63,6 +69,11 @@ KERNEL_INFO = {
                    'svdd_tpu/ops/conv1d_bwd_pallas.py:141'),
     'attn_pool_bwd': ('svdd_tpu_torch/csrc/attn_pool_bwd.cu',
                       'svdd_tpu/ops/attn_pool_pallas.py:523'),
+    'flash_attention': ('svdd_tpu_torch/csrc/flash_attention.cu',
+                        'svdd_tpu/ops/flash_attention_pallas.py:66'),
+    'flash_attention_causal': ('svdd_tpu_torch/csrc/flash_attention.cu',
+                               'svdd_tpu/ops/flash_attention_pallas.py:66'),
+    'rmsnorm': ('svdd_tpu_torch/csrc/rmsnorm.cu', 'svdd_tpu/ops/norms.py:75'),
 }
 # the kernels each decode must launch
 PATH_KERNELS = {
@@ -71,7 +82,10 @@ PATH_KERNELS = {
     'dps': ('cnn_layer', 'cnn_layer_bwd'),
     'classifier': ('cnn_layer', 'attn_pool', 'attn_l2', 'conv1d_bwd',
                    'attn_pool_bwd'),
+    'text_mdlm': ('flash_attention', 'flash_attention_causal'),
+    'dimamba': ('rmsnorm',),
 }
+GUIDED = ('svdd_mc', 'dps', 'classifier')
 # kernel-vs-plain tolerances |got - want| <= atol + rtol * |want|:
 #  * float32: the kernel and PyTorch sum the same f32 products in other
 #    orders (TF32 off), ~1e-6 relative per product sum;
@@ -79,7 +93,9 @@ PATH_KERNELS = {
 #    bf16 where their plain versions do, but sum in f32 in another
 #    order, so a value rounded to bf16 mid-way (cnn_layer's conv output,
 #    attn_l2's q + bias) can land one bf16 ulp apart and carry that
-#    into the output: a few bf16 ulps at most.
+#    into the output: a few bf16 ulps at most. flash_attention rounds p
+#    against a running row maximum where its plain version (mha) rounds
+#    the normalised probabilities: one bf16 ulp of a term of its sum.
 TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (2 ** -5, 2 ** -5)}
 # sums over rows (weight gradients, per-channel and per-sequence sums):
 # |got - want| <= RED_TOL * max |want|. f32: the same products summed in
@@ -517,6 +533,70 @@ def check_attn_pool_bwd(dtype, gen):
           'flops': flops, 'bytes': nbytes}
 
 
+# B12 at the text preset's DiT and AR shapes: the 64-row decode batch,
+# L=1024, 12 heads of 64; B13 at DiMamba's 512 x 200 rows of 256
+ATTN_SHAPE = (64, 1024, 12, 64)
+RMS_SHAPE = (512 * 200, 256)
+
+
+def check_flash_attention(dtype, gen, causal: bool):
+  """B12 on q, k, v sliced from one (B, L, 3, H, D) projection, as the
+  backbones pass them (the kernel reads them by stride), against the
+  plain version and timed beside F.scaled_dot_product_attention on
+  contiguous (B, H, L, D) copies. The bound counts the causal half."""
+  import torch
+  import torch.nn.functional as F
+  from svdd_tpu_torch.ops import flash_attention as K
+  from svdd_tpu_torch.ops.attention import mha
+  name = str(dtype).split('.')[-1]
+  b, l, h, d = ATTN_SHAPE
+  qkv = torch.randn(b, l, 3, h, d, device='cuda', generator=gen).to(dtype)
+  q, k, v = qkv.unbind(2)
+  err, rel = compare(f'flash_attention causal={causal}',
+                     K.flash_attention(q, k, v, causal),
+                     mha(q, k, v, causal), name)
+  ms = median_ms(lambda: K.flash_attention(q, k, v, causal), iters=10)
+  plain_ms = median_ms(lambda: mha(q, k, v, causal), iters=3)
+  qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+  lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+      qt, kt, vt, is_causal=causal), iters=10)
+  return {'shape': list(ATTN_SHAPE), 'causal': causal,
+          'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+          'plain_ms': plain_ms, 'library_ms': lib_ms,
+          'library': 'torch.nn.functional.scaled_dot_product_attention',
+          # the q.k and p.v products; q, k, v in, out written
+          'flops': 4 * b * h * l * l * d // (2 if causal else 1),
+          'bytes': 4 * b * h * l * d * qkv.element_size()}
+
+
+def check_rmsnorm(dtype, gen):
+  """B13 at DiMamba's rows, without a residual (the path's call) and
+  with one, against the plain version; timed without the residual beside
+  F.rms_norm (which rounds only once, so it is a yardstick of time)."""
+  import torch
+  import torch.nn.functional as F
+  from svdd_tpu_torch.ops import norms as K
+  name = str(dtype).split('.')[-1]
+  rows, d = RMS_SHAPE
+  x = torch.randn(rows, d, device='cuda', generator=gen).to(dtype)
+  res = torch.randn(rows, d, device='cuda', generator=gen).to(dtype)
+  s = (1 + 0.2 * torch.randn(d, device='cuda', generator=gen)).to(dtype)
+  errs = [compare(f'rmsnorm residual={r is not None}',
+                  K.fused_add_rmsnorm(x, r, s), K.rmsnorm_plain(x, r, s),
+                  name) for r in (None, res)]
+  es = x.element_size()
+  return {'shape': list(RMS_SHAPE), 'max_abs_err': max(e[0] for e in errs),
+          'max_rel_err': max(e[1] for e in errs),
+          'ms': median_ms(lambda: K.fused_add_rmsnorm(x, None, s), iters=20),
+          'plain_ms': median_ms(lambda: K.rmsnorm_plain(x, None, s),
+                                iters=20),
+          'library_ms': median_ms(lambda: F.rms_norm(x, (d,), s, 1e-5),
+                                  iters=20),
+          'library': 'torch.nn.functional.rms_norm',
+          # square-add, the root, two products per element; x in, out
+          'flops': 4 * rows * d, 'bytes': 2 * rows * d * es + d * es}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width models, card vs CPU
 # ---------------------------------------------------------------------------
@@ -618,6 +698,86 @@ def check_model_grads():
   return out
 
 
+def nonzero_init(model, seed: int):
+  """Draw the layers flax zero-initialises (the adaLN layers, the DiT's
+  final linear) from normal(0, 0.02), so a random model's attention and
+  norms reach its output."""
+  import torch
+  gen = torch.Generator(next(model.parameters()).device).manual_seed(seed)
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      if 'adaLN' in name or name.startswith('output_layer.linear'):
+        p.normal_(0.0, 0.02, generator=gen)
+  return model
+
+
+def sample_eval_backbone(which: str, device='cuda'):
+  """(config, backbone) of a sample_eval path: the text preset's DiT
+  (hidden 768, 12 blocks, 12 heads, L=1024) or DiMamba on the DNA task
+  (d_model 256, 4 layers, L=200), bf16 precision as their configs set
+  it, random weights from the config's seed with ``nonzero_init``."""
+  import torch
+  from svdd_tpu_torch.config import dna_config, text_mdlm_config
+  from svdd_tpu_torch.diffusion import build_backbone
+  cfg = text_mdlm_config() if which == 'text_mdlm' else dna_config(
+      backbone='dimamba')
+  gen = torch.Generator(device).manual_seed(cfg.seed)
+  return cfg, nonzero_init(build_backbone(cfg, gen).eval(), 1)
+
+
+# card vs CPU for the bf16-precision backbones: besides the summation
+# order, block 0's bf16 norm output holds values within f32 noise of a
+# bf16 rounding boundary, which round one ulp (2^-8) apart on the two
+# sides: |err| <= 2e-3 * max |cpu| + 2e-3 * |cpu|
+BACKBONE_TOL = 2e-3
+
+
+def check_backbones():
+  """The full-width DiT (2 rows, L=1024), the AR scorer at the same
+  widths (2 rows) and DiMamba (4 rows, L=200), each on the card through
+  B12/B13 against the plain path on the CPU with the same weights."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.models.autoregressive import ARModel
+  g = torch.Generator().manual_seed(3)
+  out, launches = {}, {}
+  for which in ('text_mdlm', 'ar', 'dimamba'):
+    if which == 'ar':
+      cfg, _ = sample_eval_backbone('text_mdlm')
+      model = ARModel(cfg, cfg.vocab_size, generator=torch.Generator(
+          'cuda').manual_seed(0)).eval()
+      rows = 2
+    else:
+      cfg, model = sample_eval_backbone(which)
+      rows = 2 if which == 'text_mdlm' else 4
+    x = torch.randint(0, cfg.vocab_size, (rows, cfg.model.length),
+                      generator=g)
+    sigma = torch.rand(rows, generator=g)
+    _build.reset_launches()
+    with torch.inference_mode():
+      got = model(x.cuda(), sigma.cuda()).cpu()
+      torch.cuda.synchronize()
+      launches[which] = {k: v for k, v in _build.launches().items() if v}
+      want = model.cpu()(x, sigma)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not torch.allclose(
+        got, want, rtol=BACKBONE_TOL, atol=BACKBONE_TOL * scale):
+      raise AssertionError(f'{which} card vs cpu: max abs err {err}, max '
+                           f'|cpu| {scale}')
+    out[which] = {'rows': rows, 'length': cfg.model.length,
+                  'max_abs_err': err, 'max_abs': scale,
+                  'launches': launches[which]}
+    del model
+    torch.cuda.empty_cache()
+  for which, need in (('text_mdlm', 'flash_attention'),
+                      ('ar', 'flash_attention_causal'),
+                      ('dimamba', 'rmsnorm')):
+    if not launches[which].get(need):
+      raise AssertionError(f'{which} forward never launched {need}')
+  return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the decode
 # ---------------------------------------------------------------------------
@@ -682,12 +842,73 @@ def run_decode(algo: str):
   return out
 
 
+SAMPLE_EVAL = {
+    # which: (rows, steps, --gen_ppl_model)
+    'text_mdlm': (64, 128, 'ar'),
+    'dimamba': (512, 128, None),
+}
+
+
+def run_sample_eval(which: str):
+  """One ``main_gosai --mode sample_eval`` run through its ``run`` at
+  full width (``sample_eval_backbone``), one batch, 128 steps; the text
+  preset with its ddpm_cache predictor at 64 rows (cut from 512 and 1000
+  steps for the smoke's time) scored by the AR backbone, DiMamba at the
+  DNA task's 512 rows with the ddpm predictor. The launch counts are set
+  to 0 just before and read just after; every kernel of the path must
+  have run."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  rows, steps, scorer = SAMPLE_EVAL[which]
+  cfg, backbone = sample_eval_backbone(which)
+  cfg.loader.eval_batch_size = rows
+  cfg.sampling.steps = steps
+  cfg.sampling.num_sample_batches = 1
+  argv = ['--mode', 'sample_eval', '--device', 'cuda', '--ckpt_dir',
+          os.path.join(REPO, 'build', 'chip_smoke', 'no_checkpoint')]
+  if scorer:
+    argv += ['--gen_ppl_model', scorer]
+  args = main_gosai.parser().parse_args(argv)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args, cfg, backbone=backbone)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  missing = [k for k in PATH_KERNELS[which] if launches[k] == 0]
+  if missing:
+    raise AssertionError(f'{which} sample_eval never launched {missing}')
+  tokens = out['tokens']
+  if tokens.shape != (rows, cfg.model.length) or tokens.min() < 0 or \
+      tokens.max() >= cfg.mask_index:
+    raise AssertionError(f'{which}: tokens {tokens.shape} in '
+                         f'[{tokens.min()}, {tokens.max()}]')
+  if scorer and not np.isfinite(out['gen_ppl']):
+    raise AssertionError(f'{which}: gen_ppl {out["gen_ppl"]}')
+  res = {'path': which, 'backbone': cfg.backbone, 'task': cfg.task,
+         'predictor': cfg.sampling.predictor, 'batch_size': rows,
+         'length': cfg.model.length, 'steps': steps,
+         'precision': cfg.parallel.precision, 'wall_s': wall,
+         'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+         'gen_ppl': out['gen_ppl'], 'launches': launches,
+         'distinct_tokens': int(np.unique(tokens).size)}
+  if which == 'text_mdlm':
+    # 12 blocks per DiT forward: the ddpm_cache forwards, removal included
+    res['denoiser_forwards'] = launches['flash_attention'] // cfg.model.n_blocks
+  return res
+
+
 # ---------------------------------------------------------------------------
 # phase 5: where the time of one guided step goes
 # ---------------------------------------------------------------------------
 
 # kernel name fragment -> kind, first match wins
-KINDS = (('cnn_layer_kernel', 'cnn_layer'), ('cnn_bwd_', 'cnn_layer_bwd'),
+KINDS = (('flash_attention', 'flash_attention'), ('rmsnorm', 'rmsnorm'),
+         ('cnn_layer_kernel', 'cnn_layer'), ('cnn_bwd_', 'cnn_layer_bwd'),
          ('conv_bwd_', 'conv1d_bwd'), ('pool_bwd_', 'attn_pool_bwd'),
          ('reduce_partials', 'bwd_partial_sums'), ('attn_pool', 'attn_pool'),
          ('attn_l2', 'attn_l2'), ('gumbel_candidates', 'gumbel_candidates'),
@@ -703,8 +924,10 @@ def _kind(name: str) -> str:
 
 def profile_step(algo: str):
   """One step of a decode at its shapes (B=512, L=200, M=10 for SVDD-MC,
-  the same models) under torch.profiler, from the all-MASK prior at
-  t=0.5. host_step_ms: mean host time of 3 synchronised steps after a
+  the same models; 64 rows at L=1024 for the text preset's ddpm_cache
+  step, which runs its forward from an empty cache; 512 rows at L=200
+  for DiMamba's ddpm step) under torch.profiler, from the all-MASK prior
+  at t=0.5. host_step_ms: mean host time of 3 synchronised steps after a
   warm-up, unprofiled. device_busy_ms: the union of the card's kernel
   and copy intervals in the profiled step; idle_share = 1 -
   device_busy_ms / profiled_step_ms (host time of the profiled step, to
@@ -715,30 +938,44 @@ def profile_step(algo: str):
   from torch.profiler import ProfilerActivity, profile
   from svdd_tpu_torch import mdlm
   from svdd_tpu_torch.cli import common
-  from svdd_tpu_torch.sampling import guidance
-  args = common.make_parser('chip smoke').parse_args(
-      ['--task', 'dna', '--batch_size', '512', '--sample_M', '10',
-       '--device', 'cuda'])
-  cfg = common.task_config(args)
-  diffusion = common.load_diffusion(args, cfg)
-  if algo == 'svdd_mc':
-    vf = common.load_value_function(args, cfg)
-    step = guidance.svdd_mc_step(diffusion.forward, vf.score_tokens,
-                                 diffusion.schedule, cfg.mask_index,
-                                 repeats=args.sample_M)
-  elif algo == 'dps':
-    step = guidance.dps_step(diffusion.forward_onehot,
-                             common.load_reward_fn(args, cfg),
-                             diffusion.schedule, cfg.mask_index,
-                             guidance_scale=1e5)
-  else:
-    vf = common.load_value_function(args, cfg)
-    step = guidance.classifier_step(diffusion.forward, vf.as_onehot_fn(),
-                                    diffusion.schedule, cfg.mask_index)
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.sampling import guidance, sampler
   mode = torch.inference_mode if algo == 'svdd_mc' else torch.no_grad
+  if algo in SAMPLE_EVAL:
+    cfg, backbone = sample_eval_backbone(algo)
+    batch = SAMPLE_EVAL[algo][0]
+    diffusion = Diffusion(cfg, device='cuda', backbone=backbone)
+    mode = torch.inference_mode
+    if algo == 'text_mdlm':
+      cache_step = sampler.ddpm_cache_step(diffusion.forward,
+                                           diffusion.schedule, cfg.mask_index)
+      step = lambda *a: cache_step((None, False), *a)
+    else:
+      step = sampler.ddpm_step(diffusion.forward, diffusion.schedule,
+                               cfg.mask_index)
+  else:
+    args = common.make_parser('chip smoke').parse_args(
+        ['--task', 'dna', '--batch_size', '512', '--sample_M', '10',
+         '--device', 'cuda'])
+    cfg = common.task_config(args)
+    batch = args.batch_size
+    diffusion = common.load_diffusion(args, cfg)
+    if algo == 'svdd_mc':
+      vf = common.load_value_function(args, cfg)
+      step = guidance.svdd_mc_step(diffusion.forward, vf.score_tokens,
+                                   diffusion.schedule, cfg.mask_index,
+                                   repeats=args.sample_M)
+    elif algo == 'dps':
+      step = guidance.dps_step(diffusion.forward_onehot,
+                               common.load_reward_fn(args, cfg),
+                               diffusion.schedule, cfg.mask_index,
+                               guidance_scale=1e5)
+    else:
+      vf = common.load_value_function(args, cfg)
+      step = guidance.classifier_step(diffusion.forward, vf.as_onehot_fn(),
+                                      diffusion.schedule, cfg.mask_index)
   gen = torch.Generator('cuda').manual_seed(0)
-  x = mdlm.sample_prior((args.batch_size, cfg.model.length),
-                        cfg.mask_index, 'cuda')
+  x = mdlm.sample_prior((batch, cfg.model.length), cfg.mask_index, 'cuda')
   t, t_next = torch.tensor(0.5), torch.tensor(0.49)
 
   def once():
@@ -770,13 +1007,37 @@ def profile_step(algo: str):
     by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end -
                                         e.time_range.start) / 1e3
   busy_ms = busy_us / 1e3
-  return {'algo': algo, 'batch_size': args.batch_size,
+  return {'algo': algo, 'batch_size': batch,
           'length': cfg.model.length, 'host_step_ms': host_ms,
           'profiled_step_ms': prof_ms, 'device_events': len(dev),
           'device_busy_ms': busy_ms,
           'idle_share': 1 - busy_ms / prof_ms if dev else None,
           'by_kind_ms': dict(sorted(by_kind.items(),
                                     key=lambda kv: -kv[1]))}
+
+
+def time_dit_forward(rows: int = 512):
+  """Host ms of one full-width DiT forward (the text preset, bf16
+  precision, L=1024) at the preset's 512 rows: mean of 2 synchronised
+  forwards after a warm-up. A full preset run (1000 ddpm_cache steps)
+  costs up to 1001 of these per batch."""
+  import torch
+  cfg, model = sample_eval_backbone('text_mdlm')
+  g = torch.Generator('cuda').manual_seed(4)
+  x = torch.randint(0, cfg.vocab_size, (rows, cfg.model.length),
+                    device='cuda', generator=g)
+  sigma = torch.zeros(rows, device='cuda')
+  torch.cuda.reset_peak_memory_stats()
+  with torch.inference_mode():
+    model(x, sigma)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+      model(x, sigma)
+    torch.cuda.synchronize()
+  return {'rows': rows, 'length': cfg.model.length,
+          'dit_forward_ms': (time.perf_counter() - t0) / 2 * 1e3,
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def main() -> None:
@@ -808,7 +1069,12 @@ def main() -> None:
             ('attn_pool', check_attn_pool), ('attn_l2', check_attn_l2),
             ('cnn_layer_bwd', check_cnn_layer_bwd),
             ('conv1d_bwd', check_conv1d_bwd),
-            ('attn_pool_bwd', check_attn_pool_bwd)]
+            ('attn_pool_bwd', check_attn_pool_bwd),
+            ('flash_attention',
+             lambda dt, g: check_flash_attention(dt, g, False)),
+            ('flash_attention_causal',
+             lambda dt, g: check_flash_attention(dt, g, True)),
+            ('rmsnorm', check_rmsnorm)]
   for name, fn in checks:
     for dtype in (torch.float32, torch.bfloat16):
       r = fn(dtype, gen)
@@ -835,9 +1101,15 @@ def main() -> None:
   torch.cuda.empty_cache()
   emit({'phase': 'grads', **r})
 
+  r = check_backbones()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'backbones', **r})
+
   decodes = {}
   for algo in PATH_KERNELS:
-    decodes[algo] = run_decode(algo)
+    decodes[algo] = (run_decode(algo) if algo in GUIDED
+                     else run_sample_eval(algo))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'decode', **decodes[algo]})
@@ -847,6 +1119,10 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'profile', **prof})
+  r = time_dit_forward()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'profile', 'algo': 'dit_forward', **r})
 
   kernels = []
   for name in _build.KERNELS:

@@ -26,11 +26,13 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'svdd_tpu_torch'
 SOURCES = ('cnn_layer', 'gumbel_candidates', 'attn_pool', 'attn_l2',
-           'cnn_layer_bwd', 'conv1d_bwd', 'attn_pool_bwd')
+           'cnn_layer_bwd', 'conv1d_bwd', 'attn_pool_bwd', 'flash_attention',
+           'rmsnorm')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: name -> (library, argtypes). Pointers and the stream
 # are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
@@ -45,10 +47,14 @@ SIGNATURES = {
                            [_P] * 18 + [_I] * 5 + [_F, _I, _P]),
     'svdd_conv1d_bwd': ('conv1d_bwd', [_P] * 7 + [_I] * 7 + [_P]),
     'svdd_attn_pool_bwd': ('attn_pool_bwd', [_P] * 9 + [_I] * 5 + [_P]),
+    'svdd_flash_attention': ('flash_attention',
+                             [_P] * 4 + [_I] * 13 + [_F, _I, _I, _P]),
+    'svdd_rmsnorm': ('rmsnorm', [_P] * 4 + [_LL, _I, _F, _I, _P]),
 }
 KERNELS = ('cnn_layer', 'gumbel_candidates', 'attn_pool_prologue_im2col',
            'attn_pool', 'attn_l2', 'cnn_layer_bwd', 'conv1d_bwd',
-           'attn_pool_bwd')
+           'attn_pool_bwd', 'flash_attention', 'flash_attention_causal',
+           'rmsnorm')
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _LIBS: dict = {}

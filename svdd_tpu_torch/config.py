@@ -1,8 +1,10 @@
 """Typed configuration: the subset of ``svdd_tpu/config.py`` that the
-SVDD-MC decode slice reads, with the same field names and defaults.
+ported paths read, with the same field names and defaults.
 
 The JAX module cannot be imported here (``svdd_tpu/__init__.py`` pulls
-in JAX), so the dataclasses are restated.
+in JAX), so the dataclasses are restated. ``Config.from_yaml`` needs
+PyYAML, imported when it is called; ``text_mdlm_config()`` builds the
+``configs/text_mdlm.yaml`` preset without it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,15 @@ class ModelConfig:
   dropout: float = 0.0
   clean_data: bool = False
   cls_free_guidance: bool = False
+  # dit (reference configs_gosai/model/small.yaml)
+  hidden_size: int = 768
+  cond_dim: int = 128
+  n_blocks: int = 12
+  n_heads: int = 12
+  scale_by_sigma: bool = True
+  # dimamba
+  n_layer: int = 4
+  d_model: int = 256
 
 
 @dataclass
@@ -55,6 +66,12 @@ class SamplingConfig:
   predictor: str = 'ddpm'
   steps: int = 128
   noise_removal: bool = True
+  num_sample_batches: int = 2
+
+
+@dataclass
+class ParallelConfig:
+  precision: str = 'bf16'      # compute dtype of the dit/dimamba forwards
 
 
 @dataclass
@@ -64,13 +81,14 @@ class Config:
   parameterization: str = 'subs'
   time_conditioning: bool = False
   seed: int = 1
-  task: str = 'dna'
+  task: str = 'dna'            # dna / rna / rna_saluki / text
   alphabet_size: int = 4
 
   noise: NoiseConfig = field(default_factory=NoiseConfig)
   model: ModelConfig = field(default_factory=ModelConfig)
   loader: LoaderConfig = field(default_factory=LoaderConfig)
   sampling: SamplingConfig = field(default_factory=SamplingConfig)
+  parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
   @property
   def vocab_size(self) -> int:
@@ -89,10 +107,45 @@ class Config:
     _update(cfg, overrides)
     return cfg
 
+  def to_dict(self) -> Dict[str, Any]:
+    return dataclasses.asdict(self)
+
+  @staticmethod
+  def from_dict(d: Dict[str, Any]) -> 'Config':
+    cfg = Config()
+    _update(cfg, d)
+    return cfg
+
+  @staticmethod
+  def from_yaml(path: str) -> 'Config':
+    try:
+      import yaml
+    except ImportError as e:
+      raise ImportError(f'Config.from_yaml({path!r}) needs PyYAML, which '
+                        'is not installed; build the config in Python '
+                        '(e.g. text_mdlm_config()) instead') from e
+    with open(path) as f:
+      return Config.from_dict(yaml.safe_load(f) or {})
+
 
 def dna_config(**overrides: Any) -> Config:
   """DNA enhancer task (L=200, HepG2 reward)."""
   cfg = Config(task='dna')
+  return cfg.override(**overrides) if overrides else cfg
+
+
+def text_mdlm_config(**overrides: Any) -> Config:
+  """The legacy text MDLM preset (``svdd_tpu/configs/text_mdlm.yaml``,
+  copied to ``configs/text_mdlm.yaml``): the MDLM paper's small DiT
+  (hidden 768, 12 blocks, 12 heads) at L=1024 over the 27-symbol text8
+  alphabet, the ddpm_cache predictor and 1000 steps."""
+  cfg = Config.from_dict({
+      'task': 'text', 'backbone': 'dit', 'parameterization': 'subs',
+      'alphabet_size': 27,
+      'model': {'length': 1024, 'hidden_size': 768, 'cond_dim': 128,
+                'n_blocks': 12, 'n_heads': 12},
+      'noise': {'type': 'loglinear'},
+      'sampling': {'predictor': 'ddpm_cache', 'steps': 1000}})
   return cfg.override(**overrides) if overrides else cfg
 
 
@@ -105,9 +158,14 @@ def tiny_test_config(task: str = 'dna', **overrides: Any) -> Config:
   cfg.model.length = 24
   cfg.model.hidden_dim = 32
   cfg.model.num_cnn_stacks = 1
+  cfg.model.hidden_size = 32
+  cfg.model.cond_dim = 16
+  cfg.model.n_blocks = 2
+  cfg.model.n_heads = 2
   cfg.sampling.steps = 8
   cfg.loader.global_batch_size = 8
   cfg.loader.eval_global_batch_size = 8
   cfg.loader.batch_size = 8
   cfg.loader.eval_batch_size = 8
+  cfg.parallel.precision = 'fp32'
   return cfg.override(**overrides) if overrides else cfg

@@ -1,6 +1,7 @@
 """The Diffusion bundle's decode half (``svdd_tpu/diffusion.py``):
-backbone + schedule + SUBS parameterization + the unguided, SVDD-MC,
-DPS and classifier-guidance samplers."""
+backbone (CNN, DiT or DiMamba) + schedule + SUBS parameterization + the
+unguided (ddpm, ddpm_cache), SVDD-MC, DPS and classifier-guidance
+samplers."""
 
 from __future__ import annotations
 
@@ -9,19 +10,32 @@ import torch
 from svdd_tpu_torch import mdlm, schedules
 from svdd_tpu_torch.config import Config
 from svdd_tpu_torch.models.cnn import CNNModel
+from svdd_tpu_torch.models.dimamba import DiMamba
+from svdd_tpu_torch.models.dit import DIT
 from svdd_tpu_torch.sampling import guidance as G
 from svdd_tpu_torch.sampling import sampler as S
 
 
-def build_backbone(config: Config, generator: torch.Generator,
-                   compute_dtype: torch.dtype = torch.float32):
-  """Backbone factory; the CNN denoiser computes in float32 by default,
-  as the JAX package does without SVDD_CNN_BF16."""
-  if config.backbone != 'cnn':
-    raise NotImplementedError(f'backbone {config.backbone!r} is not '
-                              'ported yet')
-  return CNNModel(config, alphabet_size=config.vocab_size,
-                  compute_dtype=compute_dtype, generator=generator)
+def compute_dtype(config: Config) -> torch.dtype:
+  """The dit/dimamba compute dtype, from ``parallel.precision``."""
+  return (torch.bfloat16 if config.parallel.precision == 'bf16'
+          else torch.float32)
+
+
+def build_backbone(config: Config, generator: torch.Generator):
+  """Backbone factory. The CNN denoiser computes in float32, as the JAX
+  package does without SVDD_CNN_BF16; the DiT and DiMamba in
+  ``compute_dtype(config)``."""
+  if config.backbone == 'cnn':
+    return CNNModel(config, alphabet_size=config.vocab_size,
+                    generator=generator)
+  if config.backbone == 'dit':
+    return DIT(config, config.vocab_size, compute_dtype(config), generator)
+  if config.backbone == 'dimamba':
+    return DiMamba(config, config.vocab_size, compute_dtype(config),
+                   generator)
+  raise NotImplementedError(f'backbone {config.backbone!r} is not ported '
+                            'yet')
 
 
 class Diffusion:
@@ -29,8 +43,7 @@ class Diffusion:
   otherwise. Without ``backbone`` the weights are drawn from
   ``config.seed``."""
 
-  def __init__(self, config: Config, device='cuda', backbone=None,
-               compute_dtype: torch.dtype = torch.float32):
+  def __init__(self, config: Config, device='cuda', backbone=None):
     self.config = config
     self.device = torch.device(device)
     self.vocab_size = config.vocab_size
@@ -45,7 +58,7 @@ class Diffusion:
         sigma_max=config.noise.sigma_max, eps=config.noise.eps)
     if backbone is None:
       gen = torch.Generator(self.device).manual_seed(config.seed)
-      backbone = build_backbone(config, gen, compute_dtype)
+      backbone = build_backbone(config, gen)
     self.backbone = backbone.to(self.device).eval()
 
   def _process_sigma(self, sigma: torch.Tensor) -> torch.Tensor:
@@ -78,23 +91,28 @@ class Diffusion:
     return self.forward_onehot
 
   def _reverse(self, step_fn, batch_size: int, num_steps, eps: float,
-               grad_steps: bool = False):
+               grad_steps: bool = False, aux_init=None):
     cfg = self.config
     return S.reverse_process(
         step_fn, self.forward, self.schedule, batch_size=batch_size,
         length=cfg.model.length, mask_index=self.mask_index,
         num_steps=num_steps or cfg.sampling.steps, eps=eps,
         noise_removal=cfg.sampling.noise_removal, device=self.device,
-        grad_steps=grad_steps)
+        grad_steps=grad_steps, aux_init=aux_init)
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
               eps: float = 1e-5):
-    """Uncontrolled ddpm sampler: generator -> SampleResult."""
-    if self.config.sampling.predictor != 'ddpm':
-      raise NotImplementedError(f'predictor '
-                                f'{self.config.sampling.predictor!r}')
-    step = S.ddpm_step(self.forward, self.schedule, self.mask_index)
-    return self._reverse(step, batch_size, num_steps, eps)
+    """Uncontrolled sampler, ``sampling.predictor`` 'ddpm' or
+    'ddpm_cache': generator -> SampleResult."""
+    pred = self.config.sampling.predictor
+    if pred == 'ddpm':
+      step = S.ddpm_step(self.forward, self.schedule, self.mask_index)
+      return self._reverse(step, batch_size, num_steps, eps)
+    if pred == 'ddpm_cache':
+      step = S.ddpm_cache_step(self.forward, self.schedule, self.mask_index)
+      return self._reverse(step, batch_size, num_steps, eps,
+                           aux_init=(None, False))
+    raise NotImplementedError(f'predictor {pred!r} is not ported yet')
 
   def controlled_sampler(self, value_fn, batch_size: int, *,
                          sample_M: int = 10,

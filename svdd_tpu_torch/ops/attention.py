@@ -1,0 +1,39 @@
+"""Multi-head attention for the DiT and AR backbones
+(``svdd_tpu/ops/attention.py``).
+
+``mha`` is the plain version: einsums with an f32 softmax, the
+probabilities cast to v's type. ``flash_mha`` is the dispatcher the
+backbones call: kernel B12 (``ops/flash_attention.py``) on CUDA tensors,
+``mha`` on CPU tensors. The TPU dispatcher's ``L % 128`` gate was a
+Mosaic tiling rule; the kernel takes every L, at the head dim it is
+built for (64).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from svdd_tpu_torch.ops import flash_attention as fa
+
+
+def mha(q, k, v, causal: bool = False):
+  """(B, L, H, D) attention by einsums; f32 softmax."""
+  d = q.shape[-1]
+  logits = torch.einsum('blhd,bmhd->bhlm', q.float(), k.float())
+  logits = logits / math.sqrt(d)
+  if causal:
+    l, m = logits.shape[-2:]
+    keep = torch.ones(l, m, dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~keep, float('-inf'))
+  probs = torch.softmax(logits, dim=-1).to(v.dtype)
+  return torch.einsum('bhlm,bmhd->blhd', probs, v)
+
+
+def flash_mha(q, k, v, causal: bool = False):
+  """(B, L, H, D) attention through kernel B12 (CUDA tensors) or the
+  plain version (CPU tensors)."""
+  if q.device.type == 'cpu':
+    return mha(q, k, v, causal)
+  return fa.flash_attention(q, k, v, causal)

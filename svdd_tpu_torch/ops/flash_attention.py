@@ -1,0 +1,59 @@
+"""Launcher of kernel B12, softmax attention over (B, L, H, D),
+optionally causal: ``csrc/flash_attention.cu``, which replaces
+``svdd_tpu/ops/flash_attention_pallas.py:flash_attention``.
+
+The backbones call it through ``ops.attention.flash_mha``, which takes
+the plain version (``ops.attention.mha``) on CPU tensors. The kernel
+computes as the TPU kernel's body does: f32 scores scaled after the
+product, f32 row maxima and sums, p rounded to v's type before the p.v
+product and the division by the f32 sum last. ``mha`` rounds the
+normalised probabilities instead, so in bfloat16 the two differ by up to
+a bf16 ulp of each term of the p.v sum; in float32 only the summation
+order differs.
+
+q, k and v are read by stride (each needs unit stride over D), so views
+such as the slices of a fused qkv projection go in as they are.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from svdd_tpu_torch import _build
+
+# head dims the kernel is built for (the DiT and AR presets' 64)
+KERNEL_HEAD_DIMS = (64,)
+
+
+def flash_attention(q, k, v, causal: bool = False):
+  """(B, L, H, D) CUDA tensors q, k, v of one dtype (f32 or bf16) ->
+  (B, L, H, D) contiguous, through the kernel. Raises on anything the
+  kernel does not take."""
+  b, l, h, d = q.shape
+  if k.shape != q.shape or v.shape != q.shape:
+    raise ValueError(f'flash_attention: q {tuple(q.shape)}, k '
+                     f'{tuple(k.shape)}, v {tuple(v.shape)} differ')
+  if d not in KERNEL_HEAD_DIMS:
+    raise ValueError(f'flash_attention: head dim {d} not in '
+                     f'{KERNEL_HEAD_DIMS}')
+  if k.dtype != q.dtype or v.dtype != q.dtype:
+    raise TypeError('flash_attention: q, k and v must share a dtype')
+  for t in (q, k, v):
+    if t.device.type != 'cuda':
+      raise ValueError(f'flash_attention: tensors must be on a CUDA '
+                       f'device, got {t.device}')
+    if t.stride(3) != 1:
+      raise ValueError('flash_attention: q, k and v need unit stride '
+                       'over the head dim')
+  out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+  strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+  rc = _build.entry('svdd_flash_attention')(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, d,
+      *strides, 1.0 / math.sqrt(d), int(causal), _build.dtype_code(q),
+      _build.stream_ptr(q))
+  _build.check(rc, 'svdd_flash_attention')
+  _build.LAUNCHES['flash_attention_causal' if causal
+                  else 'flash_attention'] += 1
+  return out

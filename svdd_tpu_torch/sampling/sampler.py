@@ -4,7 +4,10 @@ step_fn(x, t, t_next, generator) -> x_next, with t and t_next 0-dim
 float32 CPU tensors. Schedules and move chances are computed on the
 host from them and enter device ops as scalars, and each draw takes its
 noise from ``generator``, so a step reads nothing back from the card and
-the loop queues its work without waiting.
+the loop queues its work without waiting. The one exception is the
+ddpm_cache step, which carries an aux state
+(step_fn(aux, x, t, t_next, generator) -> (aux, x_next)) and reads one
+flag back per step to decide whether the next step may skip its forward.
 
 The loop runs under ``torch.inference_mode()``; a loop of gradient
 steps (DPS, classifier guidance) runs under ``torch.no_grad()`` instead,
@@ -63,6 +66,33 @@ def ddpm_step(denoise_fn: DenoiseFn, schedule: Schedule,
   return step
 
 
+def ddpm_cache_step(denoise_fn: DenoiseFn, schedule: Schedule,
+                    mask_index: int):
+  """Caching variant of the ddpm step: reuse log p(x0 | xt) while x is
+  unchanged. aux is (log_p_cache, valid). For the loglinear schedule the
+  move chances are t and t_next themselves (not 1 - exp(-sigma)).
+
+  Whether the next step may reuse the cache depends on this step's draw,
+  so the step reads one flag (did any token change?) back from the card,
+  as the reference's loop checks it on the host
+  (diffusion_gosai.py:874-879)."""
+
+  def step(aux, x, t, t_next, generator, gumbel=None):
+    log_p_cache, valid = aux
+    if valid:
+      log_p = log_p_cache
+    else:
+      log_p = denoise_fn(x, sigma_batch(schedule, t, x.shape[0], x.device))
+    log_q = mdlm.log_q_xs(log_p, t, t_next, mask_index)
+    if gumbel is None:
+      gumbel = mdlm.gumbel_noise(log_q.shape, generator, log_q.device)
+    draw = mdlm.sample_categorical(log_q, gumbel)
+    x_next = torch.where(x != mask_index, x, draw)
+    return (log_p, bool(torch.equal(x_next, x))), x_next
+
+  return step
+
+
 def argmax_noise_removal(denoise_fn: DenoiseFn, schedule: Schedule,
                          x: torch.Tensor, t) -> torch.Tensor:
   """Final forward + argmax over the non-mask vocabulary."""
@@ -74,17 +104,24 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     *, batch_size: int, length: int, mask_index: int,
                     num_steps: int, eps: float = 1e-5,
                     noise_removal: bool = True, device='cuda',
-                    grad_steps: bool = False):
+                    grad_steps: bool = False, aux_init=None):
   """prior -> num_steps steps -> final argmax noise removal.
   Returns sample(generator) -> SampleResult. ``grad_steps``: the steps
-  take gradients, so the loop runs outside inference mode."""
+  take gradients, so the loop runs outside inference mode. ``aux_init``:
+  the first aux of a step that carries one (ddpm_cache); None for the
+  steps that do not."""
   timesteps = timestep_grid(num_steps, eps)
 
   def sample(generator: torch.Generator) -> SampleResult:
     with torch.no_grad() if grad_steps else torch.inference_mode():
       x = mdlm.sample_prior((batch_size, length), mask_index, device)
+      aux = aux_init
       for i in range(num_steps):
-        x = step_fn(x, timesteps[i], timesteps[i + 1], generator)
+        if aux is None:
+          x = step_fn(x, timesteps[i], timesteps[i + 1], generator)
+        else:
+          aux, x = step_fn(aux, x, timesteps[i], timesteps[i + 1],
+                           generator)
       if noise_removal:
         x = argmax_noise_removal(denoise_fn, schedule, x, timesteps[-1])
     return SampleResult(samples=x)

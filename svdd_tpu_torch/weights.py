@@ -6,7 +6,10 @@
 (K, Cin, Cout); Dense kernels (in, out) become torch (out, in); the
 (1, h, 1, dk) relative biases flatten to (h*dk,); BatchNorm carries
 scale/bias and the running mean/var; the ``nn.scan``-stacked
-``transformer_stack`` params are split along their leading axis.
+``transformer_stack`` params are split along their leading axis. The
+DiT, AR and DiMamba converters also take the model's widths (a port
+``Config``) and its compute dtype, which flax keeps outside the
+variables.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svdd_tpu_torch.config import dna_config
+from svdd_tpu_torch.config import Config, dna_config
 from svdd_tpu_torch.models import blocks
+from svdd_tpu_torch.models.autoregressive import ARModel
 from svdd_tpu_torch.models.cnn import CNNModel
+from svdd_tpu_torch.models.dimamba import DiMamba
+from svdd_tpu_torch.models.dit import DIT
 from svdd_tpu_torch.models.enformer import EnformerValueModel
 
 
@@ -145,4 +151,74 @@ def enformer_value_from_jax(variables) -> EnformerValueModel:
               stats['pointwise'])
   _copy(model.head.kernel, head_p['kernel'])
   _copy(model.head.bias, head_p['bias'])
+  return model.eval()
+
+
+def _timestep_embedder(mod, p) -> None:
+  _dense(mod.dense_0, p['Dense_0'])
+  _dense(mod.dense_1, p['Dense_1'])
+
+
+def _transformer_body(block, p) -> None:
+  """The layers a DDiTBlock and an ARBlock share."""
+  _copy(block.norm_0.scale, p['LayerNorm_0']['scale'])
+  _copy(block.norm_1.scale, p['LayerNorm_1']['scale'])
+  for name in ('attn_qkv', 'attn_out', 'mlp_0', 'mlp_1'):
+    _dense(getattr(block, name), p[name])
+
+
+def dit_from_jax(variables, config: Config,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> DIT:
+  """A DiT (on CPU) holding the flax DIT's variables; ``config`` gives
+  its widths (``model.hidden_size``, ``n_blocks``, ``n_heads``,
+  ``cond_dim``)."""
+  p = variables['params']
+  vocab = np.asarray(p['vocab_embed']).shape[0]
+  model = DIT(config, vocab, compute_dtype, generator=_generator())
+  _copy(model.vocab_embed, p['vocab_embed'])
+  _timestep_embedder(model.sigma_map, p['TimestepEmbedder_0'])
+  for i, block in enumerate(model.blocks):
+    bp = p[f'block_{i}']
+    _dense(block.adaLN, bp['adaLN'])
+    _transformer_body(block, bp)
+  fp = p['DDitFinalLayer_0']
+  _dense(model.output_layer.adaLN, fp['adaLN'])
+  _copy(model.output_layer.norm.scale, fp['LayerNorm_0']['scale'])
+  _dense(model.output_layer.linear, fp['linear'])
+  return model.eval()
+
+
+def ar_from_jax(variables, config: Config,
+                compute_dtype: torch.dtype = torch.bfloat16) -> ARModel:
+  """An AR model (on CPU) holding the flax ARModel's variables."""
+  p = variables['params']
+  vocab = np.asarray(p['vocab_embed']).shape[0]
+  model = ARModel(config, vocab, compute_dtype, generator=_generator())
+  _copy(model.vocab_embed, p['vocab_embed'])
+  for i, block in enumerate(model.blocks):
+    _transformer_body(block, p[f'block_{i}'])
+  _copy(model.norm.scale, p['LayerNorm_0']['scale'])
+  _dense(model.lm_head, p['lm_head'])
+  return model.eval()
+
+
+def dimamba_from_jax(variables, config: Config,
+                     compute_dtype: torch.dtype = torch.bfloat16) -> DiMamba:
+  """A DiMamba (on CPU) holding the flax DiMamba's variables."""
+  p = variables['params']
+  vocab = np.asarray(p['vocab_embed']).shape[0]
+  model = DiMamba(config, vocab, compute_dtype, generator=_generator())
+  _copy(model.vocab_embed, p['vocab_embed'])
+  _timestep_embedder(model.sigma_map, p['TimestepEmbedder_0'])
+  for i, block in enumerate(model.blocks):
+    bp = p[f'block_{i}']
+    _dense(block.adaLN, bp['adaLN'])
+    _copy(block.norm_scale, bp['norm_scale'])
+    mp, mixer = bp['BiMambaWrapper_0']['mixer'], block.bimamba.mixer
+    for name in ('in_proj', 'x_proj', 'dt_proj', 'out_proj'):
+      _dense(getattr(mixer, name), mp[name])
+    for name in ('conv_kernel', 'conv_bias', 'A_log', 'D'):
+      _copy(getattr(mixer, name), mp[name])
+  _copy(model.final_norm_scale, p['final_norm_scale'])
+  _dense(model.lm_head, p['lm_head'])
   return model.eval()

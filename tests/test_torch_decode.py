@@ -187,7 +187,12 @@ def test_cli_rejects_checkpoint_flags(tmp_path):
 def test_port_imports_no_jax():
   code = ('import sys, chip_smoke, svdd_tpu_torch.cli.decode, '
           'svdd_tpu_torch.cli.decode_DPS, svdd_tpu_torch.cli.decode_DG, '
-          'svdd_tpu_torch.cli.decode_classfier, svdd_tpu_torch.weights; '
+          'svdd_tpu_torch.cli.decode_classfier, svdd_tpu_torch.weights, '
+          'svdd_tpu_torch.cli.main_gosai, svdd_tpu_torch.models.dit, '
+          'svdd_tpu_torch.models.autoregressive, '
+          'svdd_tpu_torch.models.dimamba, svdd_tpu_torch.ops.attention, '
+          'svdd_tpu_torch.ops.flash_attention, svdd_tpu_torch.ops.norms, '
+          'svdd_tpu_torch.eval.gen_ppl, svdd_tpu_torch.data.gosai; '
           "bad = [m for m in ('jax', 'flax', 'svdd_tpu') if m in sys.modules]; "
           'assert not bad, bad')
   env = dict(os.environ, PYTHONPATH=REPO)
