@@ -9,29 +9,37 @@ exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
-     sample_eval paths at its full-size shapes, in float32 and bfloat16,
-     against its plain PyTorch version on the same inputs (the candidate
-     draw on the noise the kernel reports, and by frequencies; the cnn
-     layer's backward on the relu mask the kernel reports), with median
-     times of both, the time of one PyTorch call computing the same
-     function where there is one, and the least time the card could take
-     for the work;
+     sample_eval paths, of the Basenji trunk and of the off-grid Enformer
+     pool at its full-size shapes (B12 also at head dim 128), in float32
+     and bfloat16, against its plain PyTorch version on the same inputs
+     (the candidate draw on the noise the kernel reports, and by
+     frequencies; the cnn layer's backward on the relu mask the kernel
+     reports), with median times of both, the time of one PyTorch call
+     computing the same function where there is one, and the least time
+     the card could take for the work;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
      outputs, then the input gradients the guided decoders take, then
-     the full-width DiT, AR and DiMamba backbones' outputs;
+     the full-width DiT, AR and DiMamba backbones' outputs, then the DiT
+     at head dims 128 (the kernel) and 16 (the plain attention); then the
+     models of the Basenji and off-grid paths at 512 rows, L=200, with
+     launch counts: the Basenji trunk at its published defaults and on
+     the 128-lane grid (SVDD_PALLAS_FUSED_CONV unset and set), and an
+     Enformer value net with channels=1152 (stem width 576, off the
+     grid) forward and input gradient;
   4. the decodes, each through its CLI's ``run`` with every kernel's
      launch count read around it: SVDD-MC (M=10), DPS and classifier
      guidance at --task dna, B=512, L=200, 128 steps; ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
      ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
      (--task dna, 512 rows, 128 steps); all full-width random-weight
-     models;
+     models; and SVDD-MC for 8 steps with the channels=1152 value net;
   5. one step of each decode under torch.profiler: host ms per step,
      the card's busy ms and idle share, and kernel ms by kind; and one
      DiT forward at the text preset's 512 rows;
-then the kernels line, the card's ``nvidia-smi`` name and power limit,
-and a last line {"ok": true, "device": {...}}.
+then the kernels line (launches summed over the runs of phases 3 and 4),
+the card's ``nvidia-smi`` name and power limit, and a last line
+{"ok": true, "device": {...}}.
 
 Float32 phases run with TF32 off for matmuls and cuDNN convolutions.
 It imports nothing of JAX.
@@ -74,6 +82,14 @@ KERNEL_INFO = {
     'flash_attention_causal': ('svdd_tpu_torch/csrc/flash_attention.cu',
                                'svdd_tpu/ops/flash_attention_pallas.py:66'),
     'rmsnorm': ('svdd_tpu_torch/csrc/rmsnorm.cu', 'svdd_tpu/ops/norms.py:75'),
+    'nacdr_im2col': ('svdd_tpu_torch/csrc/im2col.cu',
+                     'svdd_tpu/ops/im2col_pallas.py:100'),
+    'fused_conv1d': ('svdd_tpu_torch/csrc/fused_conv.cu',
+                     'svdd_tpu/ops/fused_conv_pallas.py:133'),
+    'attn_pool_logits': ('svdd_tpu_torch/csrc/attn_pool_logits.cu',
+                         'svdd_tpu/ops/attn_pool_pallas.py:81'),
+    'attn_pool_logits_im2col': ('svdd_tpu_torch/csrc/attn_pool_logits.cu',
+                                'svdd_tpu/ops/attn_pool_pallas.py:203'),
 }
 # the kernels each decode must launch
 PATH_KERNELS = {
@@ -86,6 +102,20 @@ PATH_KERNELS = {
     'dimamba': ('rmsnorm',),
 }
 GUIDED = ('svdd_mc', 'dps', 'classifier')
+# the runs of the Basenji trunk and the off-grid Enformer value net
+# (models phase, N=512) and the SVDD-MC decode with that value net (decode
+# phase), and the kernels each must launch
+OFFGRID_KERNELS = {
+    'basenji': ('nacdr_im2col',),
+    'basenji_128': ('nacdr_im2col',),
+    'basenji_128_fused_conv': ('fused_conv1d',),
+    'enformer_1152': ('attn_pool_logits_im2col', 'attn_pool_prologue_im2col',
+                      'attn_pool', 'attn_l2'),
+    'enformer_1152_grad': ('attn_pool_logits', 'attn_pool', 'attn_l2',
+                           'conv1d_bwd', 'attn_pool_bwd'),
+    'svdd_mc_1152': ('cnn_layer', 'gumbel_candidates', 'attn_pool_logits_im2col',
+                     'attn_pool_prologue_im2col', 'attn_pool', 'attn_l2'),
+}
 # kernel-vs-plain tolerances |got - want| <= atol + rtol * |want|:
 #  * float32: the kernel and PyTorch sum the same f32 products in other
 #    orders (TF32 off), ~1e-6 relative per product sum;
@@ -328,14 +358,14 @@ def check_attn_pool_im2col(dtype, gen):
     scale = 1 + 0.2 * torch.randn(c, device='cuda', generator=gen)
     shift = 0.2 * torch.randn(c, device='cuda', generator=gen)
     args = (x, w, scale, shift, 5, 'gelu_enformer', res)
-    got = K.pool_prologue_im2col(*args)
-    want = K.pool_prologue_im2col_plain(*args)
+    got = K.pool_prologue_im2col_wlogits(*args)
+    want = K.pool_prologue_im2col_wlogits_plain(*args)
     errs.append(compare(f'attn_pool_prologue_im2col L={l} C={c}', got,
                         want, name))
     del got, want
-    ms += median_ms(lambda: K.pool_prologue_im2col(*args), iters=3)
-    plain_ms += median_ms(lambda: K.pool_prologue_im2col_plain(*args),
-                          iters=3)
+    ms += median_ms(lambda: K.pool_prologue_im2col_wlogits(*args), iters=3)
+    plain_ms += median_ms(
+        lambda: K.pool_prologue_im2col_wlogits_plain(*args), iters=3)
     del x, res, w
     torch.cuda.empty_cache()
   return {'shapes': [[N_CAND, l, c] for l, c in POOL_SHAPES],
@@ -539,7 +569,7 @@ ATTN_SHAPE = (64, 1024, 12, 64)
 RMS_SHAPE = (512 * 200, 256)
 
 
-def check_flash_attention(dtype, gen, causal: bool):
+def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
   """B12 on q, k, v sliced from one (B, L, 3, H, D) projection, as the
   backbones pass them (the kernel reads them by stride), against the
   plain version and timed beside F.scaled_dot_product_attention on
@@ -549,7 +579,7 @@ def check_flash_attention(dtype, gen, causal: bool):
   from svdd_tpu_torch.ops import flash_attention as K
   from svdd_tpu_torch.ops.attention import mha
   name = str(dtype).split('.')[-1]
-  b, l, h, d = ATTN_SHAPE
+  b, l, h, d = shape
   qkv = torch.randn(b, l, 3, h, d, device='cuda', generator=gen).to(dtype)
   q, k, v = qkv.unbind(2)
   err, rel = compare(f'flash_attention causal={causal}',
@@ -560,7 +590,7 @@ def check_flash_attention(dtype, gen, causal: bool):
   qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
   lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
       qt, kt, vt, is_causal=causal), iters=10)
-  return {'shape': list(ATTN_SHAPE), 'causal': causal,
+  return {'shape': list(shape), 'causal': causal,
           'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
           'plain_ms': plain_ms, 'library_ms': lib_ms,
           'library': 'torch.nn.functional.scaled_dot_product_attention',
@@ -595,6 +625,173 @@ def check_rmsnorm(dtype, gen):
           'library': 'torch.nn.functional.rms_norm',
           # square-add, the root, two products per element; x in, out
           'flops': 4 * rows * d, 'bytes': 2 * rows * d * es + d * es}
+
+
+# B12 at the text preset with 6 heads of 128 (the head dim built beside 64)
+ATTN_SHAPE_D128 = (64, 1024, 6, 128)
+
+# B11c at Basenji's dilation-1 NACDR convs at N = 5120 rows of L = 25 (the
+# residual tower after three max pools of L = 200): input widths 324 and
+# 108 at the published defaults, 256 and 128 when built on the 128-lane
+# grid; k = 5, the exact gelu. B14 at the 128-lane convs.
+IM2COL_ROWS, IM2COL_L = 5120, 25
+IM2COL_WIDTHS = (324, 108, 256, 128)
+FUSED_CONVS = ((256, 128), (128, 256))
+# B11a and B11b at the off-grid stem pool of an Enformer value net built
+# with channels=1152 (stem width 576), L = 200, N = B*M = 5120
+OFFGRID_POOL = (5120, 200, 576)
+
+
+def _affine(c, gen):
+  import torch
+  return (1 + 0.2 * torch.randn(c, device='cuda', generator=gen),
+          0.2 * torch.randn(c, device='cuda', generator=gen))
+
+
+def check_nacdr_im2col(dtype, gen):
+  """B11c at the four widths, against the plain version; ms is one call
+  at each width."""
+  import torch
+  from svdd_tpu_torch.ops import im2col as K
+  from svdd_tpu_torch.ops.kernel_utils import live_offsets
+  name = str(dtype).split('.')[-1]
+  n, l = IM2COL_ROWS, IM2COL_L
+  k_live = len(live_offsets(5, l))
+  errs, per_ms, per_plain, flops, nbytes = [], {}, {}, 0, 0
+  for c in IM2COL_WIDTHS:
+    x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
+    scale, shift = _affine(c, gen)
+    args = (x, scale, shift, 5, 'gelu')
+    errs.append(compare(f'nacdr_im2col C={c}', K.nacdr_im2col(*args),
+                        K.nacdr_im2col_reference(*args), name))
+    per_ms[str(c)] = median_ms(lambda: K.nacdr_im2col(*args), iters=10)
+    per_plain[str(c)] = median_ms(lambda: K.nacdr_im2col_reference(*args),
+                                  iters=5)
+    es = x.element_size()
+    # the affine's product and sum per element (the activation besides)
+    flops += 2 * n * l * c
+    nbytes += n * l * c * es * (1 + k_live) + 2 * c * 4
+    del x
+    torch.cuda.empty_cache()
+  return {'shapes': [[n, l, c] for c in IM2COL_WIDTHS], 'k': 5,
+          'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
+          'max_rel_err': max(e[1] for e in errs),
+          'ms': sum(per_ms.values()), 'plain_ms': sum(per_plain.values()),
+          'per_width_ms': per_ms, 'per_width_plain_ms': per_plain,
+          'library_ms': None, 'flops': flops, 'bytes': nbytes}
+
+
+def check_fused_conv1d(dtype, gen):
+  """B14 at the two 128-lane residual convs, against the plain version
+  (which rounds the conv output before its bias: one ulp of the type at
+  most, inside TOL), and timed beside F.conv1d on the already activated
+  input, the conv alone, as a yardstick; ms is one call of each."""
+  import torch
+  import torch.nn.functional as F
+  from svdd_tpu_torch.ops import fused_conv as K
+  from svdd_tpu_torch.ops.im2col import nacdr_im2col_reference
+  from svdd_tpu_torch.ops.kernel_utils import act, live_offsets
+  name = str(dtype).split('.')[-1]
+  n, l = IM2COL_ROWS, IM2COL_L
+  k_live = len(live_offsets(5, l))
+  errs, ms, plain_ms, lib_ms, flops, nbytes = [], 0.0, 0.0, 0.0, 0, 0
+  for cin, cout in FUSED_CONVS:
+    r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
+    x = r(n, l, cin).to(dtype)
+    w = (r(5, cin, cout) / (5 * cin) ** 0.5).to(dtype)
+    b = (0.1 * r(cout)).to(dtype)
+    scale, shift = _affine(cin, gen)
+    args = (x, w, b, scale, shift, 'gelu')
+    with torch.no_grad():
+      errs.append(compare(f'fused_conv1d {cin}->{cout}', K.fused_conv1d(*args),
+                          K.fused_conv1d_reference(*args), name))
+      ms += median_ms(lambda: K.fused_conv1d(*args), iters=10)
+      plain_ms += median_ms(lambda: K.fused_conv1d_reference(*args), iters=5)
+      xg = act('gelu', x.float() * scale + shift).to(dtype).transpose(
+          1, 2).contiguous()
+      w_oik = w.permute(2, 1, 0).contiguous()
+      lib_ms += median_ms(lambda: F.conv1d(xg, w_oik, b, padding=2), iters=10)
+    es = x.element_size()
+    flops += 2 * n * l * k_live * cin * cout
+    nbytes += (n * l * (cin + cout) + k_live * cin * cout + cout) * es + 2 * cin * 4
+    del x, xg
+    torch.cuda.empty_cache()
+  return {'shapes': [[n, l, cin, cout] for cin, cout in FUSED_CONVS], 'k': 5,
+          'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
+          'max_rel_err': max(e[1] for e in errs), 'ms': ms,
+          'plain_ms': plain_ms, 'library_ms': lib_ms,
+          'library': 'torch.nn.functional.conv1d on act(affine(x)): the '
+                     'conv alone, a yardstick',
+          'flops': flops, 'bytes': nbytes}
+
+
+def _offgrid_pool_inputs(dtype, gen):
+  import torch
+  n, l, c = OFFGRID_POOL
+  x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
+  logits = (2 * torch.randn(n, l, c, device='cuda', generator=gen)).to(dtype)
+  return x, logits
+
+
+def _check_pad_pair(fn, x, logits, name):
+  """The last pair of an odd length padded as the module pads it (a zero
+  row of x, the lowest finite logit) pools to exactly its first row."""
+  import torch
+  xp, lp = x[:8].clone(), logits[:8].clone()
+  xp[:, -1] = 0
+  lp[:, -1] = torch.finfo(lp.dtype).min
+  out = fn(xp, lp)
+  if not torch.equal(out[:, -1], xp[:, -2]):
+    raise AssertionError(f'{name}: the padded tail pair is not its first row')
+
+
+def check_attn_pool_logits(dtype, gen):
+  """B11a at the off-grid stem pool (5120, 200, 576), against the plain
+  version; the padded tail pair exactly."""
+  from svdd_tpu_torch.ops import attn_pool as K
+  name = str(dtype).split('.')[-1]
+  x, logits = _offgrid_pool_inputs(dtype, gen)
+  err, rel = compare('attn_pool_logits', K.attn_pool_fused(x, logits),
+                     K.attn_pool_reference(x, logits), name)
+  _check_pad_pair(K.attn_pool_fused, x, logits, 'attn_pool_logits')
+  n, l, c = OFFGRID_POOL
+  es = x.element_size()
+  return {'shape': list(OFFGRID_POOL), 'max_abs_err': err, 'max_rel_err': rel,
+          'ms': median_ms(lambda: K.attn_pool_fused(x, logits), iters=10),
+          'plain_ms': median_ms(lambda: K.attn_pool_reference(x, logits),
+                                iters=3),
+          'library_ms': None,
+          # per output: the logit difference, the sigmoid's exp, sum and
+          # reciprocal, the row difference, product and sum
+          'flops': 7 * n * (l // 2) * c,
+          'bytes': (2 * n * l * c + n * (l // 2) * c) * es}
+
+
+def check_attn_pool_logits_im2col(dtype, gen):
+  """B11b at the off-grid stem pool handed to conv_1 (k = 5 over the
+  pooled 100 rows, gelu_enformer), against the plain version."""
+  import torch
+  from svdd_tpu_torch.ops import attn_pool as K
+  from svdd_tpu_torch.ops.kernel_utils import live_offsets
+  name = str(dtype).split('.')[-1]
+  x, logits = _offgrid_pool_inputs(dtype, gen)
+  n, l, c = OFFGRID_POOL
+  scale, shift = _affine(c, gen)
+  args = (x, logits, scale, shift, 5, 'gelu_enformer')
+  err, rel = compare('attn_pool_logits_im2col', K.pool_prologue_im2col(*args),
+                     K.pool_prologue_im2col_reference(*args), name)
+  torch.cuda.empty_cache()
+  k_live = len(live_offsets(5, l // 2))
+  es = x.element_size()
+  return {'shape': list(OFFGRID_POOL), 'k': 5, 'act': 'gelu_enformer',
+          'max_abs_err': err, 'max_rel_err': rel,
+          'ms': median_ms(lambda: K.pool_prologue_im2col(*args), iters=10),
+          'plain_ms': median_ms(lambda: K.pool_prologue_im2col_reference(*args),
+                                iters=3),
+          'library_ms': None,
+          # the blend's 7 and the affine's 2 per pooled element
+          'flops': 9 * n * (l // 2) * c,
+          'bytes': (2 * n * l * c + n * (l // 2) * k_live * c) * es + 2 * c * 4}
 
 
 # ---------------------------------------------------------------------------
@@ -778,18 +975,242 @@ def check_backbones():
   return out
 
 
+def check_head_dims():
+  """B12's head dims through the DiT: the text preset at 6 heads (D=128,
+  2 rows, L=1024, bf16 precision) launches the kernel; a tiny DiT with
+  2 heads of 16 (hidden 32, L=32, f32) takes the plain attention, as the
+  JAX dispatcher does below a multiple of 64; each on the card against
+  the CPU with the same weights."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.config import text_mdlm_config
+  from svdd_tpu_torch.diffusion import build_backbone
+  out = {}
+  for which, rows in (('d128', 2), ('d16', 4)):
+    cfg = text_mdlm_config()
+    if which == 'd128':
+      cfg.model.n_heads = 6
+    else:
+      cfg.model.length, cfg.model.hidden_size = 32, 32
+      cfg.model.n_heads, cfg.model.n_blocks, cfg.model.cond_dim = 2, 2, 16
+      cfg.parallel.precision = 'fp32'
+    model = nonzero_init(build_backbone(
+        cfg, torch.Generator('cuda').manual_seed(cfg.seed)).eval(), 1)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, cfg.vocab_size, (rows, cfg.model.length), generator=g)
+    sigma = torch.rand(rows, generator=g)
+    _build.reset_launches()
+    with torch.inference_mode():
+      got = model(x.cuda(), sigma.cuda()).cpu()
+      torch.cuda.synchronize()
+      launched = _build.launches()['flash_attention']
+      want = model.cpu()(x, sigma)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not torch.allclose(
+        got, want, rtol=BACKBONE_TOL, atol=BACKBONE_TOL * scale):
+      raise AssertionError(f'DiT {which} card vs cpu: max abs err {err}, '
+                           f'max |cpu| {scale}')
+    d = cfg.model.hidden_size // cfg.model.n_heads
+    if (launched > 0) != (d % 64 == 0):
+      raise AssertionError(f'DiT head dim {d}: {launched} B12 launches')
+    out[which] = {'head_dim': d, 'rows': rows, 'length': cfg.model.length,
+                  'precision': cfg.parallel.precision, 'max_abs_err': err,
+                  'max_abs': scale, 'flash_attention_launches': launched}
+    del model
+    torch.cuda.empty_cache()
+  return out
+
+
+# Basenji at its published defaults, and built on the 128-lane grid
+BASENJI = {'basenji': {},
+           'basenji_128': dict(channel_init=256, conv_channel_mult=1.0,
+                               residual_channels=128)}
+MODEL_ROWS, MODEL_L = 512, 200
+# rows of the models phase also run on the CPU (eval rows are independent)
+CPU_ROWS = 64
+
+
+def _onehot_rows(n, l, seed):
+  import torch
+  import torch.nn.functional as F
+  g = torch.Generator().manual_seed(seed)
+  return F.one_hot(torch.randint(0, 4, (n, l), generator=g), 4).float()
+
+
+def _card_vs_cpu(name, got, want, tol=1e-3):
+  import torch
+  scale = float(want.abs().max())
+  err = float((got - want).abs().max())
+  if scale == 0 or not torch.isfinite(got).all() or not torch.allclose(
+      got, want, rtol=tol, atol=tol * scale):
+    raise AssertionError(f'{name} card vs cpu: max abs err {err}, max |cpu| '
+                         f'{scale}')
+  return err, scale
+
+
+def _launched(run: str, launches: dict) -> dict:
+  missing = [k for k in OFFGRID_KERNELS[run] if launches[k] == 0]
+  if missing:
+    raise AssertionError(f'{run} never launched {missing}')
+  return {k: v for k, v in launches.items() if v}
+
+
+def check_basenji():
+  """The Basenji trunk at its published defaults and built on the 128-lane
+  grid (channel_init 256, mult 1.0, residual 128), the latter with
+  SVDD_PALLAS_FUSED_CONV unset and set: 512 rows at L=200 on the card,
+  float32, the launch counts set to 0 just before each forward and read
+  just after; the first 64 rows against the plain path on the CPU with
+  the same weights, 1e-3 of the largest output."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.models.basenji import Basenji
+  x = _onehot_rows(MODEL_ROWS, MODEL_L, 6)
+  out = {}
+  for run, fused_conv in (('basenji', False), ('basenji_128', False),
+                          ('basenji_128_fused_conv', True)):
+    cfg = BASENJI[run.replace('_fused_conv', '')]
+    model = Basenji(**cfg, generator=torch.Generator('cuda').manual_seed(7))
+    model = model.cuda().eval()
+    if fused_conv:
+      os.environ['SVDD_PALLAS_FUSED_CONV'] = '1'
+    try:
+      torch.cuda.synchronize()
+      _build.reset_launches()
+      t0 = time.perf_counter()
+      with torch.inference_mode():
+        got = model(x.cuda())
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+      launches = _launched(run, _build.launches())
+      with torch.inference_mode():
+        want = model.cpu()(x[:CPU_ROWS])
+    finally:
+      os.environ.pop('SVDD_PALLAS_FUSED_CONV', None)
+    if got.shape != (MODEL_ROWS,):
+      raise AssertionError(f'{run}: output {tuple(got.shape)}')
+    err, scale = _card_vs_cpu(run, got[:CPU_ROWS].cpu(), want)
+    out[run] = {'config': cfg, 'fused_conv': fused_conv, 'rows': MODEL_ROWS,
+                'length': MODEL_L, 'forward_s': wall, 'max_abs_err': err,
+                'max_abs': scale, 'launches': launches}
+    del model
+    torch.cuda.empty_cache()
+  return out
+
+
+# an Enformer value net whose stem width (channels // 2 = 576) is off the
+# 128-lane grid: the stem pool takes kernel B11b in the fused forward and
+# B11a in the differentiable tower
+OFFGRID_CHANNELS = 1152
+
+
+# An FFN relu input within this of 0 may take the other side of the relu on
+# the card than on the CPU (their f32 sums differ in order; the inputs
+# that flipped in chip runs were under 4e-6): the input gradient is
+# discontinuous there and differs in that row by up to ~1e-2 of its
+# largest value.
+RELU_EDGE = 1e-4
+
+
+def _relu_inputs(model, store):
+  """Hooks recording the FFN relu inputs of every transformer block."""
+  return [b.ffn.up.register_forward_hook(
+      lambda mod, i, o: store.append(o.detach()[:CPU_ROWS].cpu()))
+          for b in model.trunk.transformers]
+
+
+def check_offgrid_enformer():
+  """The channels=1152 value net at full depth (7 conv blocks, 11
+  transformers), 512 rows at L=200, float32, on the card: the fused
+  forward, then the input gradient of the summed value through the
+  differentiable tower (fused=False), each with the launch counts set to
+  0 just before and read just after; the first 64 rows of each against
+  the plain path on the CPU with the same weights, 1e-3 of the largest
+  value or gradient. A row where an FFN relu input took the other side
+  of 0 on the two sides is left out of the gradient comparison, once
+  every such input is checked to lie within RELU_EDGE of 0."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.models.enformer import EnformerValueModel
+  model = EnformerValueModel(
+      channels=OFFGRID_CHANNELS,
+      generator=torch.Generator('cuda').manual_seed(1)).cuda().eval()
+  x = _onehot_rows(MODEL_ROWS, MODEL_L, 8)
+
+  def grad(oh, relu_in):
+    hooks = _relu_inputs(model, relu_in)
+    oh = oh.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(model(oh, fused=False).sum(), oh)
+    for h in hooks:
+      h.remove()
+    return g
+
+  out = {}
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  with torch.inference_mode():
+    v_gpu = model(x.cuda())
+  torch.cuda.synchronize()
+  fwd_s = time.perf_counter() - t0
+  out['forward_launches'] = _launched('enformer_1152', _build.launches())
+  relu_gpu, relu_cpu = [], []
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  g_gpu = grad(x.cuda(), relu_gpu)
+  torch.cuda.synchronize()
+  grad_s = time.perf_counter() - t0
+  out['grad_launches'] = _launched('enformer_1152_grad', _build.launches())
+  model.cpu()
+  with torch.inference_mode():
+    v_cpu = model(x[:CPU_ROWS])
+  g_cpu = grad(x[:CPU_ROWS], relu_cpu)
+  err_v, scale_v = _card_vs_cpu('enformer_1152 value', v_gpu[:CPU_ROWS].cpu(),
+                                v_cpu)
+  flipped_rows, edge = set(), 0.0
+  for a, b in zip(relu_gpu, relu_cpu):
+    flip = (a > 0) != (b > 0)
+    if flip.any():
+      edge = max(edge, float(torch.maximum(a[flip].abs(), b[flip].abs()).max()))
+      flipped_rows.update(int(r) for r in torch.nonzero(flip)[:, 0])
+  if edge > RELU_EDGE or len(flipped_rows) > CPU_ROWS // 8:
+    raise AssertionError(f'enformer_1152: FFN relu inputs up to {edge} took '
+                         f'other sides of 0 in rows {sorted(flipped_rows)}')
+  keep = [r for r in range(CPU_ROWS) if r not in flipped_rows]
+  err_g, scale_g = _card_vs_cpu('enformer_1152 input gradient',
+                                g_gpu[keep].cpu(), g_cpu[keep])
+  out.update({'channels': OFFGRID_CHANNELS, 'stem_width': OFFGRID_CHANNELS // 2,
+              'rows': MODEL_ROWS, 'length': MODEL_L, 'forward_s': fwd_s,
+              'grad_s': grad_s, 'value_max_abs_err': err_v,
+              'value_max_abs': scale_v, 'grad_max_abs_err': err_g,
+              'grad_max_abs': scale_g,
+              'grad_rows_relu_flipped': sorted(flipped_rows),
+              'relu_flip_max_abs_input': edge})
+  del model
+  torch.cuda.empty_cache()
+  return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the decode
 # ---------------------------------------------------------------------------
 
 
 DECODE_STEPS = 128
+# the SVDD-MC decode with the off-grid value net: B11b inside the loop at
+# N = B*M = 5120
+OFFGRID_DECODE_STEPS = 8
 
 
-def run_decode(algo: str):
-  """One decode through its CLI's ``run``: B=512, 128 steps, L=200,
-  float32, --skip_best_of_n; the launch counts are set to 0 just before
-  and read just after, and every kernel of the path must have run."""
+def run_decode(algo: str, run_name: str | None = None,
+               steps: int = DECODE_STEPS, value_kwargs=None):
+  """One decode through its CLI's ``run``: B=512, 128 steps (or
+  ``steps``), L=200, float32, --skip_best_of_n, the value net of
+  ``value_kwargs`` (EnformerValueModel arguments) where given; the launch
+  counts are set to 0 just before and read just after, and every kernel
+  of the path (``run_name``'s) must have run."""
+  run_name = run_name or algo
   import numpy as np
   import torch
   from svdd_tpu_torch import _build
@@ -802,10 +1223,10 @@ def run_decode(algo: str):
       'classifier': (decode_classfier.run, decode_classfier.parser(),
                      decode_classfier.NPZ_SUFFIX),
   }[algo]
-  out_dir = os.path.join(REPO, 'build', 'chip_smoke')
+  out_dir = os.path.join(REPO, 'build', 'chip_smoke', run_name)
   argv = ['--task', 'dna', '--batch_size', '512', '--skip_best_of_n',
-          '--device', 'cuda', '--num_steps', str(DECODE_STEPS),
-          '--out_dir', out_dir, '--run_name', f'chip_smoke_{algo}']
+          '--device', 'cuda', '--num_steps', str(steps),
+          '--out_dir', out_dir, '--run_name', f'chip_smoke_{run_name}']
   if algo == 'svdd_mc':
     argv += ['--sample_M', '10']
   args = parser.parse_args(argv)
@@ -813,13 +1234,15 @@ def run_decode(algo: str):
   torch.cuda.reset_peak_memory_stats()
   _build.reset_launches()
   t0 = time.perf_counter()
-  report = run(args)
+  report = (run(args, value_kwargs=value_kwargs) if value_kwargs
+            else run(args))
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = _build.launches()
-  missing = [k for k in PATH_KERNELS[algo] if launches[k] == 0]
+  need = {**PATH_KERNELS, **OFFGRID_KERNELS}[run_name]
+  missing = [k for k in need if launches[k] == 0]
   if missing:
-    raise AssertionError(f'{algo} decode never launched {missing}')
+    raise AssertionError(f'{run_name} decode never launched {missing}')
   d = np.load(common.npz_path(args, suffix))
   if set(d.files) != {'decoding', 'baseline'}:
     raise AssertionError(f'npz keys {d.files}')
@@ -827,9 +1250,10 @@ def run_decode(algo: str):
     if d[key].shape != (512,) or not np.isfinite(d[key]).all():
       raise AssertionError(f'npz {key}: shape {d[key].shape} or '
                            'non-finite values')
-  out = {'algo': algo, 'task': 'dna', 'batch_size': 512, 'length': 200,
-         'steps': DECODE_STEPS, 'npz': os.path.basename(
-             common.npz_path(args, suffix))}
+  out = {'algo': algo, 'run': run_name, 'task': 'dna', 'batch_size': 512,
+         'length': 200, 'steps': steps,
+         'value_net': value_kwargs or 'EnformerValueModel defaults',
+         'npz': os.path.basename(common.npz_path(args, suffix))}
   if algo == 'svdd_mc':
     out['sample_M'] = 10
   else:
@@ -908,6 +1332,8 @@ def run_sample_eval(which: str):
 
 # kernel name fragment -> kind, first match wins
 KINDS = (('flash_attention', 'flash_attention'), ('rmsnorm', 'rmsnorm'),
+         ('attn_pool_logits', 'attn_pool_logits'),
+         ('nacdr_im2col', 'nacdr_im2col'), ('fused_conv_kernel', 'fused_conv1d'),
          ('cnn_layer_kernel', 'cnn_layer'), ('cnn_bwd_', 'cnn_layer_bwd'),
          ('conv_bwd_', 'conv1d_bwd'), ('pool_bwd_', 'attn_pool_bwd'),
          ('reduce_partials', 'bwd_partial_sums'), ('attn_pool', 'attn_pool'),
@@ -1074,7 +1500,15 @@ def main() -> None:
              lambda dt, g: check_flash_attention(dt, g, False)),
             ('flash_attention_causal',
              lambda dt, g: check_flash_attention(dt, g, True)),
-            ('rmsnorm', check_rmsnorm)]
+            ('flash_attention_d128', lambda dt, g: check_flash_attention(
+                dt, g, False, ATTN_SHAPE_D128)),
+            ('flash_attention_causal_d128', lambda dt, g: check_flash_attention(
+                dt, g, True, ATTN_SHAPE_D128)),
+            ('rmsnorm', check_rmsnorm),
+            ('nacdr_im2col', check_nacdr_im2col),
+            ('fused_conv1d', check_fused_conv1d),
+            ('attn_pool_logits', check_attn_pool_logits),
+            ('attn_pool_logits_im2col', check_attn_pool_logits_im2col)]
   for name, fn in checks:
     for dtype in (torch.float32, torch.bfloat16):
       r = fn(dtype, gen)
@@ -1106,6 +1540,23 @@ def main() -> None:
   torch.cuda.empty_cache()
   emit({'phase': 'backbones', **r})
 
+  r = check_head_dims()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'head_dims', **r})
+
+  # every run of a main path, with the launch counts read around it
+  runs = check_basenji()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'models', 'model': 'basenji', **runs})
+  r = check_offgrid_enformer()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'models', 'model': 'enformer_1152', **r})
+  runs['enformer_1152'] = {'launches': r['forward_launches']}
+  runs['enformer_1152_grad'] = {'launches': r['grad_launches']}
+
   decodes = {}
   for algo in PATH_KERNELS:
     decodes[algo] = (run_decode(algo) if algo in GUIDED
@@ -1113,6 +1564,13 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'decode', **decodes[algo]})
+  decodes['svdd_mc_1152'] = run_decode(
+      'svdd_mc', 'svdd_mc_1152', steps=OFFGRID_DECODE_STEPS,
+      value_kwargs={'channels': OFFGRID_CHANNELS})
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'decode', **decodes['svdd_mc_1152']})
+  runs.update(decodes)
 
   for algo in PATH_KERNELS:
     prof = profile_step(algo)
@@ -1130,15 +1588,16 @@ def main() -> None:
     info = KERNEL_INFO[name]
     entry = {'name': name, 'route': 'cuda', 'source': info[0],
              'replaces': info[1],
-             'launches': sum(d['launches'][name] for d in decodes.values()),
+             'launches': sum(d['launches'].get(name, 0)
+                             for d in runs.values()),
              'max_abs_err': f32['max_abs_err'], 'ms': f32['ms'],
              'plain_ms': f32['plain_ms'], 'bound_ms': f32['bound_ms'],
              'bound_by': f32['bound_by'],
              'library_ms': f32.get('library_ms')}
     if len(info) > 2:
       entry['also_computes'] = info[2]
-    entry['launches_by_decode'] = {a: d['launches'][name]
-                                   for a, d in decodes.items()}
+    entry['launches_by_run'] = {a: d['launches'].get(name, 0)
+                                for a, d in runs.items()}
     entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev',
                                       'mask_flips', 'library')
                   if k in f32})
@@ -1149,6 +1608,13 @@ def main() -> None:
                    bound_ms_bf16=bf['bound_ms'])
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
+    d128 = {dt: results.get((f'{name}_d128', dt))
+            for dt in ('float32', 'bfloat16')}
+    if d128['float32'] is not None:
+      entry['head_dim_128'] = {
+          dt: {k: r[k] for k in ('shape', 'max_abs_err', 'ms', 'plain_ms',
+                                 'library_ms', 'bound_ms')}
+          for dt, r in d128.items()}
     kernels.append(entry)
   emit({'kernels': kernels})
   print(smi, flush=True)

@@ -27,7 +27,7 @@ SRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'svdd_tpu_torch'
 SOURCES = ('cnn_layer', 'gumbel_candidates', 'attn_pool', 'attn_l2',
            'cnn_layer_bwd', 'conv1d_bwd', 'attn_pool_bwd', 'flash_attention',
-           'rmsnorm')
+           'rmsnorm', 'im2col', 'fused_conv', 'attn_pool_logits')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
 
@@ -50,11 +50,17 @@ SIGNATURES = {
     'svdd_flash_attention': ('flash_attention',
                              [_P] * 4 + [_I] * 13 + [_F, _I, _I, _P]),
     'svdd_rmsnorm': ('rmsnorm', [_P] * 4 + [_LL, _I, _F, _I, _P]),
+    'svdd_nacdr_im2col': ('im2col', [_P] * 5 + [_I] * 6 + [_P]),
+    'svdd_fused_conv1d': ('fused_conv', [_P] * 7 + [_I] * 7 + [_P]),
+    'svdd_attn_pool_logits': ('attn_pool_logits', [_P] * 3 + [_I] * 4 + [_P]),
+    'svdd_attn_pool_logits_im2col': ('attn_pool_logits',
+                                     [_P] * 6 + [_I] * 6 + [_P]),
 }
 KERNELS = ('cnn_layer', 'gumbel_candidates', 'attn_pool_prologue_im2col',
            'attn_pool', 'attn_l2', 'cnn_layer_bwd', 'conv1d_bwd',
            'attn_pool_bwd', 'flash_attention', 'flash_attention_causal',
-           'rmsnorm')
+           'rmsnorm', 'nacdr_im2col', 'fused_conv1d', 'attn_pool_logits',
+           'attn_pool_logits_im2col')
 LAUNCHES = {k: 0 for k in KERNELS}
 
 _LIBS: dict = {}

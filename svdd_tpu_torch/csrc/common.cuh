@@ -54,10 +54,13 @@ __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// act codes: 0 none, 1 gelu_enformer, 2 relu (ops/kernel_utils.ACT_CODES)
+// act codes: 0 none, 1 gelu_enformer, 2 relu, 3 the exact gelu as
+// jax.nn.gelu(approximate=False) writes it, 0.5 v erfc(-v / sqrt 2)
+// (ops/kernel_utils.ACT_CODES)
 __device__ __forceinline__ float activate(int act, float v) {
   if (act == 1) return v * sigmoid(1.702f * v);
   if (act == 2) return fmaxf(v, 0.f);
+  if (act == 3) return 0.5f * v * erfcf(-v * 0.70710678118654752f);
   return v;
 }
 

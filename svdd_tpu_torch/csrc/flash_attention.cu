@@ -227,8 +227,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int L,
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B, int L,
              int H, int D, const int* st, float scale, int causal, cudaStream_t s) {
-  // the backbones' head dim; the tiles take any multiple of 64
+  // the head dims built: the presets' 64 and 128 (e.g. the text preset
+  // at 6 heads); the tiles take any multiple of 64, and any other D is
+  // refused here and by the wrapper
   if (D == 64) return launch<T, 64>(q, k, v, out, B, L, H, st, scale, causal, s);
+  if (D == 128) return launch<T, 128>(q, k, v, out, B, L, H, st, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 
@@ -237,7 +240,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 // q, k, v (B, L, H, D) in the activation type, each with unit stride
 // over D and element strides (batch, position, head) in st[0..2] (q),
 // st[3..5] (k), st[6..8] (v); out (B, L, H, D) contiguous in the same
-// type. D is 64. scale: 1/sqrt(D). dtype: 0 float32,
+// type. D is 64 or 128. scale: 1/sqrt(D). dtype: 0 float32,
 // 1 bfloat16.
 extern "C" int svdd_flash_attention(const void* q, const void* k, const void* v,
                                     void* out, int B, int L, int H, int D,

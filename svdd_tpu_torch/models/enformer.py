@@ -131,9 +131,12 @@ class EnformerAttention(nn.Module):
   def positions(self, n: int, x: torch.Tensor) -> torch.Tensor:
     key = (n, x.device, x.dtype)
     if key not in self._positions:
-      self._positions[key] = torch.as_tensor(
-          relative_positional_basis(n, self.num_rel_pos_features),
-          dtype=x.dtype, device=x.device)
+      # a normal tensor even when first made under inference mode, so a
+      # later gradient through this module may save it
+      with torch.inference_mode(False):
+        self._positions[key] = torch.as_tensor(
+            relative_positional_basis(n, self.num_rel_pos_features),
+            dtype=x.dtype, device=x.device)
     return self._positions[key]
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,24 +191,25 @@ class EnformerConvTower(nn.Module):
     self.stem_kernel = blocks.conv_param(15, 4, half, generator)
     self.stem_bias = nn.Parameter(torch.zeros(half,
                                               device=generator.device))
-    self.stem_block = blocks.ConvBlock(half, half, 1, generator,
-                                       residual=True, pool=True)
+    nacdr = dict(act_func='gelu_enformer', order='NACDR')
+    pooled = dict(residual=True, pool_func='attn', pool_size=2, **nacdr)
+    self.stem_block = blocks.ConvBlock(half, half, 1, generator, **pooled)
     filters = [half] + exponential_linspace_int(
         half, out_channels, num=n_blocks - 1, divisible_by=128)
     self.convs = nn.ModuleList()
     self.pools = nn.ModuleList()
     for i in range(1, n_blocks):
       self.convs.append(blocks.ConvBlock(filters[i - 1], filters[i], 5,
-                                         generator))
+                                         generator, **nacdr))
       self.pools.append(blocks.ConvBlock(filters[i], filters[i], 1,
-                                         generator, residual=True,
-                                         pool=True))
+                                         generator, **pooled))
 
   def forward(self, x, fused: bool = True):
     x = conv1d_shifted(x, self.stem_kernel, self.stem_bias)
     x = self.stem_block(x, defer_pool=fused and len(self.convs) > 0)
     for i, (conv, pool) in enumerate(zip(self.convs, self.pools)):
-      x = pool(conv(x), defer_pool=fused and i < len(self.convs) - 1)
+      x = pool(conv(x, fused=fused),
+               defer_pool=fused and i < len(self.convs) - 1)
     return x
 
 
@@ -223,7 +227,8 @@ class EnformerTrunk(nn.Module):
         EnformerTransformerBlock(channels, generator, n_heads, key_len)
         for _ in range(n_transformers)])
     self.pointwise = blocks.ConvBlock(channels, 2 * channels, 1,
-                                      generator)
+                                      generator, act_func='gelu_enformer',
+                                      order='NACDR')
 
   def forward(self, x, fused: bool = True):
     x = self.tower(x, fused)

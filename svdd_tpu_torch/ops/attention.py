@@ -3,10 +3,11 @@
 
 ``mha`` is the plain version: einsums with an f32 softmax, the
 probabilities cast to v's type. ``flash_mha`` is the dispatcher the
-backbones call: kernel B12 (``ops/flash_attention.py``) on CUDA tensors,
-``mha`` on CPU tensors. The TPU dispatcher's ``L % 128`` gate was a
-Mosaic tiling rule; the kernel takes every L, at the head dim it is
-built for (64).
+backbones call: kernel B12 (``ops/flash_attention.py``) on CUDA tensors
+whose head dim is a multiple of 64, ``mha`` on CPU tensors and at other
+head dims, as the JAX dispatcher takes XLA's ``mha`` there
+(``svdd_tpu/ops/attention.py:flash_mha``). The TPU dispatcher's
+``L % 128`` gate was a Mosaic tiling rule; the kernel takes every L.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ def mha(q, k, v, causal: bool = False):
 
 
 def flash_mha(q, k, v, causal: bool = False):
-  """(B, L, H, D) attention through kernel B12 (CUDA tensors) or the
-  plain version (CPU tensors)."""
-  if q.device.type == 'cpu':
+  """(B, L, H, D) attention through kernel B12 (CUDA tensors, D a
+  multiple of 64) or the plain version (CPU tensors, other D)."""
+  if q.device.type == 'cpu' or q.shape[-1] % 64:
     return mha(q, k, v, causal)
   return fa.flash_attention(q, k, v, causal)

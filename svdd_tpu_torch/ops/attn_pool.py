@@ -1,32 +1,47 @@
 """Pairwise attention pool (pool size 2), alone and fused with the next
 conv block's BN affine, activation and im2col, and the pool's backward.
 
-Kernels:
+W-logits kernels, for widths C on the 128-lane grid (where the JAX
+module's ``wlogits_pool_ok`` holds): the logits difference is computed
+in the kernel from the pool weight W.
   * ``csrc/attn_pool.cu``, one source for the two forwards:
     ``attn_pool`` replaces
     ``svdd_tpu/ops/attn_pool_pallas.py:attn_pool_wlogits_lnc_pallas``
     (pallas_call :916) and computes the function of
     ``attn_pool_wlogits_pallas`` (:397) as well, since the port keeps
-    one (N, L, C) layout; ``pool_prologue_im2col`` replaces
+    one (N, L, C) layout; ``pool_prologue_im2col_wlogits`` replaces
     ``pool_prologue_im2col_wlogits_lnc_pallas`` (pallas_call :1071) and
     likewise computes ``pool_prologue_im2col_wlogits_pallas`` (:721);
   * ``csrc/attn_pool_bwd.cu`` replaces ``attn_pool_wlogits_bwd_pallas``
     (pallas_call :523): dx and dW of the pool (the residual's gradient
     is dx).
 
+Logits kernels, for the other widths, where the module computes the
+logits x @ W first (the JAX module's legacy branch,
+``svdd_tpu/models/blocks.py:288-298``): ``csrc/attn_pool_logits.cu``.
+  * ``attn_pool_fused`` (B11a) replaces ``attn_pool_pallas``
+    (pallas_call :81), plain version ``attn_pool_reference`` (:37);
+  * ``pool_prologue_im2col`` (B11b) replaces
+    ``pool_prologue_im2col_pallas`` (pallas_call :203), plain version
+    ``pool_prologue_im2col_reference`` (:138).
+  Both take an even L (the module pads an odd one with a zero row of x
+  and a lowest-finite logit) and any C, and are differentiable through
+  their plain versions, as the JAX custom VJPs (:112-117, :243-247) are.
+
 ``attn_pool`` is differentiable: ``_AttnPool`` runs the forward and
 backward kernels on CUDA tensors and the plain pair on CPU tensors. The
-fused ``pool_prologue_im2col`` serves the eval forward only; a gradient
-takes the unfused tower (``models/enformer.py``).
+fused ``pool_prologue_im2col_wlogits`` serves the eval forward only; a
+gradient takes the unfused tower (``models/enformer.py``).
 
-Math, per pair of rows (x0, x1) of s = x + residual (added in x's
-dtype): d = x0 - x1 in f32, logits difference ld = d @ W (d cast to
-x's dtype, products summed in f32), out = x1 + d * sigmoid(ld). A
-pairwise softmax is exactly this sigmoid blend. An odd length L pools
-its last row alone: its weight is forced to 1 and out = x0, the
-selection the JAX package makes with a -inf logit pad or ``mask_tail``.
-The port keeps the (N, L, C) layout and takes odd L directly, so it
-needs neither the TPU's pad slabs (``pad_out``) nor a mask flag.
+Math of the w-logits pool, per pair of rows (x0, x1) of s = x +
+residual (added in x's dtype): d = x0 - x1 in f32, logits difference
+ld = d @ W (d cast to x's dtype, products summed in f32), out = x1 + d *
+sigmoid(ld). A pairwise softmax is exactly this sigmoid blend. An odd
+length L pools its last row alone: its weight is forced to 1 and out =
+x0, the selection the JAX package makes with a -inf logit pad or
+``mask_tail``. The port keeps the (N, L, C) layout and takes odd L
+directly, so it needs neither the TPU's pad slabs (``pad_out``) nor a
+mask flag.
 """
 
 from __future__ import annotations
@@ -37,7 +52,9 @@ import torch
 import torch.nn.functional as F
 
 from svdd_tpu_torch import _build
-from svdd_tpu_torch.ops.kernel_utils import ACT_CODES, act, live_offsets
+from svdd_tpu_torch.ops.im2col import im2col, nacdr_im2col_reference
+from svdd_tpu_torch.ops.kernel_utils import (ACT_CODES, act, live_offsets,
+                                             with_plain_grad)
 
 
 def _pooled_f32(x, w, residual=None):
@@ -87,20 +104,7 @@ def attn_pool_bwd_plain(x, w, ct, residual=None):
   return dx.to(dt), dw
 
 
-def im2col(y, k_taps: int):
-  """(N, L, C) -> (N, L, k_live*C): slab j holds y shifted by the j-th
-  live offset (zero where it reads outside [0, L))."""
-  l = y.shape[1]
-  slabs = []
-  for off in live_offsets(k_taps, l):
-    if off >= 0:
-      slabs.append(F.pad(y[:, off:], (0, 0, 0, off)))
-    else:
-      slabs.append(F.pad(y[:, :l + off], (0, 0, -off, 0)))
-  return torch.cat(slabs, dim=-1)
-
-
-def pool_prologue_im2col_plain(x, w, scale, shift, k_taps: int,
+def pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps: int,
                                act_name, residual=None):
   """pool -> act(pooled * scale + shift) -> im2col, (N, LH, k_live*C)."""
   pooled = _pooled_f32(x, w, residual)
@@ -196,14 +200,14 @@ def attn_pool(x, w, residual=None):
   return _AttnPool.apply(x, w, residual)
 
 
-def pool_prologue_im2col(x, w, scale, shift, k_taps: int, act_name,
-                         residual=None):
+def pool_prologue_im2col_wlogits(x, w, scale, shift, k_taps: int,
+                                 act_name, residual=None):
   """Pool + BN affine + act + im2col through the CUDA kernel (CUDA
   tensors) or the plain version (CPU tensors)."""
   if x.device.type == 'cpu':
-    return pool_prologue_im2col_plain(x, w, scale, shift, k_taps,
-                                      act_name, residual)
-  _check('pool_prologue_im2col', x, w, residual)
+    return pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps,
+                                              act_name, residual)
+  _check('pool_prologue_im2col_wlogits', x, w, residual)
   n, l, c = x.shape
   lh = (l + 1) // 2
   offsets = live_offsets(k_taps, lh)
@@ -212,8 +216,9 @@ def pool_prologue_im2col(x, w, scale, shift, k_taps: int, act_name,
   res = None if residual is None else residual.to(x.dtype).contiguous()
   scale = scale.float().contiguous()
   shift = shift.float().contiguous()
-  _build.require_cuda('pool_prologue_im2col', x, w, res, scale, shift)
-  _build.require_aligned('pool_prologue_im2col', x, w, res)
+  _build.require_cuda('pool_prologue_im2col_wlogits', x, w, res, scale,
+                      shift)
+  _build.require_aligned('pool_prologue_im2col_wlogits', x, w, res)
   out = torch.empty((n, lh, len(offsets) * c), dtype=x.dtype,
                     device=x.device)
   offs = _build.int_array(offsets)
@@ -225,3 +230,101 @@ def pool_prologue_im2col(x, w, scale, shift, k_taps: int, act_name,
   _build.check(rc, 'svdd_attn_pool_im2col')
   _build.LAUNCHES['attn_pool_prologue_im2col'] += 1
   return out
+
+
+# ---------------------------------------------------------------------------
+# the pool from given logits: widths off the 128-lane grid
+# ---------------------------------------------------------------------------
+
+
+def attn_pool_reference(x, logits):
+  """x, logits (N, L, C), L even -> (N, L/2, C): per pair of rows, the
+  softmax of the two logits in f32, the weighted sum of the two rows in
+  f32, rounded to x's dtype (``attn_pool_pallas.py:37-43``)."""
+  n, l, c = x.shape
+  xg = x.float().reshape(n, l // 2, 2, c)
+  attn = torch.softmax(logits.float().reshape(n, l // 2, 2, c), dim=2)
+  return (xg * attn).sum(dim=2).to(x.dtype)
+
+
+def pool_prologue_im2col_reference(x, logits, scale, shift, k_taps: int,
+                                   act_name):
+  """``attn_pool_reference``, rounded to x's dtype, then
+  ``nacdr_im2col_reference`` over the pooled length
+  (``attn_pool_pallas.py:138-149``): (N, L/2, k_live*C)."""
+  return nacdr_im2col_reference(attn_pool_reference(x, logits), scale,
+                                shift, k_taps, act_name)
+
+
+def _check_logits(name, x, logits):
+  n, l, c = x.shape
+  if logits.shape != x.shape or l % 2:
+    raise ValueError(f'{name}: needs x and logits of one (N, L, C) shape '
+                     f'with L even, got x {tuple(x.shape)} logits '
+                     f'{tuple(logits.shape)}')
+
+
+def _attn_pool_logits_kernel(x, logits):
+  _check_logits('attn_pool_fused', x, logits)
+  n, l, c = x.shape
+  x = x.contiguous()
+  logits = logits.to(x.dtype).contiguous()
+  _build.require_cuda('attn_pool_fused', x, logits)
+  _build.require_aligned('attn_pool_fused', x, logits)
+  out = torch.empty((n, l // 2, c), dtype=x.dtype, device=x.device)
+  rc = _build.entry('svdd_attn_pool_logits')(
+      x.data_ptr(), logits.data_ptr(), out.data_ptr(), n, l, c,
+      _build.dtype_code(x), _build.stream_ptr(x))
+  _build.check(rc, 'svdd_attn_pool_logits')
+  _build.LAUNCHES['attn_pool_logits'] += 1
+  return out
+
+
+def attn_pool_fused(x, logits):
+  """The pool from given logits through kernel B11a (CUDA tensors) or
+  ``attn_pool_reference`` (CPU tensors); L even."""
+  if x.device.type == 'cpu':
+    return attn_pool_reference(x, logits)
+  return with_plain_grad(_attn_pool_logits_kernel, attn_pool_reference,
+                         x, logits)
+
+
+def _attn_pool_logits_im2col_kernel(x, logits, scale, shift, k_taps: int,
+                                    act_name):
+  _check_logits('pool_prologue_im2col', x, logits)
+  n, l, c = x.shape
+  lh = l // 2
+  offsets = live_offsets(k_taps, lh)
+  x = x.contiguous()
+  logits = logits.to(x.dtype).contiguous()
+  scale = scale.float().contiguous()
+  shift = shift.float().contiguous()
+  if scale.shape != (c,) or shift.shape != (c,):
+    raise ValueError(f'pool_prologue_im2col: scale and shift must be '
+                     f'({c},)')
+  _build.require_cuda('pool_prologue_im2col', x, logits, scale, shift)
+  _build.require_aligned('pool_prologue_im2col', x, logits)
+  out = torch.empty((n, lh, len(offsets) * c), dtype=x.dtype,
+                    device=x.device)
+  offs = _build.int_array(offsets)
+  rc = _build.entry('svdd_attn_pool_logits_im2col')(
+      x.data_ptr(), logits.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+      out.data_ptr(), ctypes.addressof(offs), len(offsets),
+      ACT_CODES[act_name], n, l, c, _build.dtype_code(x),
+      _build.stream_ptr(x))
+  _build.check(rc, 'svdd_attn_pool_logits_im2col')
+  _build.LAUNCHES['attn_pool_logits_im2col'] += 1
+  return out
+
+
+def pool_prologue_im2col(x, logits, scale, shift, k_taps: int, act_name):
+  """The pool from given logits, then the next block's BN affine,
+  activation and im2col, through kernel B11b (CUDA tensors) or
+  ``pool_prologue_im2col_reference`` (CPU tensors); L even."""
+  if x.device.type == 'cpu':
+    return pool_prologue_im2col_reference(x, logits, scale, shift, k_taps,
+                                          act_name)
+  return with_plain_grad(
+      lambda *a: _attn_pool_logits_im2col_kernel(*a, k_taps, act_name),
+      lambda *a: pool_prologue_im2col_reference(*a, k_taps, act_name),
+      x, logits, scale, shift)

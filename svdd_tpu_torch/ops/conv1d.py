@@ -15,6 +15,12 @@ on CUDA tensors and ``conv1d_bwd_plain`` on CPU tensors; every other
 conv is differentiated by PyTorch's own convolution backward, as the
 JAX package leaves those shapes to XLA. The bias gradient is PyTorch's
 reduction in both cases (``conv1d.py:43-46``).
+
+``conv1d_prologue`` is the prologue route of the JAX ``Conv1D``
+(``conv1d.py:238-256``): conv(act(x * scale + shift)) + bias at
+dilation 1 through kernel B11c and one product (``ops/im2col.py``), or
+through kernel B14 (``ops/fused_conv.py``) when
+``SVDD_PALLAS_FUSED_CONV=1``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from svdd_tpu_torch import _build
+from svdd_tpu_torch.ops.fused_conv import fused_conv1d, use_pallas_fused_conv
+from svdd_tpu_torch.ops.im2col import nacdr_conv1d
 from svdd_tpu_torch.ops.kernel_utils import live_offsets, live_taps
 
 
@@ -161,3 +169,13 @@ def conv1d_shifted(x: torch.Tensor, kernel: torch.Tensor,
     out = _ConvShifted.apply(x, kernel.to(x.dtype), dilation)
     return out if bias is None else out + bias.to(x.dtype)
   return _conv_forward(x, kernel, bias, dilation)
+
+
+def conv1d_prologue(x, kernel, bias, scale, shift, act_name):
+  """conv1d(act(x * scale + shift), kernel) + bias, SAME, dilation 1, the
+  eval NACDR ConvBlock's conv: ``fused_conv1d`` (B14) with
+  ``SVDD_PALLAS_FUSED_CONV=1``, else ``nacdr_conv1d`` (B11c and one
+  product)."""
+  if use_pallas_fused_conv():
+    return fused_conv1d(x, kernel, bias, scale, shift, act_name)
+  return nacdr_conv1d(x, kernel, bias, scale, shift, act_name)

@@ -23,8 +23,11 @@ import torch
 
 from svdd_tpu_torch import _build
 
-# head dims the kernel is built for (the DiT and AR presets' 64)
-KERNEL_HEAD_DIMS = (64,)
+# head dims the kernel is built for: the DiT and AR presets' 64, and 128
+# (the text preset at 6 heads). ``ops.attention.flash_mha`` sends a head
+# dim that is no multiple of 64 to the plain version, as the JAX
+# dispatcher does; a multiple of 64 that is not built raises here.
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def flash_attention(q, k, v, causal: bool = False):

@@ -1,19 +1,28 @@
 """Helpers shared by the kernels and the modules around them
 (``svdd_tpu/ops/kernel_utils.py``): the NACDR activations and the
-dead-tap rule, the contract between the im2col producer
-(``ops/attn_pool.py``) and the stacked conv weight that consumes it."""
+dead-tap rule, the contract between the im2col producers
+(``ops/attn_pool.py``, ``ops/im2col.py``) and the stacked conv weight
+that consumes them."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-# activation codes the CUDA kernels take
-ACT_CODES = {None: 0, 'gelu_enformer': 1, 'relu': 2}
+# activation codes the CUDA kernels take (csrc/common.cuh activate)
+ACT_CODES = {None: 0, 'gelu_enformer': 1, 'relu': 2, 'gelu': 3}
 
 
 def gelu_enformer(x: torch.Tensor) -> torch.Tensor:
   """Enformer's sigmoid-approximated GELU: x * sigmoid(1.702 x)."""
   return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+  """The exact GELU as ``jax.nn.gelu(approximate=False)`` writes it:
+  0.5 x erfc(-x / sqrt 2), in x's dtype."""
+  return 0.5 * x * torch.special.erfc(-x * math.sqrt(0.5))
 
 
 def act(name, x: torch.Tensor) -> torch.Tensor:
@@ -23,6 +32,8 @@ def act(name, x: torch.Tensor) -> torch.Tensor:
     return gelu_enformer(x)
   if name == 'relu':
     return torch.relu(x)
+  if name == 'gelu':
+    return gelu(x)
   raise NotImplementedError(name)
 
 
@@ -42,3 +53,36 @@ def live_taps(k_taps: int, length: int, dilation: int = 1) -> slice:
   half = (k_taps - 1) // 2 * dilation
   offs = live_offsets(k_taps, length, dilation)
   return slice((offs[0] + half) // dilation, (offs[-1] + half) // dilation + 1)
+
+
+class _PlainGrad(torch.autograd.Function):
+  """A kernel's forward whose backward differentiates its plain version,
+  as the JAX package's custom VJPs around its forward-only Pallas kernels
+  differentiate their jnp references; with no plain version the backward
+  raises, as differentiating a Pallas call without a VJP fails in JAX."""
+
+  @staticmethod
+  def forward(ctx, kernel_fn, plain_fn, *inputs):
+    ctx.plain_fn = plain_fn
+    ctx.save_for_backward(*inputs)
+    return kernel_fn(*inputs)
+
+  @staticmethod
+  def backward(ctx, ct):
+    if ctx.plain_fn is None:
+      raise NotImplementedError('this kernel has no backward, as its TPU '
+                                'kernel has no VJP')
+    need = ctx.needs_input_grad[2:]
+    inputs = [t.detach().requires_grad_(n)
+              for t, n in zip(ctx.saved_tensors, need)]
+    with torch.enable_grad():
+      out = ctx.plain_fn(*inputs)
+    grads = iter(torch.autograd.grad(
+        out, [t for t in inputs if t.requires_grad], ct, allow_unused=True))
+    return (None, None, *[next(grads) if n else None for n in need])
+
+
+def with_plain_grad(kernel_fn, plain_fn, *inputs: torch.Tensor):
+  """``kernel_fn(*inputs)``, differentiable through ``plain_fn``, or
+  recorded so that a backward raises where ``plain_fn`` is None."""
+  return _PlainGrad.apply(kernel_fn, plain_fn, *inputs)

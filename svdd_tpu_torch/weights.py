@@ -20,6 +20,7 @@ import torch
 from svdd_tpu_torch.config import Config, dna_config
 from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.models.autoregressive import ARModel
+from svdd_tpu_torch.models.basenji import Basenji
 from svdd_tpu_torch.models.cnn import CNNModel
 from svdd_tpu_torch.models.dimamba import DiMamba
 from svdd_tpu_torch.models.dit import DIT
@@ -80,11 +81,19 @@ def cnn_from_jax(variables) -> CNNModel:
   return model.eval()
 
 
+def _conv(mod, p) -> None:
+  """A module holding a flax Conv1D's ``kernel`` and ``bias``."""
+  _copy(mod.kernel, p['Conv1D_0']['kernel'])
+  _copy(mod.bias, p['Conv1D_0']['bias'])
+
+
 def _conv_block(block: blocks.ConvBlock, p, stats) -> None:
-  _copy(block.kernel, p['Conv1D_0']['kernel'])
-  _copy(block.bias, p['Conv1D_0']['bias'])
-  _norm(block.norm, p['Norm_0']['BatchNorm_0'],
-        stats['Norm_0']['BatchNorm_0'])
+  _conv(block, p)
+  if block.norm is not None:
+    _norm(block.norm, p['Norm_0']['BatchNorm_0'],
+          stats['Norm_0']['BatchNorm_0'])
+  if block.channel_transform is not None:
+    _conv(block.channel_transform, p['ChannelTransform_0'])
   if block.pool is not None:
     _copy(block.pool.w, p['Pool_0']['AttentionPool_0']['to_attn_logits'])
 
@@ -151,6 +160,30 @@ def enformer_value_from_jax(variables) -> EnformerValueModel:
               stats['pointwise'])
   _copy(model.head.kernel, head_p['kernel'])
   _copy(model.head.bias, head_p['bias'])
+  return model.eval()
+
+
+def basenji_from_jax(variables, **config) -> Basenji:
+  """A Basenji trunk (on CPU, float32) holding the flax Basenji's
+  variables, params and ``batch_stats`` of every block; ``config`` are
+  the keyword arguments the flax module was built with (its widths,
+  depths, pools and multipliers, which flax keeps outside the
+  variables), the JAX defaults where left out."""
+  p, stats = variables['params'], variables['batch_stats']
+  tp, ts = p['ConvTower_0'], stats['ConvTower_0']
+  model = Basenji(**config, generator=_generator())
+  _conv(model.tower.stem, tp['Stem_0'])
+  for i, block in enumerate(model.tower.blocks):
+    _conv_block(block, tp[f'ConvBlock_{i}'], ts[f'ConvBlock_{i}'])
+  for i, block in enumerate(model.residual_blocks):
+    key = f'DilatedResidualBlock_{i}'
+    _conv_block(block.conv_0, p[key]['ConvBlock_0'],
+                stats[key]['ConvBlock_0'])
+    _conv_block(block.conv_1, p[key]['ConvBlock_1'],
+                stats[key]['ConvBlock_1'])
+  _conv_block(model.final_block, p['ConvBlock_0'], stats['ConvBlock_0'])
+  if 'ChannelTransform_0' in p:
+    _conv(model.head, p['ChannelTransform_0'])
   return model.eval()
 
 

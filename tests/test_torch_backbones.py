@@ -101,6 +101,35 @@ def test_attention_plain_version_matches_mha(causal):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('d', [16, 96])
+def test_attention_dispatch_takes_mha_off_the_kernel_head_dims(d,
+                                                               monkeypatch):
+  """B12's dispatch on the head dim: D % 64 != 0 goes to the plain
+  ``mha`` on any device, as svdd_tpu's ``flash_mha`` takes XLA's ``mha``
+  there; D = 64 and 128 go to the kernel; a multiple of 64 the kernel is
+  not built for (192) raises. The device branch is shown on 'meta'
+  tensors (no card here); the values at D = 16 and 96 against svdd_tpu's
+  dispatcher in f32: 1e-5."""
+  launched = []
+  monkeypatch.setattr(tattn.fa, 'flash_attention',
+                      lambda q, k, v, causal: launched.append(q.shape[-1]))
+  for dim in (d, 64, 128):
+    q = torch.empty(1, 8, 2, dim, device='meta')
+    tattn.flash_mha(q, q, q)
+  assert launched == [64, 128]
+  monkeypatch.undo()
+  q = torch.empty(1, 8, 2, 192, device='meta')
+  with pytest.raises(ValueError, match='head dim 192'):
+    tattn.flash_mha(q, q, q)
+  rs = np.random.default_rng(d)
+  q, k, v = (rs.normal(size=(2, 24, 2, d)).astype(np.float32)
+             for _ in range(3))
+  want = np.asarray(jattn.flash_mha(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v)))
+  got = tattn.flash_mha(_t(q), _t(k), _t(v))
+  np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('residual', [False, True])
 def test_rmsnorm_plain_matches_pallas_kernel(dtype, residual):

@@ -192,7 +192,9 @@ def test_port_imports_no_jax():
           'svdd_tpu_torch.models.autoregressive, '
           'svdd_tpu_torch.models.dimamba, svdd_tpu_torch.ops.attention, '
           'svdd_tpu_torch.ops.flash_attention, svdd_tpu_torch.ops.norms, '
-          'svdd_tpu_torch.eval.gen_ppl, svdd_tpu_torch.data.gosai; '
+          'svdd_tpu_torch.eval.gen_ppl, svdd_tpu_torch.data.gosai, '
+          'svdd_tpu_torch.ops.im2col, svdd_tpu_torch.ops.fused_conv, '
+          'svdd_tpu_torch.models.convgru, svdd_tpu_torch.models.basenji; '
           "bad = [m for m in ('jax', 'flax', 'svdd_tpu') if m in sys.modules]; "
           'assert not bad, bad')
   env = dict(os.environ, PYTHONPATH=REPO)

@@ -164,8 +164,8 @@ def test_pool_prologue_im2col_plain_matches_nlc_pallas_kernel():
   want = jap.pool_prologue_im2col_wlogits_pallas(
       *map(jnp.asarray, (xj, w, scale, shift)), 5, 'gelu_enformer', False,
       residual=jnp.asarray(rj), interpret=True)
-  got = tap.pool_prologue_im2col_plain(_t(x), _t(w), _t(scale), _t(shift),
-                                       5, 'gelu_enformer', _t(res))
+  got = tap.pool_prologue_im2col_wlogits_plain(
+      _t(x), _t(w), _t(scale), _t(shift), 5, 'gelu_enformer', _t(res))
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
                              atol=3e-5)
 

@@ -102,8 +102,8 @@ def test_pool_prologue_im2col_plain_matches_pallas_kernel(
       jnp.asarray(shift), 5, 'gelu_enformer', mask_tail,
       residual=None if res is None else jnp.asarray(res),
       pad_out=pad_out, interpret=True))
-  got = tap.pool_prologue_im2col(xp, _t(w), _t(scale), _t(shift), 5,
-                                 'gelu_enformer', rp).numpy()
+  got = tap.pool_prologue_im2col_wlogits(xp, _t(w), _t(scale), _t(shift),
+                                         5, 'gelu_enformer', rp).numpy()
   assert got.shape == (8, lh, len(live_offsets(5, lh)) * 128)
   if pad_out:
     assert want.shape[0] == lh + 1 and not want[lh].any()
