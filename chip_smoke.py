@@ -10,9 +10,10 @@ exits non-zero and prints no result:
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
-     pool at its full-size shapes (B12 also at head dim 128), in float32
-     and bfloat16, against its plain PyTorch version on the same inputs
-     (the candidate draw on the noise the kernel reports, and by
+     pool at its full-size shapes (B12 also at head dim 128 and at
+     L = 200), in float32 and bfloat16, against its plain PyTorch
+     version on the same inputs (the candidate draw on the noise the
+     kernel reports, and by
      frequencies; the cnn layer's backward on the relu mask the kernel
      reports), with median times of both, the time of one PyTorch call
      computing the same function where there is one, and the least time
@@ -126,6 +127,7 @@ OFFGRID_KERNELS = {
 #    into the output: a few bf16 ulps at most. flash_attention rounds p
 #    against a running row maximum where its plain version (mha) rounds
 #    the normalised probabilities: one bf16 ulp of a term of its sum.
+#    Its float32 products are 3xTF32, about 2^-20 relative each.
 TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (2 ** -5, 2 ** -5)}
 # sums over rows (weight gradients, per-channel and per-sequence sums):
 # |got - want| <= RED_TOL * max |want|. f32: the same products summed in
@@ -141,8 +143,10 @@ RED_TOL = {'float32': 2e-4, 'bfloat16': 2 ** -7}
 MASK_EDGE = {'float32': 1e-4, 'bfloat16': 2 ** -6}
 
 # the card's published peaks (NVIDIA data sheet, H100 SXM, dense, at its
-# 700 W limit): f32 outside the tensor cores, bf16 on them, HBM3
-PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+# 700 W limit): f32 outside the tensor cores, bf16 on them, HBM3; and f32
+# products as 3xTF32 (three TF32 tensor-core products, 495/3 TFLOP/s),
+# the bound of a kernel that computes f32 that way (B12)
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12, 'tf32x3': 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -573,7 +577,10 @@ def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
   """B12 on q, k, v sliced from one (B, L, 3, H, D) projection, as the
   backbones pass them (the kernel reads them by stride), against the
   plain version and timed beside F.scaled_dot_product_attention on
-  contiguous (B, H, L, D) copies. The bound counts the causal half."""
+  contiguous (B, H, L, D) copies. The flops count the causal half. The
+  float32 kernel runs its products as 3xTF32, so its bound is the work
+  at 495/3 TFLOP/s; the FMA bound (67 TFLOP/s) is reported beside it.
+  Achieved TFLOP/s and the share of each bound are in the result."""
   import torch
   import torch.nn.functional as F
   from svdd_tpu_torch.ops import flash_attention as K
@@ -590,13 +597,22 @@ def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
   qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
   lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
       qt, kt, vt, is_causal=causal), iters=10)
-  return {'shape': list(shape), 'causal': causal,
-          'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
-          'plain_ms': plain_ms, 'library_ms': lib_ms,
-          'library': 'torch.nn.functional.scaled_dot_product_attention',
-          # the q.k and p.v products; q, k, v in, out written
-          'flops': 4 * b * h * l * l * d // (2 if causal else 1),
-          'bytes': 4 * b * h * l * d * qkv.element_size()}
+  # the q.k and p.v products; q, k, v in, out written
+  flops = 4 * b * h * l * l * d // (2 if causal else 1)
+  nbytes = 4 * b * h * l * d * qkv.element_size()
+  peak = 'tf32x3' if name == 'float32' else name
+  bound_ms, bound_by = bound(flops, nbytes, peak)
+  r = {'shape': list(shape), 'causal': causal,
+       'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+       'plain_ms': plain_ms, 'library_ms': lib_ms,
+       'library': 'torch.nn.functional.scaled_dot_product_attention',
+       'flops': flops, 'bytes': nbytes, 'peak': peak,
+       'bound_ms': bound_ms, 'bound_by': bound_by,
+       'tflops': flops / ms / 1e9, 'bound_share': bound_ms / ms}
+  if name == 'float32':
+    r['fma_bound_ms'] = bound(flops, nbytes, 'float32')[0]
+    r['fma_bound_share'] = r['fma_bound_ms'] / ms
+  return r
 
 
 def check_rmsnorm(dtype, gen):
@@ -627,8 +643,10 @@ def check_rmsnorm(dtype, gen):
           'flops': 4 * rows * d, 'bytes': 2 * rows * d * es + d * es}
 
 
-# B12 at the text preset with 6 heads of 128 (the head dim built beside 64)
+# B12 at the text preset with 6 heads of 128 (the head dim built beside 64),
+# and at a ragged length, 200, which no tile divides
 ATTN_SHAPE_D128 = (64, 1024, 6, 128)
+ATTN_SHAPE_L200 = (8, 200, 12, 64)
 
 # B11c at Basenji's dilation-1 NACDR convs at N = 5120 rows of L = 25 (the
 # residual tower after three max pools of L = 200): input widths 324 and
@@ -1504,6 +1522,10 @@ def main() -> None:
                 dt, g, False, ATTN_SHAPE_D128)),
             ('flash_attention_causal_d128', lambda dt, g: check_flash_attention(
                 dt, g, True, ATTN_SHAPE_D128)),
+            ('flash_attention_l200', lambda dt, g: check_flash_attention(
+                dt, g, False, ATTN_SHAPE_L200)),
+            ('flash_attention_causal_l200', lambda dt, g: check_flash_attention(
+                dt, g, True, ATTN_SHAPE_L200)),
             ('rmsnorm', check_rmsnorm),
             ('nacdr_im2col', check_nacdr_im2col),
             ('fused_conv1d', check_fused_conv1d),
@@ -1515,7 +1537,8 @@ def main() -> None:
       torch.cuda.synchronize()
       torch.cuda.empty_cache()
       dname = str(dtype).split('.')[-1]
-      r['bound_ms'], r['bound_by'] = bound(r['flops'], r['bytes'], dname)
+      if 'bound_ms' not in r:
+        r['bound_ms'], r['bound_by'] = bound(r['flops'], r['bytes'], dname)
       emit({'phase': 'kernel', 'kernel': name, 'dtype': dname, **r})
       results[(name, dname)] = r
   r = check_gumbel_candidates(gen)
@@ -1608,13 +1631,20 @@ def main() -> None:
                    bound_ms_bf16=bf['bound_ms'])
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
-    d128 = {dt: results.get((f'{name}_d128', dt))
-            for dt in ('float32', 'bfloat16')}
-    if d128['float32'] is not None:
-      entry['head_dim_128'] = {
-          dt: {k: r[k] for k in ('shape', 'max_abs_err', 'ms', 'plain_ms',
-                                 'library_ms', 'bound_ms')}
-          for dt, r in d128.items()}
+    if 'tflops' in f32:
+      entry.update({k: f32[k] for k in ('peak', 'tflops', 'bound_share',
+                                        'fma_bound_ms', 'fma_bound_share')})
+      entry.update(tflops_bf16=bf['tflops'], bound_share_bf16=bf['bound_share'])
+    for suffix, key in (('d128', 'head_dim_128'), ('l200', 'length_200')):
+      more = {dt: results.get((f'{name}_{suffix}', dt))
+              for dt in ('float32', 'bfloat16')}
+      if more['float32'] is not None:
+        entry[key] = {
+            dt: {k: r[k] for k in ('shape', 'max_abs_err', 'ms', 'plain_ms',
+                                   'library_ms', 'bound_ms', 'tflops',
+                                   'bound_share', 'fma_bound_share')
+                 if k in r}
+            for dt, r in more.items()}
     kernels.append(entry)
   emit({'kernels': kernels})
   print(smi, flush=True)

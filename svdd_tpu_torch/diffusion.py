@@ -5,6 +5,8 @@ samplers."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from svdd_tpu_torch import mdlm, schedules
@@ -24,9 +26,13 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 def build_backbone(config: Config, generator: torch.Generator):
   """Backbone factory. The CNN denoiser computes in float32, as the JAX
-  package does without SVDD_CNN_BF16; the DiT and DiMamba in
+  package does without SVDD_CNN_BF16; with SVDD_CNN_BF16=1, where the JAX
+  package builds it in bf16, this raises. The DiT and DiMamba compute in
   ``compute_dtype(config)``."""
   if config.backbone == 'cnn':
+    if os.environ.get('SVDD_CNN_BF16') == '1':
+      raise NotImplementedError('SVDD_CNN_BF16=1: the bf16 CNN denoiser '
+                                'is not ported yet (ROADMAP A19)')
     return CNNModel(config, alphabet_size=config.vocab_size,
                     generator=generator)
   if config.backbone == 'dit':

@@ -8,11 +8,16 @@ computes as the TPU kernel's body does: f32 scores scaled after the
 product, f32 row maxima and sums, p rounded to v's type before the p.v
 product and the division by the f32 sum last. ``mha`` rounds the
 normalised probabilities instead, so in bfloat16 the two differ by up to
-a bf16 ulp of each term of the p.v sum; in float32 only the summation
-order differs.
+a bf16 ulp of each term of the p.v sum. Both products run on the tensor
+cores: bf16 mma, and for float32 3xTF32 (each operand split into two
+TF32 halves, about 2^-20 relative error a product), summed in another
+order than ``mha``.
 
-q, k and v are read by stride (each needs unit stride over D), so views
-such as the slices of a fused qkv projection go in as they are.
+q, k and v are read by stride, so views such as the slices of a fused
+qkv projection go in as they are. Each needs unit stride over D, a
+16-byte aligned start and strides that are multiples of 16 bytes (the
+kernel copies rows in 16-byte chunks): the DiT's qkv slices have
+strides 3·H·D and offsets H·D.
 """
 
 from __future__ import annotations
@@ -43,13 +48,19 @@ def flash_attention(q, k, v, causal: bool = False):
                      f'{KERNEL_HEAD_DIMS}')
   if k.dtype != q.dtype or v.dtype != q.dtype:
     raise TypeError('flash_attention: q, k and v must share a dtype')
+  # the kernel copies 16-byte chunks of each row with cp.async
+  _build.require_aligned('flash_attention', q, k, v)
+  chunk = 16 // q.element_size()
   for t in (q, k, v):
-    if t.device.type != 'cuda':
-      raise ValueError(f'flash_attention: tensors must be on a CUDA '
-                       f'device, got {t.device}')
     if t.stride(3) != 1:
       raise ValueError('flash_attention: q, k and v need unit stride '
                        'over the head dim')
+    if any(s % chunk for s in t.stride()[:3]):
+      raise ValueError(f'flash_attention: strides {tuple(t.stride())} '
+                       'are not multiples of 16 bytes')
+    if t.device.type != 'cuda':
+      raise ValueError(f'flash_attention: tensors must be on a CUDA '
+                       f'device, got {t.device}')
   out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
   strides = [s for t in (q, k, v) for s in t.stride()[:3]]
   rc = _build.entry('svdd_flash_attention')(

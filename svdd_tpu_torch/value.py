@@ -3,6 +3,8 @@ and the bundle whose ``score_tokens`` the guided samplers call."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from svdd_tpu_torch import mdlm
@@ -13,10 +15,16 @@ def build_value_module(task: str, model: str = 'enformer',
                        n_tasks: int = 1,
                        generator: torch.Generator | None = None,
                        **kwargs) -> EnformerValueModel:
-  """Value-net factory; only the DNA Enformer is ported."""
+  """Value-net factory; only the DNA Enformer is ported. Without a
+  ``compute_dtype`` it computes in float32; SVDD_VALUE_BF16=1, which makes
+  the JAX package build it in bf16, raises."""
   if task != 'dna' or model != 'enformer':
     raise NotImplementedError(f'value model {model!r} for task {task!r} '
                               'is not ported yet')
+  if ('compute_dtype' not in kwargs
+      and os.environ.get('SVDD_VALUE_BF16') == '1'):
+    raise NotImplementedError('SVDD_VALUE_BF16=1: the bf16 Enformer value '
+                              'net is not ported yet (ROADMAP A19)')
   return EnformerValueModel(n_tasks=n_tasks, generator=generator,
                             **kwargs)
 

@@ -31,6 +31,7 @@ from svdd_tpu.ops import norms as jnorms
 
 from svdd_tpu_torch.config import Config, text_mdlm_config, tiny_test_config
 from svdd_tpu_torch.ops import attention as tattn
+from svdd_tpu_torch.ops import flash_attention as tfa
 from svdd_tpu_torch.ops import norms as tnorms
 from svdd_tpu_torch.weights import ar_from_jax, dimamba_from_jax, dit_from_jax
 from torch_port_helpers import random_variables
@@ -86,14 +87,21 @@ def test_flash_attention_plain_matches_pallas_kernel(causal):
                              rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('causal', [False, True])
-def test_attention_plain_version_matches_mha(causal):
+@pytest.mark.parametrize('causal,shape,seed', [
+    pytest.param(False, (2, 200, 3, 64), 2, id='False'),
+    pytest.param(True, (2, 200, 3, 64), 3, id='True'),
+    pytest.param(False, (1, 1024, 2, 64), 4, id='False-L1024'),
+    pytest.param(True, (1, 1024, 2, 64), 5, id='True-L1024'),
+    pytest.param(False, (1, 1024, 1, 128), 6, id='False-L1024-d128'),
+    pytest.param(True, (1, 1024, 1, 128), 7, id='True-L1024-d128'),
+])
+def test_attention_plain_version_matches_mha(causal, shape, seed):
   """B12's plain version (``mha``, which the dispatcher takes on CPU
-  tensors) against svdd_tpu's ``mha`` at L=200, a length the TPU kernel
-  does not tile, f32: 1e-5."""
-  rs = np.random.default_rng(2 + int(causal))
-  q, k, v = (rs.normal(size=(2, 200, 3, 64)).astype(np.float32)
-             for _ in range(3))
+  tensors and the card's check holds the kernel to) against svdd_tpu's
+  ``mha`` at each (L, D) the smoke times: L=200, a length the TPU kernel
+  does not tile, and L=1024 at head dims 64 and 128; f32: 1e-5."""
+  rs = np.random.default_rng(seed)
+  q, k, v = (rs.normal(size=shape).astype(np.float32) for _ in range(3))
   want = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k),
                               jnp.asarray(v), causal=causal))
   for got in (tattn.mha(_t(q), _t(k), _t(v), causal),
@@ -128,6 +136,41 @@ def test_attention_dispatch_takes_mha_off_the_kernel_head_dims(d,
                                     jnp.asarray(v)))
   got = tattn.flash_mha(_t(q), _t(k), _t(v))
   np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['start', 'row_stride', 'head_stride',
+                                  'qkv_slices'])
+def test_flash_attention_wrapper_needs_16_byte_rows(case, dtype):
+  """B12's kernel copies q, k and v rows in 16-byte chunks, so its
+  wrapper refuses, before any launch, a view that starts off a 16-byte
+  boundary or whose batch, position or head stride is no multiple of 16
+  bytes. The DiT's fused-qkv slices (strides 3·H·D, offsets H·D) pass
+  those checks and reach the device check. Shown on 'meta' tensors (no
+  card here)."""
+  chunk = 16 // torch.empty(0, dtype=dtype).element_size()
+  shape, d = (2, 8, 2, 64), 64
+
+  def strided(row, head):
+    base = torch.empty(2 * 8 * row, device='meta', dtype=dtype)
+    return base.as_strided(shape, (8 * row, row, head, 1))
+
+  if case == 'start':
+    base = torch.empty(2 * 8 * 2 * d + 1, device='meta', dtype=dtype)
+    q = base[1:].view(shape)
+    match = 'start 16-byte aligned'
+  elif case == 'row_stride':
+    q = strided(2 * d + chunk // 2, d)
+    match = 'not multiples of 16 bytes'
+  elif case == 'head_stride':
+    q = strided(2 * (d + chunk // 2), d + chunk // 2)
+    match = 'not multiples of 16 bytes'
+  else:
+    q = torch.empty(2, 8, 3, 2, d, device='meta', dtype=dtype).unbind(2)[1]
+    assert q.data_ptr() % 16 == 0 and q.stride() == (3072, 384, 64, 1)
+    match = 'CUDA device'
+  with pytest.raises(ValueError, match=match):
+    tfa.flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
