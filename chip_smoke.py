@@ -8,6 +8,8 @@ Phases, each printing one JSON line and ending in
 exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
+     the tensor-core mma instructions and registers of B1's and B6's
+     kernels as built (cuobjdump);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
      pool at its full-size shapes (B12 also at head dim 128 and at
@@ -188,6 +190,28 @@ def median_ms(fn, iters: int = 5, warmup: int = 1) -> float:
   return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 10, fragment: str | None = None) -> float:
+  """The card's time for one call of fn: the summed durations of the
+  kernels and copies the calls launched (torch.profiler), over reps
+  calls after a warm-up, divided by reps; with a fragment, only the
+  kernels whose name holds it. Host time between kernels is not
+  counted: a call shorter than its wrapper's host time (a bf16 CNN
+  layer) is timed by the card's work alone, where CUDA events around it
+  would time the host."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  return sum((e.time_range.end - e.time_range.start) / 1e3
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (fragment is None or fragment in e.name)) / reps
+
+
 def compare_sum(name: str, got, want, dtype: str) -> tuple[float, float]:
   """(max abs error, max abs error / max |want|) of a sum over rows;
   raises beyond RED_TOL of the largest |want|."""
@@ -225,6 +249,54 @@ def compare(name: str, got, want, dtype: str) -> tuple[float, float]:
   return float(err.max()), float(err.max() / want.abs().max())
 
 
+# the kernels of B1 and B6 whose work is tap or weight-gradient products
+CNN_MMA_KERNELS = ('cnn_layer_kernel', 'cnn_bwd_mask_kernel',
+                   'cnn_bwd_dgrad_ln_kernel', 'cnn_bwd_wgrad_kernel')
+
+
+def sass_counts() -> dict:
+  """{library: {kernel dtype: {HMMA, FFMA, REG, STACK}}} of B1's and B6's
+  libraries as built, read by cuobjdump: tensor-core mma and f32 FMA
+  instructions in each kernel's SASS, its registers and stack bytes.
+  Raises if a kernel of CNN_MMA_KERNELS has no HMMA."""
+  import re
+  from svdd_tpu_torch import _build
+  cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
+
+  def label(mangled):
+    kind = next((k for k in (*CNN_MMA_KERNELS, 'reduce_partials_kernel')
+                 if k in mangled), mangled)
+    return f'{kind} {"bfloat16" if "bfloat16" in mangled else "float32"}'
+
+  out = {}
+  for lib in ('cnn_layer', 'cnn_layer_bwd'):
+    path = str(_build._library_path(lib))
+    dump = lambda flag: subprocess.run(
+        [cuobjdump, flag, path], capture_output=True, text=True, check=True,
+        timeout=120).stdout
+    counts, fn = {}, None
+    for line in dump('-sass').splitlines():
+      if 'Function :' in line:
+        fn = label(line.split('Function :')[1].strip())
+        counts[fn] = {'HMMA': 0, 'FFMA': 0}
+      elif fn is not None:
+        for op in ('HMMA', 'FFMA'):
+          counts[fn][op] += op in line
+    fn = None
+    for line in dump('-res-usage').splitlines():
+      m = re.match(r'\s*Function (\S+):', line)
+      if m:
+        fn = label(m.group(1))
+      elif fn in counts and 'REG:' in line:
+        for key in ('REG', 'STACK'):
+          counts[fn][key] = int(re.search(key + r':(\d+)', line).group(1))
+    for fn, c in counts.items():
+      if fn.split()[0] in CNN_MMA_KERNELS and not c['HMMA']:
+        raise AssertionError(f'{lib}: {fn} has no tensor-core mma')
+    out[lib] = counts
+  return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -232,47 +304,157 @@ def compare(name: str, got, want, dtype: str) -> tuple[float, float]:
 
 # calls per denoiser pass of the 20 layers, by dilation
 CNN_CALLS = {1: 8, 4: 4, 16: 4, 64: 4}
+CNN_SHAPE = (512, 200, 128)
+# B1 and B6 are also held at N = 8 at a short sequence and at the longest
+# one a block holds (ops/cnn_layer.kernel_takes)
+CNN_SMALL_N, CNN_SHORT_L = 8, 50
+
+
+def cnn_rows(l: int, d: int) -> int:
+  """Rows of tap products one sequence needs at dilation d: the sum over
+  the live taps of L - |offset|. A row whose source lies in the SAME
+  padding multiplies zeros and is not counted."""
+  from svdd_tpu_torch.ops.kernel_utils import live_offsets
+  return sum(l - abs(o) for o in live_offsets(9, l, d))
+
+
+def cnn_longest(dtype) -> int:
+  """The longest sequence the B1 and B6 kernels take."""
+  from svdd_tpu_torch.ops.cnn_layer import kernel_takes
+  l = CNN_SHORT_L
+  while kernel_takes(l + 1, dtype):
+    l += 1
+  return l
+
+
+def _cnn_inputs(n, l, dtype, gen):
+  """(x, bias_row, ln_scale, ln_bias, kernel, conv_bias) and a cotangent."""
+  import torch
+  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
+  c = CNN_SHAPE[2]
+  x, br, ct = r(n, l, c).to(dtype), r(n, c).to(dtype), r(n, l, c).to(dtype)
+  g, b, cb = 1 + 0.1 * r(c), 0.1 * r(c), 0.1 * r(c)
+  w = (r(9, c, c) / (9 * c) ** 0.5).to(dtype)
+  return (x, br, g, b, w, cb), ct
+
+
+def _cnn_bwd_against_plain(args, ct, d, name, label):
+  """B6 on args against its plain version on the mask the kernel reports;
+  every element where that mask differs from the plain version's own must
+  have a plain conv output within MASK_EDGE of 0. Then the bit-for-bit
+  mask check against B1 on the same inputs: where the mask is 0, B1's
+  output is x exactly; where B1's output differs from x, the mask is 1.
+  Returns (max abs err, max rel err, mask flips)."""
+  from svdd_tpu_torch.ops import cnn_layer as K
+  *got, mask = K.cnn_layer_bwd(*args, ct, dilation=d, return_mask=True)
+  want = K.cnn_layer_bwd_plain(*args, ct, dilation=d, mask=mask)
+  y = K.relu_input_plain(*args, dilation=d)
+  differ = mask != (y > 0)
+  flips = int(differ.sum())
+  if flips and float(y[differ].abs().max()) > MASK_EDGE[name]:
+    raise AssertionError(f'{label} {name}: the kernel relu mask differs '
+                         f'where |y| = {float(y[differ].abs().max())}')
+  del y, differ
+  errs = [compare(f'{label} dx', got[0], want[0], name)]
+  errs += [compare_sum(f'{label} {nm}', gt, wt, name)
+           for nm, gt, wt in zip(('dbias_row', 'dln_scale', 'dln_bias',
+                                  'dkernel', 'dconv_bias'), got[1:], want[1:])]
+  del got, want
+  out, x = K.cnn_layer(*args, dilation=d), args[0]
+  if not bool((out[~mask] == x[~mask]).all()):
+    raise AssertionError(f'{label} {name}: B6 mask 0 where B1 output != x')
+  if not bool(mask[out != x].all()):
+    raise AssertionError(f'{label} {name}: B1 output != x where B6 mask 0')
+  return max(e[0] for e in errs), max(e[1] for e in errs), flips
+
+
+def _cnn_lengths(dtype, gen, bwd: bool) -> dict:
+  """Max abs error against the plain version at N = 8, L = 50 and the
+  longest L, all four dilations (B6 with the mask checks)."""
+  from svdd_tpu_torch.ops import cnn_layer as K
+  name = str(dtype).split('.')[-1]
+  res = {}
+  for l in (CNN_SHORT_L, cnn_longest(dtype)):
+    args, ct = _cnn_inputs(CNN_SMALL_N, l, dtype, gen)
+    errs = []
+    for d in (1, 4, 16, 64):
+      label = f'{"cnn_layer_bwd" if bwd else "cnn_layer"} L={l} d={d}'
+      if bwd:
+        errs.append(_cnn_bwd_against_plain(args, ct, d, name, label)[0])
+      else:
+        errs.append(compare(label, K.cnn_layer(*args, dilation=d),
+                            K.cnn_layer_plain(*args, dilation=d), name)[0])
+    res[str(l)] = max(errs)
+  return res
+
+
+def _cnn_rates(r: dict, dtype_name: str) -> dict:
+  """The bound on the peak the kernel computes at (3xTF32, 495/3 TFLOP/s,
+  in f32; bf16 989), the f32 FMA bound beside it, the achieved TFLOP/s
+  and the share of each bound, from r's flops, bytes and ms."""
+  peak = 'tf32x3' if dtype_name == 'float32' else dtype_name
+  r['peak'] = peak
+  r['bound_ms'], r['bound_by'] = bound(r['flops'], r['bytes'], peak)
+  r['tflops'] = r['flops'] / r['ms'] / 1e9
+  r['bound_share'] = r['bound_ms'] / r['ms']
+  if dtype_name == 'float32':
+    r['fma_bound_ms'] = bound(r['flops'], r['bytes'], 'float32')[0]
+    r['fma_bound_share'] = r['fma_bound_ms'] / r['ms']
+  return r
+
+
+def _cnn_library_operands(args, d):
+  """The conv's input (the normalised h) and weight in F.conv1d's layout."""
+  from svdd_tpu_torch.ops import cnn_layer as K
+  x, br, g, b, w, _ = args
+  hn, _ = K._normalised(x, br, 1e-6)
+  h = K._conv_input(hn, g, b, x.dtype).transpose(1, 2).contiguous()
+  return h, w.permute(2, 1, 0).contiguous()
 
 
 def check_cnn_layer(dtype, gen):
-  """B1 at the guided-step shape (512, 200, 128), all four dilations."""
-  import torch
+  """B1 at the guided-step shape (512, 200, 128), all four dilations,
+  against the plain version, timed beside F.conv1d of the already
+  normalised input at the same dilation and SAME padding (the conv alone,
+  a yardstick; TF32 off in f32), then at N = 8 at L = 50 and the longest
+  L a block holds. ms, plain_ms and library_ms are one denoiser forward,
+  the 20 layers, each layer's the card's time for a call (device_ms,
+  every kernel the call launched); flops count the rows the live taps
+  need (cnn_rows)."""
+  import torch.nn.functional as F
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  n, l, c = 512, 200, 128
-  dev = 'cuda'
-  x = torch.randn(n, l, c, device=dev, generator=gen).to(dtype)
-  br = torch.randn(n, c, device=dev, generator=gen).to(dtype)
-  g = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
-  b = 0.1 * torch.randn(c, device=dev, generator=gen)
-  w = torch.randn(9, c, c, device=dev, generator=gen) / (9 * c) ** 0.5
-  cb = 0.1 * torch.randn(c, device=dev, generator=gen)
+  n, l, c = CNN_SHAPE
   name = str(dtype).split('.')[-1]
+  args, _ = _cnn_inputs(n, l, dtype, gen)
   res = {}
   for d in (1, 4, 16, 64):
-    args = (x, br, g, b, w.to(dtype), cb)
-    got = K.cnn_layer(*args, dilation=d)
-    want = K.cnn_layer_plain(*args, dilation=d)
-    err, rel = compare(f'cnn_layer d={d}', got, want, name)
-    ms = median_ms(lambda: K.cnn_layer(*args, dilation=d))
-    plain = median_ms(lambda: K.cnn_layer_plain(*args, dilation=d))
-    res[d] = (err, rel, ms, plain)
-  # ms: the 20 layers of one denoiser forward, dilations (1,1,4,16,64)x4
-  es = x.element_size()
+    err, rel = compare(f'cnn_layer d={d}', K.cnn_layer(*args, dilation=d),
+                       K.cnn_layer_plain(*args, dilation=d), name)
+    ms = device_ms(lambda: K.cnn_layer(*args, dilation=d))
+    plain = device_ms(lambda: K.cnn_layer_plain(*args, dilation=d))
+    h, w_oik = _cnn_library_operands(args, d)
+    lib = device_ms(lambda: F.conv1d(h, w_oik, padding=4 * d, dilation=d))
+    res[d] = (err, rel, ms, plain, lib)
+  es = args[0].element_size()
   flops = nbytes = 0
   for d, k in CNN_CALLS.items():
     kl = len(live_offsets(9, l, d))
-    flops += k * 2 * n * l * kl * c * c
+    flops += k * 2 * n * cnn_rows(l, d) * c * c
     nbytes += k * ((2 * n * l * c + n * c + kl * c * c) * es + 3 * c * 4)
-  calls = CNN_CALLS
-  return {'shape': [n, l, c], 'dilations': [1, 4, 16, 64],
-          'flops': flops, 'bytes': nbytes,
-          'max_abs_err': max(r[0] for r in res.values()),
-          'max_rel_err': max(r[1] for r in res.values()),
-          'ms': sum(calls[d] * r[2] for d, r in res.items()),
-          'plain_ms': sum(calls[d] * r[3] for d, r in res.items()),
-          'per_dilation_ms': {str(d): r[2] for d, r in res.items()},
-          'per_dilation_plain_ms': {str(d): r[3] for d, r in res.items()}}
+  total = lambda i: sum(CNN_CALLS[d] * r[i] for d, r in res.items())
+  r = {'shape': [n, l, c], 'dilations': [1, 4, 16, 64],
+       'flops': flops, 'bytes': nbytes,
+       'max_abs_err': max(r[0] for r in res.values()),
+       'max_rel_err': max(r[1] for r in res.values()),
+       'ms': total(2), 'plain_ms': total(3), 'library_ms': total(4),
+       'library': 'torch.nn.functional.conv1d of the normalised input, same '
+                  'dilation and SAME padding: the conv alone, a yardstick',
+       'per_dilation_ms': {str(d): r[2] for d, r in res.items()},
+       'per_dilation_plain_ms': {str(d): r[3] for d, r in res.items()},
+       'per_dilation_library_ms': {str(d): r[4] for d, r in res.items()}}
+  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=False)
+  return _cnn_rates(r, name)
 
 
 def check_gumbel_candidates(gen):
@@ -424,60 +606,101 @@ def check_attn_l2(dtype, gen):
 
 
 def check_cnn_layer_bwd(dtype, gen):
-  """B6 at the DPS shape (512, 200, 128), all four dilations. The kernel
-  reports the relu mask it rebuilt (the forward kernel's) and the plain
-  version runs on that mask; every element where it differs from the
-  plain version's own mask must have a plain conv output within rounding
-  of 0 (MASK_EDGE)."""
+  """B6 at the DPS shape (512, 200, 128), all four dilations, against the
+  plain version on the relu mask the kernel reports, with the mask checks
+  of _cnn_bwd_against_plain (bit for bit against B1); timed beside
+  aten.convolution_backward of B1's conv for its input and weight
+  gradients (a yardstick; TF32 off in f32); then at N = 8 at L = 50 and
+  the longest L a block holds. ms is one backward of the 20 layers, each
+  layer's the card's time for a call (device_ms)."""
   import torch
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  n, l, c = 512, 200, 128
-  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
-  x, br, ct = r(n, l, c).to(dtype), r(n, c).to(dtype), r(n, l, c).to(dtype)
-  g, b, cb = 1 + 0.1 * r(c), 0.1 * r(c), 0.1 * r(c)
-  w = (r(9, c, c) / (9 * c) ** 0.5).to(dtype)
+  n, l, c = CNN_SHAPE
   name = str(dtype).split('.')[-1]
-  names = ('dx', 'dbias_row', 'dln_scale', 'dln_bias', 'dkernel',
-           'dconv_bias')
-  args = (x, br, g, b, w, cb, ct)
+  args, ct = _cnn_inputs(n, l, dtype, gen)
   res, flips, flops, nbytes = {}, 0, 0, 0
-  es = x.element_size()
+  es = args[0].element_size()
+  ct_ncl = ct.transpose(1, 2).contiguous()
   for d in (1, 4, 16, 64):
-    *got, mask = K.cnn_layer_bwd(*args, dilation=d, return_mask=True)
-    want = K.cnn_layer_bwd_plain(*args, dilation=d, mask=mask)
-    y = K.relu_input_plain(*args[:6], dilation=d)
-    differ = mask != (y > 0)
-    flips += int(differ.sum())
-    if differ.any() and float(y[differ].abs().max()) > MASK_EDGE[name]:
-      raise AssertionError(f'cnn_layer_bwd d={d} {name}: the kernel relu '
-                           f'mask differs where |y| = '
-                           f'{float(y[differ].abs().max())}')
-    errs = [compare(f'cnn_layer_bwd d={d} dx', got[0], want[0], name)]
-    errs += [compare_sum(f'cnn_layer_bwd d={d} {nm}', gt, wt, name)
-             for nm, gt, wt in zip(names[1:], got[1:], want[1:])]
-    del got, want, mask, y, differ
-    ms = median_ms(lambda: K.cnn_layer_bwd(*args, dilation=d))
-    plain = median_ms(lambda: K.cnn_layer_bwd_plain(*args, dilation=d),
-                      iters=3)
-    res[d] = (max(e[0] for e in errs), max(e[1] for e in errs), ms, plain)
+    err, rel, fl = _cnn_bwd_against_plain(args, ct, d, name,
+                                          f'cnn_layer_bwd d={d}')
+    flips += fl
+    ms = device_ms(lambda: K.cnn_layer_bwd(*args, ct, dilation=d))
+    plain = device_ms(lambda: K.cnn_layer_bwd_plain(*args, ct, dilation=d),
+                      reps=2)
+    h, w_oik = _cnn_library_operands(args, d)
+    lib = device_ms(lambda: torch.ops.aten.convolution_backward(
+        ct_ncl, h, w_oik, None, [1], [4 * d], [d], False, [0], 1,
+        [True, True, False]))
+    del h, w_oik
+    res[d] = (err, rel, ms, plain, lib)
     kl = len(live_offsets(9, l, d))
     # recompute, dgrad and wgrad; x, ct in, dx out, the weights in and
     # their gradient out, bias_row in and its gradient out
-    flops += CNN_CALLS[d] * 3 * 2 * n * l * kl * c * c
+    flops += CNN_CALLS[d] * 3 * 2 * n * cnn_rows(l, d) * c * c
     nbytes += CNN_CALLS[d] * (3 * n * l * c * es + kl * c * c * (es + 4)
                               + n * c * (es + 4))
     torch.cuda.empty_cache()
-  return {'shape': [n, l, c], 'dilations': [1, 4, 16, 64],
-          'max_abs_err': max(r_[0] for r_ in res.values()),
-          'max_rel_err': max(r_[1] for r_ in res.values()),
-          'mask_flips': flips,
-          # ms: one backward of the 20 layers of the denoiser
-          'ms': sum(CNN_CALLS[d] * r_[2] for d, r_ in res.items()),
-          'plain_ms': sum(CNN_CALLS[d] * r_[3] for d, r_ in res.items()),
-          'per_dilation_ms': {str(d): r_[2] for d, r_ in res.items()},
-          'per_dilation_plain_ms': {str(d): r_[3] for d, r_ in res.items()},
-          'flops': flops, 'bytes': nbytes, 'library_ms': None}
+  total = lambda i: sum(CNN_CALLS[d] * r[i] for d, r in res.items())
+  r = {'shape': [n, l, c], 'dilations': [1, 4, 16, 64],
+       'max_abs_err': max(r_[0] for r_ in res.values()),
+       'max_rel_err': max(r_[1] for r_ in res.values()),
+       'mask_flips': flips, 'mask_bitwise': True,
+       # ms: one backward of the 20 layers of the denoiser
+       'ms': total(2), 'plain_ms': total(3), 'library_ms': total(4),
+       'library': 'torch.ops.aten.convolution_backward of the conv alone '
+                  '(input and weight gradients), a yardstick',
+       'per_dilation_ms': {str(d): r_[2] for d, r_ in res.items()},
+       'per_dilation_plain_ms': {str(d): r_[3] for d, r_ in res.items()},
+       'per_dilation_library_ms': {str(d): r_[4] for d, r_ in res.items()},
+       'flops': flops, 'bytes': nbytes}
+  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=True)
+  return _cnn_rates(r, name)
+
+
+def check_cnn_layer_past_limit():
+  """cnn_layer and its gradients in every input at one row past the
+  longest f32 sequence a block holds, N = 2, dilation 4: on the card
+  (the plain versions, as svdd_tpu takes cnn_layer_reference where its
+  kernel's memory plan does not fit) against the CPU, with no launch of
+  B1 or B6. The CPU's backward runs on the card's relu mask; where that
+  differs from the CPU's own, the CPU's conv output must lie within
+  MASK_EDGE of 0."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.ops import cnn_layer as K
+  n, l, c, d = 2, cnn_longest(torch.float32) + 1, CNN_SHAPE[2], 4
+  rs = np.random.default_rng(l)
+  cpu = [torch.from_numpy(a.astype(np.float32)) for a in (
+      rs.normal(size=(n, l, c)), rs.normal(size=(n, c)),
+      1 + 0.1 * rs.normal(size=c), 0.1 * rs.normal(size=c),
+      rs.normal(size=(9, c, c)) / (9 * c) ** 0.5, 0.1 * rs.normal(size=c))]
+  ct = torch.from_numpy(rs.normal(size=(n, l, c)).astype(np.float32))
+  card = [t.cuda().requires_grad_() for t in cpu]
+  _build.reset_launches()
+  out = K.cnn_layer(*card, dilation=d)
+  got = [out.detach(), *torch.autograd.grad(out, card, ct.cuda())]
+  with torch.no_grad():
+    mask = (K.relu_input_plain(*card, dilation=d) > 0).cpu()
+  torch.cuda.synchronize()
+  launched = _build.launches()
+  if launched['cnn_layer'] or launched['cnn_layer_bwd']:
+    raise AssertionError(f'L={l} launched a kernel: {launched}')
+  y = K.relu_input_plain(*cpu, dilation=d)
+  differ = mask != (y > 0)
+  if differ.any() and float(y[differ].abs().max()) > MASK_EDGE['float32']:
+    raise AssertionError(f'L={l}: the card relu mask differs where |y| = '
+                         f'{float(y[differ].abs().max())}')
+  want = [K.cnn_layer_plain(*cpu, dilation=d),
+          *K.cnn_layer_bwd_plain(*cpu, ct, dilation=d, mask=mask)]
+  names = ('out', 'dx', 'dbias_row', 'dln_scale', 'dln_bias', 'dkernel',
+           'dconv_bias')
+  errs = {nm: _card_vs_cpu(f'cnn_layer L={l} {nm}', a.cpu(), b)[0]
+          for nm, a, b in zip(names, got, want)}
+  return {'shape': [n, l, c], 'dilation': d, 'launches': 0,
+          'mask_flips': int(differ.sum()), 'max_abs_err': errs}
 
 
 # (L, Cin, Cout) of the six k=5 tower convs at L=200, and the (L, C) of
@@ -1506,6 +1729,9 @@ def main() -> None:
         'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count(), 'nvcc_build_s': build_s})
 
+  sass = sass_counts()
+  emit({'phase': 'sass', **sass})
+
   gen = torch.Generator('cuda').manual_seed(0)
   results = {}
   checks = [('cnn_layer', check_cnn_layer),
@@ -1547,6 +1773,10 @@ def main() -> None:
   emit({'phase': 'kernel', 'kernel': 'gumbel_candidates',
         'dtype': 'float32', **r})
   results[('gumbel_candidates', 'float32')] = r
+
+  r = check_cnn_layer_past_limit()
+  torch.cuda.synchronize()
+  emit({'phase': 'cnn_layer_past_limit', **r})
 
   r = check_models()
   torch.cuda.synchronize()
@@ -1619,10 +1849,13 @@ def main() -> None:
              'library_ms': f32.get('library_ms')}
     if len(info) > 2:
       entry['also_computes'] = info[2]
+    if name in sass:
+      entry['sass'] = sass[name]
     entry['launches_by_run'] = {a: d['launches'].get(name, 0)
                                 for a, d in runs.items()}
     entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev',
-                                      'mask_flips', 'library')
+                                      'mask_flips', 'mask_bitwise',
+                                      'library', 'max_abs_err_by_length')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:

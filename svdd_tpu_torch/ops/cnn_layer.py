@@ -27,6 +27,11 @@ activation type, which is exact), and the LayerNorm backward on the f32
 normalised rows. The backward kernel rebuilds the mask with the forward
 kernel's own code (``csrc/cnn_layer.cuh``), so on the card the mask is
 the forward's bit for bit.
+
+Both kernels hold a whole sequence in one block's shared memory
+(``kernel_takes``); a CUDA tensor of a longer sequence takes the plain
+versions, as ``cnn_layer_fused`` takes ``cnn_layer_reference`` where its
+kernel's memory plan does not fit.
 """
 
 from __future__ import annotations
@@ -39,7 +44,32 @@ from svdd_tpu_torch import _build
 from svdd_tpu_torch.ops.conv1d import _conv_forward, conv_bwd_f32
 from svdd_tpu_torch.ops.kernel_utils import live_offsets, live_taps
 
-TILE_ROWS = 64    # output rows per block of both kernels
+PASS_ROWS = 240   # output rows per block of both kernels (cnn_layer.cuh)
+C = 128           # the channels the kernels are built for
+# shared memory of a block (csrc/cnn_layer.cuh smem_bytes): the weight
+# ring (2 stages of 8 KB in f32, 3 of 16 KB in bf16), then the sequence
+# and one zero row, each row of C values padded by 16 bytes
+_RING_BYTES = {torch.float32: 2 * 8192, torch.bfloat16: 3 * 16384}
+SMEM_MAX = 232448   # an H100 block's dynamic shared memory
+# blocks of the backward's weight-gradient kernel an H100 runs at once
+# (two an SM, 132 SMs): its row chunks fill them once, which ran faster
+# than two waves, and leaves fewer partial sums to add
+WGRAD_SLOTS = 2 * 132
+
+
+def kernel_takes(l: int, dtype) -> bool:
+  """Whether the kernels hold a sequence of ``l`` rows of ``dtype``: the
+  shared-memory plan of ``csrc/cnn_layer.cuh`` (``smem_bytes``), up to
+  L = 408 in float32 and 672 in bfloat16. A longer sequence takes the
+  plain versions, as ``svdd_tpu``'s ``cnn_layer_fused`` takes
+  ``cnn_layer_reference`` where ``_pick_tile_n(...) == 0``
+  (``svdd_tpu/ops/cnn_layer_pallas.py:662-670``). Raises for a dtype the
+  kernels are not built for."""
+  if dtype not in _RING_BYTES:
+    raise TypeError(f'cnn_layer kernels take float32 or bfloat16, got '
+                    f'{dtype}')
+  row = C * torch.empty((), dtype=dtype).element_size() + 16
+  return _RING_BYTES[dtype] + (l + 1) * row <= SMEM_MAX
 
 
 def _normalised(x, bias_row, eps: float):
@@ -104,23 +134,25 @@ def cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
           dacc.sum((0, 1)).to(conv_bias.dtype))
 
 
+def _plain(x) -> bool:
+  """Whether x takes the plain versions: a CPU tensor, or a sequence
+  longer than a block holds (``kernel_takes``). Any other tensor
+  launches the kernels or raises."""
+  return x.device.type == 'cpu' or not kernel_takes(x.shape[1], x.dtype)
+
+
 def _check(name, x, kernel):
-  n, l, c = x.shape
-  if kernel.shape[1:] != (c, c) or c != 128:
-    raise ValueError(f'{name} kernel takes C=128 square taps, got '
+  c = x.shape[-1]
+  if kernel.shape[1:] != (c, c) or c != C:
+    raise ValueError(f'{name} kernel takes C={C} square taps, got '
                      f'x {tuple(x.shape)} kernel {tuple(kernel.shape)}')
-  # a block holds the sequence and one f32 weight chunk in shared
-  # memory, at most 227 KB on an H100
-  if l * c * x.element_size() + 16 * c * 4 > 227 * 1024:
-    raise ValueError(f'{name} kernel: L={l} does not fit in shared '
-                     f'memory for {x.dtype}')
 
 
 def _cnn_layer(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
                dilation: int, eps: float):
-  """The forward through the CUDA kernel (CUDA tensors) or the plain
-  version (CPU tensors)."""
-  if x.device.type == 'cpu':
+  """The forward through the CUDA kernel, or the plain version (CPU
+  tensors, sequences past ``kernel_takes``)."""
+  if _plain(x):
     return cnn_layer_plain(x, bias_row, ln_scale, ln_bias, kernel,
                            conv_bias, dilation, eps)
   _check('cnn_layer', x, kernel)
@@ -129,11 +161,13 @@ def _cnn_layer(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
   offsets = live_offsets(k_taps, l, dilation)
   dt = x.dtype
   x = x.contiguous()
-  w = kernel[live_taps(k_taps, l, dilation)].to(dt).contiguous()
+  # each live tap transposed to [out][in]: the mma's B operand by rows
+  w = kernel[live_taps(k_taps, l, dilation)].to(dt).transpose(1, 2)
   args = (x, bias_row.to(dt).contiguous(),
           ln_scale.float().contiguous(), ln_bias.float().contiguous(),
-          w, conv_bias.float().contiguous())
+          w.contiguous(), conv_bias.float().contiguous())
   _build.require_cuda('cnn_layer', *args)
+  _build.require_aligned('cnn_layer', *args)
   out = torch.empty_like(x)
   fn = _build.entry('svdd_cnn_layer')
   offs = _build.int_array(offsets)
@@ -149,12 +183,12 @@ def _cnn_layer(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
 def cnn_layer_bwd(x, bias_row, ln_scale, ln_bias, kernel, conv_bias, ct,
                   dilation: int = 1, eps: float = 1e-6, *,
                   return_mask: bool = False):
-  """The backward through the CUDA kernel (CUDA tensors) or
-  ``cnn_layer_bwd_plain`` (CPU tensors); same outputs. ``return_mask``
-  also returns the (N, L, C) relu mask the gradients used (the kernel
-  recomputes the forward kernel's, bit for bit), so the kernel can be
-  held against the plain version on the same mask."""
-  if x.device.type == 'cpu':
+  """The backward through the CUDA kernel, or ``cnn_layer_bwd_plain``
+  (CPU tensors, sequences past ``kernel_takes``); same outputs.
+  ``return_mask`` also returns the (N, L, C) relu mask the gradients used
+  (the kernel recomputes the forward kernel's, bit for bit), so the
+  kernel can be held against the plain version on the same mask."""
+  if _plain(x):
     grads = cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel,
                                 conv_bias, ct, dilation, eps)
     if not return_mask:
@@ -173,16 +207,18 @@ def cnn_layer_bwd(x, bias_row, ln_scale, ln_bias, kernel, conv_bias, ct,
   dt = x.dtype
   f32 = dict(dtype=torch.float32, device=x.device)
   x = x.contiguous()
-  w = kernel[taps].to(dt).contiguous()
-  # the dgrad runs the forward's tap loop on flipped, transposed taps
-  wt = w.flip(0).transpose(1, 2).contiguous()
+  w = kernel[taps].to(dt)
+  # the mask pass takes the forward's transposed taps; the dgrad runs the
+  # same routine on the flipped stack, whose transposed taps are the
+  # untransposed weights
   args = (x, bias_row.to(dt).contiguous(),
           ln_scale.float().contiguous(), ln_bias.float().contiguous(),
-          w, wt, conv_bias.float().contiguous(), ct.to(dt).contiguous())
+          w.transpose(1, 2).contiguous(), w.flip(0).contiguous(),
+          conv_bias.float().contiguous(), ct.to(dt).contiguous())
   _build.require_cuda('cnn_layer_bwd', *args)
   _build.require_aligned('cnn_layer_bwd', *args)
-  tiles = -(-l // TILE_ROWS)
-  chunks = _build.row_chunks(n * l, k_live)
+  tiles = -(-l // PASS_ROWS)
+  chunks = max(1, min(WGRAD_SLOTS // k_live, n * l // 256))
   dx = torch.empty_like(x)
   dbr = torch.empty((n, c), **f32)
   dw = torch.empty((k_live, c, c), **f32)
@@ -229,7 +265,8 @@ class _CNNLayer(torch.autograd.Function):
 
 def cnn_layer(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
               dilation: int = 1, eps: float = 1e-6):
-  """The layer through the CUDA kernels for CUDA tensors, through the
-  plain versions for CPU tensors; differentiable in every input."""
+  """The layer through the CUDA kernels for CUDA tensors whose sequence
+  a block holds (``kernel_takes``), through the plain versions
+  otherwise; differentiable in every input."""
   return _CNNLayer.apply(x, bias_row, ln_scale, ln_bias, kernel,
                          conv_bias, dilation, eps)

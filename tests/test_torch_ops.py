@@ -61,6 +61,49 @@ def test_cnn_layer_plain_matches_pallas_kernel(dilation):
   np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize('dtype,l,takes', [
+    (torch.float32, 50, True), (torch.float32, 200, True),
+    (torch.float32, 408, True), (torch.float32, 409, False),
+    (torch.bfloat16, 50, True), (torch.bfloat16, 200, True),
+    (torch.bfloat16, 672, True), (torch.bfloat16, 673, False)])
+def test_cnn_layer_kernel_takes(dtype, l, takes):
+  """B1/B6 take a sequence a block's shared memory holds (just below and
+  above the limit; the f32 limit stays at least 400); a tensor off the
+  CPU past it takes the plain versions, any other launches the kernels."""
+  assert tcnn.kernel_takes(l, dtype) is takes
+  assert tcnn.kernel_takes(400, torch.float32)
+  x = torch.empty((2, l, 128), dtype=dtype, device='meta')
+  assert tcnn._plain(x) is not takes
+  assert tcnn._plain(torch.empty((2, l, 128), dtype=dtype))
+
+
+@pytest.mark.parametrize('dilation', [1, 64])
+def test_cnn_layer_long_sequence_matches_reference(dilation):
+  """At L=512, past what a block holds, the port's layer and its plain
+  backward against svdd_tpu's cnn_layer_reference and its VJP: 1e-5
+  relative, and 1e-5 of the largest |value| absolute, since a weight
+  gradient sums 1024 products per element in another order."""
+  rs = np.random.default_rng(512 + dilation)
+  n, l, c = 2, 512, 128
+  args = (rs.normal(size=(n, l, c)), rs.normal(size=(n, c)),
+          1 + 0.1 * rs.normal(size=c), 0.1 * rs.normal(size=c),
+          rs.normal(size=(9, c, c)) / np.sqrt(9 * c), 0.1 * rs.normal(size=c))
+  args = tuple(a.astype(np.float32) for a in args)
+  ct = rs.normal(size=(n, l, c)).astype(np.float32)
+  assert not tcnn.kernel_takes(l, torch.float32)
+  ref = lambda *a: jcnn.cnn_layer_reference(*a, dilation=dilation)
+  want, vjp = jax.vjp(ref, *map(jnp.asarray, args))
+  got = tcnn.cnn_layer(*map(_t, args), dilation=dilation)
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+  grads = tcnn.cnn_layer_bwd_plain(*map(_t, args), _t(ct), dilation=dilation)
+  names = ('dx', 'dbias_row', 'dln_scale', 'dln_bias', 'dkernel',
+           'dconv_bias')
+  for name, g, w in zip(names, grads, vjp(jnp.asarray(ct))):
+    w = np.asarray(w)
+    np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                               atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
 def _pool_inputs(lh, residual, seed):
   """JAX LNC inputs (2*lh, N, C) and their port (N, L, C) form."""
   rs = np.random.default_rng(seed)
