@@ -8,18 +8,19 @@ Phases, each printing one JSON line and ending in
 exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
-     the tensor-core mma instructions and registers of B1's and B6's
-     kernels as built (cuobjdump);
+     the tensor-core mma instructions and registers of B1's, B6's, B7's
+     and B14's product kernels as built (cuobjdump);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
      pool at its full-size shapes (B12 also at head dim 128 and at
      L = 200), in float32 and bfloat16, against its plain PyTorch
      version on the same inputs (the candidate draw on the noise the
-     kernel reports, and by
-     frequencies; the cnn layer's backward on the relu mask the kernel
-     reports), with median times of both, the time of one PyTorch call
-     computing the same function where there is one, and the least time
-     the card could take for the work;
+     kernel reports, and by frequencies; the cnn layer's backward on the
+     relu mask the kernel reports; B14's wrapper on shapes off JAX's
+     gate, which must take the plain version bit for bit), with median
+     times of both, the time of one PyTorch call computing the same
+     function where there is one, and the least time the card could take
+     for the work;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
      outputs, then the input gradients the guided decoders take, then
@@ -249,27 +250,32 @@ def compare(name: str, got, want, dtype: str) -> tuple[float, float]:
   return float(err.max()), float(err.max() / want.abs().max())
 
 
-# the kernels of B1 and B6 whose work is tap or weight-gradient products
-CNN_MMA_KERNELS = ('cnn_layer_kernel', 'cnn_bwd_mask_kernel',
-                   'cnn_bwd_dgrad_ln_kernel', 'cnn_bwd_wgrad_kernel')
+# the kernels whose work is tap or weight-gradient products, by library:
+# B1, B6, B7 and B14
+MMA_KERNELS = {'cnn_layer': ('cnn_layer_kernel',),
+               'cnn_layer_bwd': ('cnn_bwd_mask_kernel', 'cnn_bwd_dgrad_ln_kernel',
+                                 'cnn_bwd_wgrad_kernel'),
+               'conv1d_bwd': ('conv_bwd_dgrad_kernel', 'conv_bwd_wgrad_kernel'),
+               'fused_conv': ('fused_conv_kernel',)}
 
 
 def sass_counts() -> dict:
-  """{library: {kernel dtype: {HMMA, FFMA, REG, STACK}}} of B1's and B6's
-  libraries as built, read by cuobjdump: tensor-core mma and f32 FMA
+  """{library: {kernel dtype: {HMMA, FFMA, REG, STACK}}} of the libraries
+  of MMA_KERNELS as built, read by cuobjdump: tensor-core mma and f32 FMA
   instructions in each kernel's SASS, its registers and stack bytes.
-  Raises if a kernel of CNN_MMA_KERNELS has no HMMA."""
+  Raises if a kernel of MMA_KERNELS has no HMMA."""
   import re
   from svdd_tpu_torch import _build
   cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
+  names = [k for ks in MMA_KERNELS.values() for k in ks]
 
   def label(mangled):
-    kind = next((k for k in (*CNN_MMA_KERNELS, 'reduce_partials_kernel')
+    kind = next((k for k in (*names, 'reduce_partials_kernel')
                  if k in mangled), mangled)
     return f'{kind} {"bfloat16" if "bfloat16" in mangled else "float32"}'
 
   out = {}
-  for lib in ('cnn_layer', 'cnn_layer_bwd'):
+  for lib, kernels in MMA_KERNELS.items():
     path = str(_build._library_path(lib))
     dump = lambda flag: subprocess.run(
         [cuobjdump, flag, path], capture_output=True, text=True, check=True,
@@ -290,9 +296,10 @@ def sass_counts() -> dict:
       elif fn in counts and 'REG:' in line:
         for key in ('REG', 'STACK'):
           counts[fn][key] = int(re.search(key + r':(\d+)', line).group(1))
-    for fn, c in counts.items():
-      if fn.split()[0] in CNN_MMA_KERNELS and not c['HMMA']:
-        raise AssertionError(f'{lib}: {fn} has no tensor-core mma')
+    for kernel in kernels:
+      for dt in ('float32', 'bfloat16'):
+        if not counts.get(f'{kernel} {dt}', {}).get('HMMA'):
+          raise AssertionError(f'{lib}: {kernel} {dt} has no tensor-core mma')
     out[lib] = counts
   return out
 
@@ -310,12 +317,17 @@ CNN_SHAPE = (512, 200, 128)
 CNN_SMALL_N, CNN_SHORT_L = 8, 50
 
 
-def cnn_rows(l: int, d: int) -> int:
-  """Rows of tap products one sequence needs at dilation d: the sum over
-  the live taps of L - |offset|. A row whose source lies in the SAME
-  padding multiplies zeros and is not counted."""
+def live_rows(l: int, k: int = 5, d: int = 1) -> int:
+  """Rows of tap products one sequence needs: the sum over the live taps
+  of L - |offset| (a row whose source lies in the SAME padding multiplies
+  zeros and is not counted)."""
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  return sum(l - abs(o) for o in live_offsets(9, l, d))
+  return sum(l - abs(o) for o in live_offsets(k, l, d))
+
+
+def cnn_rows(l: int, d: int) -> int:
+  """live_rows of a k=9 CNN denoiser layer at dilation d."""
+  return live_rows(l, 9, d)
 
 
 def cnn_longest(dtype) -> int:
@@ -712,44 +724,82 @@ TOWER_POOLS = [(200, 768)] + POOL_SHAPES[1:] + [LAST_POOL]
 N_GRAD = 512
 
 
+# B7 is also held at N = 8 at the first and last tower convs, and at a
+# dilated conv whose outer taps are dead (L = 8, dilation 4: offsets -4,
+# 0, 4 live, +-8 dead): (N, L, Cin, Cout, dilation)
+CONV_BWD_POINTS = [(8, 100, 768, 768, 1), (8, 4, 1280, 1536, 1),
+                   (8, 8, 128, 128, 4)]
+
+
+def _conv_bwd_inputs(n, l, cin, cout, dtype, gen):
+  import torch
+  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
+  return (r(n, l, cin).to(dtype), (r(5, cin, cout) / (5 * cin) ** 0.5).to(dtype),
+          r(n, l, cout).to(dtype))
+
+
+def _conv_bwd_against_plain(x, w, ct, d, name, label):
+  from svdd_tpu_torch.ops import conv1d as K
+  dx, dw = K.conv1d_bwd(x, w, ct, d)
+  want_dx, want_dw = K.conv1d_bwd_plain(x, w, ct, d)
+  return [compare(f'{label} dx', dx, want_dx, name),
+          compare_sum(f'{label} dkernel', dw, want_dw, name)]
+
+
 def check_conv1d_bwd(dtype, gen):
-  """B7 at the six k=5 tower convs, against the plain version and timed
-  beside aten.convolution_backward (dgrad and wgrad in one call)."""
+  """B7 at the six k=5 tower convs at N = 512, against the plain version,
+  each timed by the card's own time for a call (device_ms, the profiler:
+  the kernels and the wrapper's copies) and by CUDA events around it
+  (median_ms), beside aten.convolution_backward (dgrad and wgrad in one
+  call; TF32 off in f32); then at CONV_BWD_POINTS. ms is the six convs of
+  one value-net backward, device time; flops count the live rows
+  (live_rows)."""
   import torch
   from svdd_tpu_torch.ops import conv1d as K
+  from svdd_tpu_torch.ops.kernel_utils import live_offsets
   name = str(dtype).split('.')[-1]
   n = N_GRAD
-  errs, ms, plain_ms, lib_ms, flops, nbytes = [], 0.0, 0.0, 0.0, 0, 0
+  errs, per_conv, flops, nbytes = [], [], 0, 0
   for l, cin, cout in TOWER_CONVS:
-    r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
-    x, ct = r(n, l, cin).to(dtype), r(n, l, cout).to(dtype)
-    w = (r(5, cin, cout) / (5 * cin) ** 0.5).to(dtype)
-    dx, dw = K.conv1d_bwd(x, w, ct)
-    want_dx, want_dw = K.conv1d_bwd_plain(x, w, ct)
-    errs += [compare(f'conv1d_bwd L={l} {cin}->{cout} dx', dx, want_dx, name),
-             compare_sum(f'conv1d_bwd L={l} {cin}->{cout} dkernel', dw,
-                         want_dw, name)]
-    del dx, dw, want_dx, want_dw
+    x, w, ct = _conv_bwd_inputs(n, l, cin, cout, dtype, gen)
+    errs += _conv_bwd_against_plain(x, w, ct, 1, name, f'conv1d_bwd L={l} {cin}->{cout}')
     x_ncl, ct_ncl = x.transpose(1, 2).contiguous(), ct.transpose(1, 2).contiguous()
     w_oik = w.permute(2, 1, 0).contiguous()
     library = lambda: torch.ops.aten.convolution_backward(
         ct_ncl, x_ncl, w_oik, None, [1], [2], [1], False, [0], 1,
         [True, True, False])
-    ms += median_ms(lambda: K.conv1d_bwd(x, w, ct))
-    plain_ms += median_ms(lambda: K.conv1d_bwd_plain(x, w, ct), iters=3)
-    lib_ms += median_ms(library)
     es = x.element_size()
-    flops += 2 * 2 * n * l * 5 * cin * cout
-    nbytes += (2 * n * l * cin + n * l * cout) * es + 5 * cin * cout * (es + 4)
+    k_live = len(live_offsets(5, l))
+    fl = 2 * 2 * n * live_rows(l) * cin * cout
+    flops += fl
+    nbytes += (2 * n * l * cin + n * l * cout) * es + k_live * cin * cout * (es + 4)
+    ms = device_ms(lambda: K.conv1d_bwd(x, w, ct))
+    per_conv.append({'shape': [n, l, cin, cout], 'ms': ms,
+                     'median_ms': median_ms(lambda: K.conv1d_bwd(x, w, ct)),
+                     'plain_ms': median_ms(lambda: K.conv1d_bwd_plain(x, w, ct),
+                                           iters=3),
+                     'library_ms': median_ms(library),
+                     'tflops': fl / ms / 1e9})
     del x, ct, w, x_ncl, ct_ncl, w_oik
     torch.cuda.empty_cache()
-  return {'shapes': [[n, l, cin, cout] for l, cin, cout in TOWER_CONVS],
-          'max_abs_err': max(e[0] for e in errs),
-          'max_rel_err': max(e[1] for e in errs),
-          # ms: the six tower convs of one value-net backward
-          'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
-          'library': 'torch.ops.aten.convolution_backward',
-          'flops': flops, 'bytes': nbytes}
+  points = {}
+  for n_, l, cin, cout, d in CONV_BWD_POINTS:
+    x, w, ct = _conv_bwd_inputs(n_, l, cin, cout, dtype, gen)
+    label = f'conv1d_bwd N={n_} L={l} {cin}->{cout} d={d}'
+    dx_err, dw_err = _conv_bwd_against_plain(x, w, ct, d, name, label)
+    points[label] = {'dx': dx_err[0], 'dkernel': dw_err[0]}
+  total = lambda k: sum(c[k] for c in per_conv)
+  r = {'shapes': [c['shape'] for c in per_conv],
+       'max_abs_err': max(e[0] for e in errs),
+       'max_rel_err': max(e[1] for e in errs),
+       'max_abs_err_points': points,
+       # the six tower convs of one value-net backward
+       'ms': total('ms'), 'device_ms': total('ms'),
+       'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
+       'library_ms': total('library_ms'),
+       'library': 'torch.ops.aten.convolution_backward',
+       'per_conv': per_conv, 'flops': flops, 'bytes': nbytes}
+  return _cnn_rates(r, name)
 
 
 def check_attn_pool_bwd(dtype, gen):
@@ -922,48 +972,92 @@ def check_nacdr_im2col(dtype, gen):
           'library_ms': None, 'flops': flops, 'bytes': nbytes}
 
 
+def _fused_conv_inputs(n, l, cin, cout, dtype, gen):
+  import torch
+  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
+  scale, shift = _affine(cin, gen)
+  return (r(n, l, cin).to(dtype), (r(5, cin, cout) / (5 * cin) ** 0.5).to(dtype),
+          (0.1 * r(cout)).to(dtype), scale, shift, 'gelu')
+
+
+# B14 is also held at a ragged point on the 128-lane grid (N = 8, L = 3:
+# one row tile, most of it past the last row), launching the kernel
+FUSED_RAGGED = (8, 3, 128, 256)
+# the repair of ROADMAP C: shapes off JAX's gate (Basenji's default
+# widths 324 -> 108, and 128 -> 108) take the plain version on the card
+FUSED_OFF_GATE = ((8, 25, 324, 108), (8, 25, 128, 108))
+
+
 def check_fused_conv1d(dtype, gen):
   """B14 at the two 128-lane residual convs, against the plain version
   (which rounds the conv output before its bias: one ulp of the type at
-  most, inside TOL), and timed beside F.conv1d on the already activated
-  input, the conv alone, as a yardstick; ms is one call of each."""
+  most, inside TOL), timed by the card's own time for a call (device_ms)
+  and by CUDA events (median_ms), beside F.conv1d on the already activated
+  input, the conv alone, as a yardstick; ms is one call of each, device
+  time; flops count the live rows. Then the ragged point, with a launch,
+  and the off-gate shapes through fused_conv1d on the card: each equal to
+  fused_conv1d_reference bit for bit, with no launch."""
   import torch
   import torch.nn.functional as F
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import fused_conv as K
-  from svdd_tpu_torch.ops.im2col import nacdr_im2col_reference
   from svdd_tpu_torch.ops.kernel_utils import act, live_offsets
   name = str(dtype).split('.')[-1]
   n, l = IM2COL_ROWS, IM2COL_L
   k_live = len(live_offsets(5, l))
-  errs, ms, plain_ms, lib_ms, flops, nbytes = [], 0.0, 0.0, 0.0, 0, 0
+  errs, per_conv, flops, nbytes = [], [], 0, 0
   for cin, cout in FUSED_CONVS:
-    r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
-    x = r(n, l, cin).to(dtype)
-    w = (r(5, cin, cout) / (5 * cin) ** 0.5).to(dtype)
-    b = (0.1 * r(cout)).to(dtype)
-    scale, shift = _affine(cin, gen)
-    args = (x, w, b, scale, shift, 'gelu')
+    args = _fused_conv_inputs(n, l, cin, cout, dtype, gen)
+    x, w, b, scale, shift, _ = args
     with torch.no_grad():
       errs.append(compare(f'fused_conv1d {cin}->{cout}', K.fused_conv1d(*args),
                           K.fused_conv1d_reference(*args), name))
-      ms += median_ms(lambda: K.fused_conv1d(*args), iters=10)
-      plain_ms += median_ms(lambda: K.fused_conv1d_reference(*args), iters=5)
       xg = act('gelu', x.float() * scale + shift).to(dtype).transpose(
           1, 2).contiguous()
       w_oik = w.permute(2, 1, 0).contiguous()
-      lib_ms += median_ms(lambda: F.conv1d(xg, w_oik, b, padding=2), iters=10)
+      fl = 2 * n * live_rows(l) * cin * cout
+      ms = device_ms(lambda: K.fused_conv1d(*args))
+      per_conv.append({
+          'shape': [n, l, cin, cout], 'ms': ms,
+          'median_ms': median_ms(lambda: K.fused_conv1d(*args), iters=10),
+          'plain_ms': median_ms(lambda: K.fused_conv1d_reference(*args), iters=5),
+          'library_ms': median_ms(lambda: F.conv1d(xg, w_oik, b, padding=2),
+                                  iters=10),
+          'tflops': fl / ms / 1e9})
     es = x.element_size()
-    flops += 2 * n * l * k_live * cin * cout
+    flops += fl
     nbytes += (n * l * (cin + cout) + k_live * cin * cout + cout) * es + 2 * cin * 4
-    del x, xg
+    del x, xg, args
     torch.cuda.empty_cache()
-  return {'shapes': [[n, l, cin, cout] for cin, cout in FUSED_CONVS], 'k': 5,
-          'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
-          'max_rel_err': max(e[1] for e in errs), 'ms': ms,
-          'plain_ms': plain_ms, 'library_ms': lib_ms,
-          'library': 'torch.nn.functional.conv1d on act(affine(x)): the '
-                     'conv alone, a yardstick',
-          'flops': flops, 'bytes': nbytes}
+  with torch.no_grad():
+    args = _fused_conv_inputs(*FUSED_RAGGED, dtype, gen)
+    before = _build.LAUNCHES['fused_conv1d']
+    ragged = compare(f'fused_conv1d {FUSED_RAGGED}', K.fused_conv1d(*args),
+                     K.fused_conv1d_reference(*args), name)[0]
+    if _build.LAUNCHES['fused_conv1d'] != before + 1:
+      raise AssertionError(f'fused_conv1d {FUSED_RAGGED}: no launch')
+    off_gate = {}
+    for shape in FUSED_OFF_GATE:
+      args = _fused_conv_inputs(*shape, dtype, gen)
+      before = _build.LAUNCHES['fused_conv1d']
+      got, want = K.fused_conv1d(*args), K.fused_conv1d_reference(*args)
+      launched = _build.LAUNCHES['fused_conv1d'] - before
+      if launched or not torch.equal(got, want):
+        raise AssertionError(f'fused_conv1d {shape} {name}: {launched} '
+                             'launches or not the plain value bit for bit')
+      off_gate[str(shape)] = {'launches': launched, 'bitwise': True}
+  total = lambda k: sum(c[k] for c in per_conv)
+  r = {'shapes': [c['shape'] for c in per_conv], 'k': 5,
+       'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
+       'max_rel_err': max(e[1] for e in errs),
+       'max_abs_err_points': {str(FUSED_RAGGED): ragged}, 'off_gate': off_gate,
+       'ms': total('ms'), 'device_ms': total('ms'),
+       'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
+       'library_ms': total('library_ms'),
+       'library': 'torch.nn.functional.conv1d on act(affine(x)): the '
+                  'conv alone, a yardstick',
+       'per_conv': per_conv, 'flops': flops, 'bytes': nbytes}
+  return _cnn_rates(r, name)
 
 
 def _offgrid_pool_inputs(dtype, gen):
@@ -1849,13 +1943,16 @@ def main() -> None:
              'library_ms': f32.get('library_ms')}
     if len(info) > 2:
       entry['also_computes'] = info[2]
-    if name in sass:
-      entry['sass'] = sass[name]
+    lib = os.path.basename(info[0])[:-len('.cu')]
+    if lib in sass:
+      entry['sass'] = sass[lib]
     entry['launches_by_run'] = {a: d['launches'].get(name, 0)
                                 for a, d in runs.items()}
     entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev',
                                       'mask_flips', 'mask_bitwise',
-                                      'library', 'max_abs_err_by_length')
+                                      'library', 'max_abs_err_by_length',
+                                      'device_ms', 'median_ms',
+                                      'max_abs_err_points', 'off_gate')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -1864,6 +1961,8 @@ def main() -> None:
                    bound_ms_bf16=bf['bound_ms'])
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
+      if 'median_ms' in bf:
+        entry['median_ms_bf16'] = bf['median_ms']
     if 'tflops' in f32:
       entry.update({k: f32[k] for k in ('peak', 'tflops', 'bound_share',
                                         'fma_bound_ms', 'fma_bound_share')})

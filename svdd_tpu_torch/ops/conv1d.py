@@ -8,12 +8,13 @@ XLA as well (``conv1d_bwd_pallas.py:27-31``).
 
 Backward kernel: ``csrc/conv1d_bwd.cu``, which replaces
 ``svdd_tpu/ops/conv1d_bwd_pallas.py:conv1d_bwd_pallas`` (pallas_call
-:141): dgrad and wgrad of the live taps, dead taps getting zero
-gradients. A conv whose shape passes ``conv_bwd_ok`` and that autograd
-records runs through ``_ConvShifted``, whose backward is that kernel
-on CUDA tensors and ``conv1d_bwd_plain`` on CPU tensors; every other
-conv is differentiated by PyTorch's own convolution backward, as the
-JAX package leaves those shapes to XLA. The bias gradient is PyTorch's
+:141): dgrad and wgrad of the live taps on the tensor cores (bf16 mma,
+f32 as 3xTF32), dead taps getting zero gradients. A conv whose shape
+passes ``conv_bwd_ok`` and that autograd records runs through
+``_ConvShifted``, whose backward is that kernel on CUDA tensors and
+``conv1d_bwd_plain`` on CPU tensors; every other conv is differentiated
+by PyTorch's own convolution backward, as the JAX package leaves those
+shapes to XLA. The bias gradient is PyTorch's
 reduction in both cases (``conv1d.py:43-46``).
 
 ``conv1d_prologue`` is the prologue route of the JAX ``Conv1D``
@@ -114,18 +115,23 @@ def conv1d_bwd(x, kernel, ct, dilation: int = 1):
   k_live = len(offsets)
   x = x.contiguous()
   ct = ct.to(dt).contiguous()
-  wt = kernel[taps].to(dt).transpose(1, 2).contiguous()   # W_t^T
-  _build.require_cuda('conv1d_bwd', x, ct, wt)
-  _build.require_aligned('conv1d_bwd', x, ct, wt)
+  # the dgrad's B operand: the live taps in reverse order (the mirrored
+  # tap sum of csrc/conv1d_bwd.cu), each stored by rows of Cin
+  wflip = kernel[taps].to(dt).flip(0).contiguous()
+  # the kernel copies rows of x and ct in 16-byte chunks (rows of 128
+  # channels are whole chunks: conv_bwd_ok)
+  _build.require_aligned('conv1d_bwd', x, ct, wflip)
+  _build.require_cuda('conv1d_bwd', x, ct, wflip)
   chunks = _build.row_chunks(n * l, k_live * (c_in // 128) * (c_out // 128))
   dx = torch.empty_like(x)
   dw = torch.empty((k_live, c_in, c_out), dtype=torch.float32,
                    device=x.device)
-  scratch = torch.empty(chunks * k_live * c_in * c_out,
+  # the row chunks' partial sums of dW, where there is more than one
+  scratch = torch.empty(chunks * k_live * c_in * c_out if chunks > 1 else 0,
                         dtype=torch.float32, device=x.device)
   offs = _build.int_array(offsets)
   rc = _build.entry('svdd_conv1d_bwd')(
-      x.data_ptr(), wt.data_ptr(), ct.data_ptr(), dx.data_ptr(),
+      x.data_ptr(), wflip.data_ptr(), ct.data_ptr(), dx.data_ptr(),
       dw.data_ptr(), scratch.data_ptr(), ctypes.addressof(offs), k_live,
       n, l, c_in, c_out, chunks, _build.dtype_code(x),
       _build.stream_ptr(x))

@@ -149,6 +149,67 @@ def test_fused_conv1d_plain_bf16_matches_reference():
   np.testing.assert_allclose(got.float().numpy(), _f32(want), **BF16_TOL)
 
 
+# (N, L, Cin, Cout, K) around B14's gate: on the 128-lane grid, then one
+# term of JAX's gate broken at a time (Basenji's default residual width
+# 108 on either side, N % 8 != 0, an even K)
+GATE_CASES = {'on_grid': (8, 4, 128, 256, 5), 'cin_off_grid': (8, 4, 108, 128, 5),
+              'cout_off_grid': (8, 4, 128, 108, 5), 'n_not_8': (6, 4, 128, 128, 5),
+              'even_k': (8, 4, 128, 128, 4)}
+
+
+@pytest.mark.parametrize('case', sorted(GATE_CASES))
+def test_fused_conv_kernel_takes_matches_jax_gate(case, monkeypatch):
+  """B14's dispatch follows svdd_tpu's ``fused_conv1d`` gate: the port's
+  ``fused_conv_kernel_takes`` agrees with the branch the JAX dispatcher
+  takes with ``use_pallas=True`` (its Pallas call replaced by a recorder),
+  and off the CPU the port's ``fused_conv1d`` sends exactly those shapes
+  to the kernel wrapper (which on 'meta' tensors stops at its device
+  check: no card here) and every other shape to the plain version."""
+  n, l, cin, cout, k = GATE_CASES[case]
+  pallas = []
+  monkeypatch.setattr(jfc, 'fused_conv1d_pallas',
+                      lambda x, *a, **kw: pallas.append(x.shape) or x)
+  z = lambda *s: jnp.zeros(s, jnp.float32)
+  jfc.fused_conv1d(z(n, l, cin), z(k, cin, cout), z(cout), z(cin), z(cin),
+                   act='gelu', use_pallas=True)
+  takes = tfc.fused_conv_kernel_takes(n, k, cin, cout)
+  assert takes is (pallas == [(n, l, cin)])
+  plain = []
+  monkeypatch.setattr(tfc, 'fused_conv1d_reference',
+                      lambda x, *a: plain.append(tuple(x.shape)) or x)
+  m = lambda *s: torch.empty(s, device='meta')
+  args = (m(n, l, cin), m(k, cin, cout), m(cout), m(cin), m(cin), 'gelu')
+  if takes:
+    with pytest.raises(ValueError, match='CUDA device'):
+      tfc.fused_conv1d(*args)
+    assert plain == []
+  else:
+    tfc.fused_conv1d(*args)
+    assert plain == [(n, l, cin)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['start', 'off_grid', 'aligned'])
+def test_fused_conv_wrapper_needs_16_byte_rows(case, dtype):
+  """B14's kernel copies rows of x in 16-byte chunks into shared memory,
+  so its wrapper refuses, before any launch, an x that starts off a
+  16-byte boundary, and a shape off the 128-lane grid (rows that are not
+  whole chunks, which ``fused_conv1d`` never sends it); an aligned
+  on-grid x reaches the device check. Shown on 'meta' tensors (no card
+  here)."""
+  c = 108 if case == 'off_grid' else 128
+  m = lambda *s: torch.empty(s, device='meta', dtype=dtype)
+  x = m(8, 4, c)
+  if case == 'start':
+    x = m(8 * 4 * c + 1)[1:].view(8, 4, c)
+    assert x.data_ptr() % 16
+  match = {'start': 'start 16-byte aligned', 'off_grid':
+           'fail fused_conv_kernel_takes', 'aligned': 'CUDA device'}[case]
+  f = lambda *s: torch.empty(s, device='meta')
+  with pytest.raises(ValueError, match=match):
+    tfc._fused_conv1d_kernel(x, m(5, c, 128), m(128), f(c), f(c), 'gelu')
+
+
 def _port_block(jblock, variables, x):
   """The port's ConvBlock with the JAX block's fields and variables."""
   block = blocks.ConvBlock(

@@ -91,6 +91,8 @@ def test_cnn_layer_bwd_plain_matches_pallas_kernel(dilation):
 @pytest.mark.parametrize('l,dilation,c_in,c_out', [
     (20, 1, 128, 256),     # a tower conv shape: k=5, Cin != Cout
     (8, 4, 128, 128),      # offsets +-8 are dead at L=8
+    (4, 1, 128, 256),      # the tower's last lengths: a sequence shorter
+    (7, 1, 128, 256),      # than the kernel's row tiles, all five taps live
 ])
 def test_conv1d_bwd_plain_matches_pallas_kernel(l, dilation, c_in, c_out):
   """B7: dgrad and wgrad; dead taps get zero weight gradients."""
@@ -107,6 +109,51 @@ def test_conv1d_bwd_plain_matches_pallas_kernel(l, dilation, c_in, c_out):
   if dilation == 4:
     assert len(live_offsets(5, l, dilation)) == 3
     assert not got_dw[0].any() and not got_dw[4].any()
+
+
+BF16_SUM = 2 ** -7
+
+
+def test_conv1d_bwd_plain_bf16_matches_pallas_kernel():
+  """B7 in bf16, inputs rounded to bf16 and fed to both: dgrad and wgrad
+  sum exact bf16 products in f32 in both packages, dx rounded to bf16 once
+  and the JAX kernel's dkernel rounded to bf16 (the kernel's dtype), so
+  they agree to the bf16 sums' rule, 2^-7 of the largest value (and 2^-7
+  relative per element for dx)."""
+  rs = np.random.default_rng(77)
+  x, w, ct = (_t(_normal(rs, s, sc)).to(torch.bfloat16)
+              for s, sc in (((8, 13, 128), 1.0), ((5, 128, 256), 0.1),
+                            ((8, 13, 256), 1.0)))
+  as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+  want_dx, want_dw = (np.asarray(a.astype(jnp.float32)) for a in
+                      jconv.conv1d_bwd_pallas(as_jax(x), as_jax(w), as_jax(ct),
+                                              interpret=True))
+  got_dx, got_dw = tconv.conv1d_bwd_plain(x, w, ct)
+  assert got_dx.dtype == torch.bfloat16 and got_dw.dtype == torch.float32
+  np.testing.assert_allclose(got_dx.float().numpy(), want_dx, rtol=BF16_SUM,
+                             atol=BF16_SUM * np.abs(want_dx).max())
+  np.testing.assert_allclose(got_dw.numpy(), want_dw, rtol=0,
+                             atol=BF16_SUM * np.abs(want_dw).max())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['start', 'off_grid', 'aligned'])
+def test_conv1d_bwd_wrapper_needs_16_byte_rows(case, dtype):
+  """B7's kernels copy rows of x and ct in 16-byte chunks into shared
+  memory, so the wrapper refuses, before any launch, an x that starts off
+  a 16-byte boundary and a shape ``conv_bwd_ok`` refuses (channels off
+  the 128-lane grid: rows that are not whole chunks); an aligned on-grid
+  x reaches the device check. Shown on 'meta' tensors (no card here)."""
+  c = 108 if case == 'off_grid' else 128
+  m = lambda *s: torch.empty(s, device='meta', dtype=dtype)
+  x = m(8, 7, c)
+  if case == 'start':
+    x = m(8 * 7 * c + 1)[1:].view(8, 7, c)
+    assert x.data_ptr() % 16
+  match = {'start': 'start 16-byte aligned', 'off_grid': 'fail conv_bwd_ok',
+           'aligned': 'CUDA device'}[case]
+  with pytest.raises(ValueError, match=match):
+    tconv.conv1d_bwd(x, m(5, c, 256), m(8, 7, 256))
 
 
 def _pool_case(odd, residual, seed):
