@@ -8,8 +8,8 @@ Phases, each printing one JSON line and ending in
 exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
-     the tensor-core mma instructions and registers of B1's, B6's, B7's
-     and B14's product kernels as built (cuobjdump);
+     the tensor-core mma instructions and registers of B1's, B6's, B7's,
+     B14's and B3/B4's product kernels as built (cuobjdump);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
      pool at its full-size shapes (B12 also at head dim 128 and at
@@ -17,10 +17,11 @@ exits non-zero and prints no result:
      version on the same inputs (the candidate draw on the noise the
      kernel reports, and by frequencies; the cnn layer's backward on the
      relu mask the kernel reports; B14's wrapper on shapes off JAX's
-     gate, which must take the plain version bit for bit), with median
-     times of both, the time of one PyTorch call computing the same
-     function where there is one, and the least time the card could take
-     for the work;
+     gate, which must take the plain version bit for bit; B3 and B4 also
+     at short points, N = 6 and 8, and B4 at the classifier's seven N = 512
+     pools), with median times of both, the time of one PyTorch call
+     computing the same function where there is one, and the least time
+     the card could take for the work;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
      outputs, then the input gradients the guided decoders take, then
@@ -250,20 +251,23 @@ def compare(name: str, got, want, dtype: str) -> tuple[float, float]:
   return float(err.max()), float(err.max() / want.abs().max())
 
 
-# the kernels whose work is tap or weight-gradient products, by library:
-# B1, B6, B7 and B14
+# the kernels whose work is tap, weight-gradient or pool products, by
+# library: B1, B6, B7, B14, and B3 with B4 (one template)
 MMA_KERNELS = {'cnn_layer': ('cnn_layer_kernel',),
                'cnn_layer_bwd': ('cnn_bwd_mask_kernel', 'cnn_bwd_dgrad_ln_kernel',
                                  'cnn_bwd_wgrad_kernel'),
                'conv1d_bwd': ('conv_bwd_dgrad_kernel', 'conv_bwd_wgrad_kernel'),
-               'fused_conv': ('fused_conv_kernel',)}
+               'fused_conv': ('fused_conv_kernel',),
+               'attn_pool': ('attn_pool_kernel',)}
 
 
 def sass_counts() -> dict:
   """{library: {kernel dtype: {HMMA, FFMA, REG, STACK}}} of the libraries
   of MMA_KERNELS as built, read by cuobjdump: tensor-core mma and f32 FMA
-  instructions in each kernel's SASS, its registers and stack bytes.
-  Raises if a kernel of MMA_KERNELS has no HMMA."""
+  instructions in each kernel's SASS, its registers and stack bytes; a
+  kernel built more than once for a type (B3/B4's flags) is counted once
+  per build, the later ones labelled '#2', '#3', .... Raises if a build
+  of a kernel of MMA_KERNELS has no HMMA."""
   import re
   from svdd_tpu_torch import _build
   cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
@@ -280,10 +284,14 @@ def sass_counts() -> dict:
     dump = lambda flag: subprocess.run(
         [cuobjdump, flag, path], capture_output=True, text=True, check=True,
         timeout=120).stdout
-    counts, fn = {}, None
+    counts, labels, fn = {}, {}, None
     for line in dump('-sass').splitlines():
       if 'Function :' in line:
-        fn = label(line.split('Function :')[1].strip())
+        mangled = line.split('Function :')[1].strip()
+        fn = kind = label(mangled)
+        if kind in counts:
+          fn = f'{kind} #{sum(k.startswith(kind) for k in counts) + 1}'
+        labels[mangled] = fn
         counts[fn] = {'HMMA': 0, 'FFMA': 0}
       elif fn is not None:
         for op in ('HMMA', 'FFMA'):
@@ -292,14 +300,18 @@ def sass_counts() -> dict:
     for line in dump('-res-usage').splitlines():
       m = re.match(r'\s*Function (\S+):', line)
       if m:
-        fn = label(m.group(1))
+        fn = labels.get(m.group(1))
       elif fn in counts and 'REG:' in line:
         for key in ('REG', 'STACK'):
           counts[fn][key] = int(re.search(key + r':(\d+)', line).group(1))
     for kernel in kernels:
       for dt in ('float32', 'bfloat16'):
-        if not counts.get(f'{kernel} {dt}', {}).get('HMMA'):
-          raise AssertionError(f'{lib}: {kernel} {dt} has no tensor-core mma')
+        kind = f'{kernel} {dt}'
+        builds = [v for k, v in counts.items()
+                  if k == kind or k.startswith(kind + ' #')]
+        if not builds or not all(v['HMMA'] for v in builds):
+          raise AssertionError(f'{lib}: a build of {kind} has no '
+                               'tensor-core mma')
     out[lib] = counts
   return out
 
@@ -529,63 +541,154 @@ POOL_SHAPES = [(200, 768), (100, 768), (50, 896), (25, 1024), (13, 1152),
                (7, 1280)]
 LAST_POOL = (4, 1536)
 N_CAND = 5120
+# B3 and B4 are also held at short points: (N, L, C, residual): one
+# pooled row (L = 1, the tail alone), odd tails with the residual, three
+# and five column tiles, 264 rows (three row tiles, the last partial),
+# and N = 6 (off the JAX dispatchers' N % 8: the kernels take it)
+POOL_POINTS = [(8, 1, 128, False), (8, 3, 256, True), (8, 7, 384, True),
+               (8, 65, 640, True), (6, 8, 128, True)]
 
 
-def _pool_inputs(l, c, dtype, gen):
+def _pool_inputs(l, c, dtype, gen, n=N_CAND):
   import torch
-  x = torch.randn(N_CAND, l, c, device='cuda', generator=gen).to(dtype)
-  res = torch.randn(N_CAND, l, c, device='cuda', generator=gen).to(dtype)
+  x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
+  res = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
   w = (2 * torch.eye(c, device='cuda') + torch.randn(
       c, c, device='cuda', generator=gen) / c ** 0.5).to(dtype)
   return x, res, w
 
 
-def check_attn_pool_im2col(dtype, gen):
-  """B3 at the six fused pools of one value forward (B*M = 5120)."""
+def _pool_args(l, c, dtype, gen, n=N_CAND, residual=True):
+  """Operands of pool_prologue_im2col_wlogits: x, W, the BN affine, k=5,
+  gelu_enformer, the residual."""
   import torch
+  x, res, w = _pool_inputs(l, c, dtype, gen, n)
+  scale = 1 + 0.2 * torch.randn(c, device='cuda', generator=gen)
+  shift = 0.2 * torch.randn(c, device='cuda', generator=gen)
+  return (x, w, scale, shift, 5, 'gelu_enformer', res if residual else None)
+
+
+def _pool_bytes(n, l, c, es, k_live=None):
+  """x and the residual read once, W read once, and the pooled rows (B4)
+  or the k_live im2col slabs and the affine (B3) written or read once."""
+  lh = (l + 1) // 2
+  if k_live is None:
+    return (2 * n * l * c + n * lh * c + c * c) * es
+  return (2 * n * l * c + c * c + n * lh * k_live * c) * es + 2 * c * 4
+
+
+def _pool_points(dtype, im2col: bool) -> dict:
+  """POOL_POINTS through the wrapper on the card, each one launch,
+  against the plain version: {label: max abs err}."""
+  import torch
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
+  gen = torch.Generator('cuda').manual_seed(8)
+  counter = 'attn_pool_prologue_im2col' if im2col else 'attn_pool'
+  points = {}
+  for n, l, c, residual in POOL_POINTS:
+    args = _pool_args(l, c, dtype, gen, n=n, residual=residual)
+    label = f'N={n} L={l} C={c}{" residual" if residual else ""}'
+    before = _build.LAUNCHES[counter]
+    if im2col:
+      got = K.pool_prologue_im2col_wlogits(*args)
+      want = K.pool_prologue_im2col_wlogits_plain(*args)
+    else:
+      x, w, res = args[0], args[1], args[-1]
+      got, want = K.attn_pool(x, w, res), K.attn_pool_plain(x, w, res)
+    if _build.LAUNCHES[counter] != before + 1:
+      raise AssertionError(f'{counter} {label}: no launch')
+    points[label] = compare(f'{counter} {label}', got, want, name)[0]
+  return points
+
+
+def check_attn_pool_im2col(dtype, gen):
+  """B3 at the six fused pools of one value forward (B*M = 5120), each
+  against the plain version and timed by the card's own time for a call
+  (device_ms, the profiler: the kernel and the wrapper's transpose of W)
+  and by CUDA events (median_ms); then at POOL_POINTS. ms is the six
+  pools, device time; achieved_tb_s the bytes they must move over it."""
+  import torch
+  from svdd_tpu_torch.ops import attn_pool as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  errs, ms, plain_ms, flops, nbytes = [], 0.0, 0.0, 0, 0
+  name = str(dtype).split('.')[-1]
+  errs, per_pool, flops, nbytes = [], [], 0, 0
   for l, c in POOL_SHAPES:
-    x, res, w = _pool_inputs(l, c, dtype, gen)
-    lh, es = (l + 1) // 2, x.element_size()
+    args = _pool_args(l, c, dtype, gen)
+    lh = (l + 1) // 2
     flops += 2 * N_CAND * lh * c * c
-    nbytes += ((2 * N_CAND * l * c + c * c
-                + N_CAND * lh * len(live_offsets(5, lh)) * c) * es + 2 * c * 4)
-    scale = 1 + 0.2 * torch.randn(c, device='cuda', generator=gen)
-    shift = 0.2 * torch.randn(c, device='cuda', generator=gen)
-    args = (x, w, scale, shift, 5, 'gelu_enformer', res)
+    nbytes += _pool_bytes(N_CAND, l, c, args[0].element_size(),
+                          len(live_offsets(5, lh)))
     got = K.pool_prologue_im2col_wlogits(*args)
     want = K.pool_prologue_im2col_wlogits_plain(*args)
     errs.append(compare(f'attn_pool_prologue_im2col L={l} C={c}', got,
                         want, name))
     del got, want
-    ms += median_ms(lambda: K.pool_prologue_im2col_wlogits(*args), iters=3)
-    plain_ms += median_ms(
-        lambda: K.pool_prologue_im2col_wlogits_plain(*args), iters=3)
+    call = lambda: K.pool_prologue_im2col_wlogits(*args)
+    per_pool.append({
+        'shape': [N_CAND, l, c], 'ms': device_ms(call, reps=5),
+        'median_ms': median_ms(call, iters=3),
+        'plain_ms': median_ms(
+            lambda: K.pool_prologue_im2col_wlogits_plain(*args), iters=3)})
+    del args
+    torch.cuda.empty_cache()
+  total = lambda k: sum(p[k] for p in per_pool)
+  r = {'shapes': [p['shape'] for p in per_pool],
+       'max_abs_err': max(e[0] for e in errs),
+       'max_rel_err': max(e[1] for e in errs),
+       'max_abs_err_points': _pool_points(dtype, True),
+       'ms': total('ms'), 'device_ms': total('ms'),
+       'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
+       'library_ms': None, 'per_pool': per_pool, 'flops': flops,
+       'bytes': nbytes, 'achieved_tb_s': nbytes / total('ms') / 1e9}
+  return _cnn_rates(r, name)
+
+
+def _attn_pool_at(n, shapes, dtype, gen):
+  """B4 with its residual at each (L, C) of shapes at N = n, against the
+  plain version: errors, and ms (device), median_ms, plain_ms, flops and
+  bytes summed over the shapes."""
+  import torch
+  from svdd_tpu_torch.ops import attn_pool as K
+  name = str(dtype).split('.')[-1]
+  errs, r = [], {'ms': 0.0, 'median_ms': 0.0, 'plain_ms': 0.0, 'flops': 0,
+                 'bytes': 0}
+  for l, c in shapes:
+    x, res, w = _pool_inputs(l, c, dtype, gen, n)
+    errs.append(compare(f'attn_pool N={n} L={l} C={c}', K.attn_pool(x, w, res),
+                        K.attn_pool_plain(x, w, res), name))
+    call = lambda: K.attn_pool(x, w, res)
+    r['ms'] += device_ms(call)
+    r['median_ms'] += median_ms(call, iters=10)
+    r['plain_ms'] += median_ms(lambda: K.attn_pool_plain(x, w, res), iters=10)
+    r['flops'] += 2 * n * ((l + 1) // 2) * c * c
+    r['bytes'] += _pool_bytes(n, l, c, x.element_size())
     del x, res, w
     torch.cuda.empty_cache()
-  return {'shapes': [[N_CAND, l, c] for l, c in POOL_SHAPES],
-          'max_abs_err': max(e[0] for e in errs),
-          'max_rel_err': max(e[1] for e in errs),
-          'ms': ms, 'plain_ms': plain_ms, 'flops': flops, 'bytes': nbytes}
+  r.update(max_abs_err=max(e[0] for e in errs),
+           max_rel_err=max(e[1] for e in errs))
+  return r
 
 
 def check_attn_pool(dtype, gen):
-  """B4 at the last tower pool (5120, 4, 1536) with its residual."""
-  from svdd_tpu_torch.ops import attn_pool as K
+  """B4 at the last tower pool (5120, 4, 1536) with its residual, timed
+  by the card's own time for a call (device_ms) and by CUDA events
+  (median_ms); then at the seven tower pools of the classifier's gradient
+  tower at N = 512 (classifier_pools), and at POOL_POINTS."""
   name = str(dtype).split('.')[-1]
-  x, res, w = _pool_inputs(*LAST_POOL, dtype, gen)
-  err, rel = compare('attn_pool', K.attn_pool(x, w, res),
-                     K.attn_pool_plain(x, w, res), name)
-  (l, c), lh, es = LAST_POOL, (LAST_POOL[0] + 1) // 2, x.element_size()
-  return {'shape': [N_CAND, *LAST_POOL], 'max_abs_err': err,
-          'max_rel_err': rel, 'flops': 2 * N_CAND * lh * c * c,
-          'bytes': (2 * N_CAND * l * c + N_CAND * lh * c + c * c) * es,
-          'ms': median_ms(lambda: K.attn_pool(x, w, res), iters=10),
-          'plain_ms': median_ms(lambda: K.attn_pool_plain(x, w, res),
-                                iters=10)}
+  r = _attn_pool_at(N_CAND, [LAST_POOL], dtype, gen)
+  r.update(shape=[N_CAND, *LAST_POOL], device_ms=r['ms'], library_ms=None,
+           max_abs_err_points=_pool_points(dtype, False))
+  r = _cnn_rates(r, name)
+  cls = _cnn_rates(_attn_pool_at(N_GRAD, TOWER_POOLS, dtype, gen), name)
+  r['classifier_pools'] = {
+      'shapes': [[N_GRAD, l, c] for l, c in TOWER_POOLS],
+      **{k: cls[k] for k in ('max_abs_err', 'ms', 'median_ms', 'plain_ms',
+                             'flops', 'bytes', 'bound_ms', 'bound_by',
+                             'tflops', 'bound_share', 'fma_bound_ms')
+         if k in cls}}
+  return r
 
 
 def check_attn_l2(dtype, gen):
@@ -1952,7 +2055,8 @@ def main() -> None:
                                       'mask_flips', 'mask_bitwise',
                                       'library', 'max_abs_err_by_length',
                                       'device_ms', 'median_ms',
-                                      'max_abs_err_points', 'off_gate')
+                                      'max_abs_err_points', 'off_gate',
+                                      'achieved_tb_s', 'classifier_pools')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -1961,8 +2065,9 @@ def main() -> None:
                    bound_ms_bf16=bf['bound_ms'])
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
-      if 'median_ms' in bf:
-        entry['median_ms_bf16'] = bf['median_ms']
+      for k in ('median_ms', 'achieved_tb_s', 'classifier_pools'):
+        if k in bf:
+          entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:
       entry.update({k: f32[k] for k in ('peak', 'tflops', 'bound_share',
                                         'fma_bound_ms', 'fma_bound_share')})

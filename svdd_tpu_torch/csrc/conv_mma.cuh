@@ -6,7 +6,9 @@
 // column tile of tap u's weight, stored by rows of n ([tap][n][k], k
 // contiguous). bf16 runs mma.sync m16n8k16 with f32 accumulators; f32
 // runs 3xTF32 (m16n8k8 tf32 on a big/small split of both operands,
-// mma.cuh), about 2^-20 relative a product.
+// mma.cuh), about 2^-20 relative a product. The warp product of one
+// landed stage (mma_stage) also runs the attention pool's GEMM (B3, B4:
+// attn_pool.cu), whose A slab is computed from pairs of rows.
 //
 // Block: 8 warps over a 128 x 128 output tile, 2 along the rows by 4
 // along the columns, each warp 64 x 32 (4 m16 by 4 n8 tiles).
@@ -172,6 +174,93 @@ __device__ __forceinline__ void activate_slab(unsigned char* slab, int rows, int
   }
 }
 
+// sum += A . B over one landed stage of KSteps mma k-steps (32 bytes of k
+// each): a_row[mi], this lane's ldmatrix row address in the A slab for
+// m16 tile mi, its 16-byte chunk included; b_row, its row of the (n, k)
+// B tile, chunk included; Pitch, the B tile's row pitch in bytes. bf16
+// m16n8k16; f32 3xTF32. The tap routine below and the attention pool
+// (attn_pool.cu) run their products here.
+template <typename T, int KSteps, int Pitch>
+__device__ __forceinline__ void mma_stage(const uint32_t (&a_row)[kMT], uint32_t b_row,
+                                          float (&sum)[kMT][kNT][4]) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+#pragma unroll
+  for (int kk = 0; kk < KSteps; ++kk) {
+    uint32_t b[kNT][2];
+#pragma unroll
+    for (int q = 0; q < kNT / 2; ++q) {
+      uint32_t r[4];
+      mma::ldsm_x4(r, b_row + 16 * q * Pitch + kk * 32);
+      b[2 * q][0] = r[0];
+      b[2 * q][1] = r[1];
+      b[2 * q + 1][0] = r[2];
+      b[2 * q + 1][1] = r[3];
+    }
+    uint32_t bb[kNT][2], bs[kNT][2];  // f32: b's tf32 big and small parts
+    if constexpr (!kBf16) {
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma::split_tf32(b[ni][j], bb[ni][j], bs[ni][j]);
+    }
+    // the A fragments of all four m16 tiles, then the mmas (in f32
+    // each 3xTF32 term over every tile before the next), so no mma
+    // waits on the one before it
+    uint32_t a[kMT][4], as[kMT][4];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+      mma::ldsm_x4(a[mi], a_row[mi] + kk * 32);
+      if constexpr (!kBf16) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma::split_tf32(a[mi][j], a[mi][j], as[mi][j]);
+      }
+    }
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          mma::mma_bf16(sum[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    } else {
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          mma::mma_tf32(sum[mi][ni], as[mi], bb[ni][0], bb[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          mma::mma_tf32(sum[mi][ni], a[mi], bs[ni][0], bs[ni][1]);
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+          mma::mma_tf32(sum[mi][ni], a[mi], bb[ni][0], bb[ni][1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_tile(float (&t)[kMT][kNT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t[mi][ni][j] = 0.f;
+}
+
+// acc += part, rounding to nearest: the flush of a stage's partial sum
+__device__ __forceinline__ void add_tile(float (&acc)[kMT][kNT][4],
+                                         const float (&part)[kMT][kNT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] += part[mi][ni][j];
+}
+
 // acc = the tap sum of the block's tile, rows m0.. (of NL) by columns
 // n0.. (of N), over K = the source's channels. With kAct the source is
 // activated per stage (scale, shift (K,) f32 and an ACT code).
@@ -185,7 +274,6 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
                                          unsigned char* smem,
                                          float (&acc)[kMT][kNT][4]) {
   using R = Ring<T>;
-  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int kKE = R::kKBytes / sizeof(T);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 1, wn = warp >> 1;
@@ -196,12 +284,7 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
   // the mmas' accumulators: a stage's own partial where R::kFlush, else acc
   float part[kMT][kNT][4];
   float (&sum)[kMT][kNT][4] = *(R::kFlush ? &part : &acc);
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNT; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+  zero_tile(acc);
 
   const int n_stages = (K / kKE) * p.groups;
   for (int s = 0; s < R::kStages - 1; ++s) {
@@ -238,14 +321,7 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
                        kBM + p.off[first + cnt - 1] - off0, c * kKE, scale, shift, act);
       __syncthreads();
     }
-    if constexpr (R::kFlush) {
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[mi][ni][j] = 0.f;
-    }
+    if constexpr (R::kFlush) zero_tile(part);
 #pragma unroll 1
     for (int u = 0; u < cnt; ++u) {
       const int off = p.off[first + u];
@@ -257,71 +333,10 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
         a_row[mi] = (v ? st + (64 * wm + 16 * mi + ra + off - off0) * R::kPitch : zero) +
                     ac * 16;
       }
-#pragma unroll
-      for (int kk = 0; kk < R::kKSteps; ++kk) {
-        uint32_t b[kNT][2];
-#pragma unroll
-        for (int q = 0; q < kNT / 2; ++q) {
-          uint32_t r[4];
-          mma::ldsm_x4(r, st + R::kABytes + (u * kBN + bn + 16 * q) * R::kPitch +
-                              (2 * kk + bc) * 16);
-          b[2 * q][0] = r[0];
-          b[2 * q][1] = r[1];
-          b[2 * q + 1][0] = r[2];
-          b[2 * q + 1][1] = r[3];
-        }
-        uint32_t bb[kNT][2], bs[kNT][2];  // f32: b's tf32 big and small parts
-        if constexpr (!kBf16) {
-#pragma unroll
-          for (int ni = 0; ni < kNT; ++ni)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) mma::split_tf32(b[ni][j], bb[ni][j], bs[ni][j]);
-        }
-        // the A fragments of all four m16 tiles, then the mmas (in f32
-        // each 3xTF32 term over every tile before the next), so no mma
-        // waits on the one before it
-        uint32_t a[kMT][4], as[kMT][4];
-#pragma unroll
-        for (int mi = 0; mi < kMT; ++mi) {
-          mma::ldsm_x4(a[mi], a_row[mi] + kk * 32);
-          if constexpr (!kBf16) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma::split_tf32(a[mi][j], a[mi][j], as[mi][j]);
-          }
-        }
-        if constexpr (kBf16) {
-#pragma unroll
-          for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < kNT; ++ni)
-              mma::mma_bf16(sum[mi][ni], a[mi], b[ni][0], b[ni][1]);
-        } else {
-#pragma unroll
-          for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < kNT; ++ni)
-              mma::mma_tf32(sum[mi][ni], as[mi], bb[ni][0], bb[ni][1]);
-#pragma unroll
-          for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < kNT; ++ni)
-              mma::mma_tf32(sum[mi][ni], a[mi], bs[ni][0], bs[ni][1]);
-#pragma unroll
-          for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < kNT; ++ni)
-              mma::mma_tf32(sum[mi][ni], a[mi], bb[ni][0], bb[ni][1]);
-        }
-      }
+      mma_stage<T, R::kKSteps, R::kPitch>(
+          a_row, st + R::kABytes + (u * kBN + bn) * R::kPitch + bc * 16, sum);
     }
-    if constexpr (R::kFlush) {
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNT; ++ni)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mi][ni][j] += part[mi][ni][j];
-    }
+    if constexpr (R::kFlush) add_tile(acc, part);
   }
 }
 

@@ -4,8 +4,9 @@ conv block's BN affine, activation and im2col, and the pool's backward.
 W-logits kernels, for widths C on the 128-lane grid (where the JAX
 module's ``wlogits_pool_ok`` holds): the logits difference is computed
 in the kernel from the pool weight W.
-  * ``csrc/attn_pool.cu``, one source for the two forwards:
-    ``attn_pool`` replaces
+  * ``csrc/attn_pool.cu``, one kernel template for the two forwards,
+    on the tensor cores (bf16 mma, f32 as 3xTF32): ``attn_pool``
+    replaces
     ``svdd_tpu/ops/attn_pool_pallas.py:attn_pool_wlogits_lnc_pallas``
     (pallas_call :916) and computes the function of
     ``attn_pool_wlogits_pallas`` (:397) as well, since the port keeps
@@ -27,6 +28,14 @@ logits x @ W first (the JAX module's legacy branch,
   Both take an even L (the module pads an odd one with a zero row of x
   and a lowest-finite logit) and any C, and are differentiable through
   their plain versions, as the JAX custom VJPs (:112-117, :243-247) are.
+
+The kernels' one shape term, C a multiple of 128 (their column tile and
+k chunks), is stated once in ``attn_pool_kernel_takes``: a CUDA shape it
+takes launches the kernel or raises, any other takes the plain version,
+forward and backward. They take any N and L (ragged row tiles, odd L),
+so unlike the JAX dispatchers (``attn_pool_pallas.py:979-980``,
+``:1137-1139``) they keep N % 8 != 0 on the card: the TPU's tile over N
+is not theirs.
 
 ``attn_pool`` is differentiable: ``_AttnPool`` runs the forward and
 backward kernels on CUDA tensors and the plain pair on CPU tensors. The
@@ -112,31 +121,52 @@ def pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps: int,
   return im2col(y, k_taps)
 
 
+def attn_pool_kernel_takes(c: int) -> bool:
+  """The widths the w-logits kernels (forwards and backward) take: C a
+  multiple of 128, their column tile and k chunks. Any N and L."""
+  return c >= 128 and c % 128 == 0
+
+
 def _check(name, x, w, residual):
-  n, l, c = x.shape
-  if w.shape != (c, c) or c % 128:
-    raise ValueError(f'{name}: needs w (C, C) with C % 128 == 0, got '
-                     f'x {tuple(x.shape)} w {tuple(w.shape)}')
+  c = x.shape[2]
+  if w.shape != (c, c):
+    raise ValueError(f'{name}: needs w (C, C), got x {tuple(x.shape)} '
+                     f'w {tuple(w.shape)}')
   if residual is not None and residual.shape != x.shape:
     raise ValueError(f'{name}: residual {tuple(residual.shape)} != '
                      f'x {tuple(x.shape)}')
 
 
-def _attn_pool(x, w, residual=None):
-  """The pool through the CUDA kernel (CUDA tensors) or the plain
-  version (CPU tensors)."""
-  if x.device.type == 'cpu':
-    return attn_pool_plain(x, w, residual)
-  _check('attn_pool', x, w, residual)
-  n, l, c = x.shape
+def _kernel_operands(name, x, w, residual):
+  """Checks and contiguous operands of the forward kernels: x, W^T (the
+  product's B operand, stored by rows of output columns; landing W's
+  tile by rows of k instead ran no faster, PERF.md §6) and the
+  residual, all in x's dtype."""
+  _check(name, x, w, residual)
   x = x.contiguous()
-  w = w.to(x.dtype).contiguous()
+  wt = w.to(x.dtype).t().contiguous()
   res = None if residual is None else residual.to(x.dtype).contiguous()
-  _build.require_cuda('attn_pool', x, w, res)
-  _build.require_aligned('attn_pool', x, w, res)
+  _build.require_cuda(name, x, wt, res)
+  _build.require_aligned(name, x, wt, res)
+  return x, wt, res
+
+
+def _plain(x) -> bool:
+  """The pool takes its plain versions on CPU tensors and on widths
+  ``attn_pool_kernel_takes`` refuses."""
+  return x.device.type == 'cpu' or not attn_pool_kernel_takes(x.shape[2])
+
+
+def _attn_pool(x, w, residual=None):
+  """The pool through the CUDA kernel, or the plain version (CPU
+  tensors, widths off ``attn_pool_kernel_takes``)."""
+  if _plain(x):
+    return attn_pool_plain(x, w, residual)
+  x, wt, res = _kernel_operands('attn_pool', x, w, residual)
+  n, l, c = x.shape
   out = torch.empty((n, (l + 1) // 2, c), dtype=x.dtype, device=x.device)
   rc = _build.entry('svdd_attn_pool')(
-      x.data_ptr(), 0 if res is None else res.data_ptr(), w.data_ptr(),
+      x.data_ptr(), 0 if res is None else res.data_ptr(), wt.data_ptr(),
       out.data_ptr(), n, l, c, _build.dtype_code(x),
       _build.stream_ptr(x))
   _build.check(rc, 'svdd_attn_pool')
@@ -145,9 +175,9 @@ def _attn_pool(x, w, residual=None):
 
 
 def attn_pool_bwd(x, w, ct, residual=None):
-  """(dx, dW) through the CUDA kernel (CUDA tensors) or
-  ``attn_pool_bwd_plain`` (CPU tensors)."""
-  if x.device.type == 'cpu':
+  """(dx, dW) through the CUDA kernel, or ``attn_pool_bwd_plain`` (CPU
+  tensors, widths off ``attn_pool_kernel_takes``)."""
+  if _plain(x):
     return attn_pool_bwd_plain(x, w, ct, residual)
   _check('attn_pool_bwd', x, w, residual)
   n, l, c = x.shape
@@ -202,28 +232,29 @@ def attn_pool(x, w, residual=None):
 
 def pool_prologue_im2col_wlogits(x, w, scale, shift, k_taps: int,
                                  act_name, residual=None):
-  """Pool + BN affine + act + im2col through the CUDA kernel (CUDA
-  tensors) or the plain version (CPU tensors)."""
-  if x.device.type == 'cpu':
+  """Pool + BN affine + act + im2col through the CUDA kernel, or the
+  plain version (CPU tensors, widths off ``attn_pool_kernel_takes``)."""
+  if _plain(x):
     return pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps,
                                               act_name, residual)
-  _check('pool_prologue_im2col_wlogits', x, w, residual)
+  x, wt, res = _kernel_operands('pool_prologue_im2col_wlogits', x, w,
+                                residual)
   n, l, c = x.shape
   lh = (l + 1) // 2
   offsets = live_offsets(k_taps, lh)
-  x = x.contiguous()
-  w = w.to(x.dtype).contiguous()
-  res = None if residual is None else residual.to(x.dtype).contiguous()
   scale = scale.float().contiguous()
   shift = shift.float().contiguous()
-  _build.require_cuda('pool_prologue_im2col_wlogits', x, w, res, scale,
-                      shift)
-  _build.require_aligned('pool_prologue_im2col_wlogits', x, w, res)
+  if scale.shape != (c,) or shift.shape != (c,):
+    raise ValueError(f'pool_prologue_im2col_wlogits: scale and shift must '
+                     f'be ({c},)')
+  _build.require_cuda('pool_prologue_im2col_wlogits', scale, shift)
+  # the epilogue reads them two floats at a time
+  _build.require_aligned('pool_prologue_im2col_wlogits', scale, shift)
   out = torch.empty((n, lh, len(offsets) * c), dtype=x.dtype,
                     device=x.device)
   offs = _build.int_array(offsets)
   rc = _build.entry('svdd_attn_pool_im2col')(
-      x.data_ptr(), 0 if res is None else res.data_ptr(), w.data_ptr(),
+      x.data_ptr(), 0 if res is None else res.data_ptr(), wt.data_ptr(),
       scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
       ctypes.addressof(offs), len(offsets), ACT_CODES[act_name], n, l, c,
       _build.dtype_code(x), _build.stream_ptr(x))
