@@ -9,19 +9,22 @@ exits non-zero and prints no result:
   1. device and build: the card, versions, the nvcc build of every
      kernel under svdd_tpu_torch/csrc (one nvcc per source, in parallel);
      the tensor-core mma instructions and registers of B1's, B6's, B7's,
-     B14's and B3/B4's product kernels as built (cuobjdump);
+     B14's, B3/B4's and B8's product kernels as built (cuobjdump);
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
      pool at its full-size shapes (B12 also at head dim 128 and at
      L = 200), in float32 and bfloat16, against its plain PyTorch
      version on the same inputs (the candidate draw on the noise the
      kernel reports, and by frequencies; the cnn layer's backward on the
-     relu mask the kernel reports; B14's wrapper on shapes off JAX's
-     gate, which must take the plain version bit for bit; B3 and B4 also
-     at short points, N = 6 and 8, and B4 at the classifier's seven N = 512
-     pools), with median times of both, the time of one PyTorch call
-     computing the same function where there is one, and the least time
-     the card could take for the work;
+     relu mask the kernel reports; B14's and B5's wrappers on shapes off
+     their gates, which must take the plain version bit for bit; B3, B4
+     and B8 also at short points, N = 6 and 8, B4 at the classifier's
+     seven N = 512 pools, B5 at its N = 512), with the times of both, the
+     time of one PyTorch call computing the same function where there is
+     one, and the least time the card could take for the work; times are
+     the card's own for a call (the profiler), CUDA-event medians beside
+     them, but B12's and the plain and library times of the multi-ms
+     B3, B4, B7 and B14, which are CUDA-event medians;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
      outputs, then the input gradients the guided decoders take, then
@@ -214,6 +217,22 @@ def device_ms(fn, reps: int = 10, fragment: str | None = None) -> float:
              and (fragment is None or fragment in e.name)) / reps
 
 
+def timed(call, plain, library=None, reps: int = 10, iters: int = 10) -> dict:
+  """The times of a kernel call, its plain version and, where there is
+  one, the PyTorch call computing the same function: each the card's
+  time for a call (device_ms, the profiler: every kernel and copy the
+  call launched) as ms, plain_ms and library_ms, and each CUDA-event
+  median beside it (median_ms, ...), which for a call under a
+  millisecond times mostly the wrapper's host work."""
+  r = {'ms': device_ms(call, reps), 'median_ms': median_ms(call, iters),
+       'plain_ms': device_ms(plain, reps),
+       'plain_median_ms': median_ms(plain, iters), 'library_ms': None}
+  if library is not None:
+    r.update(library_ms=device_ms(library, reps),
+             library_median_ms=median_ms(library, iters))
+  return r
+
+
 def compare_sum(name: str, got, want, dtype: str) -> tuple[float, float]:
   """(max abs error, max abs error / max |want|) of a sum over rows;
   raises beyond RED_TOL of the largest |want|."""
@@ -252,13 +271,16 @@ def compare(name: str, got, want, dtype: str) -> tuple[float, float]:
 
 
 # the kernels whose work is tap, weight-gradient or pool products, by
-# library: B1, B6, B7, B14, and B3 with B4 (one template)
+# library: B1, B6, B7, B14, B3 with B4 (one template), and B8
 MMA_KERNELS = {'cnn_layer': ('cnn_layer_kernel',),
                'cnn_layer_bwd': ('cnn_bwd_mask_kernel', 'cnn_bwd_dgrad_ln_kernel',
                                  'cnn_bwd_wgrad_kernel'),
                'conv1d_bwd': ('conv_bwd_dgrad_kernel', 'conv_bwd_wgrad_kernel'),
                'fused_conv': ('fused_conv_kernel',),
-               'attn_pool': ('attn_pool_kernel',)}
+               'attn_pool': ('attn_pool_kernel',),
+               'attn_pool_bwd': ('pool_bwd_logits_kernel',
+                                 'pool_bwd_dgrad_kernel',
+                                 'pool_bwd_wgrad_kernel')}
 
 
 def sass_counts() -> dict:
@@ -522,14 +544,13 @@ def check_gumbel_candidates(gen):
     max_dev = max(max_dev, float(np.abs(counts / total - p[k]).max()))
   if worst_p < 1e-4:
     raise AssertionError(f'gumbel_candidates: chi-square p {worst_p}')
-  ms = median_ms(lambda: K.gumbel_candidates(log_q, x, m, mask, gen))
 
   def plain():
     noise = gumbel_noise((b, m, l, v), gen, 'cuda')
     return K.gumbel_candidates_plain(log_q, x, noise, mask)
   return {'shape': [b, m, l, v], 'max_abs_err': err,
-          'chi2_min_p': worst_p, 'max_freq_dev': max_dev, 'ms': ms,
-          'plain_ms': median_ms(plain),
+          'chi2_min_p': worst_p, 'max_freq_dev': max_dev,
+          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen), plain),
           # one add and compare per candidate lane; log_q and x in, the
           # candidates out
           'flops': b * m * l * v,
@@ -638,7 +659,7 @@ def check_attn_pool_im2col(dtype, gen):
        'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
        'max_abs_err_points': _pool_points(dtype, True),
-       'ms': total('ms'), 'device_ms': total('ms'),
+       'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'library_ms': None, 'per_pool': per_pool, 'flops': flops,
        'bytes': nbytes, 'achieved_tb_s': nbytes / total('ms') / 1e9}
@@ -678,7 +699,7 @@ def check_attn_pool(dtype, gen):
   tower at N = 512 (classifier_pools), and at POOL_POINTS."""
   name = str(dtype).split('.')[-1]
   r = _attn_pool_at(N_CAND, [LAST_POOL], dtype, gen)
-  r.update(shape=[N_CAND, *LAST_POOL], device_ms=r['ms'], library_ms=None,
+  r.update(shape=[N_CAND, *LAST_POOL], library_ms=None,
            max_abs_err_points=_pool_points(dtype, False))
   r = _cnn_rates(r, name)
   cls = _cnn_rates(_attn_pool_at(N_GRAD, TOWER_POOLS, dtype, gen), name)
@@ -691,33 +712,76 @@ def check_attn_pool(dtype, gen):
   return r
 
 
-def check_attn_l2(dtype, gen):
-  """B5 at (5120, 2, 8 heads x (64 | 192)): one of 11 calls."""
+# B5's heads at the value net's widths: 8 heads, dk 64, dv 192. It is also
+# held at points of one launch each: N = 6 (off JAX's N % 8), 6 heads
+# (groups of 4 lanes, 8 lanes idle), 64 heads of dk = dv = 2 (two passes
+# of a lane a head; 8-byte loads in f32, 4-byte in bf16) and 128 heads of
+# dk 1, dv 3 (one element a load): (N, heads, dk, dv)
+ATTN_L2_HEADS = (8, 64, 192)
+ATTN_L2_POINTS = ((6, 8, 64, 192), (6, 6, 64, 64), (6, 64, 2, 2),
+                  (6, 128, 1, 3))
+
+
+def _attn_l2_args(n, h, dk, dv, dtype, gen):
+  import torch
+  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
+  return ((r(n, 2, h * dk) / 8).to(dtype), r(n, 2, h * dk).to(dtype),
+          r(n, 2, h * dv).to(dtype), r(h * dk).to(dtype), r(h * dk).to(dtype),
+          r(3, h * dk).to(dtype), h)
+
+
+def _attn_l2_at(n, dtype, gen):
+  """B5 at (n, 2, 8 heads x (64 | 192)) against the plain version, timed
+  (one of the 11 calls of a value forward)."""
   import torch
   from svdd_tpu_torch.ops import attn_l2 as K
   name = str(dtype).split('.')[-1]
-  h, dk, dv = 8, 64, 192
-  r = lambda *s: torch.randn(*s, device='cuda', generator=gen)
-  q = (r(N_CAND, 2, h * dk) / 8).to(dtype)
-  k, v = r(N_CAND, 2, h * dk).to(dtype), r(N_CAND, 2, h * dv).to(dtype)
-  bc, bp, relk = r(h * dk).to(dtype), r(h * dk).to(dtype), r(3, h * dk).to(
-      dtype)
-  args = (q, k, v, bc, bp, relk, h)
+  h, dk, dv = ATTN_L2_HEADS
+  args = _attn_l2_args(n, h, dk, dv, dtype, gen)
   out, w = K.attn_l2(*args)
   out_p, w_p = K.attn_l2_plain(*args)
   errs = (compare('attn_l2 out', out, out_p, name),
           compare('attn_l2 w', w, w_p, 'float32'
                   if dtype == torch.float32 else name))
-  es = q.element_size()
-  return {'shape': [N_CAND, 2, h * dk, h * dv],
+  es = args[0].element_size()
+  return {'shape': [n, 2, h * dk, h * dv],
           'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
           # per query: two logit terms per dk lane, a blend per dv lane
-          'flops': N_CAND * 2 * h * (6 * dk + 3 * dv),
-          'bytes': (N_CAND * 2 * h * (2 * dk + 2 * dv) + 5 * h * dk) * es
-                   + N_CAND * 2 * h * 4,
-          'ms': median_ms(lambda: K.attn_l2(*args), iters=10),
-          'plain_ms': median_ms(lambda: K.attn_l2_plain(*args), iters=10)}
+          'flops': n * 2 * h * (6 * dk + 3 * dv),
+          # q, k, v read once, the bias rows once, out and w written once
+          'bytes': (n * 2 * h * (2 * dk + 2 * dv) + 5 * h * dk) * es
+                   + n * 2 * h * 4,
+          **timed(lambda: K.attn_l2(*args), lambda: K.attn_l2_plain(*args),
+                  reps=20, iters=20)}
+
+
+def check_attn_l2(dtype, gen):
+  """B5 at SVDD-MC's N = B*M = 5120, then at the classifier's N = 512
+  (classifier_n512), each timed by the card's own time for a call; then
+  at ATTN_L2_POINTS (one launch each)."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.ops import attn_l2 as K
+  name = str(dtype).split('.')[-1]
+  r = _attn_l2_at(N_CAND, dtype, gen)
+  small = _attn_l2_at(N_GRAD, dtype, gen)
+  small['bound_ms'], small['bound_by'] = bound(small['flops'], small['bytes'],
+                                               name)
+  small['bound_share'] = small['bound_ms'] / small['ms']
+  r['classifier_n512'] = small
+  r['max_abs_err_points'] = {}
+  for point in ATTN_L2_POINTS:
+    args = _attn_l2_args(*point, dtype, gen)
+    before = _build.LAUNCHES['attn_l2']
+    got, want = K.attn_l2(*args), K.attn_l2_plain(*args)
+    if _build.LAUNCHES['attn_l2'] != before + 1:
+      raise AssertionError(f'attn_l2 {point}: no launch')
+    r['max_abs_err_points'][str(point)] = max(
+        compare(f'attn_l2 {point} out', got[0], want[0], name)[0],
+        compare(f'attn_l2 {point} w', got[1], want[1], 'float32'
+                if dtype == torch.float32 else name)[0])
+  return r
 
 
 def check_cnn_layer_bwd(dtype, gen):
@@ -897,7 +961,7 @@ def check_conv1d_bwd(dtype, gen):
        'max_rel_err': max(e[1] for e in errs),
        'max_abs_err_points': points,
        # the six tower convs of one value-net backward
-       'ms': total('ms'), 'device_ms': total('ms'),
+       'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'library_ms': total('library_ms'),
        'library': 'torch.ops.aten.convolution_backward',
@@ -905,29 +969,72 @@ def check_conv1d_bwd(dtype, gen):
   return _cnn_rates(r, name)
 
 
+# B8 is also held at short points, (N, L, C, residual): N = 6 (off the
+# JAX dispatchers' N % 8), one pooled row (L = 1, the tail alone), odd
+# tails, one and three column tiles, and 264 rows (8 x 33: three row
+# tiles, the last partial; the shorter points are one partial tile)
+POOL_BWD_POINTS = [(6, 1, 128, False), (6, 3, 384, True), (6, 7, 128, True),
+                   (6, 7, 384, False), (8, 65, 256, True)]
+
+
+def _pool_bwd_inputs(n, l, c, dtype, gen):
+  """x, W (near 2 I, as the module initialises it), the cotangent and the
+  residual of one pool."""
+  import torch
+  x, res, w = _pool_inputs(l, c, dtype, gen, n)
+  ct = torch.randn(n, (l + 1) // 2, c, device='cuda', generator=gen).to(dtype)
+  return x, w, ct, res
+
+
+def _pool_bwd_against_plain(args, name, label):
+  """B8's dx (within TOL) and dW (within RED_TOL of its largest value)
+  against the plain version."""
+  from svdd_tpu_torch.ops import attn_pool as K
+  dx, dw = K.attn_pool_bwd(*args)
+  want_dx, want_dw = K.attn_pool_bwd_plain(*args)
+  return [compare(f'{label} dx', dx, want_dx, name),
+          compare_sum(f'{label} dW', dw, want_dw, name)]
+
+
+def _pool_bwd_points(dtype) -> dict:
+  """POOL_BWD_POINTS through the wrapper on the card, each one launch,
+  against the plain version: {label: {dx, dW: max abs err}}."""
+  import torch
+  from svdd_tpu_torch import _build
+  name = str(dtype).split('.')[-1]
+  gen = torch.Generator('cuda').manual_seed(12)
+  points = {}
+  for n, l, c, residual in POOL_BWD_POINTS:
+    x, w, ct, res = _pool_bwd_inputs(n, l, c, dtype, gen)
+    label = f'attn_pool_bwd N={n} L={l} C={c}{" residual" if residual else ""}'
+    before = _build.LAUNCHES['attn_pool_bwd']
+    dx_err, dw_err = _pool_bwd_against_plain(
+        (x, w, ct, res if residual else None), name, label)
+    if _build.LAUNCHES['attn_pool_bwd'] != before + 1:
+      raise AssertionError(f'{label}: no launch')
+    points[label[len('attn_pool_bwd '):]] = {'dx': dx_err[0], 'dW': dw_err[0]}
+  return points
+
+
 def check_attn_pool_bwd(dtype, gen):
   """B8 at the seven tower pools with their residuals (odd lengths 25,
-  13 and 7 among them), against the plain version."""
+  13 and 7 among them), against the plain version, each timed by the
+  card's own time for a call (device_ms) and by CUDA events (median_ms);
+  ms is the seven pools of one value-net backward, device time. Then at
+  POOL_BWD_POINTS."""
   import torch
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
   n = N_GRAD
-  errs, ms, plain_ms, flops, nbytes = [], 0.0, 0.0, 0, 0
+  errs, per_pool, flops, nbytes = [], [], 0, 0
   for l, c in TOWER_POOLS:
     lh = (l + 1) // 2
-    x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
-    res = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
-    w = (2 * torch.eye(c, device='cuda') + torch.randn(
-        c, c, device='cuda', generator=gen) / c ** 0.5).to(dtype)
-    ct = torch.randn(n, lh, c, device='cuda', generator=gen).to(dtype)
-    dx, dw = K.attn_pool_bwd(x, w, ct, res)
-    want_dx, want_dw = K.attn_pool_bwd_plain(x, w, ct, res)
-    errs += [compare(f'attn_pool_bwd L={l} C={c} dx', dx, want_dx, name),
-             compare_sum(f'attn_pool_bwd L={l} C={c} dW', dw, want_dw, name)]
-    del dx, dw, want_dx, want_dw
-    ms += median_ms(lambda: K.attn_pool_bwd(x, w, ct, res))
-    plain_ms += median_ms(lambda: K.attn_pool_bwd_plain(x, w, ct, res),
-                          iters=3)
+    x, w, ct, res = _pool_bwd_inputs(n, l, c, dtype, gen)
+    errs += _pool_bwd_against_plain((x, w, ct, res), name,
+                                    f'attn_pool_bwd L={l} C={c}')
+    per_pool.append({'shape': [n, l, c], **timed(
+        lambda: K.attn_pool_bwd(x, w, ct, res),
+        lambda: K.attn_pool_bwd_plain(x, w, ct, res), reps=5, iters=5)})
     es = x.element_size()
     # the logits recomputed, the dgrad and the wgrad; x, residual, ct and
     # W in, dx and dW out
@@ -935,12 +1042,17 @@ def check_attn_pool_bwd(dtype, gen):
     nbytes += (3 * n * l * c + n * lh * c + c * c) * es + c * c * 4
     del x, res, w, ct
     torch.cuda.empty_cache()
-  return {'shapes': [[n, l, c] for l, c in TOWER_POOLS],
-          'max_abs_err': max(e[0] for e in errs),
-          'max_rel_err': max(e[1] for e in errs),
-          # ms: the seven pools of one value-net backward
-          'ms': ms, 'plain_ms': plain_ms, 'library_ms': None,
-          'flops': flops, 'bytes': nbytes}
+  total = lambda k: sum(p[k] for p in per_pool)
+  r = {'shapes': [p['shape'] for p in per_pool],
+       'max_abs_err': max(e[0] for e in errs),
+       'max_rel_err': max(e[1] for e in errs),
+       # the seven pools of one value-net backward
+       'ms': total('ms'),
+       'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
+       'plain_median_ms': total('plain_median_ms'), 'library_ms': None,
+       'per_pool': per_pool, 'flops': flops, 'bytes': nbytes,
+       'max_abs_err_points': _pool_bwd_points(dtype)}
+  return _cnn_rates(r, name)
 
 
 # B12 at the text preset's DiT and AR shapes: the 64-row decode batch,
@@ -1009,11 +1121,9 @@ def check_rmsnorm(dtype, gen):
   es = x.element_size()
   return {'shape': list(RMS_SHAPE), 'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
-          'ms': median_ms(lambda: K.fused_add_rmsnorm(x, None, s), iters=20),
-          'plain_ms': median_ms(lambda: K.rmsnorm_plain(x, None, s),
-                                iters=20),
-          'library_ms': median_ms(lambda: F.rms_norm(x, (d,), s, 1e-5),
-                                  iters=20),
+          **timed(lambda: K.fused_add_rmsnorm(x, None, s),
+                  lambda: K.rmsnorm_plain(x, None, s),
+                  lambda: F.rms_norm(x, (d,), s, 1e-5), reps=20, iters=20),
           'library': 'torch.nn.functional.rms_norm',
           # square-add, the root, two products per element; x in, out
           'flops': 4 * rows * d, 'bytes': 2 * rows * d * es + d * es}
@@ -1051,28 +1161,29 @@ def check_nacdr_im2col(dtype, gen):
   name = str(dtype).split('.')[-1]
   n, l = IM2COL_ROWS, IM2COL_L
   k_live = len(live_offsets(5, l))
-  errs, per_ms, per_plain, flops, nbytes = [], {}, {}, 0, 0
+  errs, per_width, flops, nbytes = [], {}, 0, 0
   for c in IM2COL_WIDTHS:
     x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
     scale, shift = _affine(c, gen)
     args = (x, scale, shift, 5, 'gelu')
     errs.append(compare(f'nacdr_im2col C={c}', K.nacdr_im2col(*args),
                         K.nacdr_im2col_reference(*args), name))
-    per_ms[str(c)] = median_ms(lambda: K.nacdr_im2col(*args), iters=10)
-    per_plain[str(c)] = median_ms(lambda: K.nacdr_im2col_reference(*args),
-                                  iters=5)
+    per_width[str(c)] = timed(lambda: K.nacdr_im2col(*args),
+                              lambda: K.nacdr_im2col_reference(*args))
     es = x.element_size()
     # the affine's product and sum per element (the activation besides)
     flops += 2 * n * l * c
     nbytes += n * l * c * es * (1 + k_live) + 2 * c * 4
     del x
     torch.cuda.empty_cache()
+  total = lambda k: sum(p[k] for p in per_width.values())
   return {'shapes': [[n, l, c] for c in IM2COL_WIDTHS], 'k': 5,
           'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
-          'ms': sum(per_ms.values()), 'plain_ms': sum(per_plain.values()),
-          'per_width_ms': per_ms, 'per_width_plain_ms': per_plain,
-          'library_ms': None, 'flops': flops, 'bytes': nbytes}
+          **{k: total(k) for k in ('ms', 'median_ms', 'plain_ms',
+                                   'plain_median_ms')},
+          'per_width': per_width, 'library_ms': None, 'flops': flops,
+          'bytes': nbytes}
 
 
 def _fused_conv_inputs(n, l, cin, cout, dtype, gen):
@@ -1154,7 +1265,7 @@ def check_fused_conv1d(dtype, gen):
        'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
        'max_abs_err_points': {str(FUSED_RAGGED): ragged}, 'off_gate': off_gate,
-       'ms': total('ms'), 'device_ms': total('ms'),
+       'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'library_ms': total('library_ms'),
        'library': 'torch.nn.functional.conv1d on act(affine(x)): the '
@@ -1195,10 +1306,8 @@ def check_attn_pool_logits(dtype, gen):
   n, l, c = OFFGRID_POOL
   es = x.element_size()
   return {'shape': list(OFFGRID_POOL), 'max_abs_err': err, 'max_rel_err': rel,
-          'ms': median_ms(lambda: K.attn_pool_fused(x, logits), iters=10),
-          'plain_ms': median_ms(lambda: K.attn_pool_reference(x, logits),
-                                iters=3),
-          'library_ms': None,
+          **timed(lambda: K.attn_pool_fused(x, logits),
+                  lambda: K.attn_pool_reference(x, logits), reps=5, iters=5),
           # per output: the logit difference, the sigmoid's exp, sum and
           # reciprocal, the row difference, product and sum
           'flops': 7 * n * (l // 2) * c,
@@ -1223,10 +1332,9 @@ def check_attn_pool_logits_im2col(dtype, gen):
   es = x.element_size()
   return {'shape': list(OFFGRID_POOL), 'k': 5, 'act': 'gelu_enformer',
           'max_abs_err': err, 'max_rel_err': rel,
-          'ms': median_ms(lambda: K.pool_prologue_im2col(*args), iters=10),
-          'plain_ms': median_ms(lambda: K.pool_prologue_im2col_reference(*args),
-                                iters=3),
-          'library_ms': None,
+          **timed(lambda: K.pool_prologue_im2col(*args),
+                  lambda: K.pool_prologue_im2col_reference(*args), reps=5,
+                  iters=5),
           # the blend's 7 and the affine's 2 per pooled element
           'flops': 9 * n * (l // 2) * c,
           'bytes': (2 * n * l * c + n * (l // 2) * k_live * c) * es + 2 * c * 4}
@@ -1904,6 +2012,35 @@ def time_dit_forward(rows: int = 512):
           'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def kernel_checks() -> list:
+  """(name, check(dtype, generator)) of the kernel phase, in order; each
+  runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
+  checked after them."""
+  return [('cnn_layer', check_cnn_layer),
+          ('attn_pool_prologue_im2col', check_attn_pool_im2col),
+          ('attn_pool', check_attn_pool), ('attn_l2', check_attn_l2),
+          ('cnn_layer_bwd', check_cnn_layer_bwd),
+          ('conv1d_bwd', check_conv1d_bwd),
+          ('attn_pool_bwd', check_attn_pool_bwd),
+          ('flash_attention',
+           lambda dt, g: check_flash_attention(dt, g, False)),
+          ('flash_attention_causal',
+           lambda dt, g: check_flash_attention(dt, g, True)),
+          ('flash_attention_d128', lambda dt, g: check_flash_attention(
+              dt, g, False, ATTN_SHAPE_D128)),
+          ('flash_attention_causal_d128', lambda dt, g: check_flash_attention(
+              dt, g, True, ATTN_SHAPE_D128)),
+          ('flash_attention_l200', lambda dt, g: check_flash_attention(
+              dt, g, False, ATTN_SHAPE_L200)),
+          ('flash_attention_causal_l200', lambda dt, g: check_flash_attention(
+              dt, g, True, ATTN_SHAPE_L200)),
+          ('rmsnorm', check_rmsnorm),
+          ('nacdr_im2col', check_nacdr_im2col),
+          ('fused_conv1d', check_fused_conv1d),
+          ('attn_pool_logits', check_attn_pool_logits),
+          ('attn_pool_logits_im2col', check_attn_pool_logits_im2col)]
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -1931,29 +2068,7 @@ def main() -> None:
 
   gen = torch.Generator('cuda').manual_seed(0)
   results = {}
-  checks = [('cnn_layer', check_cnn_layer),
-            ('attn_pool_prologue_im2col', check_attn_pool_im2col),
-            ('attn_pool', check_attn_pool), ('attn_l2', check_attn_l2),
-            ('cnn_layer_bwd', check_cnn_layer_bwd),
-            ('conv1d_bwd', check_conv1d_bwd),
-            ('attn_pool_bwd', check_attn_pool_bwd),
-            ('flash_attention',
-             lambda dt, g: check_flash_attention(dt, g, False)),
-            ('flash_attention_causal',
-             lambda dt, g: check_flash_attention(dt, g, True)),
-            ('flash_attention_d128', lambda dt, g: check_flash_attention(
-                dt, g, False, ATTN_SHAPE_D128)),
-            ('flash_attention_causal_d128', lambda dt, g: check_flash_attention(
-                dt, g, True, ATTN_SHAPE_D128)),
-            ('flash_attention_l200', lambda dt, g: check_flash_attention(
-                dt, g, False, ATTN_SHAPE_L200)),
-            ('flash_attention_causal_l200', lambda dt, g: check_flash_attention(
-                dt, g, True, ATTN_SHAPE_L200)),
-            ('rmsnorm', check_rmsnorm),
-            ('nacdr_im2col', check_nacdr_im2col),
-            ('fused_conv1d', check_fused_conv1d),
-            ('attn_pool_logits', check_attn_pool_logits),
-            ('attn_pool_logits_im2col', check_attn_pool_logits_im2col)]
+  checks = kernel_checks()
   for name, fn in checks:
     for dtype in (torch.float32, torch.bfloat16):
       r = fn(dtype, gen)
@@ -2054,9 +2169,11 @@ def main() -> None:
     entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev',
                                       'mask_flips', 'mask_bitwise',
                                       'library', 'max_abs_err_by_length',
-                                      'device_ms', 'median_ms',
+                                      'median_ms',
                                       'max_abs_err_points', 'off_gate',
-                                      'achieved_tb_s', 'classifier_pools')
+                                      'achieved_tb_s', 'classifier_pools',
+                                      'classifier_n512', 'plain_median_ms',
+                                      'library_median_ms')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -2065,7 +2182,8 @@ def main() -> None:
                    bound_ms_bf16=bf['bound_ms'])
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
-      for k in ('median_ms', 'achieved_tb_s', 'classifier_pools'):
+      for k in ('median_ms', 'achieved_tb_s', 'classifier_pools',
+                'classifier_n512', 'max_abs_err_points'):
         if k in bf:
           entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:

@@ -44,7 +44,7 @@ VARIANTS = {
     'no_act': [('conv_mma.cuh', 'if constexpr (kAct) {', 'if constexpr (false) {')],
     'f32_no_flush': [('conv_mma.cuh', 'struct Ring<float> : RingOf<64, 2, 1, true> {};',
                       'struct Ring<float> : RingOf<32, 3, 2, false> {};')],
-    'wgrad_rows32': [('conv1d_bwd.cu', 'constexpr int kWRows = 64;',
+    'wgrad_rows32': [('conv_wgrad.cuh', 'constexpr int kWRows = 64;',
                       'constexpr int kWRows = 32;')],
 }
 REPS = 5

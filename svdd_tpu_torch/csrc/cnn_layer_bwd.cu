@@ -37,13 +37,13 @@
 //     cp.async ring (bf16: ldmatrix.trans fragments; f32: 3xTF32 on
 //     scalar fragment loads, 8-float row padding keeping them free of
 //     bank conflicts);
-//  4. deterministic reduces of every per-block partial sum (gemm.cuh).
+//  4. deterministic reduces of every per-block partial sum (reduce.cuh).
 // The TPU accumulated dW and the per-channel sums over a sequential
 // grid; blocks on the card run in parallel, so each writes a partial
 // and a second pass sums them in a fixed order (no float atomics, so a
 // run repeats bit for bit).
 #include "cnn_layer.cuh"
-#include "gemm.cuh"
+#include "reduce.cuh"
 
 namespace {
 

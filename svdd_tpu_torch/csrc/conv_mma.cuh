@@ -1,5 +1,7 @@
 // The tap routine of the implicit-GEMM 1-D convolutions on the tensor
-// cores, shared by B7's dgrad (conv1d_bwd.cu) and B14 (fused_conv.cu):
+// cores, shared by B7's dgrad (conv1d_bwd.cu), B14 (fused_conv.cu) and,
+// at one tap of offset 0 on a ring of its own (Ring1), B8's two row
+// products (attn_pool_bwd.cu):
 //   acc[rows x 128] = sum over live taps u of src[row + off_u] . B_u,
 // rows the flattened (n, i) of an (N, L, K) tensor, a source row outside
 // its own sequence counting as zero (SAME padding), B_u the (K x 128)
@@ -61,15 +63,16 @@ constexpr int kSlabRows = kBM + kSpanMax;
 // stage's partial is 30 steps long. bf16 needs no flush for its
 // tolerance. f32: 64 bytes, 2 stages, one block (121 KB; the flush's
 // registers); bf16: 32 bytes, 3 stages, two blocks (109 KB each).
-template <int KBytes, int Stages, int Blocks, bool Flush>
+template <int KBytes, int Stages, int Blocks, bool Flush, int GroupMax = kGroupMax>
 struct RingOf {
   static constexpr int kKBytes = KBytes, kStages = Stages, kBlocks = Blocks;
   static constexpr bool kFlush = Flush;
+  static constexpr int kGroupTaps = GroupMax;  // weight tiles a stage holds
   static constexpr int kKSteps = kKBytes / 32;   // mma k-steps a stage
   static constexpr int kKChunks = kKBytes / 16;  // 16-byte chunks a stage row
   static constexpr int kPitch = kKBytes + 16;    // a padded stage row
   static constexpr int kABytes = kSlabRows * kPitch;
-  static constexpr int kBBytes = kGroupMax * kBN * kPitch;
+  static constexpr int kBBytes = GroupMax * kBN * kPitch;
   static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kSmemBytes = kStages * kStageBytes + kPitch;  // + the zero row
 };
@@ -79,6 +82,19 @@ template <>
 struct Ring<float> : RingOf<64, 2, 1, true> {};
 template <>
 struct Ring<__nv_bfloat16> : RingOf<32, 3, 2, false> {};
+// The ring of a plan of one tap (B8's products, plain GEMMs): a stage
+// holds one weight tile, not kGroupMax, so its k chunk can be wider: one
+// tap's stage of 64 bytes has a fifth of the mma work of a five-tap
+// stage between two barriers, and the loop's barriers, waits and f32
+// flushes took the time (scripts/probe_attn_pool_bwd.py). f32: 256 bytes
+// of k (64 channels, 8 mma k-steps), 3 stages (215 KB), one block; bf16:
+// 128 bytes (64 channels), 3 stages, two blocks (114 KB each).
+template <typename T>
+struct Ring1;
+template <>
+struct Ring1<float> : RingOf<256, 3, 1, true, 1> {};
+template <>
+struct Ring1<__nv_bfloat16> : RingOf<128, 3, 2, false, 1> {};
 
 // The live taps' source offsets (ascending) and their groups, passed by
 // value as a kernel argument.
@@ -89,11 +105,13 @@ struct Plan {
   int groups;
 };
 
-// Consecutive taps joined while the group has at most kGroupMax taps and
+// Consecutive taps joined while the group has at most group_max taps
+// (the weight tiles a stage of the plan's ring holds, R::kGroupTaps) and
 // an offset span of at most kSpanMax. Returns false unless 1 <= k_live
-// <= kMaxTaps and the offsets ascend.
-inline bool make_plan(const int* offs, int k_live, Plan* p) {
-  if (k_live < 1 || k_live > kMaxTaps) return false;
+// <= kMaxTaps, 1 <= group_max <= kGroupMax and the offsets ascend.
+inline bool make_plan(const int* offs, int k_live, int group_max, Plan* p) {
+  if (k_live < 1 || k_live > kMaxTaps || group_max < 1 || group_max > kGroupMax)
+    return false;
   *p = Plan{};
   for (int i = 0; i < k_live; ++i) {
     if (i && offs[i] <= offs[i - 1]) return false;
@@ -102,7 +120,7 @@ inline bool make_plan(const int* offs, int k_live, Plan* p) {
   int g = 0;
   for (int i = 0; i < k_live; ++g) {
     int j = i;
-    while (j + 1 < k_live && j + 1 - i < kGroupMax && offs[j + 1] - offs[i] <= kSpanMax)
+    while (j + 1 < k_live && j + 1 - i < group_max && offs[j + 1] - offs[i] <= kSpanMax)
       ++j;
     p->first[g] = i;
     p->count[g] = j - i + 1;
@@ -114,14 +132,14 @@ inline bool make_plan(const int* offs, int k_live, Plan* p) {
 
 // Stage s into its ring slot: the slab rows of its group (zero-filled
 // outside [0, NL)) and the group's weight tiles, kKBytes of k each.
-// src is (NL, K), w (k_live, N, K), both in T.
-template <typename T>
+// src is (NL, K), w (k_live, N, K), both in T; the plan is made for R
+// (make_plan with R::kGroupTaps), so a stage holds its largest group.
+template <typename T, typename R>
 __device__ __forceinline__ void load_stage(const T* __restrict__ src,
                                            const T* __restrict__ w,
                                            const Plan& p, int s, long long NL,
                                            int K, int N, long long m0, int n0,
                                            uint32_t ring) {
-  using R = Ring<T>;
   constexpr int kE = 16 / sizeof(T);           // elements a 16-byte chunk
   constexpr int kKE = R::kKBytes / sizeof(T);  // k elements a stage
   const int c = s / p.groups, g = s - c * p.groups;
@@ -148,12 +166,11 @@ __device__ __forceinline__ void load_stage(const T* __restrict__ src,
 // The slab of a landed stage, `rows` rows of k elements k0.., in place:
 // T(act(v * scale[k] + shift[k])), the product and the sum rounded
 // apart as the plain version computes them.
-template <typename T>
+template <typename T, typename R>
 __device__ __forceinline__ void activate_slab(unsigned char* slab, int rows, int k0,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ shift,
                                               int act) {
-  using R = Ring<T>;
   constexpr int kE = 16 / sizeof(T);
   for (int e = threadIdx.x; e < rows * R::kKChunks; e += kThreads) {
     const int q = e / R::kKChunks, h = e % R::kKChunks;
@@ -263,8 +280,10 @@ __device__ __forceinline__ void add_tile(float (&acc)[kMT][kNT][4],
 
 // acc = the tap sum of the block's tile, rows m0.. (of NL) by columns
 // n0.. (of N), over K = the source's channels. With kAct the source is
-// activated per stage (scale, shift (K,) f32 and an ACT code).
-template <typename T, bool kAct>
+// activated per stage (scale, shift (K,) f32 and an ACT code). R is the
+// ring (Ring<T>, or Ring1<T> for a plan of one tap); the block's dynamic
+// shared memory is R::kSmemBytes.
+template <typename T, bool kAct, typename R = Ring<T>>
 __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
                                          const T* __restrict__ w, const Plan& p,
                                          long long NL, int L, int K, int N,
@@ -273,7 +292,6 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
                                          const float* __restrict__ shift, int act,
                                          unsigned char* smem,
                                          float (&acc)[kMT][kNT][4]) {
-  using R = Ring<T>;
   constexpr int kKE = R::kKBytes / sizeof(T);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 1, wn = warp >> 1;
@@ -288,7 +306,7 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
 
   const int n_stages = (K / kKE) * p.groups;
   for (int s = 0; s < R::kStages - 1; ++s) {
-    if (s < n_stages) load_stage<T>(src, w, p, s, NL, K, N, m0, n0, ring);
+    if (s < n_stages) load_stage<T, R>(src, w, p, s, NL, K, N, m0, n0, ring);
     mma::cp_async_commit();
   }
   // ldmatrix rows of this lane: A, row ra of each m16 tile at 16-byte
@@ -310,14 +328,14 @@ __device__ __forceinline__ void tap_gemm(const T* __restrict__ src,
     mma::cp_async_wait<R::kStages - 2>();
     __syncthreads();  // stage s landed; stage s - 1 consumed by every warp
     if (s + R::kStages - 1 < n_stages)
-      load_stage<T>(src, w, p, s + R::kStages - 1, NL, K, N, m0, n0, ring);
+      load_stage<T, R>(src, w, p, s + R::kStages - 1, NL, K, N, m0, n0, ring);
     mma::cp_async_commit();
     const int c = s / p.groups, g = s - c * p.groups;
     const int first = p.first[g], cnt = p.count[g];
     const int off0 = p.off[first];
     const uint32_t st = ring + (s % R::kStages) * R::kStageBytes;
     if constexpr (kAct) {
-      activate_slab<T>(smem + (s % R::kStages) * R::kStageBytes,
+      activate_slab<T, R>(smem + (s % R::kStages) * R::kStageBytes,
                        kBM + p.off[first + cnt - 1] - off0, c * kKE, scale, shift, act);
       __syncthreads();
     }
@@ -347,12 +365,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// out[row][col] = T(v(acc, col)) for the tile's rows below NL; out is
-// (NL, N), two adjacent columns a store.
-template <typename T, typename F>
-__device__ __forceinline__ void store_tile(const float (&acc)[kMT][kNT][4],
-                                           long long m0, int n0, long long NL,
-                                           int N, T* __restrict__ out, F v) {
+// f(row, col, a, b) for every pair of adjacent columns (col, col + 1) of
+// the tile's rows below NL, a and b their accumulators: tap_gemm's
+// accumulator layout, for the epilogues
+template <typename F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[kMT][kNT][4],
+                                              long long m0, int n0, long long NL,
+                                              F f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp & 1, wn = warp >> 1;
   const int g = lane >> 2, t = lane & 3;
@@ -362,13 +381,21 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kMT][kNT][4],
     for (int h = 0; h < 2; ++h) {
       const long long row = m0 + 64 * wm + 16 * mi + g + 8 * h;
       if (row >= NL) continue;
-      T* o = out + row * N;
 #pragma unroll
-      for (int ni = 0; ni < kNT; ++ni) {
-        const int col = n0 + 32 * wn + 8 * ni + 2 * t;
-        store2(o + col, v(acc[mi][ni][2 * h], col), v(acc[mi][ni][2 * h + 1], col + 1));
-      }
+      for (int ni = 0; ni < kNT; ++ni)
+        f(row, n0 + 32 * wn + 8 * ni + 2 * t, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
     }
+}
+
+// out[row][col] = T(v(acc, col)) for the tile's rows below NL; out is
+// (NL, N), two adjacent columns a store.
+template <typename T, typename F>
+__device__ __forceinline__ void store_tile(const float (&acc)[kMT][kNT][4],
+                                           long long m0, int n0, long long NL,
+                                           int N, T* __restrict__ out, F v) {
+  for_each_pair(acc, m0, n0, NL, [&](long long row, int col, float a, float b) {
+    store2(out + row * N + col, v(a, col), v(b, col + 1));
+  });
 }
 
 // Blocks of a launch over (NL, N): row tiles by column tiles, the column

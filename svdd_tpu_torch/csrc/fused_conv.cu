@@ -57,8 +57,11 @@ __global__ void __launch_bounds__(conv::kThreads, conv::Ring<T>::kBlocks)
 
 template <typename T>
 int launch(const void* x, const void* wt, const void* bias, const float* scale,
-           const float* shift, void* out, const conv::Plan& plan, int act, int N,
-           int L, int Cin, int Cout, cudaStream_t stream) {
+           const float* shift, void* out, const int* offs, int k_live, int act,
+           int N, int L, int Cin, int Cout, cudaStream_t stream) {
+  conv::Plan plan;
+  if (!conv::make_plan(offs, k_live, conv::Ring<T>::kGroupTaps, &plan))
+    return cudaErrorInvalidValue;
   const long long blocks = conv::grid_blocks(static_cast<long long>(N) * L, Cout);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fused_conv_kernel<T>,
@@ -86,16 +89,15 @@ extern "C" int svdd_fused_conv1d(const void* x, const void* wt, const void* bias
                                  void* out, const int* offs, int k_live, int act,
                                  int N, int L, int Cin, int Cout, int dtype,
                                  void* stream) {
-  conv::Plan plan;
   if (N < 1 || L < 1 || Cin < conv::kBN || Cin % conv::kBN || Cout < conv::kBN ||
-      Cout % conv::kBN || !conv::make_plan(offs, k_live, &plan))
+      Cout % conv::kBN)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, wt, bias, scale, shift, out, plan, act, N, L, Cin,
-                         Cout, s);
+    return launch<float>(x, wt, bias, scale, shift, out, offs, k_live, act, N, L,
+                         Cin, Cout, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wt, bias, scale, shift, out, plan, act, N, L,
-                                 Cin, Cout, s);
+    return launch<__nv_bfloat16>(x, wt, bias, scale, shift, out, offs, k_live, act,
+                                 N, L, Cin, Cout, s);
   return cudaErrorInvalidValue;
 }

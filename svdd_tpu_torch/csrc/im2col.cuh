@@ -13,7 +13,7 @@
 // c) write neighbouring addresses.
 #pragma once
 
-#include "gemm.cuh"  // load4 / store4
+#include "common.cuh"
 
 namespace svdd {
 
@@ -22,7 +22,7 @@ namespace svdd {
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* o) {
   if constexpr (VEC == 4) {
-    load4<T>(p, o);
+    load_packed<T, 4>(p, o);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) o[e] = to_f(p[e]);
@@ -32,7 +32,7 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* o) {
 template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* p, const float* v) {
   if constexpr (VEC == 4) {
-    store4<T>(p, v);
+    store_packed<T, 4>(p, v);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) p[e] = from_f<T>(v[e]);
@@ -60,11 +60,10 @@ __device__ __forceinline__ void scatter_slabs(T* __restrict__ out,
 }
 
 // a grid-stride launch of `total` work items, 256 threads a block, at
-// most 16 blocks an SM of the H100's 132
+// most 16 blocks an SM
 inline unsigned stride_blocks(long long total) {
-  const long long blocks = (total + 255) / 256;
-  return static_cast<unsigned>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1)
-                                                 : 132 * 16);
+  const long long blocks = (total + 255) / 256, most = 16LL * sm_count();
+  return static_cast<unsigned>(blocks < most ? (blocks > 0 ? blocks : 1) : most);
 }
 
 }  // namespace svdd

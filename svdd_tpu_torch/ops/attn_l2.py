@@ -8,6 +8,11 @@ port keeps the one (N, 2, H*d) layout, computes the function of
 elementwise, so their difference is reduced per head and the 2-way
 softmax is the sigmoid of it.
 
+The kernel takes every shape (any N, any number of heads, any head
+widths), so every CUDA call launches it or raises: there is no gate,
+and every shape JAX's gate (``attn_l2_pallas.py:325-327, 343-345``)
+sends to its Pallas kernel runs the port's.
+
 ``attn_l2`` is differentiable: ``_AttnL2`` runs the kernel forward and,
 as the JAX package does (``attn_l2_pallas.py:187-189``), differentiates
 the plain version on the saved inputs for its backward.
@@ -48,17 +53,18 @@ def attn_l2_plain(q, k, v, bc, bp, relk, heads: int):
 def _attn_l2(q, k, v, bc, bp, relk, heads: int):
   """The attention through the CUDA kernel (CUDA tensors) or the plain
   version (CPU tensors)."""
-  if q.device.type == 'cpu':
-    return attn_l2_plain(q, k, v, bc, bp, relk, heads)
   n, two, hdk = q.shape
   hdv = v.shape[-1]
   if two != 2 or k.shape != q.shape or v.shape[:2] != (n, 2) \
       or hdk % heads or hdv % heads:
     raise ValueError(f'attn_l2: bad shapes q {tuple(q.shape)} '
                      f'k {tuple(k.shape)} v {tuple(v.shape)}')
+  if q.device.type == 'cpu':
+    return attn_l2_plain(q, k, v, bc, bp, relk, heads)
   dt = v.dtype
   args = [t.to(dt).contiguous() for t in (q, k, v, bc, bp, relk)]
   _build.require_cuda('attn_l2', *args)
+  _build.require_aligned('attn_l2', *args)
   out = torch.empty((n, 2, hdv), dtype=dt, device=v.device)
   w = torch.empty((n, 2, heads), dtype=torch.float32, device=v.device)
   rc = _build.entry('svdd_attn_l2')(

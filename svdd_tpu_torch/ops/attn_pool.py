@@ -15,7 +15,9 @@ in the kernel from the pool weight W.
     likewise computes ``pool_prologue_im2col_wlogits_pallas`` (:721);
   * ``csrc/attn_pool_bwd.cu`` replaces ``attn_pool_wlogits_bwd_pallas``
     (pallas_call :523): dx and dW of the pool (the residual's gradient
-    is dx).
+    is dx), on the tensor cores: T(d) by an elementwise pass, the
+    recomputed logits and the dgrad on ``conv_mma.cuh``'s tap routine at
+    one tap, the wgrad on B7's template (``conv_wgrad.cuh``).
 
 Logits kernels, for the other widths, where the module computes the
 logits x @ W first (the JAX module's legacy branch,
@@ -196,8 +198,9 @@ def attn_pool_bwd(x, w, ct, residual=None):
   chunks = _build.row_chunks(n * lh, (c // 128) ** 2)
   dx = torch.empty_like(x)
   dw = torch.empty((c, c), dtype=torch.float32, device=x.device)
-  scratch_t = torch.empty(n * lh * c, dtype=dt, device=x.device)
-  scratch_f = torch.empty(n * lh * c + chunks * c * c,
+  # T(d) and T(dld); wgt and, over more than one row chunk, dW's partials
+  scratch_t = torch.empty(2 * n * lh * c, dtype=dt, device=x.device)
+  scratch_f = torch.empty(n * lh * c + (chunks * c * c if chunks > 1 else 0),
                           dtype=torch.float32, device=x.device)
   rc = _build.entry('svdd_attn_pool_bwd')(
       x.data_ptr(), 0 if res is None else res.data_ptr(), wc.data_ptr(),

@@ -1,7 +1,8 @@
 """Gradient-guided decoding in svdd_tpu_torch vs svdd_tpu: the backward
 kernels' plain versions (B6 cnn layer, B7 shifted conv, B8 attention
 pool) and the (N, L, C) forwards that the port's kernels cover (B9a,
-B9b, B10) against the JAX kernels in interpret mode; each
+B9b, B10) against the JAX kernels in interpret mode; B5's plain version
+in bfloat16 and its gate against JAX's dispatcher; each
 ``torch.autograd.Function`` against autograd through the plain ops; the
 value net's input gradient; the DPS and classifier steps pinned to the
 JAX steps given the same Gumbel noise; whole decodes in distribution;
@@ -234,6 +235,131 @@ def test_attn_l2_plain_matches_nlc_pallas_kernel():
                              atol=1e-5)
   np.testing.assert_allclose(w.numpy(), np.asarray(w_j), rtol=1e-5,
                              atol=1e-5)
+
+
+def _attn_l2_bf16_case(seed, exact_relk, n=8, h=2, dk=64, dv=64):
+  """bf16 inputs of B5 in JAX's (2, N, H*d) layout, dqk = dv = 128: q
+  (pre-scaled), bc and bp on a grid where q + bc and q + bp are exact in
+  bf16 (multiples of 2^-6 under 2); relk on a grid where its row
+  differences are exact too (multiples of 2^-4 under 2), or normal."""
+  rs = np.random.default_rng(seed)
+  grid = lambda shape, step, top: (
+      step * rs.integers(-top, top + 1, size=shape)).astype(np.float32)
+  bf = lambda a: _t(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+  q = grid((2, n, h * dk), 2 ** -6, 32)
+  k, v = bf(rs.normal(size=(2, n, h * dk))), bf(rs.normal(size=(2, n, h * dv)))
+  bc, bp = grid((2, h * dk), 2 ** -6, 64)
+  relk = grid((3, h * dk), 2 ** -4, 16) if exact_relk else bf(
+      rs.normal(size=(3, h * dk)))
+  return (q, k, v, bc, bp, relk), h, dk, dv
+
+
+def _attn_l2_bf16(case):
+  """(the Pallas kernel's out and w under jax.disable_jit(), the port's
+  plain out and w, the inputs), all (N, 2, .) in f32."""
+  (q, k, v, bc, bp, relk), h, dk, dv = case
+  cast = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+  sel = jnp.asarray(jl2.head_selector(h, dk))
+  exp = jnp.asarray(jl2.head_expander(h, dv))
+  with jax.disable_jit():
+    out_j, w_j = jl2.attn_l2_lnc_pallas(
+        *map(cast, (q, k, v, bc, bp, relk)), sel, exp, interpret=True)
+  bf = lambda a: _t(np.ascontiguousarray(a)).to(torch.bfloat16)
+  nlc = lambda a: bf(a.transpose(1, 0, 2))
+  out, w = tl2.attn_l2_plain(nlc(q), nlc(k), nlc(v), bf(bc), bf(bp), bf(relk),
+                             heads=h)
+  assert out.dtype == torch.bfloat16 and w.dtype == torch.float32
+  back = lambda a: np.asarray(a.astype(jnp.float32)).transpose(1, 0, 2)
+  return back(out_j), back(w_j), out.float().numpy(), w.numpy()
+
+
+def test_attn_l2_plain_bf16_matches_pallas_kernel_op_by_op():
+  """B5 in bfloat16, 2 heads, dqk = dv = 128, on inputs whose bf16 sums
+  and differences are exact (``_attn_l2_bf16_case``): the plain version
+  against ``attn_l2_lnc_pallas`` under ``jax.disable_jit()``. w within
+  1e-5 (the f32 logit sums in other orders), out within one bf16 ulp
+  (2^-7 relative and absolute: the f32 blend, rounded once)."""
+  out_j, w_j, out, w = _attn_l2_bf16(_attn_l2_bf16_case(21, exact_relk=True))
+  np.testing.assert_allclose(w, w_j, rtol=1e-5, atol=1e-5)
+  np.testing.assert_allclose(out, out_j, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_attn_l2_pallas_kernel_rounds_the_relk_difference_in_bf16():
+  """Where relk's row differences are not exact in bf16, the Pallas body
+  (``_kernel_lnc``: ``r0_ref[:] - r1_ref[:]`` on bf16 refs) rounds them
+  to bf16, and its jnp reference (``attn_l2_lnc_reference``) and the
+  port's plain version (and kernel) take them in f32: the body equals
+  the plain arithmetic with that rounding added (w within 1e-5), the
+  port equals the reference (w within 1e-6, out exactly). ROADMAP C
+  records the difference for A19, which brings bf16 paths to the port."""
+  case = _attn_l2_bf16_case(22, exact_relk=False)
+  out_j, w_j, out, w = _attn_l2_bf16(case)
+  (q, k, v, bc, bp, relk), h, dk, dv = case
+  cast = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+  sel = jnp.asarray(jl2.head_selector(h, dk))
+  exp = jnp.asarray(jl2.head_expander(h, dv))
+  with jax.disable_jit():
+    out_r, w_r = jl2.attn_l2_lnc_reference(
+        *map(cast, (q, k, v, bc, bp, relk)), sel, exp)
+  np.testing.assert_allclose(w, np.asarray(w_r).transpose(1, 0, 2), rtol=1e-6,
+                             atol=1e-6)
+  np.testing.assert_array_equal(
+      out, np.asarray(out_r.astype(jnp.float32)).transpose(1, 0, 2))
+  # the body's arithmetic: the relk difference rounded to bf16
+  rb = _t(relk).to(torch.bfloat16)
+  rd = torch.stack([rb[1] - rb[2], rb[0] - rb[1]]).float()    # by query
+  qt = _t(q.transpose(1, 0, 2))
+  diff = ((qt + _t(bc)) * _t(k[0] - k[1])[:, None]
+          + (qt + _t(bp)) * rd[None])
+  w_body = torch.sigmoid(diff.reshape(q.shape[1], 2, h, dk).sum(-1)).numpy()
+  np.testing.assert_allclose(w_j, w_body, rtol=1e-5, atol=1e-5)
+  assert np.abs(w - w_j).max() > 1e-4   # the difference is real
+
+
+# shapes (N, heads, dqk, dv) of B5, each of which the port's kernel takes:
+# the value net's widths at the guided decoders' N, at N = 6 (off JAX's
+# tile over N) and at channels=1152 (dv 1152); 6 heads (groups of 4
+# lanes, 8 lanes idle); dqk 4096; a head's dk 2 (under a 16-byte chunk:
+# 8-byte loads in f32, 4-byte in bf16); a head's dv 4; 64 heads (two
+# passes of a lane a head); and 128 heads of dk 1 (one element a load)
+L2_SHAPES = {'value_512': (512, 8, 512, 1536),
+             'value_5120': (5120, 8, 512, 1536),
+             'n_not_8': (6, 8, 512, 1536),
+             'channels_1152': (5120, 8, 512, 1152),
+             'heads_6': (8, 6, 384, 384),
+             'dqk_4096': (8, 8, 4096, 1536),
+             'dk_2': (8, 8, 16, 1536),
+             'dv_4': (8, 8, 512, 32),
+             'heads_64': (8, 64, 8192, 8192),
+             'heads_128': (8, 128, 128, 384)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', sorted(L2_SHAPES))
+def test_attn_l2_kernel_takes_against_jax_gate(case, dtype, monkeypatch):
+  """The port's B5 kernel takes every shape, so it takes every shape for
+  which svdd_tpu's LNC dispatcher (``attn_l2_lnc`` with
+  ``use_pallas=True``, its Pallas core replaced by a recorder) takes its
+  kernel, and those JAX sends to its reference besides: off the CPU the
+  port's wrapper sends each shape to the kernel (which on 'meta' tensors
+  stops at its device check: no card here), none to the plain
+  version."""
+  n, h, dqk, dv = L2_SHAPES[case]
+  pallas = []
+  monkeypatch.setattr(jl2, '_lnc_core',
+                      lambda q, *a: pallas.append(q.shape) or (q, q))
+  z = lambda *s: jnp.zeros(s, jnp.float32)
+  jl2.attn_l2_lnc(z(2, n, dqk), z(2, n, dqk), z(2, n, dv), z(dqk), z(dqk),
+                  z(3, dqk), h, use_pallas=True)
+  assert bool(pallas) is (dqk % 128 == 0 and dv % 128 == 0 and n % 8 == 0)
+  plain = []
+  monkeypatch.setattr(tl2, 'attn_l2_plain',
+                      lambda q, *a: plain.append(tuple(q.shape)) or (q, q))
+  m = lambda *s: torch.empty(s, device='meta', dtype=dtype)
+  args = (m(n, 2, dqk), m(n, 2, dqk), m(n, 2, dv), m(dqk), m(dqk), m(3, dqk))
+  with pytest.raises(ValueError, match='CUDA device'):
+    tl2.attn_l2(*args, heads=h)
+  assert plain == []
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""svdd_tpu_torch's w-logits attention pool (B4) and its fusion with the
-next block's BN affine, activation and im2col (B3) vs svdd_tpu: the
-plain versions at two column tiles and in bfloat16, and the gate that
-sends shapes to the kernels.
+"""svdd_tpu_torch's w-logits attention pool (B4), its fusion with the
+next block's BN affine, activation and im2col (B3) and its backward (B8)
+vs svdd_tpu: the plain versions at two column tiles and in bfloat16,
+and the gate that sends shapes to the kernels.
 
 Inputs are made with numpy from a seed and fed to both packages, in the
 JAX package's (L, N, C) layout and the port's (N, L, C); an odd length
@@ -183,12 +183,12 @@ def test_attn_pool_kernel_takes_every_tower_pool(n):
     assert tap.attn_pool_kernel_takes(c)
 
 
-@pytest.mark.parametrize('case', ['n_not_8', 'c_off_grid'])
+@pytest.mark.parametrize('case', sorted(GATE_CASES))
 def test_attn_pool_bwd_follows_the_gate(case, monkeypatch):
   """The backward goes where the forward does: off the CPU a width
-  ``attn_pool_kernel_takes`` takes reaches the kernel (stopping at its
-  device check on 'meta' tensors), any N included, and another width the
-  plain version."""
+  ``attn_pool_kernel_takes`` takes (every tower pool, N % 8 != 0
+  included) reaches the kernel, stopping at its device check on 'meta'
+  tensors, and another width the plain version."""
   n, l, c = GATE_CASES[case]
   plain = []
   monkeypatch.setattr(tap, 'attn_pool_bwd_plain',
@@ -226,3 +226,52 @@ def test_attn_pool_off_gate_against_jax_dispatch(dtype):
   got = _port_pool(k, tdt, False)
   np.testing.assert_allclose(got, want,
                              **(F32_TOL if dtype == 'float32' else BF16_TOL))
+
+
+def _bwd_case(l, residual, seed, n=6, c=256):
+  """bf16-exact inputs of the pool's backward: the port's (N, L, C) x and
+  residual, JAX's even-padded (N, L_pad, C) copies (an odd length's pad
+  row zero, with mask_tail), W and the cotangent."""
+  rs = np.random.default_rng(seed)
+  bf = lambda a: _t(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+  x = bf(rs.normal(size=(n, l, c)))
+  res = bf(rs.normal(size=(n, l, c))) if residual else None
+  w = bf(2 * np.eye(c) + rs.normal(size=(c, c)) / np.sqrt(c))
+  ct = bf(rs.normal(size=(n, (l + 1) // 2, c)))
+  pad = lambda a: (None if a is None else
+                   np.pad(a, ((0, 0), (0, l % 2), (0, 0))))
+  return x, res, w, ct, pad(x), pad(res)
+
+
+@pytest.mark.parametrize('residual', [False, True])
+@pytest.mark.parametrize('l', [1, 7, 8])
+def test_attn_pool_bwd_plain_bf16_matches_pallas_kernel_op_by_op(l, residual):
+  """B8 in bfloat16 at C = 256 (two column tiles of the kernel), N = 6:
+  the plain version against ``attn_pool_wlogits_bwd_pallas`` run under
+  ``jax.disable_jit()``, an odd length against JAX's even-padded input
+  with mask_tail (L = 1: the tail alone, whose dx is ct and dW zero).
+  dx within one bf16 ulp (BF16_TOL): both round the residual sum, T(d),
+  T(dld) and dx where the Pallas body does, and sum in f32 in other
+  orders. dW within 2^-7 of its largest value: interpret mode evaluates
+  the body as one XLA computation on the CPU, which may skip a bf16
+  rounding the body writes before an f32 product (T(dld)), 2^-9 relative
+  a term of a sum over N*ceil(L/2) rows."""
+  x, res, w, ct, xj, rj = _bwd_case(l, residual, 700 + 10 * l + residual)
+  cast = lambda a: None if a is None else jnp.asarray(a).astype(jnp.bfloat16)
+  with jax.disable_jit():
+    want_dx, want_dw = jap.attn_pool_wlogits_bwd_pallas(
+        cast(xj), cast(w), cast(ct), bool(l % 2), residual=cast(rj),
+        interpret=True)
+  want_dx = np.asarray(want_dx.astype(jnp.float32))[:, :l]
+  want_dw = np.asarray(want_dw)
+  bf = lambda a: None if a is None else _t(a).to(torch.bfloat16)
+  dx, dw = tap.attn_pool_bwd_plain(bf(x), bf(w), bf(ct), bf(res))
+  assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+  np.testing.assert_allclose(dx.float().numpy(), want_dx, **BF16_TOL)
+  scale = np.abs(want_dw).max()
+  if l == 1:   # the tail pools alone: no pair, no weight gradient
+    assert scale == 0 and not dw.abs().max()
+    np.testing.assert_array_equal(dx.float().numpy()[:, 0], ct[:, 0])
+  else:
+    assert np.abs(dw.numpy() - want_dw).max() <= 2 ** -7 * scale
+
