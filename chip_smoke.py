@@ -15,7 +15,9 @@ exits non-zero and prints no result:
      pool at its full-size shapes (B12 also at head dim 128 and at
      L = 200), in float32 and bfloat16, against its plain PyTorch
      version on the same inputs (the candidate draw on the noise the
-     kernel reports, and by frequencies; the cnn layer's backward on the
+     kernel reports, and by frequencies, its bound by its bytes and its
+     logarithms and Philox multiplies; B5 with the relk rounding JAX's
+     dispatch takes at the shape; the cnn layer's backward on the
      relu mask the kernel reports; B14's and B5's wrappers on shapes off
      their gates, which must take the plain version bit for bit; B3, B4
      and B8 also at short points, N = 6 and 8, B4 at the classifier's
@@ -27,7 +29,8 @@ exits non-zero and prints no result:
      B3, B4, B7 and B14, which are CUDA-event medians;
   3. the full-width denoiser and Enformer value net on a few rows, the
      kernel path on the card against the plain path on the CPU: their
-     outputs, then the input gradients the guided decoders take, then
+     outputs, then the input gradients the guided decoders take, in
+     float32 and then in bf16 (SVDD_CNN_BF16=1, SVDD_VALUE_BF16=1), then
      the full-width DiT, AR and DiMamba backbones' outputs, then the DiT
      at head dims 128 (the kernel) and 16 (the plain attention); then the
      models of the Basenji and off-grid paths at 512 rows, L=200, with
@@ -37,12 +40,14 @@ exits non-zero and prints no result:
      grid) forward and input gradient;
   4. the decodes, each through its CLI's ``run`` with every kernel's
      launch count read around it: SVDD-MC (M=10), DPS and classifier
-     guidance at --task dna, B=512, L=200, 128 steps; ``main_gosai
+     guidance at --task dna, B=512, L=200, 128 steps, in float32 and
+     again under the bf16 switches (the ``*_bf16`` runs); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
      ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
      (--task dna, 512 rows, 128 steps); all full-width random-weight
      models; and SVDD-MC for 8 steps with the channels=1152 value net;
-  5. one step of each decode under torch.profiler: host ms per step,
+  5. one step of each decode (the guided ones in bf16 too) under
+     torch.profiler: host ms per step,
      the card's busy ms and idle share, and kernel ms by kind; and one
      DiT forward at the text preset's 512 rows;
 then the kernels line (launches summed over the runs of phases 3 and 4),
@@ -55,6 +60,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -110,6 +116,44 @@ PATH_KERNELS = {
     'dimamba': ('rmsnorm',),
 }
 GUIDED = ('svdd_mc', 'dps', 'classifier')
+# the JAX package's bf16 compute switches, which its bench sets: the CNN
+# denoiser and the Enformer value net compute in bf16 (the reward oracle
+# stays f32); the guided decodes run once in f32 and once under them
+BF16_SWITCHES = ('SVDD_CNN_BF16', 'SVDD_VALUE_BF16')
+BF16_RUNS = {f'{algo}_bf16': PATH_KERNELS[algo] for algo in GUIDED}
+# card vs CPU tolerance of the full-width models in bf16: both round to
+# bf16 at the same points, but the kernels and cuBLAS sum in other
+# orders, so a value can round one bf16 ulp apart, and a random-weight
+# net carries that through its 20 denoiser layers, or 7 tower blocks and
+# 11 transformer blocks, and their backward: on the CPU alone the bf16
+# nets' outputs and input gradients lie several percent from the f32
+# ones (the value net's gradient 12% by norm). So the card's bf16 result
+# must lie within BF16_NOISE_MULT times the CPU's own bf16-to-f32
+# distance of the CPU's bf16 result (max abs for outputs, the norm for
+# gradients), plus 2^-8 of the CPU value
+BF16_NOISE_MULT = 2.0
+
+
+def bf16_close(err: float, noise: float, scale: float) -> bool:
+  """The bf16 card-vs-CPU rule: err <= BF16_NOISE_MULT * noise + 2^-8 *
+  scale, noise the CPU's bf16-to-f32 distance."""
+  return err <= BF16_NOISE_MULT * noise + 2 ** -8 * scale
+
+
+@contextlib.contextmanager
+def bf16_switches(on: bool):
+  """SVDD_CNN_BF16 and SVDD_VALUE_BF16 set to '1' (on) or '0' for the
+  enclosed runs, restored after."""
+  saved = {k: os.environ.get(k) for k in BF16_SWITCHES}
+  os.environ.update({k: '1' if on else '0' for k in BF16_SWITCHES})
+  try:
+    yield
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
 # the runs of the Basenji trunk and the off-grid Enformer value net
 # (models phase, N=512) and the SVDD-MC decode with that value net (decode
 # phase), and the kernels each must launch
@@ -503,13 +547,51 @@ def check_cnn_layer(dtype, gen):
   return _cnn_rates(r, name)
 
 
+# (B, M, L, V) points of B2 besides the step's shape: a row longer than
+# a block's tile (1609 positions at V = 5), V = 12 (three Philox calls a draw),
+# M = 300 (past the 256 threads), a row of one position
+GUMBEL_POINTS = ((3, 4, 5000, 5), (4, 3, 40, 12), (2, 300, 7, 5),
+                 (5, 2, 1, 4))
+# the card's rates for B2's work, beside PEAK_FLOPS: per-SM results a
+# clock of compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput: 16 for log2/exp2/rcp on the SFU, 64
+# for 32-bit integer multiplies) times 132 SMs at the 1.98 GHz boost
+# clock of the H100 SXM
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+IMUL_OPS_PER_S = 64 * 132 * 1.98e9
+# Philox4x32-10: 10 rounds of two 32-bit multiplies, each as mul.hi and
+# mul.lo; one call holds five 24-bit uniforms
+PHILOX_IMULS, PHILOX_VALUES = 40, 5
+
+
+def gumbel_bound(n_drawn: int, v: int, nbytes: float):
+  """(ms, 'operations' | 'bytes', detail) of B2: the larger of its bytes
+  over HBM's rate and its work, n_drawn masked draws of two logarithms
+  a value on the SFU and ceil(v / 5) Philox calls on the integer
+  multipliers (the two pipes run side by side)."""
+  lg2 = n_drawn * 2 * v
+  imul = n_drawn * -(-v // PHILOX_VALUES) * PHILOX_IMULS
+  t = {'bytes': nbytes / HBM_BYTES_PER_S, 'sfu': lg2 / SFU_OPS_PER_S,
+       'imul': imul / IMUL_OPS_PER_S}
+  worst = max(t, key=t.get)
+  return (t[worst] * 1e3, 'bytes' if worst == 'bytes' else 'operations',
+          {'lg2': lg2, 'imul': imul, 'bytes': nbytes,
+           **{f'{k}_ms': ms * 1e3 for k, ms in t.items()}})
+
+
 def check_gumbel_candidates(gen):
-  """B2 at (512, 200, 5), M=10: every draw equal to the plain version's
-  on the noise the kernel used, frequencies vs softmax(log_q) by
-  chi-square over 8 distinct rows, unmasked tokens copied exactly."""
+  """B2 at (512, 200, 5), M=10, int64 tokens as the decode passes them:
+  every draw equal to the plain version's on the noise the kernel used,
+  frequencies vs softmax(log_q) by chi-square over 8 distinct rows,
+  unmasked tokens copied exactly, the candidates in x's dtype (int32 too
+  at a short point), exact at GUMBEL_POINTS too; a generator on another
+  device and a mask index
+  outside [0, V] refused before any launch. Bound: the bytes and the
+  work of this run's masked positions (``gumbel_bound``)."""
   import numpy as np
   import torch
   from scipy import stats as sps
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import fused_sample as K
   from svdd_tpu_torch.mdlm import gumbel_noise
   b, l, v, m, mask = 512, 200, 5, 10, 4
@@ -522,6 +604,8 @@ def check_gumbel_candidates(gen):
                   mask, x)
   out, noise = K.gumbel_candidates(log_q, x, m, mask, gen,
                                    return_noise=True)
+  if out.dtype != x.dtype:
+    raise AssertionError(f'gumbel_candidates: {out.dtype} out of {x.dtype}')
   # each draw against the plain version on the kernel's own noise: exact
   err = int((out - K.gumbel_candidates_plain(log_q, x, noise, mask))
             .abs().max())
@@ -544,17 +628,54 @@ def check_gumbel_candidates(gen):
     max_dev = max(max_dev, float(np.abs(counts / total - p[k]).max()))
   if worst_p < 1e-4:
     raise AssertionError(f'gumbel_candidates: chi-square p {worst_p}')
+  # int32 tokens: int32 candidates, exact on the kernel's noise
+  x32 = x[:8].to(torch.int32)
+  o32, n32 = K.gumbel_candidates(log_q[:8], x32, m, mask, gen,
+                                 return_noise=True)
+  if o32.dtype != torch.int32 or not torch.equal(
+      o32, K.gumbel_candidates_plain(log_q[:8], x32, n32, mask)):
+    raise AssertionError('gumbel_candidates: int32 tokens')
+  # GUMBEL_POINTS: rows split over blocks, V past one Philox call, M past
+  # the block's threads; exact on the kernel's noise, a launch each
+  for pb, pm, pl, pv in GUMBEL_POINTS:
+    lq = torch.log_softmax(torch.randn(pb, pl, pv, device='cuda',
+                                       generator=gen), -1)
+    xp = torch.randint(0, pv, (pb, pl), device='cuda', generator=gen)
+    xp = torch.where(torch.rand(pb, pl, device='cuda', generator=gen) < 0.5,
+                     pv - 1, xp)
+    before = _build.LAUNCHES['gumbel_candidates']
+    op, npt = K.gumbel_candidates(lq, xp, pm, pv - 1, gen,
+                                  return_noise=True)
+    if (_build.LAUNCHES['gumbel_candidates'] != before + 1
+        or not torch.equal(op, K.gumbel_candidates_plain(lq, xp, npt,
+                                                         pv - 1))):
+      raise AssertionError(f'gumbel_candidates {(pb, pm, pl, pv)}: draws '
+                           'differ from the plain version on their noise')
+  before = _build.LAUNCHES['gumbel_candidates']
+  for bad in (dict(generator=torch.Generator().manual_seed(0)),
+              dict(mask_index=v + 1)):
+    kw = {'mask_index': mask, 'generator': gen, **bad}
+    try:
+      K.gumbel_candidates(log_q, x, m, kw['mask_index'], kw['generator'])
+    except ValueError:
+      continue
+    raise AssertionError(f'gumbel_candidates: {sorted(bad)} not refused')
+  if _build.LAUNCHES['gumbel_candidates'] != before:
+    raise AssertionError('gumbel_candidates: a refused call launched')
 
   def plain():
     noise = gumbel_noise((b, m, l, v), gen, 'cuda')
     return K.gumbel_candidates_plain(log_q, x, noise, mask)
-  return {'shape': [b, m, l, v], 'max_abs_err': err,
-          'chi2_min_p': worst_p, 'max_freq_dev': max_dev,
+  es = x.element_size()
+  nbytes = b * l * v * 4 + b * l * es + b * m * l * es
+  n_drawn = int(drawn.sum())
+  bound_ms, bound_by, work = gumbel_bound(n_drawn, v, nbytes)
+  return {'shape': [b, m, l, v], 'index_dtype': str(x.dtype).split('.')[-1],
+          'points': [list(pt) for pt in GUMBEL_POINTS],
+          'max_abs_err': err, 'chi2_min_p': worst_p,
+          'max_freq_dev': max_dev, 'masked_draws': n_drawn,
           **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen), plain),
-          # one add and compare per candidate lane; log_q and x in, the
-          # candidates out
-          'flops': b * m * l * v,
-          'bytes': b * l * v * 4 + b * l * 4 + b * m * l * 4}
+          'bound_ms': bound_ms, 'bound_by': bound_by, 'work': work}
 
 
 # (L, C) of the six fused pools and the last one of the full tower
@@ -730,16 +851,29 @@ def _attn_l2_args(n, h, dk, dv, dtype, gen):
           r(3, h * dk).to(dtype), h)
 
 
+def _attn_l2_plain(args):
+  """B5's plain version with the relk rounding JAX's dispatch takes at
+  the shape (``attn_l2_body_rounds``)."""
+  from svdd_tpu_torch.ops import attn_l2 as K
+  q, _, v, *_, h = args
+  return K.attn_l2_plain(*args, round_relk=K.attn_l2_body_rounds(
+      q.shape[0], q.shape[-1], v.shape[-1]))
+
+
 def _attn_l2_at(n, dtype, gen):
   """B5 at (n, 2, 8 heads x (64 | 192)) against the plain version, timed
-  (one of the 11 calls of a value forward)."""
+  (one of the 11 calls of a value forward). On JAX's gate (these widths,
+  N % 8 == 0) the kernel rounds the relk differences as the Pallas body
+  does; ``relk_rounding_w_diff``: how far the plain version without that
+  rounding (the jnp reference's form) lies from the kernel's w."""
   import torch
   from svdd_tpu_torch.ops import attn_l2 as K
   name = str(dtype).split('.')[-1]
   h, dk, dv = ATTN_L2_HEADS
   args = _attn_l2_args(n, h, dk, dv, dtype, gen)
   out, w = K.attn_l2(*args)
-  out_p, w_p = K.attn_l2_plain(*args)
+  out_p, w_p = _attn_l2_plain(args)
+  ref_w = K.attn_l2_plain(*args, round_relk=False)[1]
   errs = (compare('attn_l2 out', out, out_p, name),
           compare('attn_l2 w', w, w_p, 'float32'
                   if dtype == torch.float32 else name))
@@ -747,12 +881,14 @@ def _attn_l2_at(n, dtype, gen):
   return {'shape': [n, 2, h * dk, h * dv],
           'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
+          'round_relk': K.attn_l2_body_rounds(n, h * dk, h * dv),
+          'relk_rounding_w_diff': float((w - ref_w).abs().max()),
           # per query: two logit terms per dk lane, a blend per dv lane
           'flops': n * 2 * h * (6 * dk + 3 * dv),
           # q, k, v read once, the bias rows once, out and w written once
           'bytes': (n * 2 * h * (2 * dk + 2 * dv) + 5 * h * dk) * es
                    + n * 2 * h * 4,
-          **timed(lambda: K.attn_l2(*args), lambda: K.attn_l2_plain(*args),
+          **timed(lambda: K.attn_l2(*args), lambda: _attn_l2_plain(args),
                   reps=20, iters=20)}
 
 
@@ -774,7 +910,7 @@ def check_attn_l2(dtype, gen):
   for point in ATTN_L2_POINTS:
     args = _attn_l2_args(*point, dtype, gen)
     before = _build.LAUNCHES['attn_l2']
-    got, want = K.attn_l2(*args), K.attn_l2_plain(*args)
+    got, want = K.attn_l2(*args), _attn_l2_plain(args)
     if _build.LAUNCHES['attn_l2'] != before + 1:
       raise AssertionError(f'attn_l2 {point}: no launch')
     r['max_abs_err_points'][str(point)] = max(
@@ -1345,18 +1481,24 @@ def check_attn_pool_logits_im2col(dtype, gen):
 # ---------------------------------------------------------------------------
 
 
-def check_models(gen_seed: int = 0):
+def check_models(f32_cpu=None, gen_seed: int = 0):
   """The full-width denoiser (8 rows) and value net (4 candidates) on the
   card through the kernels, against the plain path on the CPU with the
-  same weights. Whole models sum in other orders on each side: 1e-3."""
+  same weights. Whole models sum in other orders on each side: 1e-3 in
+  f32. Given ``f32_cpu``, the f32 run's CPU outputs, both nets are built
+  as the bf16 switches build them and held by ``bf16_close``. Returns
+  the report and the CPU outputs."""
+  bf16 = f32_cpu is not None
   import torch
   from svdd_tpu_torch import mdlm
   from svdd_tpu_torch.config import dna_config
   from svdd_tpu_torch.diffusion import Diffusion
   from svdd_tpu_torch.models.enformer import EnformerValueModel
   cfg = dna_config()
-  den = Diffusion(cfg, device='cuda')
+  with bf16_switches(bf16):
+    den = Diffusion(cfg, device='cuda')
   val = EnformerValueModel(
+      compute_dtype=torch.bfloat16 if bf16 else torch.float32,
       generator=torch.Generator('cuda').manual_seed(1)).cuda().eval()
   g = torch.Generator().manual_seed(gen_seed)
   x = torch.randint(0, 5, (8, cfg.model.length), generator=g)
@@ -1370,26 +1512,45 @@ def check_models(gen_seed: int = 0):
     lp_cpu = den.forward(x, sigma)
     v_cpu = val(mdlm.transform_samples(x[:4]))
   finite = torch.isfinite(lp_gpu) | (lp_gpu == mdlm.NEG_INFINITY)
-  if not finite.all():
-    raise AssertionError('denoiser: non-finite log-probs')
-  tol = dict(rtol=1e-3, atol=1e-3)
-  if not torch.allclose(lp_gpu, lp_cpu, **tol):
-    raise AssertionError(f'denoiser card vs cpu: max abs err '
-                         f'{float((lp_gpu - lp_cpu).abs().max())}')
-  if not torch.allclose(v_gpu, v_cpu, rtol=1e-3,
-                        atol=1e-3 * float(v_cpu.abs().max())):
-    raise AssertionError(f'value net card vs cpu: {v_gpu} vs {v_cpu}')
-  return {'denoiser_max_abs_err': float((lp_gpu - lp_cpu).abs().max()),
-          'value_gpu': v_gpu.tolist(), 'value_cpu': v_cpu.tolist()}
+  if not finite.all() or not torch.isfinite(v_gpu).all():
+    raise AssertionError('models: non-finite outputs')
+  # the log-probs SUBS pins near NEG_INFINITY (the MASK column, the
+  # unmasked rows' other tokens) are compared as a pattern
+  live = lp_cpu > mdlm.NEG_INFINITY / 2
+  if not torch.equal(live, lp_gpu > mdlm.NEG_INFINITY / 2):
+    raise AssertionError('denoiser card vs cpu: the -inf entries differ')
+  lp_err = float((lp_gpu[live] - lp_cpu[live]).abs().max())
+  v_err = float((v_gpu - v_cpu).abs().max())
+  lp_max, v_max = float(lp_cpu[live].abs().max()), float(v_cpu.abs().max())
+  r = {'compute_dtype': 'bfloat16' if bf16 else 'float32',
+       'denoiser_max_abs_err': lp_err, 'denoiser_max_abs': lp_max,
+       'value_max_abs_err': v_err,
+       'value_gpu': v_gpu.tolist(), 'value_cpu': v_cpu.tolist()}
+  if bf16:
+    lp_noise = float((lp_cpu[live] - f32_cpu['lp'][live]).abs().max())
+    v_noise = float((v_cpu - f32_cpu['v']).abs().max())
+    r.update(denoiser_cpu_bf16_vs_f32=lp_noise, value_cpu_bf16_vs_f32=v_noise)
+    ok = (bf16_close(lp_err, lp_noise, lp_max)
+          and bf16_close(v_err, v_noise, v_max))
+  else:
+    ok = (torch.allclose(lp_gpu, lp_cpu, rtol=1e-3, atol=1e-3)
+          and torch.allclose(v_gpu, v_cpu, rtol=1e-3, atol=1e-3 * v_max))
+  if not ok:
+    raise AssertionError(f'models card vs cpu: {r}')
+  return r, {'lp': lp_cpu, 'v': v_cpu}
 
 
-def check_model_grads():
+def check_model_grads(f32_cpu=None):
   """The input gradients the guided decoders take, on 8 rows of the
   full-width models: the value net's through its differentiable tower
   (classifier guidance) and the DPS gradient of a fixed linear reward
   through the denoiser's one-hot path, the kernels on the card against
   the plain path on the CPU with the same weights. Whole backward passes
-  sum in other orders on each side: 1e-3 of the largest gradient."""
+  sum in other orders on each side: 1e-3 of the largest gradient in f32.
+  Given ``f32_cpu``, the f32 run's CPU gradients, both nets are built as
+  the bf16 switches build them and the norm of each difference is held
+  by ``bf16_close``. Returns the report and the CPU gradients."""
+  bf16 = f32_cpu is not None
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.config import dna_config
@@ -1397,8 +1558,10 @@ def check_model_grads():
   from svdd_tpu_torch.models.enformer import EnformerValueModel
   from svdd_tpu_torch.sampling import guidance
   cfg = dna_config()
-  den = Diffusion(cfg, device='cuda')
+  with bf16_switches(bf16):
+    den = Diffusion(cfg, device='cuda')
   val = EnformerValueModel(
+      compute_dtype=torch.bfloat16 if bf16 else torch.float32,
       generator=torch.Generator('cuda').manual_seed(1)).cuda().eval()
   g = torch.Generator().manual_seed(2)
   x = torch.randint(0, 5, (8, cfg.model.length), generator=g)
@@ -1426,19 +1589,26 @@ def check_model_grads():
   den.device = torch.device('cpu')
   val.cpu()
   gv_cpu, gd_cpu = grads('cpu')
-  out = {}
+  out = {'compute_dtype': 'bfloat16' if bf16 else 'float32'}
+  norm = torch.linalg.vector_norm
+  cpu = {'value_grad': gv_cpu, 'dps_grad': gd_cpu}
   for name, got, want in (('value_grad', gv_gpu, gv_cpu),
                           ('dps_grad', gd_gpu, gd_cpu)):
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    if scale == 0 or not torch.isfinite(got).all() or not torch.allclose(
-        got, want, rtol=1e-3, atol=1e-3 * scale):
-      raise AssertionError(f'{name} card vs cpu: max abs err {err}, '
-                           f'max |cpu| {scale}')
-    out[f'{name}_max_abs_err'] = err
-    out[f'{name}_max_abs'] = scale
+    rel = float(norm(got - want) / norm(want))
+    out.update({f'{name}_max_abs_err': err, f'{name}_max_abs': scale,
+                f'{name}_rel_norm_err': rel})
+    if bf16:
+      noise = float(norm(want - f32_cpu[name]) / norm(want))
+      out[f'{name}_cpu_bf16_vs_f32_rel_norm'] = noise
+      close = bf16_close(rel, noise, 1.0)
+    else:
+      close = torch.allclose(got, want, rtol=1e-3, atol=1e-3 * scale)
+    if scale == 0 or not torch.isfinite(got).all() or not close:
+      raise AssertionError(f'{name} card vs cpu: {out}')
   out['launches'] = {k: launches[k] for k in sorted(need)}
-  return out
+  return out, cpu
 
 
 def nonzero_init(model, seed: int):
@@ -1750,12 +1920,14 @@ OFFGRID_DECODE_STEPS = 8
 
 
 def run_decode(algo: str, run_name: str | None = None,
-               steps: int = DECODE_STEPS, value_kwargs=None):
+               steps: int = DECODE_STEPS, value_kwargs=None,
+               bf16: bool = False):
   """One decode through its CLI's ``run``: B=512, 128 steps (or
-  ``steps``), L=200, float32, --skip_best_of_n, the value net of
-  ``value_kwargs`` (EnformerValueModel arguments) where given; the launch
-  counts are set to 0 just before and read just after, and every kernel
-  of the path (``run_name``'s) must have run."""
+  ``steps``), L=200, float32 (or, ``bf16``, under the bf16 switches),
+  --skip_best_of_n, the value net of ``value_kwargs`` (EnformerValueModel
+  arguments) where given; the launch counts are set to 0 just before and
+  read just after, and every kernel of the path (``run_name``'s) must
+  have run."""
   run_name = run_name or algo
   import numpy as np
   import torch
@@ -1780,12 +1952,13 @@ def run_decode(algo: str, run_name: str | None = None,
   torch.cuda.reset_peak_memory_stats()
   _build.reset_launches()
   t0 = time.perf_counter()
-  report = (run(args, value_kwargs=value_kwargs) if value_kwargs
-            else run(args))
+  with bf16_switches(bf16):
+    report = (run(args, value_kwargs=value_kwargs) if value_kwargs
+              else run(args))
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = _build.launches()
-  need = {**PATH_KERNELS, **OFFGRID_KERNELS}[run_name]
+  need = {**PATH_KERNELS, **OFFGRID_KERNELS, **BF16_RUNS}[run_name]
   missing = [k for k in need if launches[k] == 0]
   if missing:
     raise AssertionError(f'{run_name} decode never launched {missing}')
@@ -1796,8 +1969,14 @@ def run_decode(algo: str, run_name: str | None = None,
     if d[key].shape != (512,) or not np.isfinite(d[key]).all():
       raise AssertionError(f'npz {key}: shape {d[key].shape} or '
                            'non-finite values')
+  row = json.loads(open(os.path.join(
+      out_dir, f'{args.run_name}.metrics.jsonl')).read().splitlines()[-1])
+  dtype = 'bfloat16' if bf16 else 'float32'
+  if row['denoiser_dtype'] != dtype or row.get('value_dtype',
+                                               dtype) != dtype:
+    raise AssertionError(f'{run_name}: metrics row dtypes {row}')
   out = {'algo': algo, 'run': run_name, 'task': 'dna', 'batch_size': 512,
-         'length': 200, 'steps': steps,
+         'length': 200, 'steps': steps, 'compute_dtype': dtype,
          'value_net': value_kwargs or 'EnformerValueModel defaults',
          'npz': os.path.basename(common.npz_path(args, suffix))}
   if algo == 'svdd_mc':
@@ -1884,7 +2063,8 @@ KINDS = (('flash_attention', 'flash_attention'), ('rmsnorm', 'rmsnorm'),
          ('conv_bwd_', 'conv1d_bwd'), ('pool_bwd_', 'attn_pool_bwd'),
          ('reduce_partials', 'bwd_partial_sums'), ('attn_pool', 'attn_pool'),
          ('attn_l2', 'attn_l2'), ('gumbel_candidates', 'gumbel_candidates'),
-         ('gemm', 'gemm'), ('fprop', 'conv'), ('dgrad', 'conv'),
+         ('gemm', 'gemm'), ('nvjet', 'gemm'), ('fprop', 'conv'),
+         ('dgrad', 'conv'),
          ('wgrad', 'conv'), ('conv', 'conv'),
          ('memcpy', 'memcpy_memset'), ('memset', 'memcpy_memset'))
 
@@ -1894,7 +2074,7 @@ def _kind(name: str) -> str:
   return next((k for frag, k in KINDS if frag in low), 'other')
 
 
-def profile_step(algo: str):
+def profile_step(algo: str, bf16: bool = False):
   """One step of a decode at its shapes (B=512, L=200, M=10 for SVDD-MC,
   the same models; 64 rows at L=1024 for the text preset's ddpm_cache
   step, which runs its forward from an empty cache; 512 rows at L=200
@@ -1905,7 +2085,9 @@ def profile_step(algo: str):
   device_busy_ms / profiled_step_ms (host time of the profiled step, to
   its synchronize). by_kind_ms: summed kernel time by kind ('other' is
   PyTorch's elementwise and reduction glue, 'conv' and 'gemm' the
-  library's convolutions and matrix products)."""
+  library's convolutions and matrix products, cuBLAS's bf16 'nvjet'
+  kernels among them). ``bf16``: a guided step
+  with the models the bf16 switches build."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   from svdd_tpu_torch import mdlm
@@ -1931,9 +2113,11 @@ def profile_step(algo: str):
          '--device', 'cuda'])
     cfg = common.task_config(args)
     batch = args.batch_size
-    diffusion = common.load_diffusion(args, cfg)
+    with bf16_switches(bf16):
+      diffusion = common.load_diffusion(args, cfg)
+      vf = (None if algo == 'dps'
+            else common.load_value_function(args, cfg))
     if algo == 'svdd_mc':
-      vf = common.load_value_function(args, cfg)
       step = guidance.svdd_mc_step(diffusion.forward, vf.score_tokens,
                                    diffusion.schedule, cfg.mask_index,
                                    repeats=args.sample_M)
@@ -1943,7 +2127,6 @@ def profile_step(algo: str):
                                diffusion.schedule, cfg.mask_index,
                                guidance_scale=1e5)
     else:
-      vf = common.load_value_function(args, cfg)
       step = guidance.classifier_step(diffusion.forward, vf.as_onehot_fn(),
                                       diffusion.schedule, cfg.mask_index)
   gen = torch.Generator('cuda').manual_seed(0)
@@ -1979,7 +2162,7 @@ def profile_step(algo: str):
     by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end -
                                         e.time_range.start) / 1e3
   busy_ms = busy_us / 1e3
-  return {'algo': algo, 'batch_size': batch,
+  return {'algo': f'{algo}_bf16' if bf16 else algo, 'batch_size': batch,
           'length': cfg.model.length, 'host_step_ms': host_ms,
           'profiled_step_ms': prof_ms, 'device_events': len(dev),
           'device_busy_ms': busy_ms,
@@ -2081,7 +2264,6 @@ def main() -> None:
       results[(name, dname)] = r
   r = check_gumbel_candidates(gen)
   torch.cuda.synchronize()
-  r['bound_ms'], r['bound_by'] = bound(r['flops'], r['bytes'])
   emit({'phase': 'kernel', 'kernel': 'gumbel_candidates',
         'dtype': 'float32', **r})
   results[('gumbel_candidates', 'float32')] = r
@@ -2090,15 +2272,18 @@ def main() -> None:
   torch.cuda.synchronize()
   emit({'phase': 'cnn_layer_past_limit', **r})
 
-  r = check_models()
-  torch.cuda.synchronize()
-  torch.cuda.empty_cache()
-  emit({'phase': 'models', **r})
+  # float32, then bf16 held against the f32 run's CPU results
+  model_ref = grad_ref = None
+  for _ in range(2):
+    r, model_ref = check_models(model_ref)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'models', **r})
 
-  r = check_model_grads()
-  torch.cuda.synchronize()
-  torch.cuda.empty_cache()
-  emit({'phase': 'grads', **r})
+    r, grad_ref = check_model_grads(grad_ref)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'grads', **r})
 
   r = check_backbones()
   torch.cuda.synchronize()
@@ -2135,10 +2320,16 @@ def main() -> None:
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   emit({'phase': 'decode', **decodes['svdd_mc_1152']})
+  for algo in GUIDED:
+    decodes[f'{algo}_bf16'] = run_decode(algo, f'{algo}_bf16', bf16=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'decode', **decodes[f'{algo}_bf16']})
   runs.update(decodes)
 
-  for algo in PATH_KERNELS:
-    prof = profile_step(algo)
+  for algo, bf16 in ([(a, False) for a in PATH_KERNELS]
+                     + [(a, True) for a in GUIDED]):
+    prof = profile_step(algo, bf16)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'profile', **prof})

@@ -32,17 +32,17 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_LL = ctypes.c_longlong
+_LL, _ULL = ctypes.c_longlong, ctypes.c_ulonglong
 # C entry points: name -> (library, argtypes). Pointers and the stream
 # are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
     'svdd_cnn_layer': ('cnn_layer', [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
     'svdd_gumbel_candidates': ('gumbel_candidates',
-                               [_P] * 5 + [_I] * 5 + [_P]),
+                               [_P] * 4 + [_I] * 6 + [_ULL, _ULL, _P]),
     'svdd_attn_pool': ('attn_pool', [_P] * 4 + [_I] * 4 + [_P]),
     'svdd_attn_pool_im2col': ('attn_pool',
                               [_P] * 7 + [_I] * 6 + [_P]),
-    'svdd_attn_l2': ('attn_l2', [_P] * 8 + [_I] * 5 + [_P]),
+    'svdd_attn_l2': ('attn_l2', [_P] * 8 + [_I] * 6 + [_P]),
     'svdd_cnn_layer_bwd': ('cnn_layer_bwd',
                            [_P] * 18 + [_I] * 5 + [_F, _I, _P]),
     'svdd_conv1d_bwd': ('conv1d_bwd', [_P] * 7 + [_I] * 7 + [_P]),
@@ -133,14 +133,21 @@ def _lib(name: str) -> ctypes.CDLL:
   return _LIBS[name]
 
 
+_ENTRIES: dict = {}
+
+
 def entry(fn_name: str):
-  """The bound C entry point ``fn_name`` (building its library first)."""
+  """The bound C entry point ``fn_name`` (building its library first),
+  bound once per loaded library."""
   lib_name, argtypes = SIGNATURES[fn_name]
   lib = _lib(lib_name)
-  fn = getattr(lib, fn_name)
-  fn.argtypes = argtypes
-  fn.restype = ctypes.c_int
-  return fn
+  cached = _ENTRIES.get(fn_name)
+  if cached is None or cached[0] is not lib:
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    cached = _ENTRIES[fn_name] = (lib, fn)
+  return cached[1]
 
 
 def check(rc: int, fn_name: str) -> None:

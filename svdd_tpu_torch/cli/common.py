@@ -133,6 +133,17 @@ def load_value_function(args, cfg: Config,
       n_tasks=args.n_task, **module_kwargs)
 
 
+def compute_dtypes(diffusion: Diffusion,
+                   vf: Optional[value_lib.ValueFunction] = None) -> dict:
+  """The metrics row's record of the compute dtypes of the run's
+  denoiser and value net (SVDD_CNN_BF16, SVDD_VALUE_BF16)."""
+  name = lambda dt: str(dt).split('.')[-1]
+  row = {'denoiser_dtype': name(diffusion.backbone.compute_dtype)}
+  if vf is not None:
+    row['value_dtype'] = name(vf.module.compute_dtype)
+  return row
+
+
 def npz_path(args, suffix: str = '') -> str:
   """'./log/{task}-{reward}{suffix}.npz'."""
   return os.path.join(args.out_dir,

@@ -4,8 +4,10 @@
 
 Writes ``{out_dir}/{task}-{reward}.npz`` with the keys 'decoding' and
 'baseline' and appends a metrics row to
-``{out_dir}/{run_name}.metrics.jsonl``. Float32 runs turn TF32 off for
-both matmuls and cuDNN convolutions, so both nets compute in full f32.
+``{out_dir}/{run_name}.metrics.jsonl``, which records the nets'
+compute dtypes. The denoiser computes in bf16 under SVDD_CNN_BF16=1 and
+the value net under SVDD_VALUE_BF16=1, as in svdd_tpu; otherwise in
+f32, with TF32 off for both matmuls and cuDNN convolutions.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
       skip_best_of_n=args.skip_best_of_n)
   return common.finish_run(args, result, extra_metrics={
       'algo': 'svdd_mc', 'm_schedule': None, 'device': args.device,
-      'wall_s': time.perf_counter() - t0})
+      'wall_s': time.perf_counter() - t0,
+      **common.compute_dtypes(diffusion, vf)})
 
 
 def main() -> None:

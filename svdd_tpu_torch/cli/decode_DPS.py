@@ -38,7 +38,8 @@ def run(args, cfg=None) -> dict:
       seed=args.seed, skip_best_of_n=args.skip_best_of_n)
   return common.finish_run(args, result, NPZ_SUFFIX, extra_metrics={
       'algo': 'dps', 'guidance_scale': args.guidance_scale,
-      'device': args.device, 'wall_s': time.perf_counter() - t0})
+      'device': args.device, 'wall_s': time.perf_counter() - t0,
+      **common.compute_dtypes(diffusion)})
 
 
 def parser(description: str = 'DPS gradient-guided decoding'):

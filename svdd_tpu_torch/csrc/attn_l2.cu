@@ -7,7 +7,10 @@
 // relk holds the rel_k rows of distances -1, 0, +1 (logit[i, j] uses
 // distance j - i, as svdd_tpu/ops/attn_l2_pallas.py:_prep_relk); T()
 // rounds to the activation type, as the plain version adds q and the
-// bias in that type before its f32 products.
+// bias in that type before its f32 products. With round_relk the relk
+// row differences are rounded to the activation type too, as the Pallas
+// body subtracts them on bf16 refs (attn_l2_pallas.py:101, :231); without
+// it they stay f32, the jnp reference's form (attn_l2_reference :64).
 //
 // Replaces svdd_tpu/ops/attn_l2_pallas.py:attn_l2_lnc_pallas
 // (pallas_call :260, body _kernel_lnc :220), and computes the function of
@@ -45,7 +48,7 @@ __global__ void __launch_bounds__(kThreads)
                    const T* __restrict__ v, const T* __restrict__ bc,
                    const T* __restrict__ bp, const T* __restrict__ relk,
                    T* __restrict__ out, float* __restrict__ wout, int N, int H,
-                   int dk, int dv, int lph) {
+                   int dk, int dv, int lph, bool round_relk) {
   const int hdk = H * dk, hdv = H * dv;
   const int lane = threadIdx.x & 31;
   const int g = lane / lph, r = lane - g * lph;  // lane group, lane in it
@@ -77,10 +80,13 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < KE; ++e) {
           const float kd = k0[e] - k1[e];
           // query 0 reads distances 0 and +1, query 1 distances -1 and 0
-          s0 += svdd::round_to<T>(q0[e] + b_c[e]) * kd +
-                svdd::round_to<T>(q0[e] + b_p[e]) * (r0[e] - rp[e]);
-          s1 += svdd::round_to<T>(q1[e] + b_c[e]) * kd +
-                svdd::round_to<T>(q1[e] + b_p[e]) * (rm[e] - r0[e]);
+          float rd0 = r0[e] - rp[e], rd1 = rm[e] - r0[e];
+          if (round_relk) {
+            rd0 = svdd::round_to<T>(rd0);
+            rd1 = svdd::round_to<T>(rd1);
+          }
+          s0 += svdd::round_to<T>(q0[e] + b_c[e]) * kd + svdd::round_to<T>(q0[e] + b_p[e]) * rd0;
+          s1 += svdd::round_to<T>(q1[e] + b_c[e]) * kd + svdd::round_to<T>(q1[e] + b_p[e]) * rd1;
         }
       }
       for (int o = lph / 2; o > 0; o >>= 1) {  // within the head's lane group
@@ -113,10 +119,11 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int KE>
 int launch(const void* q, const void* k, const void* v, const void* bc,
            const void* bp, const void* relk, void* out, void* w, int n, int h,
-           int dk, int dv, cudaStream_t stream) {
+           int dk, int dv, bool round_relk, cudaStream_t stream) {
   if constexpr (KE > 1) {  // the widest chunk dividing both head widths
     if (dk % KE || dv % KE)
-      return launch<T, KE / 2>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, stream);
+      return launch<T, KE / 2>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, round_relk,
+                               stream);
   }
   int lph = 32;  // lanes a head: the largest power of two with h * lph <= 32
   while (lph > 1 && h * lph > 32) lph /= 2;
@@ -130,7 +137,7 @@ int launch(const void* q, const void* k, const void* v, const void* bc,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(bc),
       static_cast<const T*>(bp), static_cast<const T*>(relk),
-      static_cast<T*>(out), static_cast<float*>(w), n, h, dk, dv, lph);
+      static_cast<T*>(out), static_cast<float*>(w), n, h, dk, dv, lph, round_relk);
   return cudaGetLastError();
 }
 
@@ -139,15 +146,17 @@ int launch(const void* q, const void* k, const void* v, const void* bc,
 // q, k (N, 2, H*dk) with q pre-scaled; v (N, 2, H*dv); bc, bp (H*dk,);
 // relk (3, H*dk) in the activation type; out (N, 2, H*dv) in the
 // activation type, w (N, 2, H) f32. Every tensor 16-byte aligned.
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16. round_relk: round the relk row
+// differences to the activation type (a no-op in float32).
 extern "C" int svdd_attn_l2(const void* q, const void* k, const void* v,
                             const void* bc, const void* bp, const void* relk,
                             void* out, void* w, int n, int h, int dk, int dv,
-                            int dtype, void* stream) {
+                            int dtype, int round_relk, void* stream) {
   if (n < 1 || h < 1 || dk < 1 || dv < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 4>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, s);
+  const bool rr = round_relk != 0;
+  if (dtype == 0) return launch<float, 4>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, rr, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 8>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, s);
+    return launch<__nv_bfloat16, 8>(q, k, v, bc, bp, relk, out, w, n, h, dk, dv, rr, s);
   return cudaErrorInvalidValue;
 }

@@ -24,17 +24,20 @@ def compute_dtype(config: Config) -> torch.dtype:
           else torch.float32)
 
 
+def cnn_compute_dtype() -> torch.dtype:
+  """The CNN denoiser's compute dtype: bfloat16 under SVDD_CNN_BF16=1,
+  else float32 (``svdd_tpu/diffusion.py:build_backbone``)."""
+  return (torch.bfloat16 if os.environ.get('SVDD_CNN_BF16') == '1'
+          else torch.float32)
+
+
 def build_backbone(config: Config, generator: torch.Generator):
-  """Backbone factory. The CNN denoiser computes in float32, as the JAX
-  package does without SVDD_CNN_BF16; with SVDD_CNN_BF16=1, where the JAX
-  package builds it in bf16, this raises. The DiT and DiMamba compute in
+  """Backbone factory. The CNN denoiser computes in
+  ``cnn_compute_dtype()``, the DiT and DiMamba in
   ``compute_dtype(config)``."""
   if config.backbone == 'cnn':
-    if os.environ.get('SVDD_CNN_BF16') == '1':
-      raise NotImplementedError('SVDD_CNN_BF16=1: the bf16 CNN denoiser '
-                                'is not ported yet (ROADMAP A19)')
     return CNNModel(config, alphabet_size=config.vocab_size,
-                    generator=generator)
+                    compute_dtype=cnn_compute_dtype(), generator=generator)
   if config.backbone == 'dit':
     return DIT(config, config.vocab_size, compute_dtype(config), generator)
   if config.backbone == 'dimamba':

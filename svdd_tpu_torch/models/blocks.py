@@ -56,7 +56,9 @@ def conv_param(k: int, c_in: int, c_out: int,
 
 
 class Dense(nn.Linear):
-  """nn.Linear with flax Dense init, computing in the input's dtype."""
+  """nn.Linear with flax Dense init, computing in the input's dtype; in
+  bf16 the product is rounded before the bias is added, as flax's
+  ``Dense(dtype=bf16)`` adds it."""
 
   def __init__(self, in_features: int, out_features: int,
                generator: torch.Generator, bias: bool = True):
@@ -69,13 +71,19 @@ class Dense(nn.Linear):
         self.bias.zero_()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, self.weight.to(x.dtype),
-                    None if self.bias is None else self.bias.to(x.dtype))
+    w = self.weight.to(x.dtype)
+    if self.bias is None:
+      return F.linear(x, w)
+    if x.dtype == torch.bfloat16:
+      return F.linear(x, w) + self.bias.to(x.dtype)
+    return F.linear(x, w, self.bias.to(x.dtype))
 
 
 class LayerNorm(nn.Module):
-  """``FastLayerNorm``/``nn.LayerNorm`` over the last axis: statistics
-  and apply in f32, result in the input dtype."""
+  """``FastLayerNorm`` over the last axis. float32: statistics and apply
+  in f32. bfloat16: statistics in f32 (the mean and E[x^2] - mean^2),
+  then mean, rstd, scale and bias cast to bf16 and the apply in bf16
+  (``svdd_tpu/models/blocks.py:64-70``)."""
 
   def __init__(self, dim: int, device=None, eps: float = 1e-5):
     super().__init__()
@@ -84,8 +92,17 @@ class LayerNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x.float(), x.shape[-1:], self.scale.float(),
-                        self.bias.float(), self.eps).to(x.dtype)
+    if x.dtype != torch.bfloat16:
+      return F.layer_norm(x.float(), x.shape[-1:], self.scale.float(),
+                          self.bias.float(), self.eps).to(x.dtype)
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp(x32.square().mean(-1, keepdim=True) - mean.square(),
+                      min=0.0)
+    rstd = torch.rsqrt(var + self.eps)
+    dt = x.dtype
+    return ((x - mean.to(dt)) * rstd.to(dt) * self.scale.to(dt)
+            + self.bias.to(dt))
 
 
 class BatchNorm(nn.Module):
@@ -107,24 +124,60 @@ class BatchNorm(nn.Module):
 
   def probe_affine(self, dtype: torch.dtype):
     """(scale, shift) in f32 as the JAX NACDR fast path recovers them
-    (``blocks.py:396-407``): the norm of 0 and of 1, each rounded to
-    ``dtype``, shift = bn(0) and scale = bn(1) - bn(0) in ``dtype``."""
-    scale, shift = self.affine()
-    b0, b1 = shift.to(dtype), (scale + shift).to(dtype)
-    return (b1 - b0).float(), b0.float()
+    (``blocks.py:396-407``): the norm of an f32 0 and 1, shift = bn(0)
+    and scale = bn(1) - bn(0). For bf16 activations in flax's order,
+    (p - mean) * (rstd * scale) + bias; for float32 ones from
+    ``affine()``, the same values to f32 rounding."""
+    if dtype == torch.bfloat16:
+      b0 = self._flax_norm(torch.zeros_like(self.mean, dtype=torch.float32))
+      b1 = self._flax_norm(torch.ones_like(self.mean, dtype=torch.float32))
+    else:
+      scale, b0 = self.affine()
+      b1 = scale + b0
+    return b1 - b0, b0
+
+  def _flax_norm(self, x32: torch.Tensor) -> torch.Tensor:
+    """flax's order (normalization._normalize) in f32: (x - mean) *
+    (rstd * scale) + bias."""
+    mul = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
+    return (x32 - self.mean.float()) * mul + self.bias.float()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    """bf16 in flax's order, rounded once; f32 as ``affine()``."""
+    if x.dtype == torch.bfloat16:
+      return self._flax_norm(x.float()).to(x.dtype)
     scale, shift = self.affine()
     return (x.float() * scale + shift).to(x.dtype)
+
+
+def defers_bias(dtype: torch.dtype) -> bool:
+  """Whether the eval tower defers each conv's bias, as the JAX tower's
+  pipeline does (``PendingBias``, ``svdd_tpu/models/blocks.py:73-96``):
+  the raw conv output goes on and its bias folds into the next block's
+  norm shift or the pool's output. The JAX rounding of that pipeline
+  shows in bf16, which follows it; float32 adds each bias in place, the
+  same values to f32 rounding."""
+  return dtype == torch.bfloat16
+
+
+class PendingBias(NamedTuple):
+  """A conv output whose (C,) f32 channel bias is not added yet."""
+  x: torch.Tensor
+  bias: torch.Tensor
 
 
 class PoolHandoff(NamedTuple):
   """A deferred attention pool at a width on the 128-lane grid:
   pool(x + residual) with logits weight ``w``, run by the consuming
-  ConvBlock's w-logits kernel."""
+  ConvBlock's w-logits kernel; ``lnc``: handed on in the L-major eval
+  tower (``ops.attn_pool.wlogits_body_takes``); ``out_bias``: a deferred
+  (C,) f32 bias of the pooled output (``defers_bias``), which the
+  consumer folds into its norm shift."""
   x: torch.Tensor
   residual: Optional[torch.Tensor]
   w: torch.Tensor
+  lnc: bool = False
+  out_bias: Optional[torch.Tensor] = None
 
 
 class LogitsHandoff(NamedTuple):
@@ -152,14 +205,23 @@ class AttentionPool(nn.Module):
     super().__init__()
     self.w = nn.Parameter(2.0 * torch.eye(dim, device=device))
 
-  def forward(self, x, residual=None, defer: bool = False):
+  def forward(self, x, residual=None, defer: bool = False,
+              lnc: bool = False, out_bias=None):
+    """``lnc``: the pool of the L-major eval tower (an even input
+    length), which decides JAX's dispatch of the w-logits pool in bf16
+    (``ops.attn_pool.pool_rounds_as_reference``). ``out_bias``: a
+    deferred (C,) f32 bias of x (``defers_bias``): it passes through the
+    blend, added to the output in x's dtype or handed on."""
     w = self.w.to(x.dtype)
     if x.shape[-1] % 128 == 0:
       if defer:
-        return PoolHandoff(x, residual, w)
-      return ap.attn_pool(x, w, residual)
+        return PoolHandoff(x, residual, w, lnc, out_bias)
+      out = ap.attn_pool(x, w, residual, lnc)
+      return out if out_bias is None else out + out_bias.to(out.dtype)
     if residual is not None:
       x = x + residual
+    if out_bias is not None:
+      x = x + out_bias.to(x.dtype)
     logits = torch.matmul(x, w)
     if x.shape[1] % 2:
       x = F.pad(x, (0, 0, 0, 1))
@@ -285,33 +347,63 @@ class ConvBlock(nn.Module):
       return None
     return x if self.channel_transform is None else self.channel_transform(x)
 
-  def _pool(self, y, residual, defer_pool: bool):
+  def _pool(self, y, residual, defer_pool: bool, lnc: bool):
     """Pool y; ``residual`` rides into an attention pool."""
     if self.pool is not None:
-      return self.pool(y, residual=residual, defer=defer_pool)
+      return self.pool(y, residual=residual, defer=defer_pool, lnc=lnc)
     return pool(self.pool_func, self.pool_size, y)
 
   def _defer_residual(self) -> bool:
     return self.pool_func == 'attn' and self.order.endswith('R')
 
-  def forward(self, x, defer_pool: bool = False, fused: bool = True):
+  def _pending(self, x: PendingBias, defer_pool: bool, lnc: bool):
+    """The JAX block's pending branch (``svdd_tpu/models/blocks.py:
+    408-440``) for a k=1 NACDR block with an identity residual riding
+    into its attention pool: the input's bias folds into the norm shift,
+    the affine and activation run in x's dtype, the 1x1 conv on the raw
+    input, and both biases go on to the pool as its ``out_bias``."""
+    if (self.kernel.shape[0] != 1 or self.order != 'NACDR'
+        or self.norm is None or self.channel_transform is not None
+        or not self.residual or not self._defer_residual()):
+      raise NotImplementedError('a pending bias feeds a pooled k=1 NACDR '
+                                'block with an identity residual')
+    y_raw, b_in = x
+    dt = y_raw.dtype
+    scale, shift = self.norm.probe_affine(dt)
+    shift = shift + b_in * scale
+    t = activation(self.act_func, y_raw * scale.to(dt) + shift.to(dt))
+    z_raw = torch.matmul(t, self.kernel[0].to(dt))
+    return self.pool(z_raw, residual=y_raw, defer=defer_pool, lnc=lnc,
+                     out_bias=self.bias.float() + b_in)
+
+  def forward(self, x, defer_pool: bool = False, fused: bool = True,
+              lnc: bool = False):
+    """``lnc``: this block's attention pool is in the L-major eval tower
+    (``AttentionPool.forward``)."""
     k_taps = self.kernel.shape[0]
     nacdr_fast = (self.order == 'NACDR' and self.norm is not None
                   and self.dilation == 1 and k_taps > 1)
+    if isinstance(x, PendingBias):
+      return self._pending(x, defer_pool, lnc)
     if isinstance(x, (PoolHandoff, LogitsHandoff)):
       if not nacdr_fast or self.residual or self.pool_func is not None:
         raise NotImplementedError('a pooled handoff feeds a plain k>1 '
                                   'NACDR conv')
       scale, shift = self.norm.probe_affine(x.x.dtype)
       if isinstance(x, PoolHandoff):
+        if x.out_bias is not None:
+          shift = shift + x.out_bias * scale
         cols = ap.pool_prologue_im2col_wlogits(
-            x.x, x.w, scale, shift, k_taps, self.act_func, x.residual)
+            x.x, x.w, scale, shift, k_taps, self.act_func, x.residual,
+            x.lnc)
       else:
         cols = ap.pool_prologue_im2col(x.x, x.logits, scale, shift, k_taps,
                                        self.act_func)
       w = self.kernel[live_taps(k_taps, cols.shape[1])].to(cols.dtype)
-      return (torch.matmul(cols, w.reshape(-1, w.shape[-1]))
-              + self.bias.to(cols.dtype))
+      out = torch.matmul(cols, w.reshape(-1, w.shape[-1]))
+      if defers_bias(out.dtype):
+        return PendingBias(out, self.bias.float())
+      return out + self.bias.to(cols.dtype)
     x_input = self._residual_input(x)
     if fused and nacdr_fast:
       scale, shift = self.norm.probe_affine(x.dtype)
@@ -319,7 +411,7 @@ class ConvBlock(nn.Module):
                           self.act_func)
       if self.residual and not self._defer_residual():
         y, x_input = y + x_input, None
-      return self._pool(y, x_input, defer_pool)
+      return self._pool(y, x_input, defer_pool, lnc)
     pending = None
     for op in self.order:
       if op == 'C':
@@ -333,7 +425,7 @@ class ConvBlock(nn.Module):
           x = x + x_input
       elif op == 'A':
         x = activation(self.act_func, x)
-    return self._pool(x, pending, defer_pool)
+    return self._pool(x, pending, defer_pool, lnc)
 
 
 class FeedForwardBlock(nn.Module):

@@ -205,11 +205,20 @@ class EnformerConvTower(nn.Module):
                                          generator, **pooled))
 
   def forward(self, x, fused: bool = True):
-    x = conv1d_shifted(x, self.stem_kernel, self.stem_bias)
-    x = self.stem_block(x, defer_pool=fused and len(self.convs) > 0)
+    # the JAX tower's L-major pipeline: the eval tower at an even input
+    # length (its default SVDD_TOWER_LNC=1), where the pools' dispatch
+    # tiles N by 8 (ops.attn_pool.wlogits_body_takes)
+    defer = fused and len(self.convs) > 0
+    lnc = defer and x.shape[1] % 2 == 0
+    if fused and blocks.defers_bias(x.dtype):
+      x = blocks.PendingBias(conv1d_shifted(x, self.stem_kernel),
+                             self.stem_bias.float())
+    else:
+      x = conv1d_shifted(x, self.stem_kernel, self.stem_bias)
+    x = self.stem_block(x, defer_pool=defer, lnc=lnc)
     for i, (conv, pool) in enumerate(zip(self.convs, self.pools)):
       x = pool(conv(x, fused=fused),
-               defer_pool=fused and i < len(self.convs) - 1)
+               defer_pool=fused and i < len(self.convs) - 1, lnc=lnc)
     return x
 
 

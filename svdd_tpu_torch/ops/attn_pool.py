@@ -34,10 +34,19 @@ logits x @ W first (the JAX module's legacy branch,
 The kernels' one shape term, C a multiple of 128 (their column tile and
 k chunks), is stated once in ``attn_pool_kernel_takes``: a CUDA shape it
 takes launches the kernel or raises, any other takes the plain version,
-forward and backward. They take any N and L (ragged row tiles, odd L),
-so unlike the JAX dispatchers (``attn_pool_pallas.py:979-980``,
-``:1137-1139``) they keep N % 8 != 0 on the card: the TPU's tile over N
-is not theirs.
+forward and backward. They take any N and L (ragged row tiles, odd L).
+
+One rounding follows JAX's dispatch. On a TPU the w-logits dispatchers
+run their Pallas bodies (the blend above) only on their gate: an even
+padded L, C % 128 == 0 and a tile over N that fits the kernel's VMEM
+plan, N % 8 == 0 in the L-major eval tower (``attn_pool_pallas.py:
+979-980``, ``:1137-1139``, ``:815-820``); elsewhere they take
+``attn_pool_wlogits_reference`` (:308-322), which rounds each row's
+logits s @ W to the activation type before a pairwise softmax. In f32
+the two agree to f32 rounding and the port keeps the blend everywhere;
+in bf16 ``pool_rounds_as_reference`` states the gate and a shape off it
+takes the reference form on CPU and card alike (no launch), forward and
+backward, as JAX differentiates the reference there.
 
 ``attn_pool`` is differentiable: ``_AttnPool`` runs the forward and
 backward kernels on CUDA tensors and the plain pair on CPU tensors. The
@@ -121,6 +130,60 @@ def pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps: int,
   pooled = _pooled_f32(x, w, residual)
   y = act(act_name, pooled * scale.float() + shift.float()).to(x.dtype)
   return im2col(y, k_taps)
+
+
+def attn_pool_wlogits_reference(x, w, residual=None):
+  """The jnp reference of the w-logits pool (``attn_pool_pallas.py:
+  attn_pool_wlogits_reference``): s = x + residual in x's dtype, an odd
+  L padded with a zero row, the logits s @ W summed in f32 and rounded to
+  x's dtype, the padded row's logits the lowest value (its pair pools
+  its first row alone), then ``attn_pool_reference``."""
+  s = x if residual is None else x + residual
+  dt = s.dtype
+  l = s.shape[1]
+  if l % 2:
+    s = F.pad(s, (0, 0, 0, 1))
+  logits = torch.matmul(s.float(), w.to(dt).float()).to(dt)
+  if l % 2:   # f32's lowest value, in dt as JAX casts it (bf16: -inf)
+    low = torch.full(logits[:, -1:].shape, torch.finfo(torch.float32).min,
+                     device=logits.device).to(dt)
+    logits = torch.cat([logits[:, :-1], low], dim=1)
+  return attn_pool_reference(s, logits)
+
+
+# the VMEM budget of JAX's w-logits tile pickers (attn_pool_pallas.py:
+# _pick_tile_n_wl, _pick_tile_n_wl_mega, _pick_tile_n_lnc)
+_VMEM_BUDGET = 60 * 2 ** 20
+
+
+def wlogits_body_takes(n: int, l: int, c: int, *, lnc: bool,
+                       k_live: int = 0, has_res: bool = False) -> bool:
+  """Whether JAX's w-logits dispatcher, with Pallas on (a TPU), runs
+  its Pallas body for x (N, L, C), L padded to even: C % 128 == 0 and
+  the smallest tile over N fits the VMEM plan of its tile picker. ``lnc``:
+  the L-major eval tower (an even input length), whose tiles are
+  multiples of 8 that divide N; otherwise (an odd input length, or the
+  differentiable tower) any tile. ``k_live``: the live taps of the
+  fused im2col, 0 for the pool alone; ``has_res``: a residual rides in."""
+  l += l % 2
+  tile = 8 if lnc else 1
+  if c % 128 or n % tile:
+    return False
+  rows = tile * l * c
+  est = ((4 if has_res else 2) * rows * 2 + 4 * (rows // 2) * 4
+         + c * c * 2 + (rows // 2 * 2 if k_live else 0)
+         + 2 * (rows // 2) * max(k_live, 1) * 2)
+  return est <= _VMEM_BUDGET
+
+
+def pool_rounds_as_reference(x, *, lnc: bool, k_live: int = 0,
+                             has_res: bool = False) -> bool:
+  """bf16 x on a shape JAX's dispatcher sends to its reference
+  (``wlogits_body_takes`` false): the pool takes the reference's
+  rounding. float32 keeps the blend."""
+  n, l, c = x.shape
+  return x.dtype == torch.bfloat16 and not wlogits_body_takes(
+      n, l, c, lnc=lnc, k_live=k_live, has_res=has_res)
 
 
 def attn_pool_kernel_takes(c: int) -> bool:
@@ -227,16 +290,28 @@ class _AttnPool(torch.autograd.Function):
     return dx, dw.to(w.dtype), None if residual is None else dx
 
 
-def attn_pool(x, w, residual=None):
+def attn_pool(x, w, residual=None, lnc: bool = False):
   """The pool through the CUDA kernels (CUDA tensors) or the plain
-  versions (CPU tensors); differentiable in x, w and the residual."""
+  versions (CPU tensors); differentiable in x, w and the residual. In
+  bf16 off JAX's gate (``pool_rounds_as_reference``; ``lnc`` as there)
+  the reference form, differentiated by autograd."""
+  if pool_rounds_as_reference(x, lnc=lnc, has_res=residual is not None):
+    return attn_pool_wlogits_reference(x, w, residual)
   return _AttnPool.apply(x, w, residual)
 
 
 def pool_prologue_im2col_wlogits(x, w, scale, shift, k_taps: int,
-                                 act_name, residual=None):
+                                 act_name, residual=None, lnc: bool = False):
   """Pool + BN affine + act + im2col through the CUDA kernel, or the
-  plain version (CPU tensors, widths off ``attn_pool_kernel_takes``)."""
+  plain version (CPU tensors, widths off ``attn_pool_kernel_takes``).
+  In bf16 off JAX's gate (``pool_rounds_as_reference``; ``lnc`` as
+  there) the reference form: the pool rounded to x's dtype, then
+  ``nacdr_im2col_reference``."""
+  k_live = len(live_offsets(k_taps, (x.shape[1] + 1) // 2))
+  if pool_rounds_as_reference(x, lnc=lnc, k_live=k_live,
+                              has_res=residual is not None):
+    return nacdr_im2col_reference(attn_pool_wlogits_reference(x, w, residual),
+                                  scale, shift, k_taps, act_name)
   if _plain(x):
     return pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps,
                                               act_name, residual)

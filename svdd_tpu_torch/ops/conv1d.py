@@ -51,12 +51,16 @@ def conv_bwd_ok(length: int, c_in: int, c_out: int, k_taps: int,
 
 
 def _conv_forward(x, kernel, bias, dilation: int):
+  """The conv, then the bias: in bf16 the conv is rounded before the
+  bias is added in bf16, as the JAX package adds it."""
   k_taps = kernel.shape[0]
   w = kernel.to(x.dtype).permute(2, 1, 0)               # (Cout, Cin, K)
+  late_bias = bias is not None and x.dtype == torch.bfloat16
   out = F.conv1d(x.transpose(1, 2), w,
-                 None if bias is None else bias.to(x.dtype),
+                 None if bias is None or late_bias else bias.to(x.dtype),
                  padding=(k_taps - 1) // 2 * dilation, dilation=dilation)
-  return out.transpose(1, 2)
+  out = out.transpose(1, 2)
+  return out + bias.to(x.dtype) if late_bias else out
 
 
 def _shifted(a: torch.Tensor, off: int) -> torch.Tensor:

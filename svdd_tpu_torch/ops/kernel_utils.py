@@ -14,9 +14,18 @@ import torch
 ACT_CODES = {None: 0, 'gelu_enformer': 1, 'relu': 2, 'gelu': 3}
 
 
+# 1.702 in each activation dtype, as JAX rounds a Python float operand
+# (1.703125 in bf16)
+_GELU_K: dict = {}
+
+
 def gelu_enformer(x: torch.Tensor) -> torch.Tensor:
-  """Enformer's sigmoid-approximated GELU: x * sigmoid(1.702 x)."""
-  return x * torch.sigmoid(1.702 * x)
+  """Enformer's sigmoid-approximated GELU: x * sigmoid(1.702 x), the
+  constant rounded to x's dtype."""
+  k = _GELU_K.get(x.dtype)
+  if k is None:
+    k = _GELU_K[x.dtype] = float(torch.tensor(1.702, dtype=x.dtype))
+  return x * torch.sigmoid(x * k)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

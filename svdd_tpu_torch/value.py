@@ -16,15 +16,14 @@ def build_value_module(task: str, model: str = 'enformer',
                        generator: torch.Generator | None = None,
                        **kwargs) -> EnformerValueModel:
   """Value-net factory; only the DNA Enformer is ported. Without a
-  ``compute_dtype`` it computes in float32; SVDD_VALUE_BF16=1, which makes
-  the JAX package build it in bf16, raises."""
+  ``compute_dtype`` it computes in bfloat16 under SVDD_VALUE_BF16=1, else
+  in float32 (``svdd_tpu/value.py:build_value_module``)."""
   if task != 'dna' or model != 'enformer':
     raise NotImplementedError(f'value model {model!r} for task {task!r} '
                               'is not ported yet')
   if ('compute_dtype' not in kwargs
       and os.environ.get('SVDD_VALUE_BF16') == '1'):
-    raise NotImplementedError('SVDD_VALUE_BF16=1: the bf16 Enformer value '
-                              'net is not ported yet (ROADMAP A19)')
+    kwargs['compute_dtype'] = torch.bfloat16
   return EnformerValueModel(n_tasks=n_tasks, generator=generator,
                             **kwargs)
 

@@ -54,9 +54,10 @@ def _generator():
   return torch.Generator().manual_seed(0)
 
 
-def cnn_from_jax(variables) -> CNNModel:
-  """A CNN denoiser (on CPU, float32) holding the flax CNNModel's
-  variables."""
+def cnn_from_jax(variables,
+                 compute_dtype: torch.dtype = torch.float32) -> CNNModel:
+  """A CNN denoiser (on CPU, computing in ``compute_dtype``) holding the
+  flax CNNModel's variables."""
   p = variables['params']
   hidden = np.asarray(p['time_linear']['kernel']).shape[0]
   n_layers = sum(1 for k in p if k.startswith('norm_'))
@@ -64,7 +65,8 @@ def cnn_from_jax(variables) -> CNNModel:
   cfg = dna_config()
   cfg.model.hidden_dim = hidden
   cfg.model.num_cnn_stacks = n_layers // 5
-  model = CNNModel(cfg, alphabet_size=alphabet, generator=_generator())
+  model = CNNModel(cfg, alphabet_size=alphabet, compute_dtype=compute_dtype,
+                   generator=_generator())
   _copy(model.gfp.W, variables['buffers']['GaussianFourierProjection_0']['W'])
   _dense(model.time_linear, p['time_linear'])
   _copy(model.stem_kernel, p['stem']['kernel'])
@@ -126,9 +128,11 @@ def _transformer(block, p) -> None:
   _dense(block.ffn.down, fp['LinearBlock_1']['Dense_0'])
 
 
-def enformer_value_from_jax(variables) -> EnformerValueModel:
-  """An Enformer value model (on CPU, float32) holding the flax
-  EnformerValueModel's variables (non-timed)."""
+def enformer_value_from_jax(
+    variables, compute_dtype: torch.dtype = torch.float32
+) -> EnformerValueModel:
+  """An Enformer value model (on CPU, computing in ``compute_dtype``)
+  holding the flax EnformerValueModel's variables (non-timed)."""
   p = variables['params']
   stats = variables['batch_stats']['EnformerTrunk_0']
   trunk_p = p['EnformerTrunk_0']
@@ -145,7 +149,7 @@ def enformer_value_from_jax(variables) -> EnformerValueModel:
   model = EnformerValueModel(
       n_tasks=n_tasks, n_conv=n_conv, channels=channels,
       n_transformers=len(trees), n_heads=n_heads, key_len=dk,
-      generator=_generator())
+      compute_dtype=compute_dtype, generator=_generator())
   tower = model.trunk.tower
   _copy(tower.stem_kernel, tower_p['stem_conv']['kernel'])
   _copy(tower.stem_bias, tower_p['stem_conv']['bias'])

@@ -23,7 +23,6 @@ from scipy import stats as sps
 from svdd_tpu.config import tiny_test_config as jax_tiny_config
 from svdd_tpu.diffusion import Diffusion as JaxDiffusion
 from svdd_tpu.diffusion import build_backbone as jax_build_backbone
-from svdd_tpu.value import build_value_module as jax_build_value_module
 from svdd_tpu.sampling import guidance as jguidance
 from svdd_tpu.sampling import sampler as jsampler
 
@@ -189,30 +188,6 @@ def test_cli_rejects_checkpoint_flags(tmp_path):
 
 TINY_VALUE = dict(channels=256, n_conv=3, n_transformers=1, n_heads=2)
 BF16_SWITCHES = ('SVDD_CNN_BF16', 'SVDD_VALUE_BF16')
-
-
-@pytest.mark.parametrize('var', BF16_SWITCHES)
-def test_bf16_switches_are_refused_naming_a19(var, monkeypatch, tmp_path):
-  """With SVDD_CNN_BF16=1 svdd_tpu builds the CNN denoiser in bf16, with
-  SVDD_VALUE_BF16=1 the Enformer value net (when no compute_dtype is
-  given). The port has no bf16 path for them, so its builder, and the
-  decode CLI that reaches it, raise naming ROADMAP A19 instead of
-  running in float32."""
-  monkeypatch.setenv(var, '1')
-  cfg = tiny_test_config('dna')
-  cfg.sampling.steps = 4
-  gen = torch.Generator().manual_seed(0)
-  if var == 'SVDD_CNN_BF16':
-    assert jax_build_backbone(jax_tiny_config('dna')).compute_dtype == \
-        jnp.bfloat16
-    build = lambda: build_backbone(cfg, gen)
-  else:
-    assert jax_build_value_module('dna').compute_dtype == jnp.bfloat16
-    build = lambda: build_value_module('dna', generator=gen, **TINY_VALUE)
-  with pytest.raises(NotImplementedError, match=f'{var}=1.*ROADMAP A19'):
-    build()
-  with pytest.raises(NotImplementedError, match=f'{var}=1.*ROADMAP A19'):
-    cli_decode.run(_cli_args(tmp_path), cfg=cfg, value_kwargs=TINY_VALUE)
 
 
 @pytest.mark.parametrize('value', [None, '0'])

@@ -287,13 +287,28 @@ def test_attn_l2_plain_bf16_matches_pallas_kernel_op_by_op():
 def test_attn_l2_pallas_kernel_rounds_the_relk_difference_in_bf16():
   """Where relk's row differences are not exact in bf16, the Pallas body
   (``_kernel_lnc``: ``r0_ref[:] - r1_ref[:]`` on bf16 refs) rounds them
-  to bf16, and its jnp reference (``attn_l2_lnc_reference``) and the
-  port's plain version (and kernel) take them in f32: the body equals
-  the plain arithmetic with that rounding added (w within 1e-5), the
-  port equals the reference (w within 1e-6, out exactly). ROADMAP C
-  records the difference for A19, which brings bf16 paths to the port."""
+  to bf16, and its jnp reference (``attn_l2_lnc_reference``) takes them
+  in f32: the body equals the plain arithmetic with that rounding added
+  (w within 1e-5), the plain version without it equals the reference (w
+  within 1e-6, out exactly). The port's dispatch follows JAX's (8
+  candidates, dqk = dv = 128: on the gate): ``attn_l2`` rounds as the
+  body (w within 1e-5, out within one bf16 ulp), and off the gate (6
+  candidates) as the reference (w within 1e-6)."""
   case = _attn_l2_bf16_case(22, exact_relk=False)
   out_j, w_j, out, w = _attn_l2_bf16(case)
+  (q, k, v, bc, bp, relk), h, dk, dv = case
+  bf = lambda a: _t(np.ascontiguousarray(a)).to(torch.bfloat16)
+  nlc = lambda a: bf(a.transpose(1, 0, 2))
+  assert tl2.attn_l2_body_rounds(8, h * dk, h * dv)
+  out_d, w_d = tl2.attn_l2(nlc(q), nlc(k), nlc(v), bf(bc), bf(bp), bf(relk),
+                           heads=h)
+  np.testing.assert_allclose(w_d.numpy(), w_j, rtol=1e-5, atol=1e-5)
+  np.testing.assert_allclose(out_d.float().numpy(), out_j, rtol=2 ** -7,
+                             atol=2 ** -7)
+  assert not tl2.attn_l2_body_rounds(6, h * dk, h * dv)
+  _, w_6 = tl2.attn_l2(nlc(q)[:6], nlc(k)[:6], nlc(v)[:6], bf(bc), bf(bp),
+                       bf(relk), heads=h)
+  np.testing.assert_allclose(w_6.numpy(), w[:6], rtol=1e-6, atol=1e-6)
   (q, k, v, bc, bp, relk), h, dk, dv = case
   cast = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
   sel = jnp.asarray(jl2.head_selector(h, dk))
@@ -343,7 +358,9 @@ def test_attn_l2_kernel_takes_against_jax_gate(case, dtype, monkeypatch):
   kernel, and those JAX sends to its reference besides: off the CPU the
   port's wrapper sends each shape to the kernel (which on 'meta' tensors
   stops at its device check: no card here), none to the plain
-  version."""
+  version. ``attn_l2_body_rounds``, the gate that decides the bf16 relk
+  rounding, holds exactly where both JAX dispatchers (``attn_l2_lnc``
+  and ``attn_l2``) take their Pallas bodies."""
   n, h, dqk, dv = L2_SHAPES[case]
   pallas = []
   monkeypatch.setattr(jl2, '_lnc_core',
@@ -352,6 +369,13 @@ def test_attn_l2_kernel_takes_against_jax_gate(case, dtype, monkeypatch):
   jl2.attn_l2_lnc(z(2, n, dqk), z(2, n, dqk), z(2, n, dv), z(dqk), z(dqk),
                   z(3, dqk), h, use_pallas=True)
   assert bool(pallas) is (dqk % 128 == 0 and dv % 128 == 0 and n % 8 == 0)
+  # the (N, 2, H*d) dispatcher's gate, and the port's statement of both
+  monkeypatch.setattr(jl2, '_fused_core',
+                      lambda q, *a: pallas.append(q.shape) or (q, q))
+  jl2.attn_l2(z(n, 2, dqk), z(n, 2, dqk), z(n, 2, dv), z(dqk), z(dqk),
+              z(3, dqk), h, use_pallas=True)
+  assert tl2.attn_l2_body_rounds(n, dqk, dv) is (len(pallas) == 2)
+  assert len(pallas) in (0, 2)
   plain = []
   monkeypatch.setattr(tl2, 'attn_l2_plain',
                       lambda q, *a: plain.append(tuple(q.shape)) or (q, q))

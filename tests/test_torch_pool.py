@@ -71,14 +71,14 @@ def _jax_pool(k, dtype, im2col):
   return np.asarray(out.astype(jnp.float32)).transpose(1, 0, 2)
 
 
-def _port_pool(k, dtype, im2col):
+def _port_pool(k, dtype, im2col, lnc=False):
   cast = lambda a: None if a is None else _t(a).to(dtype)
   if im2col:
     out = tap.pool_prologue_im2col_wlogits(
         cast(k['xp']), cast(k['w']), _t(k['scale']), _t(k['shift']), 5,
-        'gelu_enformer', cast(k['rp']))
+        'gelu_enformer', cast(k['rp']), lnc)
   else:
-    out = tap.attn_pool(cast(k['xp']), cast(k['w']), cast(k['rp']))
+    out = tap.attn_pool(cast(k['xp']), cast(k['w']), cast(k['rp']), lnc)
   assert out.dtype == dtype
   return out.float().numpy()
 
@@ -204,28 +204,43 @@ def test_attn_pool_bwd_follows_the_gate(case, monkeypatch):
     assert plain == [(n, l, c)]
 
 
+@pytest.mark.parametrize('l', [8, 7])
+@pytest.mark.parametrize('im2col', [False, True])
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-def test_attn_pool_off_gate_against_jax_dispatch(dtype):
-  """Off the JAX gate (N % 8 != 0) the JAX dispatcher takes its
-  reference, which rounds each row's logits s @ W to x's dtype before a
-  pairwise softmax, where the port (its kernel on the card, its plain
-  version here) follows the Pallas body's sigmoid(T(d) @ W): the same in
-  f32 to the order of the sums, and up to one bf16 ulp apart in bf16
-  (ROADMAP C, for A19)."""
-  k = _case(8, 128, True, 600, n=6)
+def test_attn_pool_off_gate_against_jax_dispatch(dtype, im2col, l):
+  """Off the JAX gate (N = 6, off the L-major tower's tile of 8) the JAX
+  dispatcher takes its reference, which rounds each row's logits s @ W
+  to x's dtype before a pairwise softmax. The port's pool in the L-major
+  tower follows that dispatch: in bf16 it takes the reference form too,
+  equal to 2^-8 (the logits' f32 sums in another order can round one
+  ulp apart), where the Pallas body's blend it took before lies a bf16
+  ulp or more away; f32 keeps the blend, the same to the order of the
+  sums. An odd length pools its tail alone in both forms."""
+  k = _case(l, 128, True, 600 + l, n=6)
   jdt, tdt = ((jnp.float32, torch.float32) if dtype == 'float32'
               else (jnp.bfloat16, torch.bfloat16))
   for key in ('x', 'res', 'w', 'xp', 'rp'):
     k[key] = _t(k[key]).to(tdt).float().numpy()
   cast = lambda a: jnp.asarray(a).astype(jdt)
   with jax.disable_jit():
-    want = jap.attn_pool_wlogits_lnc(cast(k['x']), cast(k['w']), False,
-                                     residual=cast(k['res']),
-                                     use_pallas=True)
+    if im2col:
+      want = jap.pool_prologue_im2col_wlogits_lnc(
+          cast(k['x']), cast(k['w']), jnp.asarray(k['scale']),
+          jnp.asarray(k['shift']), 5, 'gelu_enformer', k['mask_tail'],
+          residual=cast(k['res']), use_pallas=True)
+    else:
+      want = jap.attn_pool_wlogits_lnc(cast(k['x']), cast(k['w']),
+                                       k['mask_tail'], residual=cast(k['res']),
+                                       use_pallas=True)
   want = np.asarray(want.astype(jnp.float32)).transpose(1, 0, 2)
-  got = _port_pool(k, tdt, False)
-  np.testing.assert_allclose(got, want,
-                             **(F32_TOL if dtype == 'float32' else BF16_TOL))
+  got = _port_pool(k, tdt, im2col, lnc=True)
+  blend = _port_pool(k, tdt, im2col)
+  if dtype == 'float32':
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    np.testing.assert_array_equal(got, blend)
+  else:
+    np.testing.assert_allclose(got, want, rtol=2 ** -8, atol=2 ** -8)
+    assert np.abs(blend - want).max() >= 2 ** -8
 
 
 def _bwd_case(l, residual, seed, n=6, c=256):
