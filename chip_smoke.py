@@ -21,7 +21,8 @@ exits non-zero and prints no result:
      relu mask the kernel reports; B14's and B5's wrappers on shapes off
      their gates, which must take the plain version bit for bit; B3, B4
      and B8 also at short points, N = 6 and 8, B4 at the classifier's
-     seven N = 512 pools, B5 at its N = 512), with the times of both, the
+     seven N = 512 pools, B5 at its N = 512, B1 also at SVDD-PM's
+     5120 candidate rows), with the times of both, the
      time of one PyTorch call computing the same function where there is
      one, and the least time the card could take for the work; times are
      the card's own for a call (the profiler), CUDA-event medians beside
@@ -39,14 +40,19 @@ exits non-zero and prints no result:
      Enformer value net with channels=1152 (stem width 576, off the
      grid) forward and input gradient;
   4. the decodes, each through its CLI's ``run`` with every kernel's
-     launch count read around it: SVDD-MC (M=10), DPS and classifier
-     guidance at --task dna, B=512, L=200, 128 steps, in float32 and
-     again under the bf16 switches (the ``*_bf16`` runs); ``main_gosai
+     launch count read around it: SVDD-MC (M=10), DPS, classifier
+     guidance, SVDD-PM (decode_tweedie, M=10) and TDS (decode_TDS, alpha
+     0.5, its ESS trace) at --task dna, B=512, L=200, 128 steps, in
+     float32 and again under the bf16 switches (the ``*_bf16`` runs),
+     and SVDD-MC with --m_schedule 64:4,64:10 in bf16; SVDD-PM and TDS
+     through ``decode.run_decode`` scored by the full-width Enformer
+     reward oracle (f32, 16 steps); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
      ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
      (--task dna, 512 rows, 128 steps); all full-width random-weight
      models; and SVDD-MC for 8 steps with the channels=1152 value net;
-  5. one step of each decode (the guided ones in bf16 too) under
+  5. one step of each decode (the guided ones in bf16 too; PM and TDS
+     with a valid posterior carry, as after their first step) under
      torch.profiler: host ms per step,
      the card's busy ms and idle share, and kernel ms by kind; and one
      DiT forward at the text preset's 512 rows;
@@ -112,15 +118,31 @@ PATH_KERNELS = {
     'dps': ('cnn_layer', 'cnn_layer_bwd'),
     'classifier': ('cnn_layer', 'attn_pool', 'attn_l2', 'conv1d_bwd',
                    'attn_pool_bwd'),
+    'svdd_pm': ('cnn_layer', 'gumbel_candidates'),
+    'tds': ('cnn_layer',),
     'text_mdlm': ('flash_attention', 'flash_attention_causal'),
     'dimamba': ('rmsnorm',),
 }
-GUIDED = ('svdd_mc', 'dps', 'classifier')
+GUIDED = ('svdd_mc', 'dps', 'classifier', 'svdd_pm', 'tds')
+# SVDD-PM and TDS scored by the full-width Enformer reward oracle (f32,
+# its fused eval tower), as the JAX package's bench scores them
+# (bench.py:211-234), at 16 steps for the smoke's time: the oracle's
+# kernels run at B*M = 5120 rows (PM) or 512 (TDS)
+ORACLE_STEPS = 16
+ORACLE_RUNS = {
+    'svdd_pm_enformer': PATH_KERNELS['svdd_pm'] + (
+        'attn_pool_prologue_im2col', 'attn_pool', 'attn_l2'),
+    'tds_enformer': PATH_KERNELS['tds'] + (
+        'attn_pool_prologue_im2col', 'attn_pool', 'attn_l2'),
+}
+# one SVDD-MC decode with scheduled M (bench.py's example), in bf16
+M_SCHEDULE = '64:4,64:10'
 # the JAX package's bf16 compute switches, which its bench sets: the CNN
 # denoiser and the Enformer value net compute in bf16 (the reward oracle
 # stays f32); the guided decodes run once in f32 and once under them
 BF16_SWITCHES = ('SVDD_CNN_BF16', 'SVDD_VALUE_BF16')
 BF16_RUNS = {f'{algo}_bf16': PATH_KERNELS[algo] for algo in GUIDED}
+BF16_RUNS['svdd_mc_m_schedule_bf16'] = PATH_KERNELS['svdd_mc']
 # card vs CPU tolerance of the full-width models in bf16: both round to
 # bf16 at the same points, but the kernels and cuBLAS sum in other
 # orders, so a value can round one bf16 ulp apart, and a random-weight
@@ -390,6 +412,8 @@ def sass_counts() -> dict:
 # calls per denoiser pass of the 20 layers, by dilation
 CNN_CALLS = {1: 8, 4: 4, 16: 4, 64: 4}
 CNN_SHAPE = (512, 200, 128)
+# SVDD-PM's candidate forward: B1 at B*M rows
+CNN_PM_ROWS = 5120
 # B1 and B6 are also held at N = 8 at a short sequence and at the longest
 # one a block holds (ops/cnn_layer.kernel_takes)
 CNN_SMALL_N, CNN_SHORT_L = 8, 50
@@ -507,14 +531,25 @@ def check_cnn_layer(dtype, gen):
   against the plain version, timed beside F.conv1d of the already
   normalised input at the same dilation and SAME padding (the conv alone,
   a yardstick; TF32 off in f32), then at N = 8 at L = 50 and the longest
-  L a block holds. ms, plain_ms and library_ms are one denoiser forward,
-  the 20 layers, each layer's the card's time for a call (device_ms,
-  every kernel the call launched); flops count the rows the live taps
-  need (cnn_rows)."""
+  L a block holds, and again as at 512 rows at SVDD-PM's candidate
+  forward, N = B*M = 5120 (``n5120``). ms, plain_ms and library_ms are
+  one denoiser forward, the 20 layers, each layer's the card's time for
+  a call (device_ms, every kernel the call launched); flops count the
+  rows the live taps need (cnn_rows)."""
+  r = _cnn_forward(CNN_SHAPE[0], dtype, gen)
+  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=False)
+  r['n5120'] = _cnn_forward(CNN_PM_ROWS, dtype, gen)
+  return r
+
+
+def _cnn_forward(n: int, dtype, gen):
+  """B1 against its plain version at (n, 200, 128), all four dilations,
+  and the times of one 20-layer forward (``check_cnn_layer``), with the
+  rates of ``_cnn_rates``."""
   import torch.nn.functional as F
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  n, l, c = CNN_SHAPE
+  _, l, c = CNN_SHAPE
   name = str(dtype).split('.')[-1]
   args, _ = _cnn_inputs(n, l, dtype, gen)
   res = {}
@@ -543,7 +578,7 @@ def check_cnn_layer(dtype, gen):
        'per_dilation_ms': {str(d): r[2] for d, r in res.items()},
        'per_dilation_plain_ms': {str(d): r[3] for d, r in res.items()},
        'per_dilation_library_ms': {str(d): r[4] for d, r in res.items()}}
-  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=False)
+  del args
   return _cnn_rates(r, name)
 
 
@@ -689,6 +724,12 @@ N_CAND = 5120
 # and N = 6 (off the JAX dispatchers' N % 8: the kernels take it)
 POOL_POINTS = [(8, 1, 128, False), (8, 3, 256, True), (8, 7, 384, True),
                (8, 65, 640, True), (6, 8, 128, True)]
+# the row counts besides B*M = 5120 at which a decode runs the value net's
+# or the oracle's tower: B = 512 (TDS's oracle scores its particles) and
+# B*4 = 2048 (the first phase of the scheduled-M SVDD-MC decode). B3 at
+# the six fused pools, B4 at the last pool and B5 at the value net's heads
+# are held at both, one launch a point
+PATH_ROWS = (512, 2048)
 
 
 def _pool_inputs(l, c, dtype, gen, n=N_CAND):
@@ -719,17 +760,17 @@ def _pool_bytes(n, l, c, es, k_live=None):
   return (2 * n * l * c + c * c + n * lh * k_live * c) * es + 2 * c * 4
 
 
-def _pool_points(dtype, im2col: bool) -> dict:
-  """POOL_POINTS through the wrapper on the card, each one launch,
-  against the plain version: {label: max abs err}."""
+def _pool_points(dtype, im2col: bool, points=POOL_POINTS) -> dict:
+  """(N, L, C, residual) points through the wrapper on the card, each
+  one launch, against the plain version: {label: max abs err}."""
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
   gen = torch.Generator('cuda').manual_seed(8)
   counter = 'attn_pool_prologue_im2col' if im2col else 'attn_pool'
-  points = {}
-  for n, l, c, residual in POOL_POINTS:
+  errs = {}
+  for n, l, c, residual in points:
     args = _pool_args(l, c, dtype, gen, n=n, residual=residual)
     label = f'N={n} L={l} C={c}{" residual" if residual else ""}'
     before = _build.LAUNCHES[counter]
@@ -741,16 +782,19 @@ def _pool_points(dtype, im2col: bool) -> dict:
       got, want = K.attn_pool(x, w, res), K.attn_pool_plain(x, w, res)
     if _build.LAUNCHES[counter] != before + 1:
       raise AssertionError(f'{counter} {label}: no launch')
-    points[label] = compare(f'{counter} {label}', got, want, name)[0]
-  return points
+    errs[label] = compare(f'{counter} {label}', got, want, name)[0]
+    del args, got, want
+  torch.cuda.empty_cache()
+  return errs
 
 
 def check_attn_pool_im2col(dtype, gen):
   """B3 at the six fused pools of one value forward (B*M = 5120), each
   against the plain version and timed by the card's own time for a call
   (device_ms, the profiler: the kernel and the wrapper's transpose of W)
-  and by CUDA events (median_ms); then at POOL_POINTS. ms is the six
-  pools, device time; achieved_tb_s the bytes they must move over it."""
+  and by CUDA events (median_ms); then at POOL_POINTS, and at the six
+  pools at PATH_ROWS. ms is the six pools, device time; achieved_tb_s
+  the bytes they must move over it."""
   import torch
   from svdd_tpu_torch.ops import attn_pool as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
@@ -780,6 +824,9 @@ def check_attn_pool_im2col(dtype, gen):
        'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
        'max_abs_err_points': _pool_points(dtype, True),
+       'max_abs_err_path_rows': _pool_points(
+           dtype, True, [(n, l, c, True) for n in PATH_ROWS
+                         for l, c in POOL_SHAPES]),
        'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'library_ms': None, 'per_pool': per_pool, 'flops': flops,
@@ -817,11 +864,14 @@ def check_attn_pool(dtype, gen):
   """B4 at the last tower pool (5120, 4, 1536) with its residual, timed
   by the card's own time for a call (device_ms) and by CUDA events
   (median_ms); then at the seven tower pools of the classifier's gradient
-  tower at N = 512 (classifier_pools), and at POOL_POINTS."""
+  tower at N = 512 (classifier_pools), at POOL_POINTS, and at the last
+  pool at PATH_ROWS."""
   name = str(dtype).split('.')[-1]
   r = _attn_pool_at(N_CAND, [LAST_POOL], dtype, gen)
   r.update(shape=[N_CAND, *LAST_POOL], library_ms=None,
-           max_abs_err_points=_pool_points(dtype, False))
+           max_abs_err_points=_pool_points(dtype, False),
+           max_abs_err_path_rows=_pool_points(
+               dtype, False, [(n, *LAST_POOL, True) for n in PATH_ROWS]))
   r = _cnn_rates(r, name)
   cls = _cnn_rates(_attn_pool_at(N_GRAD, TOWER_POOLS, dtype, gen), name)
   r['classifier_pools'] = {
@@ -895,7 +945,8 @@ def _attn_l2_at(n, dtype, gen):
 def check_attn_l2(dtype, gen):
   """B5 at SVDD-MC's N = B*M = 5120, then at the classifier's N = 512
   (classifier_n512), each timed by the card's own time for a call; then
-  at ATTN_L2_POINTS (one launch each)."""
+  at ATTN_L2_POINTS and at the value net's heads at PATH_ROWS (one
+  launch each)."""
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_l2 as K
@@ -907,7 +958,8 @@ def check_attn_l2(dtype, gen):
   small['bound_share'] = small['bound_ms'] / small['ms']
   r['classifier_n512'] = small
   r['max_abs_err_points'] = {}
-  for point in ATTN_L2_POINTS:
+  for point in ATTN_L2_POINTS + tuple((n, *ATTN_L2_HEADS)
+                                      for n in PATH_ROWS):
     args = _attn_l2_args(*point, dtype, gen)
     before = _build.LAUNCHES['attn_l2']
     got, want = K.attn_l2(*args), _attn_l2_plain(args)
@@ -1919,35 +1971,62 @@ DECODE_STEPS = 128
 OFFGRID_DECODE_STEPS = 8
 
 
+def _check_npz(path: str, rows: int = 512):
+  """The npz's keys ('decoding', 'baseline') and their shapes (rows,),
+  finite."""
+  import numpy as np
+  d = np.load(path)
+  if set(d.files) != {'decoding', 'baseline'}:
+    raise AssertionError(f'npz keys {d.files}')
+  for key in d.files:
+    if d[key].shape != (rows,) or not np.isfinite(d[key]).all():
+      raise AssertionError(f'npz {key}: shape {d[key].shape} or '
+                           'non-finite values')
+  return sorted(d.files)
+
+
+def _check_ess(trace, steps: int, batch: int = 512) -> None:
+  """An ESS trace: one value a step (a row a batch), each in [1, B]."""
+  import numpy as np
+  ess = np.asarray(trace, dtype=np.float64).reshape(-1, steps)
+  if not ((ess >= 1 - 1e-2) & (ess <= batch * (1 + 1e-5))).all():
+    raise AssertionError(f'ESS trace outside [1, {batch}]: {ess}')
+
+
 def run_decode(algo: str, run_name: str | None = None,
                steps: int = DECODE_STEPS, value_kwargs=None,
-               bf16: bool = False):
+               bf16: bool = False, extra_argv=()):
   """One decode through its CLI's ``run``: B=512, 128 steps (or
   ``steps``), L=200, float32 (or, ``bf16``, under the bf16 switches),
-  --skip_best_of_n, the value net of ``value_kwargs`` (EnformerValueModel
-  arguments) where given; the launch counts are set to 0 just before and
-  read just after, and every kernel of the path (``run_name``'s) must
-  have run."""
+  --skip_best_of_n, M=10 for SVDD-MC and SVDD-PM, TDS at the CLI's alpha
+  0.5, the value net of ``value_kwargs`` (EnformerValueModel arguments)
+  where given, ``extra_argv`` appended; the launch counts are set to 0
+  just before and read just after, and every kernel of the path
+  (``run_name``'s) must have run."""
   run_name = run_name or algo
   import numpy as np
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.cli import common
   from svdd_tpu_torch.cli import decode as cli_decode
-  from svdd_tpu_torch.cli import decode_classfier, decode_DPS
+  from svdd_tpu_torch.cli import (decode_classfier, decode_DPS, decode_TDS,
+                                  decode_tweedie)
   run, parser, suffix = {
-      'svdd_mc': (cli_decode.run, common.make_parser('chip smoke'), ''),
+      'svdd_mc': (cli_decode.run, cli_decode.parser(), ''),
       'dps': (decode_DPS.run, decode_DPS.parser(), decode_DPS.NPZ_SUFFIX),
       'classifier': (decode_classfier.run, decode_classfier.parser(),
                      decode_classfier.NPZ_SUFFIX),
+      'svdd_pm': (decode_tweedie.run, decode_tweedie.parser(),
+                  decode_tweedie.NPZ_SUFFIX),
+      'tds': (decode_TDS.run, decode_TDS.parser(), decode_TDS.NPZ_SUFFIX),
   }[algo]
   out_dir = os.path.join(REPO, 'build', 'chip_smoke', run_name)
   argv = ['--task', 'dna', '--batch_size', '512', '--skip_best_of_n',
           '--device', 'cuda', '--num_steps', str(steps),
           '--out_dir', out_dir, '--run_name', f'chip_smoke_{run_name}']
-  if algo == 'svdd_mc':
+  if algo in ('svdd_mc', 'svdd_pm'):
     argv += ['--sample_M', '10']
-  args = parser.parse_args(argv)
+  args = parser.parse_args(argv + list(extra_argv))
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   _build.reset_launches()
@@ -1962,13 +2041,7 @@ def run_decode(algo: str, run_name: str | None = None,
   missing = [k for k in need if launches[k] == 0]
   if missing:
     raise AssertionError(f'{run_name} decode never launched {missing}')
-  d = np.load(common.npz_path(args, suffix))
-  if set(d.files) != {'decoding', 'baseline'}:
-    raise AssertionError(f'npz keys {d.files}')
-  for key in d.files:
-    if d[key].shape != (512,) or not np.isfinite(d[key]).all():
-      raise AssertionError(f'npz {key}: shape {d[key].shape} or '
-                           'non-finite values')
+  npz_keys = _check_npz(common.npz_path(args, suffix))
   row = json.loads(open(os.path.join(
       out_dir, f'{args.run_name}.metrics.jsonl')).read().splitlines()[-1])
   dtype = 'bfloat16' if bf16 else 'float32'
@@ -1979,15 +2052,80 @@ def run_decode(algo: str, run_name: str | None = None,
          'length': 200, 'steps': steps, 'compute_dtype': dtype,
          'value_net': value_kwargs or 'EnformerValueModel defaults',
          'npz': os.path.basename(common.npz_path(args, suffix))}
-  if algo == 'svdd_mc':
+  if algo in ('svdd_mc', 'svdd_pm'):
     out['sample_M'] = 10
+    out['m_schedule'] = row['m_schedule']
+  elif algo == 'tds':
+    out['alpha'] = args.alpha
+    _check_ess(row['ess_trace'], steps)
+    out.update({k: row[k] for k in ('ess_min', 'ess_median', 'ess_final',
+                                    'ess_trace')})
   else:
     out['guidance_scale'] = args.guidance_scale
   out.update({'wall_s': wall,
               'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
               'guided_reward_mean': report['decoding']['mean'],
               'baseline_reward_mean': report['baseline']['mean'],
-              'launches': launches, 'npz_keys': sorted(d.files)})
+              'launches': launches, 'npz_keys': npz_keys})
+  return out
+
+
+def run_oracle_decode(run_name: str):
+  """SVDD-PM (M=10) or TDS (alpha 0.5) through ``decode.run_decode`` with
+  the full-width Enformer reward oracle (``RewardOracle.create_dna``,
+  three tasks, f32, its fused eval tower) as the reward: B=512, L=200,
+  ORACLE_STEPS steps, the baseline without best-of-N; the launch counts
+  are set to 0 just before and read just after, and every kernel of the
+  path must have run. The npz goes under build/chip_smoke."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.decode import run_decode as decode
+  from svdd_tpu_torch.rewards import RewardOracle
+  algo = run_name.split('_enformer')[0]
+  args = common.make_parser('chip smoke').parse_args(
+      ['--task', 'dna', '--batch_size', '512', '--device', 'cuda',
+       '--num_steps', str(ORACLE_STEPS)])
+  cfg = common.task_config(args)
+  with bf16_switches(False):
+    diffusion = common.load_diffusion(args, cfg)
+  oracle = RewardOracle.create_dna(torch.Generator('cuda').manual_seed(2))
+  oracle.module.to('cuda')
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  result = decode(diffusion, oracle, algo=algo, batch_size=512,
+                  sample_M=10, alpha=0.5, seed=args.seed,
+                  skip_best_of_n=True)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  missing = [k for k in ORACLE_RUNS[run_name] if launches[k] == 0]
+  if missing:
+    raise AssertionError(f'{run_name} decode never launched {missing}')
+  path = os.path.join(REPO, 'build', 'chip_smoke', run_name,
+                      f'dna-HepG2_{run_name}.npz')
+  result.save_npz(path)
+  out = {'algo': algo, 'run': run_name, 'task': 'dna', 'batch_size': 512,
+         'length': 200, 'steps': ORACLE_STEPS, 'compute_dtype': 'float32',
+         'reward': 'RewardOracle.create_dna (EnformerValueModel defaults, '
+                   '3 tasks, fused)',
+         'wall_s': wall,
+         'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+         'guided_reward_mean': float(result.reward_preds.mean()),
+         'baseline_reward_mean': float(result.baseline_preds.mean()),
+         'launches': launches, 'npz_keys': _check_npz(path)}
+  if algo == 'svdd_pm':
+    out['sample_M'] = 10
+  else:
+    ess = result.diagnostics['ess']
+    _check_ess(ess, ORACLE_STEPS)
+    out.update({'alpha': 0.5, 'ess_trace': [round(float(v), 2)
+                                            for v in ess.mean(0)],
+                **{k: result.diagnostics[k] for k in ('ess_min', 'ess_median',
+                                                      'ess_final')}})
+  del oracle, diffusion
   return out
 
 
@@ -2067,6 +2205,7 @@ KINDS = (('flash_attention', 'flash_attention'), ('rmsnorm', 'rmsnorm'),
          ('dgrad', 'conv'),
          ('wgrad', 'conv'), ('conv', 'conv'),
          ('memcpy', 'memcpy_memset'), ('memset', 'memcpy_memset'))
+LIBRARY_KINDS = ('gemm', 'conv', 'memcpy_memset', 'other')
 
 
 def _kind(name: str) -> str:
@@ -2075,8 +2214,10 @@ def _kind(name: str) -> str:
 
 
 def profile_step(algo: str, bf16: bool = False):
-  """One step of a decode at its shapes (B=512, L=200, M=10 for SVDD-MC,
-  the same models; 64 rows at L=1024 for the text preset's ddpm_cache
+  """One step of a decode at its shapes (B=512, L=200, M=10 for SVDD-MC
+  and SVDD-PM, the same models, the CLIs' synthetic oracle as PM's and
+  TDS's reward, whose steps run with a valid posterior carry, as every
+  step after the first does; 64 rows at L=1024 for the text preset's ddpm_cache
   step, which runs its forward from an empty cache; 512 rows at L=200
   for DiMamba's ddpm step) under torch.profiler, from the all-MASK prior
   at t=0.5. host_step_ms: mean host time of 3 synchronised steps after a
@@ -2086,15 +2227,19 @@ def profile_step(algo: str, bf16: bool = False):
   its synchronize). by_kind_ms: summed kernel time by kind ('other' is
   PyTorch's elementwise and reduction glue, 'conv' and 'gemm' the
   library's convolutions and matrix products, cuBLAS's bf16 'nvjet'
-  kernels among them). ``bf16``: a guided step
-  with the models the bf16 switches build."""
+  kernels among them). The profiled step follows one warm-up step under
+  the profiler. port_kernel_events: the port's kernels in its trace;
+  port_kernel_launches: the wrapper launches the step counted;
+  trace_complete: the trace holds at least one kernel a launch.
+  ``bf16``: a guided step with the models the bf16 switches build."""
   import torch
-  from torch.profiler import ProfilerActivity, profile
-  from svdd_tpu_torch import mdlm
+  from torch.profiler import ProfilerActivity, profile, schedule
+  from svdd_tpu_torch import _build, mdlm
   from svdd_tpu_torch.cli import common
   from svdd_tpu_torch.diffusion import Diffusion
   from svdd_tpu_torch.sampling import guidance, sampler
-  mode = torch.inference_mode if algo == 'svdd_mc' else torch.no_grad
+  mode = (torch.inference_mode if algo in ('svdd_mc', 'svdd_pm', 'tds')
+          else torch.no_grad)
   if algo in SAMPLE_EVAL:
     cfg, backbone = sample_eval_backbone(algo)
     batch = SAMPLE_EVAL[algo][0]
@@ -2115,9 +2260,28 @@ def profile_step(algo: str, bf16: bool = False):
     batch = args.batch_size
     with bf16_switches(bf16):
       diffusion = common.load_diffusion(args, cfg)
-      vf = (None if algo == 'dps'
+      vf = (None if algo in ('dps', 'svdd_pm', 'tds')
             else common.load_value_function(args, cfg))
-    if algo == 'svdd_mc':
+    # the posterior carry of a step after the first: the (B,) forward it
+    # replaces is not run
+    carry = (torch.zeros((batch, cfg.model.length, cfg.vocab_size),
+                         device='cuda'), True) if vf is None else None
+    if algo == 'svdd_pm':
+      pm = guidance.svdd_pm_step(diffusion.forward,
+                                 common.load_reward_fn(args, cfg),
+                                 diffusion.schedule, cfg.mask_index,
+                                 repeats=args.sample_M, carry_posterior=True)
+      step = lambda *a: pm(carry, *a)
+    elif algo == 'tds':
+      tds = guidance.tds_step(diffusion.forward,
+                              common.load_reward_fn(args, cfg),
+                              diffusion.schedule, cfg.mask_index, alpha=0.5,
+                              carry_posterior=True, track_ess=True,
+                              num_steps=DECODE_STEPS)
+      aux = guidance.tds_aux_init(batch, carry, track_ess=True,
+                                  num_steps=DECODE_STEPS)
+      step = lambda *a: tds(aux, *a)
+    elif algo == 'svdd_mc':
       step = guidance.svdd_mc_step(diffusion.forward, vf.score_tokens,
                                    diffusion.schedule, cfg.mask_index,
                                    repeats=args.sample_M)
@@ -2143,13 +2307,27 @@ def profile_step(algo: str, bf16: bool = False):
   for _ in range(3):
     once()
   host_ms = (time.perf_counter() - t0) / 3 * 1e3
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  # one warm-up step under the profiler before the recorded one: a trace
+  # that starts cold can lose the step's first device events
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               schedule=schedule(wait=0, warmup=1, active=1,
+                                 repeat=1)) as prof:
+    once()
+    prof.step()
+    before = dict(_build.LAUNCHES)
     t0 = time.perf_counter()
     once()
     prof_ms = (time.perf_counter() - t0) * 1e3
+    launched = sum(_build.LAUNCHES[k] - before[k] for k in before)
+    prof.step()
+  # the card's kernels and copies; the schedule's ProfilerStep span also
+  # lies on the card's timeline, and is left out
   dev = [e for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA]
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.name.startswith('ProfilerStep')]
+  # the port's kernels the trace holds against the wrapper launches the
+  # step counted (a wrapper launches one or more port kernels)
+  traced = sum(1 for e in dev if _kind(e.name) not in LIBRARY_KINDS)
   spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
   busy_us, end = 0.0, float('-inf')
   for a, b in spans:                   # length of the union of intervals
@@ -2165,6 +2343,8 @@ def profile_step(algo: str, bf16: bool = False):
   return {'algo': f'{algo}_bf16' if bf16 else algo, 'batch_size': batch,
           'length': cfg.model.length, 'host_step_ms': host_ms,
           'profiled_step_ms': prof_ms, 'device_events': len(dev),
+          'port_kernel_events': traced, 'port_kernel_launches': launched,
+          'trace_complete': traced >= launched,
           'device_busy_ms': busy_ms,
           'idle_share': 1 - busy_ms / prof_ms if dev else None,
           'by_kind_ms': dict(sorted(by_kind.items(),
@@ -2325,6 +2505,17 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'decode', **decodes[f'{algo}_bf16']})
+  decodes['svdd_mc_m_schedule_bf16'] = run_decode(
+      'svdd_mc', 'svdd_mc_m_schedule_bf16', bf16=True,
+      extra_argv=['--m_schedule', M_SCHEDULE])
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'decode', **decodes['svdd_mc_m_schedule_bf16']})
+  for name in ORACLE_RUNS:
+    decodes[name] = run_oracle_decode(name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'decode', **decodes[name]})
   runs.update(decodes)
 
   for algo, bf16 in ([(a, False) for a in PATH_KERNELS]
@@ -2364,7 +2555,7 @@ def main() -> None:
                                       'max_abs_err_points', 'off_gate',
                                       'achieved_tb_s', 'classifier_pools',
                                       'classifier_n512', 'plain_median_ms',
-                                      'library_median_ms')
+                                      'library_median_ms', 'n5120')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -2374,7 +2565,7 @@ def main() -> None:
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
       for k in ('median_ms', 'achieved_tb_s', 'classifier_pools',
-                'classifier_n512', 'max_abs_err_points'):
+                'classifier_n512', 'max_abs_err_points', 'n5120'):
         if k in bf:
           entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:

@@ -3,12 +3,15 @@ guided sampler, score its outputs with the value net and the reward
 oracle, draw the unguided baseline and best-of-N, and write
 ``log/{task}-{reward}.npz`` with the keys ``decoding`` and ``baseline``.
 
-Ported branches: ``svdd_mc``, ``dps``, ``classifier`` and ``none``.
+Ported branches: ``svdd_mc`` (with scheduled M), ``svdd_pm``, ``tds``,
+``dps``, ``classifier`` and ``none``. A TDS run reads its ESS trace back
+once, after the loop, into ``DecodeResult.diagnostics``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 from typing import Callable, Optional
 
@@ -17,6 +20,8 @@ import torch
 
 from svdd_tpu_torch import mdlm
 from svdd_tpu_torch.diffusion import Diffusion
+
+LOGGER = logging.getLogger(__name__)
 
 # the baseline folds its unguided batches into calls of at most this
 # many rows (the JAX package's SVDD_BASELINE_MAX_BATCH default)
@@ -30,6 +35,7 @@ class DecodeResult:
   reward_preds: np.ndarray     # (N,) oracle scores of guided seqs
   top_k: np.ndarray            # best-of-N baseline scores
   baseline_preds: np.ndarray   # (N,) unguided oracle scores
+  diagnostics: Optional[dict] = None   # TDS: the per-step ESS traces
 
   def save_npz(self, path: str) -> None:
     """Keys 'decoding' and 'baseline', as the reference writes them."""
@@ -65,16 +71,45 @@ def _baseline(diffusion: Diffusion, reward_fn, batch_size: int,
   return baseline, top_k
 
 
+def _ess_diagnostics(ess_traces, batch_size: int) -> Optional[dict]:
+  """The ESS traces (batches, num_steps), their min, median and mean
+  final value, with a warning when the median is below 5% of B
+  (``svdd_tpu/decode.py:253-271``)."""
+  if not ess_traces:
+    return None
+  ess = np.stack(ess_traces)
+  diagnostics = {'ess': ess, 'ess_min': float(ess.min()),
+                 'ess_median': float(np.median(ess)),
+                 'ess_final': float(ess[:, -1].mean())}
+  LOGGER.info('TDS ESS: min %.1f / median %.1f / final %.1f (B=%d '
+              'particles)', diagnostics['ess_min'],
+              diagnostics['ess_median'], diagnostics['ess_final'],
+              batch_size)
+  if diagnostics['ess_median'] < 0.05 * batch_size:
+    LOGGER.warning(
+        'TDS particle set is DEGENERATE (median ESS %.1f of B=%d): the '
+        'resampled batch is dominated by a handful of ancestors and the '
+        'output distribution is unreliable. Raise --alpha or enable '
+        'adaptive resampling with --ess_threshold (e.g. 0.5).',
+        diagnostics['ess_median'], batch_size)
+  return diagnostics
+
+
 def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
                algo: str = 'svdd_mc',
                value_fn: Optional[Callable] = None,
                gen_batch_num: int = 1, batch_size: int = 256,
-               sample_M: int = 10, guidance_scale: float = 1.0,
-               seed: int = 44,
-               skip_best_of_n: bool = False) -> DecodeResult:
-  """One controlled decode run. algo: svdd_mc | dps | classifier | none.
-  ``dps`` guides by ``reward_fn``'s gradient; ``classifier`` needs a
-  differentiable one-hot ``value_fn`` (``ValueFunction.as_onehot_fn``)."""
+               sample_M: int = 10, alpha: float = 1.0,
+               guidance_scale: float = 1.0, tweedie: bool = True,
+               seed: int = 44, skip_best_of_n: bool = False,
+               ess_threshold: Optional[float] = None,
+               m_schedule=None) -> DecodeResult:
+  """One controlled decode run. algo: svdd_mc | svdd_pm | tds | dps |
+  classifier | none. ``dps`` guides by ``reward_fn``'s gradient;
+  ``classifier`` needs a differentiable one-hot ``value_fn``
+  (``ValueFunction.as_onehot_fn``); ``svdd_pm`` and ``tds`` score with
+  ``reward_fn`` on (N, L, 4) one-hots, and their value_preds are the
+  reward's. ``m_schedule`` (svdd_mc, svdd_pm): ((n_steps, M), ...)."""
   dev = diffusion.device
   guided_gen = torch.Generator(dev).manual_seed(seed)
   base_gen = torch.Generator(dev).manual_seed(seed + 1)
@@ -82,7 +117,15 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
     if value_fn is None:
       raise ValueError('svdd_mc needs a value_fn')
     sampler = diffusion.controlled_sampler(value_fn, batch_size,
-                                           sample_M=sample_M)
+                                           sample_M=sample_M,
+                                           m_schedule=m_schedule)
+  elif algo == 'svdd_pm':
+    sampler = diffusion.tweedie_sampler(reward_fn, batch_size,
+                                        sample_M=sample_M, tweedie=tweedie,
+                                        m_schedule=m_schedule)
+  elif algo == 'tds':
+    sampler = diffusion.tds_sampler(reward_fn, batch_size, alpha=alpha,
+                                    ess_threshold=ess_threshold)
   elif algo == 'dps':
     sampler = diffusion.dps_sampler(reward_fn, batch_size,
                                     guidance_scale=guidance_scale)
@@ -96,7 +139,7 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
   else:
     raise NotImplementedError(f'algo {algo!r} is not ported yet')
 
-  samples, value_preds, reward_preds = [], [], []
+  samples, value_preds, reward_preds, ess_traces = [], [], [], []
   for _ in range(gen_batch_num):
     res = sampler(guided_gen)
     samples.append(res.samples.cpu().numpy())
@@ -106,6 +149,8 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
         value_preds.append(value_fn(res.samples).float().cpu().numpy())
     else:
       value_preds.append(reward_preds[-1])
+    if algo == 'tds' and isinstance(res.extra, dict) and 'ess' in res.extra:
+      ess_traces.append(res.extra['ess'].cpu().numpy())
 
   baseline, top_k = _baseline(diffusion, reward_fn, batch_size,
                               gen_batch_num, sample_M, base_gen,
@@ -114,4 +159,5 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
       samples=np.concatenate(samples),
       value_preds=np.concatenate(value_preds),
       reward_preds=np.concatenate(reward_preds),
-      top_k=top_k, baseline_preds=baseline)
+      top_k=top_k, baseline_preds=baseline,
+      diagnostics=_ess_diagnostics(ess_traces, batch_size))

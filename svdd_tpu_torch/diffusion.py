@@ -1,7 +1,7 @@
 """The Diffusion bundle's decode half (``svdd_tpu/diffusion.py``):
 backbone (CNN, DiT or DiMamba) + schedule + SUBS parameterization + the
-unguided (ddpm, ddpm_cache), SVDD-MC, DPS and classifier-guidance
-samplers."""
+unguided (ddpm, ddpm_cache), SVDD-MC (with scheduled M), SVDD-PM
+(Tweedie), TDS, DPS and classifier-guidance samplers."""
 
 from __future__ import annotations
 
@@ -100,14 +100,24 @@ class Diffusion:
     return self.forward_onehot
 
   def _reverse(self, step_fn, batch_size: int, num_steps, eps: float,
-               grad_steps: bool = False, aux_init=None):
+               grad_steps: bool = False, aux_init=None,
+               removal_from_aux: bool = False):
     cfg = self.config
     return S.reverse_process(
         step_fn, self.forward, self.schedule, batch_size=batch_size,
         length=cfg.model.length, mask_index=self.mask_index,
         num_steps=num_steps or cfg.sampling.steps, eps=eps,
         noise_removal=cfg.sampling.noise_removal, device=self.device,
-        grad_steps=grad_steps, aux_init=aux_init)
+        grad_steps=grad_steps, aux_init=aux_init,
+        removal_from_aux=removal_from_aux)
+
+  @staticmethod
+  def _phased(make_step, sample_M: int, m_schedule):
+    """One step of ``sample_M`` candidates, or the phase list of
+    ``m_schedule`` ((n_steps, M), ...)."""
+    if m_schedule is None:
+      return make_step(sample_M)
+    return [(make_step(int(m)), int(n)) for n, m in m_schedule]
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
               eps: float = 1e-5):
@@ -126,11 +136,56 @@ class Diffusion:
   def controlled_sampler(self, value_fn, batch_size: int, *,
                          sample_M: int = 10,
                          num_steps: int | None = None,
-                         eps: float = 1e-5):
-    """SVDD-MC sampler; ``value_fn``: (N, L) tokens -> (N,) scores."""
-    step = G.svdd_mc_step(self.forward, value_fn, self.schedule,
-                          self.mask_index, repeats=sample_M)
+                         eps: float = 1e-5, m_schedule=None):
+    """SVDD-MC sampler; ``value_fn``: (N, L) tokens -> (N,) scores.
+    ``m_schedule``: scheduled-M phases ((n_steps, M), ...) covering the
+    trajectory, in place of ``sample_M``."""
+    step = self._phased(
+        lambda m: G.svdd_mc_step(self.forward, value_fn, self.schedule,
+                                 self.mask_index, repeats=m),
+        sample_M, m_schedule)
     return self._reverse(step, batch_size, num_steps, eps)
+
+  def tweedie_sampler(self, reward_fn, batch_size: int, *,
+                      sample_M: int = 10, tweedie: bool = True,
+                      num_steps: int | None = None, eps: float = 1e-5,
+                      reuse_posterior: bool = True, m_schedule=None):
+    """SVDD-PM sampler (``svdd_tpu/diffusion.py:422-463``); ``reward_fn``:
+    (N, L, 4) -> (N,). ``reuse_posterior`` (tweedie only): carry the
+    winner's candidate forward across steps and into noise removal.
+    ``m_schedule`` as in ``controlled_sampler``."""
+    reuse = reuse_posterior and tweedie
+    step = self._phased(
+        lambda m: G.svdd_pm_step(self.forward, reward_fn, self.schedule,
+                                 self.mask_index, repeats=m,
+                                 tweedie=tweedie, carry_posterior=reuse),
+        sample_M, m_schedule)
+    aux_init = (None, False) if reuse else ()   # no posterior yet
+    return self._reverse(step, batch_size, num_steps, eps,
+                         aux_init=aux_init, removal_from_aux=reuse)
+
+  def tds_sampler(self, reward_fn, batch_size: int, *, alpha: float = 1.0,
+                  num_steps: int | None = None, eps: float = 1e-5,
+                  reuse_posterior: bool = True, track_ess: bool = True,
+                  ess_threshold: float | None = None):
+    """TDS sampler (``svdd_tpu/diffusion.py:465-503``); ``reward_fn``:
+    (N, L, 4) -> (N,). ``reuse_posterior``: carry the resampled
+    particles' forward, which drops one of the three forwards a step and
+    the removal forward. ``track_ess``: the result's ``extra['ess']``
+    holds each step's effective sample size. ``ess_threshold``: adaptive
+    resampling (``guidance.tds_step``)."""
+    steps = num_steps or self.config.sampling.steps
+    post_init = (None, False) if reuse_posterior else ()
+    aux_init = G.tds_aux_init(batch_size, post_init, track_ess=track_ess,
+                              num_steps=steps, ess_threshold=ess_threshold,
+                              device=self.device)
+    step = G.tds_step(self.forward, reward_fn, self.schedule,
+                      self.mask_index, alpha=alpha,
+                      carry_posterior=reuse_posterior, track_ess=track_ess,
+                      num_steps=steps, ess_threshold=ess_threshold)
+    return self._reverse(step, batch_size, num_steps, eps,
+                         aux_init=aux_init,
+                         removal_from_aux=reuse_posterior)
 
   def dps_sampler(self, reward_fn, batch_size: int, *,
                   guidance_scale: float = 1.0,

@@ -9,8 +9,8 @@ random-weight run has the JAX run's scale. Conv kernels keep the flax
 (K, Cin, Cout) layout; Dense weights the torch (out, in) layout.
 
 The Enformer's eval tower hands each attention pool to the NEXT k=5
-ConvBlock as a ``PoolHandoff`` (or, at a width off the 128-lane grid, a
-``LogitsHandoff``): that block runs the pool, its own BN affine and
+ConvBlock as a ``PoolHandoff`` (or, at a width off the 128-lane grid
+but for bf16 in the L-major tower, a ``LogitsHandoff``): that block runs the pool, its own BN affine and
 activation and the im2col in one kernel (``ops/attn_pool.py``), so the
 pooled activation never reaches device memory, and its conv is one
 matmul over the im2col columns. A ConvBlock given a tensor with
@@ -167,10 +167,12 @@ class PendingBias(NamedTuple):
 
 
 class PoolHandoff(NamedTuple):
-  """A deferred attention pool at a width on the 128-lane grid:
+  """A deferred attention pool at a width on the 128-lane grid (or any
+  width in bf16 in the L-major eval tower, ``AttentionPool``):
   pool(x + residual) with logits weight ``w``, run by the consuming
-  ConvBlock's w-logits kernel; ``lnc``: handed on in the L-major eval
-  tower (``ops.attn_pool.wlogits_body_takes``); ``out_bias``: a deferred
+  ConvBlock's w-logits kernel or its reference form; ``lnc``: handed on
+  in the L-major eval tower (``ops.attn_pool.wlogits_body_takes``);
+  ``out_bias``: a deferred
   (C,) f32 bias of the pooled output (``defers_bias``), which the
   consumer folds into its norm shift."""
   x: torch.Tensor
@@ -199,7 +201,14 @@ class AttentionPool(nn.Module):
   legacy branch (``blocks.py:288-298``): the residual added up front, the
   logits x @ W as a product in x's dtype, an odd length padded with a
   zero row and a lowest-finite logit, then kernel B11a, or the handoff
-  to the next block's kernel B11b."""
+  to the next block's kernel B11b. The one exception is bf16 in the
+  L-major eval tower, where the JAX module takes its ``lnc`` branch at
+  every width (``blocks.py:215-234``) and its dispatchers, off their
+  gate, the w-logits references (``*_wlogits_lnc_reference``): there the
+  pool takes the w-logits path, whose bf16 form off the gate is that
+  reference (``ops.attn_pool.pool_rounds_as_reference``), and a deferred
+  bias folds into the consumer's norm shift. In float32 the two branches
+  agree to f32 rounding and the legacy one stays."""
 
   def __init__(self, dim: int, device=None):
     super().__init__()
@@ -213,7 +222,7 @@ class AttentionPool(nn.Module):
     deferred (C,) f32 bias of x (``defers_bias``): it passes through the
     blend, added to the output in x's dtype or handed on."""
     w = self.w.to(x.dtype)
-    if x.shape[-1] % 128 == 0:
+    if x.shape[-1] % 128 == 0 or (lnc and x.dtype == torch.bfloat16):
       if defer:
         return PoolHandoff(x, residual, w, lnc, out_bias)
       out = ap.attn_pool(x, w, residual, lnc)

@@ -5,6 +5,16 @@ step posterior, the candidate kernel M draws per row, the value net
 scores all B*M candidates in ONE batched forward, and each row keeps
 its best-scoring candidate.
 
+SVDD-PM scores the candidates by the reward of their posterior mean
+(Tweedie): a second denoiser forward on the B*M candidates at the next
+step's sigma, its argmax filling the masked positions. TDS is sequential
+Monte Carlo: one draw per particle, importance weights from the rewards
+of the posterior means before and after, and a resample of the batch
+from those weights, on the card (``resample_indices``). Both can carry
+the next step's denoiser forward of the chosen rows (``carry_posterior``),
+which makes the per-step (B,) forward and the removal forward exact
+reuses.
+
 DPS and classifier guidance tilt the step posterior by a gradient with
 respect to the one-hot input, ``torch.autograd.grad`` in place of
 ``jax.grad``; the models' parameters take no gradient. Every step
@@ -25,6 +35,7 @@ from svdd_tpu_torch.sampling.sampler import (DenoiseFn, move_chances,
 from svdd_tpu_torch.schedules import Schedule
 
 ValueFn = Callable[[torch.Tensor], torch.Tensor]
+RewardFn = Callable[[torch.Tensor], torch.Tensor]    # (N, L, 4) -> (N,)
 
 
 def _draw_candidates(log_q, x, mask_index: int, repeats: int,
@@ -59,6 +70,183 @@ def svdd_mc_step(denoise_fn: DenoiseFn, value_fn: ValueFn,
     return _select_best(candidates, scores)
 
   return step
+
+
+def _onehot4(index: torch.Tensor) -> torch.Tensor:
+  """jax.nn.one_hot(index, 4) in float32: an index past 3 gives a zero
+  row."""
+  return (index[..., None] == torch.arange(4, device=index.device)).float()
+
+
+def _posterior_onehot(log_p, samples, mask_index: int) -> torch.Tensor:
+  """The reward's input r(E[x0|x]): the argmax of the denoiser posterior
+  at still-masked positions, the tokens elsewhere, (N, L, 4) float32
+  (``guidance.py:135-143``)."""
+  posterior = _onehot4(torch.argmax(log_p, dim=-1))       # never MASK
+  actual = _onehot4(torch.clamp(samples, 0, 3))
+  return torch.where((samples != mask_index)[..., None], actual, posterior)
+
+
+def _tweedie_posterior_onehot(denoise_fn: DenoiseFn, samples, sigma_s,
+                              mask_index: int) -> torch.Tensor:
+  return _posterior_onehot(denoise_fn(samples, sigma_s), samples,
+                           mask_index)
+
+
+def _cached_or_fresh(denoise_fn: DenoiseFn, schedule: Schedule, aux, x, t):
+  """log p(x0 | x) at sigma(t): the carried posterior when it is valid,
+  else a fresh forward (``guidance.py:152-163``). The carry holds the
+  previous step's forward of the chosen rows at its sigma_s, which is
+  this step's sigma_t: an exact reuse. ``valid`` is a host bool (False
+  on step 0 only), so the branch reads nothing from the card."""
+  log_p_cache, valid = aux
+  if valid:
+    return log_p_cache
+  return denoise_fn(x, sigma_batch(schedule, t, x.shape[0], x.device))
+
+
+def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
+                 schedule: Schedule, mask_index: int, repeats: int = 10,
+                 tweedie: bool = True, task: str = 'dna',
+                 carry_posterior: bool = False):
+  """SVDD-PM: M candidates -> reward of their posterior mean -> argmax
+  select (``guidance.py:166-226``). ``tweedie=False`` scores the
+  candidates with their masked positions zeroed instead
+  (``mdlm.transform_samples``). ``carry_posterior`` (tweedie only): the
+  winner's candidate forward at sigma_s is carried in aux (log_p, valid)
+  and replaces the next step's (B,) forward and the removal forward.
+  The step takes and returns an aux; without the carry it is passed
+  through."""
+  if task != 'dna':
+    raise NotImplementedError(
+        f'svdd_pm_step: task {task!r} waits for the RNA task (A10) and '
+        'the saluki input builder (A1); only dna is ported')
+  carry_posterior = carry_posterior and tweedie
+
+  def step(aux, x, t, t_next, generator, gumbel=None):
+    b, l = x.shape
+    _, mct, mcs = move_chances(schedule, t, t_next)
+    if carry_posterior:
+      log_p = _cached_or_fresh(denoise_fn, schedule, aux, x, t)
+    else:
+      log_p = denoise_fn(x, sigma_batch(schedule, t, b, x.device))
+    log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
+    candidates = _draw_candidates(log_q, x, mask_index, repeats,
+                                  generator, gumbel)
+    flat = candidates.reshape(b * repeats, l)
+    if tweedie:
+      log_p_cand = denoise_fn(flat, sigma_batch(schedule, t_next,
+                                                b * repeats, x.device))
+      onehot = _posterior_onehot(log_p_cand, flat, mask_index)
+    else:
+      onehot = mdlm.transform_samples(flat)
+    scores = reward_fn(onehot).reshape(b, repeats)
+    if not carry_posterior:
+      return aux, _select_best(candidates, scores)
+    idx = torch.argmax(scores, dim=1)
+    rows = torch.arange(b, device=x.device)
+    picked = log_p_cand.reshape(b, repeats, l, -1)[rows, idx]
+    return (picked, True), candidates[rows, idx]
+
+  return step
+
+
+def resample_indices(w: torch.Tensor, uniform: torch.Tensor
+                     ) -> torch.Tensor:
+  """B ancestor indices drawn from the weights w (B,) with replacement,
+  as JAX 0.9's ``jax.random.choice(key, B, (B,), p=w)`` computes them
+  from its uniforms u: the first index whose cumulative weight reaches
+  cumsum(w)[-1] * (1 - u). On the card, so the loop reads nothing."""
+  cum = torch.cumsum(w, dim=0)
+  return torch.searchsorted(cum, cum[-1] * (1 - uniform), right=False)
+
+
+def tds_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
+             schedule: Schedule, mask_index: int, alpha: float = 1.0,
+             carry_posterior: bool = False, track_ess: bool = False,
+             num_steps: int | None = None,
+             ess_threshold: float | None = None):
+  """TDS (``guidance.py:229-340``): one draw per particle, importance
+  weights softmax((r(E[x0|x_s]) - r(E[x0|x_t])) / alpha), both posterior
+  means at sigma_s as in the reference, and a resample of the batch from
+  them (``resample_indices``). ``carry_posterior``: the resampled rows of
+  the numerator's forward are carried in aux (log_p, valid).
+  ``track_ess`` (needs ``num_steps``): the ESS 1/sum(w^2) of each step
+  into a (num_steps,) buffer. ``ess_threshold`` (a fraction of B):
+  log-weights accumulate across steps and the batch resamples only where
+  ESS <= ess_threshold * B, and always on the last step, which then
+  resets them. The uniforms are drawn every step either way, so the
+  random stream does not depend on the mode. With track_ess or
+  ess_threshold the aux is a dict (``tds_aux_init``) whose step counter
+  'i' is a host int; the weights, the ESS and the resampling decision
+  stay on the card. ``gumbel`` (B, L, V) and ``uniform`` (B,) inject the
+  draw's and the resample's noise."""
+  use_dict = track_ess or ess_threshold is not None
+  if use_dict and num_steps is None:
+    raise ValueError('track_ess / ess_threshold require num_steps '
+                     '(ESS buffer size + terminal-resample index)')
+
+  def step(aux, x, t, t_next, generator, gumbel=None, uniform=None):
+    b, _ = x.shape
+    _, mct, mcs = move_chances(schedule, t, t_next)
+    sigma_s = sigma_batch(schedule, t_next, b, x.device)
+    post = aux['post'] if use_dict else aux
+    if carry_posterior:
+      log_p = _cached_or_fresh(denoise_fn, schedule, post, x, t)
+    else:
+      log_p = denoise_fn(x, sigma_batch(schedule, t, b, x.device))
+    log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
+    sample = torch.where(x != mask_index, x,
+                         _draw(log_q, generator, gumbel))
+    if uniform is None:
+      uniform = torch.rand((b,), generator=generator, device=x.device)
+
+    log_p_sample = denoise_fn(sample, sigma_s)
+    reward_num = reward_fn(_posterior_onehot(log_p_sample, sample,
+                                             mask_index))
+    reward_den = reward_fn(_tweedie_posterior_onehot(denoise_fn, x,
+                                                     sigma_s, mask_index))
+    log_ratio = (reward_num - reward_den) / alpha
+    log_w = log_ratio if ess_threshold is None else aux['log_w'] + log_ratio
+    w = torch.softmax(log_w, dim=0)
+    ess = 1.0 / torch.sum(w * w)
+    take = resample_indices(w, uniform)
+    if ess_threshold is not None:
+      fire = ess <= ess_threshold * b
+      if aux['i'] >= num_steps - 1:     # the weights must be realised
+        fire = torch.ones_like(fire)
+      take = torch.where(fire, take, torch.arange(b, device=x.device))
+    x_next = sample[take]
+    post_next = (log_p_sample[take], True) if carry_posterior else post
+    if not use_dict:
+      return post_next, x_next
+    aux_next = dict(aux, post=post_next, i=aux['i'] + 1)
+    if track_ess:                       # the buffer is carried, not copied
+      aux['ess'][aux['i']] = ess
+    if ess_threshold is not None:
+      aux_next['log_w'] = torch.where(fire, torch.zeros_like(log_w),
+                                      log_w)[take]
+    return aux_next, x_next
+
+  return step
+
+
+def tds_aux_init(batch_size: int, posterior_init, track_ess: bool = False,
+                 num_steps: int | None = None,
+                 ess_threshold: float | None = None, device='cuda'):
+  """The first aux of ``tds_step`` (``guidance.py:343-356``): the
+  posterior carry alone, or, with track_ess or ess_threshold, a dict
+  {'post', 'i' (host int), 'ess' (num_steps,), 'log_w' (B,)}."""
+  if not (track_ess or ess_threshold is not None):
+    return posterior_init
+  aux = {'post': posterior_init, 'i': 0}
+  if track_ess:
+    aux['ess'] = torch.zeros((num_steps,), dtype=torch.float32,
+                             device=device)
+  if ess_threshold is not None:
+    aux['log_w'] = torch.zeros((batch_size,), dtype=torch.float32,
+                               device=device)
+  return aux
 
 
 def _draw(log_probs, generator, gumbel=None):

@@ -9,6 +9,16 @@ ddpm_cache step, which carries an aux state
 (step_fn(aux, x, t, t_next, generator) -> (aux, x_next)) and reads one
 flag back per step to decide whether the next step may skip its forward.
 
+The guided steps of SVDD-PM and TDS carry an aux too: the winner's or
+the resampled particles' posterior (log_p, valid), and TDS's ESS trace
+and log-weights. Their ``valid`` flag is known on the host (False on
+step 0, True after), and TDS keeps its weights, its resampling decision
+and its ESS on the card, so these loops read nothing back.
+
+``step_fn`` may also be a phase list [(step_fn, n_steps), ...] whose
+lengths sum to num_steps (scheduled-M decoding); one generator flows
+through the phases, so a one-phase list draws as the plain form.
+
 The loop runs under ``torch.inference_mode()``; a loop of gradient
 steps (DPS, classifier guidance) runs under ``torch.no_grad()`` instead,
 since tensors made in inference mode cannot enter autograd, and each
@@ -17,7 +27,7 @@ step turns gradients on around its own gradient.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -29,6 +39,7 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 class SampleResult(NamedTuple):
   samples: torch.Tensor        # (B, L) final tokens (mask-free)
+  extra: Any = None            # the final aux of a step that carries one
 
 
 def timestep_grid(num_steps: int, eps: float) -> torch.Tensor:
@@ -100,30 +111,57 @@ def argmax_noise_removal(denoise_fn: DenoiseFn, schedule: Schedule,
   return torch.argmax(logits[..., :-1], dim=-1)
 
 
+def _phases(step_fn, num_steps: int):
+  """[(step_fn, n), ...] of a phase list or one step function, with the
+  JAX package's checks (``svdd_tpu/sampling/sampler.py:171-182``)."""
+  phases = (list(step_fn) if isinstance(step_fn, (list, tuple))
+            else [(step_fn, num_steps)])
+  lengths = [n for _, n in phases]
+  if any(n < 1 for n in lengths):
+    raise ValueError(f'phase lengths must be >= 1: {lengths}')
+  if sum(lengths) != num_steps:
+    raise ValueError(f'phase lengths {lengths} do not sum to '
+                     f'num_steps={num_steps}')
+  return phases
+
+
 def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     *, batch_size: int, length: int, mask_index: int,
                     num_steps: int, eps: float = 1e-5,
                     noise_removal: bool = True, device='cuda',
-                    grad_steps: bool = False, aux_init=None):
+                    grad_steps: bool = False, aux_init=None,
+                    removal_from_aux: bool = False):
   """prior -> num_steps steps -> final argmax noise removal.
-  Returns sample(generator) -> SampleResult. ``grad_steps``: the steps
-  take gradients, so the loop runs outside inference mode. ``aux_init``:
-  the first aux of a step that carries one (ddpm_cache); None for the
-  steps that do not."""
+  Returns sample(generator) -> SampleResult. ``step_fn``: one step
+  function or a phase list [(step_fn, n_steps), ...] (lengths >= 1,
+  summing to num_steps). ``grad_steps``: the steps take gradients, so
+  the loop runs outside inference mode. ``aux_init``: the first aux of
+  a step that carries one (ddpm_cache, SVDD-PM, TDS); None for the steps
+  that do not. ``removal_from_aux``: the carry (log_p, valid) holds the
+  denoiser's forward of the final x at sigma(t_last) (the guided steps'
+  carry_posterior; TDS's dict nests it under 'post'), so noise removal
+  argmaxes it over the non-mask vocabulary instead of running that
+  forward."""
   timesteps = timestep_grid(num_steps, eps)
+  phases = _phases(step_fn, num_steps)
 
   def sample(generator: torch.Generator) -> SampleResult:
     with torch.no_grad() if grad_steps else torch.inference_mode():
       x = mdlm.sample_prior((batch_size, length), mask_index, device)
       aux = aux_init
-      for i in range(num_steps):
-        if aux is None:
-          x = step_fn(x, timesteps[i], timesteps[i + 1], generator)
-        else:
-          aux, x = step_fn(aux, x, timesteps[i], timesteps[i + 1],
-                           generator)
-      if noise_removal:
+      start = 0
+      for fn, n in phases:
+        for i in range(start, start + n):
+          if aux is None:
+            x = fn(x, timesteps[i], timesteps[i + 1], generator)
+          else:
+            aux, x = fn(aux, x, timesteps[i], timesteps[i + 1], generator)
+        start += n
+      if noise_removal and removal_from_aux:
+        post = aux['post'] if isinstance(aux, dict) else aux
+        x = torch.argmax(post[0][..., :-1], dim=-1)
+      elif noise_removal:
         x = argmax_noise_removal(denoise_fn, schedule, x, timesteps[-1])
-    return SampleResult(samples=x)
+    return SampleResult(samples=x, extra=aux)
 
   return sample

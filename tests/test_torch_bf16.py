@@ -165,6 +165,76 @@ def test_enformer_bf16_matches_svdd_tpu_op_by_op(case, monkeypatch,
                              atol=tol * np.abs(want).max())
 
 
+# the off-grid tower: channels 384, stem width 192 (off the 128-lane grid),
+# N = 6; an even input length takes the L-major tower, an odd one the
+# (N, L, C) one, in both packages
+OFFGRID_LENGTHS = (16, 15)
+
+
+def _offgrid_enformer(length, jdtype, seed=50):
+  jm = JaxEnformer(channels=384, n_conv=3, n_transformers=1, n_heads=2,
+                   compute_dtype=jdtype)
+  rs = np.random.default_rng(seed + length)
+  onehot = mdlm.transform_samples(_t(rs.integers(0, 5, (6, length))))
+  variables = random_variables(jm.init, jnp.zeros((1, length, 4)), rs=rs)
+  return jm, variables, onehot
+
+
+def _stem_handoff(model, onehot):
+  """The port's value on onehot and the type of the stem pool's handoff."""
+  seen = []
+  hook = model.trunk.tower.stem_block.register_forward_hook(
+      lambda m, i, out: seen.append(type(out).__name__))
+  with torch.no_grad():
+    got = model(onehot)
+  hook.remove()
+  return got, seen[0]
+
+
+@pytest.mark.parametrize('length', OFFGRID_LENGTHS)
+def test_offgrid_enformer_bf16_matches_svdd_tpu_op_by_op(length, monkeypatch,
+                                                        f32_sigmoid):
+  """The bf16 Enformer with its stem pool off the grid, JAX run op by op
+  with its dispatchers as on a TPU (Pallas bodies on their gates, in
+  interpret mode). At an even length JAX's L-major tower takes its
+  ``lnc`` branch at every width, whose dispatchers fall back to the
+  w-logits references off the gate: s = x + residual, the logits and the
+  pool rounded, the deferred bias folded into the next norm's shift. The
+  port's pool hands on a ``PoolHandoff`` there; at an odd length both
+  take the legacy branch (``LogitsHandoff``). Within 2^-8 of the
+  largest value at both."""
+  _pallas_in_interpret_mode(monkeypatch)
+  jm, variables, onehot = _offgrid_enformer(length, jnp.bfloat16)
+  with jax.disable_jit():
+    want = np.asarray(jm.apply(variables, jnp.asarray(onehot.numpy())))
+  got, handoff = _stem_handoff(enformer_value_from_jax(variables,
+                                                       torch.bfloat16),
+                               onehot)
+  assert handoff == ('PoolHandoff' if length % 2 == 0 else 'LogitsHandoff')
+  np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                             atol=2 ** -8 * np.abs(want).max())
+
+
+def test_offgrid_enformer_f32_keeps_the_legacy_branch(monkeypatch):
+  """In float32 the off-grid pool of the L-major tower stays on the
+  legacy branch (a ``LogitsHandoff`` to kernel B11b's plain version),
+  bit for bit what the tower computes with ``lnc`` off for every pool,
+  and within 1e-5 of the JAX module's largest value."""
+  jm, variables, onehot = _offgrid_enformer(16, jnp.float32)
+  want = np.asarray(jax.jit(jm.apply)(variables,
+                                      jnp.asarray(onehot.numpy())))
+  model = enformer_value_from_jax(variables, torch.float32)
+  got, handoff = _stem_handoff(model, onehot)
+  assert handoff == 'LogitsHandoff'
+  fwd = blocks.AttentionPool.forward
+  monkeypatch.setattr(blocks.AttentionPool, 'forward',
+                      lambda self, *a, **k: fwd(self, *a, **dict(k, lnc=False)))
+  legacy, _ = _stem_handoff(model, onehot)
+  assert torch.equal(got, legacy)
+  np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                             atol=1e-5 * np.abs(want).max())
+
+
 # ---------------------------------------------------------------------------
 # the bf16 faults: the gates and the norms (the pool's and B5's smallest
 # inputs are in tests/test_torch_pool.py and tests/test_torch_grad.py)
