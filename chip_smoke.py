@@ -51,12 +51,22 @@ exits non-zero and prints no result:
      ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
      (--task dna, 512 rows, 128 steps); all full-width random-weight
      models; and SVDD-MC for 8 steps with the channels=1152 value net;
-  5. one step of each decode (the guided ones in bf16 too; PM and TDS
+  5. diffusion pretraining of the full-width denoiser: ``main_gosai
+     --mode train --task dna`` at global batch 512 in two microbatches,
+     40 steps with validation, the sample-quality hook and checkpoints,
+     in f32 and under the bf16 switches (B6 launched exactly 20 x 2 x 40
+     times); resume on the card (a run dying after step 30, its resume
+     from step 20's checkpoint and a clean run, equal bit for bit);
+     ``--mode ppl_eval`` and ``--mode sample_eval`` reading the f32 run's
+     checkpoint; one training step on 8 rows on the card against the
+     CPU (loss, every gradient, every updated parameter), f32 and bf16;
+  6. one step of each decode (the guided ones in bf16 too; PM and TDS
      with a valid posterior carry, as after their first step) under
      torch.profiler: host ms per step,
-     the card's busy ms and idle share, and kernel ms by kind; and one
-     DiT forward at the text preset's 512 rows;
-then the kernels line (launches summed over the runs of phases 3 and 4),
+     the card's busy ms and idle share, and kernel ms by kind; one
+     DiT forward at the text preset's 512 rows; and one training step
+     (batch 512, f32 and bf16) with its tokens per second;
+then the kernels line (launches summed over the runs of phases 3-5),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -417,6 +427,11 @@ CNN_PM_ROWS = 5120
 # B1 and B6 are also held at N = 8 at a short sequence and at the longest
 # one a block holds (ops/cnn_layer.kernel_takes)
 CNN_SMALL_N, CNN_SHORT_L = 8, 50
+# the other row counts at which pretraining runs B1 and B6 at L = 200: a
+# microbatch of 256 rows (global batch 512 in two), forward and backward,
+# and the sample-quality hook's batches of 64, forward. Each is held
+# against the plain version at all four dilations, one launch a point
+CNN_TRAIN_ROWS = {'cnn_layer': (256, 64), 'cnn_layer_bwd': (256,)}
 
 
 def live_rows(l: int, k: int = 5, d: int = 1) -> int:
@@ -482,24 +497,46 @@ def _cnn_bwd_against_plain(args, ct, d, name, label):
   return max(e[0] for e in errs), max(e[1] for e in errs), flips
 
 
-def _cnn_lengths(dtype, gen, bwd: bool) -> dict:
-  """Max abs error against the plain version at N = 8, L = 50 and the
-  longest L, all four dilations (B6 with the mask checks)."""
+def _cnn_points(dtype, gen, bwd: bool, points) -> list:
+  """Max abs error against the plain version at each (N, L) point, all
+  four dilations (B6 with the mask checks), each call one launch of the
+  kernel."""
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import cnn_layer as K
   name = str(dtype).split('.')[-1]
-  res = {}
-  for l in (CNN_SHORT_L, cnn_longest(dtype)):
-    args, ct = _cnn_inputs(CNN_SMALL_N, l, dtype, gen)
+  counter = 'cnn_layer_bwd' if bwd else 'cnn_layer'
+  res = []
+  for n, l in points:
+    args, ct = _cnn_inputs(n, l, dtype, gen)
     errs = []
     for d in (1, 4, 16, 64):
-      label = f'{"cnn_layer_bwd" if bwd else "cnn_layer"} L={l} d={d}'
+      label = f'{counter} N={n} L={l} d={d}'
+      before = _build.LAUNCHES[counter]
       if bwd:
         errs.append(_cnn_bwd_against_plain(args, ct, d, name, label)[0])
       else:
         errs.append(compare(label, K.cnn_layer(*args, dilation=d),
                             K.cnn_layer_plain(*args, dilation=d), name)[0])
-    res[str(l)] = max(errs)
+      if _build.LAUNCHES[counter] != before + 1:
+        raise AssertionError(f'{label}: '
+                             f'{_build.LAUNCHES[counter] - before} launches')
+    res.append(max(errs))
+    del args, ct
   return res
+
+
+def _cnn_lengths(dtype, gen, bwd: bool) -> dict:
+  """``_cnn_points`` at N = 8, L = 50 and the longest L: {L: error}."""
+  lengths = (CNN_SHORT_L, cnn_longest(dtype))
+  return dict(zip(map(str, lengths), _cnn_points(
+      dtype, gen, bwd, [(CNN_SMALL_N, l) for l in lengths])))
+
+
+def _cnn_train_rows(dtype, gen, bwd: bool) -> dict:
+  """``_cnn_points`` at CNN_TRAIN_ROWS' row counts, L = 200: {N: error}."""
+  rows = CNN_TRAIN_ROWS['cnn_layer_bwd' if bwd else 'cnn_layer']
+  return dict(zip(map(str, rows), _cnn_points(
+      dtype, gen, bwd, [(n, CNN_SHAPE[1]) for n in rows])))
 
 
 def _cnn_rates(r: dict, dtype_name: str) -> dict:
@@ -532,13 +569,15 @@ def check_cnn_layer(dtype, gen):
   normalised input at the same dilation and SAME padding (the conv alone,
   a yardstick; TF32 off in f32), then at N = 8 at L = 50 and the longest
   L a block holds, and again as at 512 rows at SVDD-PM's candidate
-  forward, N = B*M = 5120 (``n5120``). ms, plain_ms and library_ms are
-  one denoiser forward, the 20 layers, each layer's the card's time for
-  a call (device_ms, every kernel the call launched); flops count the
-  rows the live taps need (cnn_rows)."""
+  forward, N = B*M = 5120 (``n5120``), and at pretraining's other row
+  counts (CNN_TRAIN_ROWS, one launch each). ms, plain_ms and library_ms
+  are one denoiser forward, the 20 layers, each layer's the card's time
+  for a call (device_ms, every kernel the call launched); flops count
+  the rows the live taps need (cnn_rows)."""
   r = _cnn_forward(CNN_SHAPE[0], dtype, gen)
   r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=False)
   r['n5120'] = _cnn_forward(CNN_PM_ROWS, dtype, gen)
+  r['max_abs_err_train_rows'] = _cnn_train_rows(dtype, gen, bwd=False)
   return r
 
 
@@ -978,8 +1017,9 @@ def check_cnn_layer_bwd(dtype, gen):
   of _cnn_bwd_against_plain (bit for bit against B1); timed beside
   aten.convolution_backward of B1's conv for its input and weight
   gradients (a yardstick; TF32 off in f32); then at N = 8 at L = 50 and
-  the longest L a block holds. ms is one backward of the 20 layers, each
-  layer's the card's time for a call (device_ms)."""
+  the longest L a block holds, and at pretraining's microbatch
+  (CNN_TRAIN_ROWS, one launch each). ms is one backward of the 20
+  layers, each layer's the card's time for a call (device_ms)."""
   import torch
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
@@ -1023,6 +1063,7 @@ def check_cnn_layer_bwd(dtype, gen):
        'per_dilation_library_ms': {str(d): r_[4] for d, r_ in res.items()},
        'flops': flops, 'bytes': nbytes}
   r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=True)
+  r['max_abs_err_train_rows'] = _cnn_train_rows(dtype, gen, bwd=True)
   return _cnn_rates(r, name)
 
 
@@ -2233,8 +2274,7 @@ def profile_step(algo: str, bf16: bool = False):
   trace_complete: the trace holds at least one kernel a launch.
   ``bf16``: a guided step with the models the bf16 switches build."""
   import torch
-  from torch.profiler import ProfilerActivity, profile, schedule
-  from svdd_tpu_torch import _build, mdlm
+  from svdd_tpu_torch import mdlm
   from svdd_tpu_torch.cli import common
   from svdd_tpu_torch.diffusion import Diffusion
   from svdd_tpu_torch.sampling import guidance, sampler
@@ -2302,6 +2342,17 @@ def profile_step(algo: str, bf16: bool = False):
       step(x, t, t_next, gen)
     torch.cuda.synchronize()
 
+  return {'algo': f'{algo}_bf16' if bf16 else algo, 'batch_size': batch,
+          'length': cfg.model.length, **trace_step(once)}
+
+
+def trace_step(once) -> dict:
+  """Time and trace ``once`` (one synchronised step): a warm-up call, the
+  host mean of 3, then one warm-up and one recorded call under
+  torch.profiler (``profile_step`` says what each number is)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile, schedule
+  from svdd_tpu_torch import _build
   once()
   t0 = time.perf_counter()
   for _ in range(3):
@@ -2340,8 +2391,7 @@ def profile_step(algo: str, bf16: bool = False):
     by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end -
                                         e.time_range.start) / 1e3
   busy_ms = busy_us / 1e3
-  return {'algo': f'{algo}_bf16' if bf16 else algo, 'batch_size': batch,
-          'length': cfg.model.length, 'host_step_ms': host_ms,
+  return {'host_step_ms': host_ms,
           'profiled_step_ms': prof_ms, 'device_events': len(dev),
           'port_kernel_events': traced, 'port_kernel_launches': launched,
           'trace_complete': traced >= launched,
@@ -2373,6 +2423,558 @@ def time_dit_forward(rows: int = 512):
   return {'rows': rows, 'length': cfg.model.length,
           'dit_forward_ms': (time.perf_counter() - t0) / 2 * 1e3,
           'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: diffusion pretraining
+# ---------------------------------------------------------------------------
+
+# the reference training configuration (the JAX bench's: global batch
+# 512 as two microbatches of 256), cut to TRAIN_STEPS steps with a short
+# warmup, validation, the sample-quality hook and checkpoints every 20
+TRAIN_STEPS = 40
+TRAIN_SET = ['training.accum_steps=2', 'optim.warmup_steps=10',
+             'eval.val_check_interval=20', 'checkpointing.every_n_steps=20']
+TRAIN_KERNELS = ('cnn_layer', 'cnn_layer_bwd')
+CNN_LAYERS = 20
+RESUME_CRASH = 30
+TRAIN_CPU_ROWS = 8
+TRAIN_TOL = 1e-4   # f32 card vs CPU, relative by norm
+# f32, on the same relu masks: each gradient's distance by norm on the
+# card to the float64 step within F64_MULT times the CPU's own f32
+# distance to it, plus F64_FLOOR (16 f32 ulps) relative. The layer
+# kernels compute f32 products as 3xTF32 (about 2^-20 relative a
+# product): 8.2 times the CPU's distance at worst in the first chip run
+# of this check, NVIDIA H100 80GB HBM3, 700 W
+F64_MULT, F64_FLOOR = 16.0, 2.0 ** -20
+
+
+def _train_dir(name: str) -> str:
+  import shutil
+  path = os.path.join(REPO, 'build', 'chip_smoke', name)
+  shutil.rmtree(path, ignore_errors=True)
+  return path
+
+
+def run_train(bf16: bool) -> dict:
+  """``main_gosai --mode train --task dna`` through its ``run`` at full
+  width (hidden 128, 20 layers, L=200) on the synthetic split: global
+  batch 512, accum 2, TRAIN_STEPS steps (the CLI logs the training loss
+  every 100, so none here), val NLL and the sample-quality hook (2
+  batches of 64 EMA samples, 128 steps) at steps 20 and 40, and
+  checkpoints there; in f32 (TF32 off) or under the bf16 switches. The
+  launch counts are set to 0 just before and read just after: B6 must
+  have run exactly 20 layers x 2 microbatches x steps times. The
+  per-step losses and times come from ``check_resume``'s runs."""
+  import json as _json
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  name = 'train_bf16' if bf16 else 'train_f32'
+  root = _train_dir(name)
+  argv = ['--mode', 'train', '--task', 'dna', '--device', 'cuda',
+          '--max_steps', str(TRAIN_STEPS),
+          '--ckpt_dir', os.path.join(root, 'ckpt'),
+          '--log_dir', os.path.join(root, 'log'), '--set', *TRAIN_SET]
+  args = main_gosai.parser().parse_args(argv)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with bf16_switches(bf16):
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = main_gosai.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launches()
+  missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+  want_bwd = CNN_LAYERS * 2 * TRAIN_STEPS
+  if missing or launches['cnn_layer_bwd'] != want_bwd:
+    raise AssertionError(f'{name}: launches {launches}, B6 should run '
+                         f'{want_bwd} times')
+  rows = [_json.loads(line) for line in open(out['metrics_path'])]
+  nlls = [(r['_step'], r['val/nll']) for r in rows if 'val/nll' in r]
+  quality = [r for r in rows if 'kmer_pearson' in r]
+  if ([s for s, _ in nlls] != [20, 40] or len(quality) != 2
+      or any('train/loss' in r for r in rows)
+      or not np.isfinite([v for _, v in nlls]).all()):
+    raise AssertionError(f'{name}: metrics {rows}')
+  ckpts = sorted(os.listdir(os.path.join(root, 'ckpt')))
+  if ckpts != ['best', 'step_20.pt', 'step_40.pt']:
+    raise AssertionError(f'{name}: checkpoints {ckpts}')
+  # the wall clock of the metrics rows: each hook after its step's
+  # validation row
+  at = {(r['_step'], k): r['_time'] for r in rows for k in
+        ('val/nll', 'kmer_pearson') if k in r}
+  timing = {'hook_s': [at[(s, 'kmer_pearson')] - at[(s, 'val/nll')]
+                       for s, _ in nlls]}
+  state = out['state']
+  cfg = state.model.config
+  return {'run': name, 'batch_size': cfg.loader.global_batch_size,
+          'accum_steps': cfg.training.accum_steps,
+          'length': cfg.model.length, 'steps': state.step, 'wall_s': wall,
+          **timing, 'val_nll': nlls, 'sample_quality_last': {
+              k: v for k, v in quality[-1].items() if not k.startswith('_')},
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'launches': launches, 'ckpt_dir': os.path.join(root, 'ckpt')}
+
+
+class _LossRows:
+  """A metrics sink keeping each step's train/loss and the host clock
+  when it was logged."""
+
+  def __init__(self):
+    self.losses, self.times = {}, {}
+
+  def log(self, metrics, step=None):
+    if 'train/loss' in metrics:
+      self.losses[step] = metrics['train/loss']
+      self.times[step] = time.perf_counter()
+
+
+def _resume_run(name: str, steps: int, ckpt_dir: str, crash: bool = False):
+  """Trainer.fit at the training phase's configuration (f32, log_every
+  1, checkpoints every 20, no validation) for ``steps`` more steps from
+  the newest checkpoint under ``ckpt_dir``; ``crash`` sets
+  SVDD_CRASH_AT_STEP=RESUME_CRASH. Returns (state, losses by step)."""
+  from svdd_tpu_torch.cli import main_gosai
+  from svdd_tpu_torch.data import gosai
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  cfg = main_gosai.build_config(main_gosai.parser().parse_args(
+      ['--set', *TRAIN_SET]))
+  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True)
+  rows = _LossRows()
+  trainer = train_diff.Trainer(Diffusion(cfg, device='cuda'), cfg,
+                               ckpt_dir=ckpt_dir, logger=rows)
+  state = trainer.init_or_restore(train_it)
+  if crash:
+    os.environ['SVDD_CRASH_AT_STEP'] = str(RESUME_CRASH)
+  try:
+    state = trainer.fit(state, train_it, num_steps=steps - state.step,
+                        log_every=1, ckpt_every=20)
+  except RuntimeError as e:
+    if not crash or 'SVDD_CRASH_AT_STEP' not in str(e):
+      raise
+  finally:
+    os.environ.pop('SVDD_CRASH_AT_STEP', None)
+  return state, rows, name
+
+
+def check_resume() -> dict:
+  """Resume on the card: a run to step 40 that dies after step 30 (its
+  last checkpoint at 20), a run resuming from its directory to step 40,
+  and a clean run to 40. The resumed run's losses from step 21 on and
+  its final parameters, EMA and generator must equal the clean run's bit
+  for bit. Also the clean run's loss at its first and last step and its
+  host ms a step over steps 31-40 (the loss read back every step)."""
+  import torch
+  from svdd_tpu_torch.cli import common
+  common.full_f32()
+  crashed_dir = _train_dir('resume_crashed')
+  _, crashed, _ = _resume_run('crashed', TRAIN_STEPS, crashed_dir, crash=True)
+  resumed_state, resumed, _ = _resume_run('resumed', TRAIN_STEPS, crashed_dir)
+  clean_state, clean_rows, _ = _resume_run('clean', TRAIN_STEPS,
+                                           _train_dir('resume_clean'))
+  crashed, resumed, clean = crashed.losses, resumed.losses, clean_rows.losses
+  steps = sorted(resumed)
+  diff = {s: abs(resumed[s] - clean[s]) for s in steps}
+  same_params = all(
+      torch.equal(a, b) for a, b in zip(
+          resumed_state.model.backbone.state_dict().values(),
+          clean_state.model.backbone.state_dict().values()))
+  same_ema = all(torch.equal(v, clean_state.ema.shadow[k])
+                 for k, v in resumed_state.ema.shadow.items())
+  r = {'crashed_steps': max(crashed), 'resumed_from': steps[0] - 1,
+       'steps_compared': [steps[0], steps[-1]],
+       'max_loss_diff': max(diff.values()), 'params_equal': same_params,
+       'ema_equal': same_ema,
+       'generator_equal': torch.equal(resumed_state.generator.get_state(),
+                                      clean_state.generator.get_state()),
+       'crashed_vs_clean_max_loss_diff': max(
+           abs(crashed[s] - clean[s]) for s in crashed),
+       'loss_first': (1, clean[1]), 'loss_last': (TRAIN_STEPS,
+                                                  clean[TRAIN_STEPS]),
+       'step_ms_31_to_40': (clean_rows.times[TRAIN_STEPS]
+                            - clean_rows.times[30]) / 10 * 1e3}
+  if (max(crashed) != RESUME_CRASH or steps != list(range(21, 41))
+      or r['max_loss_diff'] != 0 or not same_params or not same_ema
+      or not r['generator_equal']):
+    raise AssertionError(f'resume on the card differs: {r}')
+  return r
+
+
+def run_ckpt_readers(ckpt_dir: str) -> dict:
+  """``--mode ppl_eval`` and ``--mode sample_eval`` (one batch of 512,
+  128 steps) from the f32 training run's checkpoint directory."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  common = ['--device', 'cuda', '--ckpt_dir', ckpt_dir, '--set', *TRAIN_SET,
+            'sampling.num_sample_batches=1']
+  cfg = main_gosai.build_config(main_gosai.parser().parse_args(common))
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  ppl = main_gosai.run(main_gosai.parser().parse_args(
+      ['--mode', 'ppl_eval', *common]))
+  torch.cuda.synchronize()
+  ppl_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  toks = main_gosai.run(main_gosai.parser().parse_args(
+      ['--mode', 'sample_eval', *common]))['tokens']
+  torch.cuda.synchronize()
+  sample_s = time.perf_counter() - t0
+  launches = _build.launches()
+  if (not np.isfinite(ppl['nll'])
+      or toks.shape != (cfg.loader.eval_batch_size, cfg.model.length)
+      or toks.min() < 0 or toks.max() > 3 or launches['cnn_layer'] == 0):
+    raise AssertionError(f'checkpoint readers: {ppl}, tokens {toks.shape} '
+                         f'{launches}')
+  return {'ppl_eval': ppl, 'ppl_eval_s': ppl_s, 'sample_eval_s': sample_s,
+          'distinct_tokens': int(np.unique(toks).size),
+          'launches': {k: v for k, v in launches.items() if v}}
+
+
+def _train_once(model, cfg, noise, dev, taps=None):
+  """One train_step of ``model`` moved to ``dev`` on the fixed batch and
+  noise: (loss, {name: clipped gradient}, {name: the update, parameter
+  after minus before}). ``taps``, a list, gets what ``_relu_masks`` reads
+  of the step's forwards."""
+  import copy
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  den = Diffusion(cfg, device=dev, backbone=copy.deepcopy(model))
+  state = train_diff.init_state(den, cfg)
+  hooks = [] if taps is None else [
+      layer.register_forward_pre_hook(
+          lambda mod, args: taps.append([a.detach() for a in args[:2]]))
+      for layer in den.backbone.layers] + [
+          den.backbone.layers[-1].register_forward_hook(
+              lambda mod, args, out: taps.append([out.detach()]))]
+  seqs, noise = noise
+  loss = train_diff.train_step(state, {'seqs': seqs}, cfg,
+                               [(t.to(dev), q.to(dev)) for t, q in noise])
+  for h in hooks:
+    h.remove()
+  before = dict(model.named_parameters())
+  named = dict(den.backbone.named_parameters())
+  return (float(loss), {k: p.grad.detach().cpu() for k, p in named.items()},
+          {k: p.detach().cpu() - before[k].detach() for k, p in named.items()})
+
+
+def _relu_masks(model, taps, dev) -> list:
+  """For each forward of a training step, from the inputs its layers were
+  given (``taps``: each layer's (input, time embedding), then the last
+  layer's output): the relu masks of the stem, of each layer and of the
+  first 1x1 conv as that forward computed them on ``dev`` with
+  ``model``'s weights before the update. The stem's is where layer 0's
+  input is positive; a layer's is the one its backward kernel reports
+  (the forward kernel's, bit for bit; on the CPU the plain version's);
+  the 1x1 conv's is its forward again, on the same inputs. As CPU bool
+  tensors: [{'stem', 'layers', 'final_0'}, ...]."""
+  import copy
+  import torch
+  from svdd_tpu_torch.ops import cnn_layer as K
+  from svdd_tpu_torch.ops.conv1d import _conv_forward
+  m = copy.deepcopy(model).to(dev)
+  n_layers, out = len(m.layers), []
+  per_call = n_layers + 1
+  with torch.no_grad():
+    for c in range(len(taps) // per_call):
+      call = taps[c * per_call:(c + 1) * per_call]
+      layers = []
+      for layer, (x, emb) in zip(m.layers, call):
+        *_, mask = K.cnn_layer_bwd(
+            x, layer.time(emb), layer.ln_scale, layer.ln_bias,
+            layer.kernel.to(x.dtype), layer.conv_bias, torch.zeros_like(x),
+            dilation=layer.dilation, return_mask=True)
+        layers.append(mask.cpu())
+      last = call[-1][0]
+      out.append({'stem': (call[0][0] > 0).cpu(), 'layers': layers,
+                  'final_0': (_conv_forward(last, m.final_0_kernel,
+                                            m.final_0_bias, 1) > 0).cpu()})
+  return out
+
+
+def _conv_f64(x, kernel, bias, dilation):
+  """SAME conv of x (N, L, Cin) with a flax-layout kernel, plain torch."""
+  import torch.nn.functional as F
+  k = kernel.shape[0]
+  return F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), bias,
+                  padding=(k - 1) // 2 * dilation,
+                  dilation=dilation).transpose(1, 2)
+
+
+def _forward_f64(self, seq, sigma, x_onehot=None, train=False,
+                 generator=None):
+  """The CNN denoiser's forward in float64 by plain autograd ops: the
+  time embedding, the stem, each layer's relu(conv(LN(x + bias_row))) +
+  x and the two 1x1 convs, through no kernel and no plain version of the
+  port. Where ``self.relu_masks`` holds the masks of another run (one
+  entry a forward, ``_relu_masks``), each relu takes that run's side of
+  0; ``self.flips`` then gets, a relu, how many inputs that mask puts on
+  the other side from this forward's and the largest |input| among
+  them."""
+  import torch
+  import torch.nn.functional as F
+  f64 = torch.float64
+  masks = self.relu_masks.pop(0) if self.relu_masks else None
+
+  def relu(y, name, i=None):
+    if masks is None:
+      return torch.relu(y)
+    m = masks[name] if i is None else masks[name][i]
+    other = (y > 0) != m
+    self.flips.append((int(other.sum()), float(
+        y.detach()[other].abs().max()) if other.any() else 0.0))
+    return y * m.to(f64)
+
+  emb = torch.relu(F.linear(self.gfp(sigma.to(f64)), self.time_linear.weight,
+                            self.time_linear.bias))
+  feat = relu(_conv_f64(F.one_hot(seq.long(), self.alphabet_size).to(f64),
+                        self.stem_kernel, self.stem_bias, 1), 'stem')
+  for i, layer in enumerate(self.layers):
+    h = feat + F.linear(emb, layer.time.weight, layer.time.bias)[:, None]
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + 1e-6) * layer.ln_scale + layer.ln_bias
+    feat = relu(_conv_f64(h, layer.kernel, layer.conv_bias, layer.dilation),
+                'layers', i) + feat
+  feat = relu(_conv_f64(feat, self.final_0_kernel, self.final_0_bias, 1),
+              'final_0')
+  return _conv_f64(feat, self.final_1_kernel, self.final_1_bias, 1)
+
+
+def _f64_denoiser(model, relu_masks=None):
+  """A float64 copy of the CNN denoiser ``model`` (same parameter names)
+  whose forward is ``_forward_f64``, on ``relu_masks`` where given."""
+  import copy
+  import types
+  m = copy.deepcopy(model).double()
+  # shared by the copies the training step makes
+  m.relu_masks, m.flips = _Shared(relu_masks or []), _Shared()
+  m.forward = types.MethodType(_forward_f64, m)
+  return m
+
+
+class _Shared(list):
+  """A list that a deep copy shares rather than copies."""
+
+  def __deepcopy__(self, memo):
+    return self
+
+
+def _replay_update(model, cfg, grads):
+  """The update AdamW makes on the CPU from ``model``'s parameters and the
+  given (clipped) gradients at the first update's rate: {name: parameter
+  after minus before}."""
+  import copy
+  import torch
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  den = Diffusion(cfg, device='cpu', backbone=copy.deepcopy(model))
+  opt = train_diff.init_state(den, cfg).optimizer
+  named = dict(den.backbone.named_parameters())
+  for k, p in named.items():
+    p.grad = grads[k].clone()
+  for group in opt.adamw.param_groups:
+    group['lr'] = opt.schedule(0)
+  opt.adamw.step()
+  before = dict(model.named_parameters())
+  with torch.no_grad():
+    return {k: p - before[k] for k, p in named.items()}
+
+
+def check_train_step(f32_cpu=None):
+  """One training step of the full-width denoiser on TRAIN_CPU_ROWS rows
+  (accum 2, rate lr from the first update, random weights with every
+  parameter perturbed) with the same injected noise on the card and on
+  the CPU. f32: the loss within TRAIN_TOL relative; a third witness, the
+  same step in float64 on the CPU through plain autograd
+  (``_f64_denoiser``) on the relu masks the card's step took
+  (``_relu_masks``): the card's loss and every parameter's clipped
+  gradient within TRAIN_TOL of it, relative by norm, and each gradient
+  within F64_MULT times the CPU's distance to the float64 step on the
+  CPU's masks, plus F64_FLOOR. A relu input within rounding of 0 takes
+  either side on the two devices, and one such input moves the
+  gradients below its layer far past rounding (``raw``: the card
+  against float64 on float64's own masks), so each mask may differ from
+  float64's only where |input| <= RELU_EDGE. Given ``f32_cpu``, the f32
+  run's CPU results, the model computes in bf16 and the loss and every
+  gradient's norm error are held by ``bf16_close`` against the CPU's own
+  bf16-to-f32 distance.
+  In both, every parameter's update on the card within TRAIN_TOL by norm
+  of the update AdamW makes on the CPU from the card's gradients:
+  AdamW's first update is lr * g / (|g| + eps), so the two devices'
+  gradients, equal within their error, would move an element whose
+  gradient lies within that error of 0, or of eps, by up to 2 lr
+  (``update_flips`` counts the elements whose two gradients differ in
+  sign). Returns the report and the CPU results."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.config import dna_config
+  from svdd_tpu_torch.models.cnn import CNNModel
+  bf16 = f32_cpu is not None
+  cfg = dna_config()
+  cfg.training.accum_steps = 2
+  cfg.optim.warmup_steps = 0
+  g = torch.Generator().manual_seed(3)
+  model = CNNModel(cfg, compute_dtype=torch.bfloat16 if bf16 else
+                   torch.float32, generator=torch.Generator().manual_seed(1))
+  with torch.no_grad():
+    for p in model.parameters():
+      p.add_(0.05 * torch.randn(p.shape, generator=g))
+  n, half = TRAIN_CPU_ROWS, TRAIN_CPU_ROWS // 2
+  seqs = torch.randint(0, 4, (n, 200), generator=g)
+  noise = (seqs, [(torch.rand(half, generator=g),
+                   torch.rand(half, 200, generator=g)) for _ in range(2)])
+  card_taps, cpu_taps = [], []
+  _build.reset_launches()
+  got = _train_once(model, cfg, noise, 'cuda', card_taps)
+  torch.cuda.synchronize()
+  launches = _build.launches()
+  if any(launches[k] == 0 for k in TRAIN_KERNELS):
+    raise AssertionError(f'train step launches {launches}')
+  want = _train_once(model, cfg, noise, 'cpu', cpu_taps)
+  norm = torch.linalg.vector_norm
+  rel = lambda a, b: float(norm(a - b) / max(float(norm(b)), 1e-30))
+  loss_err = abs(got[0] - want[0]) / abs(want[0])
+  grad_rel = {k: rel(got[1][k], want[1][k]) for k in want[1]}
+  grad_of_max = {k: float((got[1][k] - want[1][k]).abs().max()
+                          / want[1][k].abs().max()) for k in want[1]}
+  replay = _replay_update(model, cfg, got[1])
+  upd_rel = {k: rel(got[2][k], u) for k, u in replay.items()}
+  flips = sum(int((torch.sign(got[1][k]) != torch.sign(w)).sum())
+              for k, w in want[1].items())
+  n_params = sum(u.numel() for u in replay.values())
+  r = {'compute_dtype': 'bfloat16' if bf16 else 'float32', 'rows': n,
+       'loss_card': got[0], 'loss_cpu': want[0], 'loss_rel_err': loss_err,
+       'max_grad_rel_norm_err': max(grad_rel.values()),
+       'worst_grad': max(grad_rel, key=grad_rel.get),
+       'max_grad_err_of_max': max(grad_of_max.values()),
+       'max_update_rel_err': max(upd_rel.values()),
+       'worst_update': max(upd_rel, key=upd_rel.get),
+       'update_flips': flips, 'params': n_params,
+       'launches': {k: launches[k] for k in TRAIN_KERNELS}}
+  ok = (max(upd_rel.values()) <= TRAIN_TOL
+        and all(torch.isfinite(v).all() for v in got[1].values()))
+  if not bf16:
+    refs, flips64 = {}, {}
+    for name, masks in (('card', _relu_masks(model, card_taps, 'cuda')),
+                        ('cpu', _relu_masks(model, cpu_taps, 'cpu')),
+                        ('raw', None)):
+      f64 = _f64_denoiser(model, masks)
+      refs[name] = _train_once(f64, cfg, noise, 'cpu')
+      flips64[name] = (sum(c for c, _ in f64.flips),
+                       max((e for _, e in f64.flips), default=0.0))
+    del card_taps, cpu_taps
+    to64 = lambda a, b: float(norm(a.double() - b) / max(float(norm(b)),
+                                                          1e-300))
+    card64 = {k: to64(got[1][k], w) for k, w in refs['card'][1].items()}
+    cpu64 = {k: to64(want[1][k], w) for k, w in refs['cpu'][1].items()}
+    raw64 = {k: to64(got[1][k], w) for k, w in refs['raw'][1].items()}
+    ratio = {k: card64[k] / max(cpu64[k], 1e-300) for k in card64}
+    loss64 = abs(got[0] - refs['card'][0]) / abs(refs['card'][0])
+    bad = [k for k, e in card64.items()
+           if not e <= min(TRAIN_TOL, F64_MULT * cpu64[k] + F64_FLOOR)]
+    r.update(loss_card_vs_f64=loss64,
+             loss_cpu_vs_f64=abs(want[0] - refs['cpu'][0])
+             / abs(refs['cpu'][0]),
+             max_grad_card_vs_f64=max(card64.values()),
+             worst_grad_card_vs_f64=max(card64, key=card64.get),
+             max_grad_cpu_vs_f64=max(cpu64.values()),
+             max_ratio_card_to_cpu=max(ratio.values()),
+             worst_ratio_at=max(ratio, key=ratio.get),
+             max_grad_card_vs_f64_raw=max(raw64.values()),
+             relu_flips_card_vs_f64=flips64['card'],
+             relu_flips_cpu_vs_f64=flips64['cpu'], not_close=bad)
+    ok = (ok and loss_err <= TRAIN_TOL and loss64 <= TRAIN_TOL and not bad
+          and flips64['card'][1] <= RELU_EDGE
+          and flips64['cpu'][1] <= RELU_EDGE)
+  else:
+    loss_noise = abs(want[0] - f32_cpu[0]) / abs(want[0])
+    grad_noise = {k: rel(want[1][k], f32_cpu[1][k]) for k in want[1]}
+    bad = [k for k in grad_rel
+           if not bf16_close(grad_rel[k], grad_noise[k], 1.0)]
+    if not bf16_close(loss_err, loss_noise, 1.0):
+      bad.append('loss')
+    r.update(cpu_bf16_vs_f32_loss=loss_noise,
+             cpu_bf16_vs_f32_max_grad_rel=max(grad_noise.values()),
+             not_close=bad)
+    ok = ok and not bad
+  if not ok:
+    raise AssertionError(f'train step card vs cpu: {r}')
+  return r, want
+
+
+def profile_train_step(bf16: bool) -> dict:
+  """One optimizer step of the training phase's configuration (batch 512
+  of the synthetic train split as two microbatches of 256, full width)
+  traced as ``trace_step`` traces a decode step, after a warm-up step;
+  tokens_per_s = 512 x 200 / host_step_ms."""
+  import torch
+  from svdd_tpu_torch.cli import main_gosai
+  from svdd_tpu_torch.data import gosai
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  cfg = main_gosai.build_config(main_gosai.parser().parse_args(
+      ['--set', *TRAIN_SET]))
+  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True)
+  with bf16_switches(bf16):
+    trainer = train_diff.Trainer(Diffusion(cfg, device='cuda'), cfg)
+  state = trainer.init_or_restore()
+  batch = next(iter(train_it))
+
+  def once():
+    train_diff.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+
+  r = trace_step(once)
+  rows, length = cfg.loader.global_batch_size, cfg.model.length
+  return {'algo': 'train_bf16' if bf16 else 'train', 'batch_size': rows,
+          'length': length, 'accum_steps': cfg.training.accum_steps,
+          'tokens_per_s': rows * length / (r['host_step_ms'] / 1e3), **r}
+
+
+def train_phase() -> dict:
+  """Phase 5, each part emitting its line: the two CLI training runs,
+  resume, the checkpoint readers and the training step against the CPU.
+  Returns the launch counts of its runs of the main path."""
+  import torch
+  runs, trained = {}, {}
+  for bf16 in (False, True):
+    r = run_train(bf16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'train', **r})
+    trained[r['run']] = r
+    runs[r['run']] = {'launches': r['launches']}
+  r = check_resume()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  emit({'phase': 'train_resume', **r})
+  r = run_ckpt_readers(trained['train_f32']['ckpt_dir'])
+  torch.cuda.synchronize()
+  emit({'phase': 'train_ckpt_readers', **r})
+  runs['train_ckpt_readers'] = {'launches': r['launches']}
+  step_ref = None
+  for _ in range(2):
+    r, step_ref = check_train_step(step_ref)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'train_step_vs_cpu', **r})
+  return runs
+
+
+def train_profiles() -> None:
+  """One traced training step in f32 and in bf16 (``profile_train_step``)."""
+  import torch
+  for bf16 in (False, True):
+    prof = profile_train_step(bf16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'profile', **prof})
 
 
 def kernel_checks() -> list:
@@ -2518,6 +3120,8 @@ def main() -> None:
     emit({'phase': 'decode', **decodes[name]})
   runs.update(decodes)
 
+  runs.update(train_phase())
+
   for algo, bf16 in ([(a, False) for a in PATH_KERNELS]
                      + [(a, True) for a in GUIDED]):
     prof = profile_step(algo, bf16)
@@ -2528,6 +3132,7 @@ def main() -> None:
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   emit({'phase': 'profile', 'algo': 'dit_forward', **r})
+  train_profiles()
 
   kernels = []
   for name in _build.KERNELS:

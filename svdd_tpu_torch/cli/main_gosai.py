@@ -1,19 +1,31 @@
-"""Diffusion pretraining entry, ``sample_eval`` mode
-(``svdd_tpu/cli/main_gosai.py``): the same flags and defaults, plus
-``--device``.
+"""Diffusion pretraining entry (``svdd_tpu/cli/main_gosai.py``): the
+``train``, ``ppl_eval`` and ``sample_eval`` modes, with the same flags and
+defaults, plus ``--device``.
 
-  python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
-      --config svdd_tpu_torch/configs/text_mdlm.yaml --gen_ppl_model ar
+  python -m svdd_tpu_torch.cli.main_gosai --mode train --task dna \
+      --max_steps 1000 --set training.accum_steps=2
+  python -m svdd_tpu_torch.cli.main_gosai --mode ppl_eval
   python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
       --set backbone=dimamba
+  python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
+      --config svdd_tpu_torch/configs/text_mdlm.yaml --gen_ppl_model ar
 
-``sample_eval`` draws ``sampling.num_sample_batches`` batches of
-``loader.eval_batch_size`` unguided samples (the ``sampling.predictor``,
-ddpm or ddpm_cache), logs the first four of each batch through the DNA
+``train`` trains the CNN denoiser on the Gosai splits (the synthetic
+split where no CSV is found, ``data/gosai.py``), logs to
+``<log_dir>/<task>-pretrain.metrics.jsonl`` (train/loss every 100 steps;
+val/nll and the sample-quality metrics of the EMA weights, which use the
+synthetic motif oracle, every ``eval.val_check_interval``) and
+checkpoints into ``--ckpt_dir``, resuming from the newest checkpoint
+there. ``ppl_eval`` reports the validation NLL, bits per token
+and perplexity of the checkpoint's EMA weights; ``sample_eval`` draws
+``sampling.num_sample_batches`` batches of ``loader.eval_batch_size``
+unguided samples from them (the ``sampling.predictor``, ddpm or
+ddpm_cache), logs the first four of each batch through the DNA
 detokenizer and, with ``--gen_ppl_model``, their generative perplexity
-under the repo's AR backbone. The model takes random weights from
-``seed``; the train and ppl_eval modes, checkpoints and the Hugging Face
-scorer are not ported yet.
+under the repo's AR backbone. Without a checkpoint the model takes
+random weights from ``seed``. A ``--ckpt_dir`` holding other files and no
+checkpoint of the port (an orbax directory, a reference ``.pt``) raises,
+as do the reward-oracle and AR-scorer checkpoint flags (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -26,11 +38,14 @@ import os
 import numpy as np
 import torch
 
+from svdd_tpu_torch import rewards
 from svdd_tpu_torch.cli import common
-from svdd_tpu_torch.config import Config, dna_config
+from svdd_tpu_torch.config import Config, check_single_device, dna_config
 from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
-from svdd_tpu_torch.eval import gen_ppl
+from svdd_tpu_torch.eval import gen_ppl, validation
+from svdd_tpu_torch.observability import MetricsLogger
+from svdd_tpu_torch.train import diffusion as train_diff
 
 LOGGER = logging.getLogger(__name__)
 
@@ -65,33 +80,92 @@ def build_config(args) -> Config:
   return cfg.override(**overrides) if overrides else cfg
 
 
-def _reject_unported(args) -> None:
-  if args.mode != 'sample_eval':
-    raise NotImplementedError(f'--mode {args.mode}: diffusion training and '
-                              'ppl_eval are not ported yet (ROADMAP A12)')
-  if args.ckpt_dir and os.path.exists(args.ckpt_dir):
-    raise NotImplementedError(f'--ckpt_dir {args.ckpt_dir}: checkpoint '
+def _reject_unported(args, cfg: Config) -> None:
+  check_single_device(cfg)
+  if args.eval_oracle_checkpoint_path:
+    raise NotImplementedError('--eval_oracle_checkpoint_path: checkpoint '
                               'loading is not ported yet (ROADMAP A17)')
   if args.gen_ppl_ar_checkpoint:
     raise NotImplementedError('--gen_ppl_ar_checkpoint: checkpoint loading '
                               'is not ported yet (ROADMAP A17)')
+  d = args.ckpt_dir
+  if d and os.path.exists(d) and not train_diff.has_checkpoint(d) and (
+      not os.path.isdir(d) or os.listdir(d)):
+    raise NotImplementedError(f'--ckpt_dir {d}: holds no checkpoint of this '
+                              'package; reading other checkpoints is not '
+                              'ported yet (ROADMAP A17)')
 
 
-def run(args, cfg: Config | None = None, backbone=None, ar_model=None
-        ) -> dict:
-  """``sample_eval``. ``cfg`` replaces the config the flags build;
-  ``backbone`` and ``ar_model`` replace the randomly initialised
-  denoiser and gen-ppl scorer (tests). Returns {'tokens': (N, L) int
-  array of every batch, 'gen_ppl': float or None}."""
-  _reject_unported(args)
-  cfg = cfg or build_config(args)
-  LOGGER.info('config:\n%s', json.dumps(cfg.to_dict(), indent=2,
-                                        default=str))
-  if args.ckpt_dir:
-    LOGGER.warning('no checkpoint under --ckpt_dir %s: sampling from a '
-                   'randomly initialized model', args.ckpt_dir)
-  common.full_f32()
+def _sample_eval_hook(cfg: Config, args):
+  """The in-training sample-quality hook: 2 batches of up to 64 samples
+  from the EMA weights against the train and val splits, scored by the
+  synthetic motif oracle."""
+  datasets = {split: gosai.GosaiDataset(split, length=cfg.model.length,
+                                        data_dir=args.data_dir)
+              for split in ('train', 'val')}
+  oracle_fn = rewards.synthetic_motif_oracle(cfg.model.length)
+  bs = min(cfg.loader.eval_batch_size, 64)
+  LOGGER.warning('sample-eval: no --eval_oracle_checkpoint_path, using the '
+                 'synthetic motif oracle')
+
+  def hook(ema_model, generator):
+    return validation.distribution_eval(ema_model, datasets, generator,
+                                        oracle_fn=oracle_fn, n_batches=2,
+                                        batch_size=bs)
+  return hook
+
+
+def _train(cfg: Config, args, backbone) -> dict:
+  train_it, valid_it, _ = gosai.get_dataloaders(
+      cfg, data_dir=args.data_dir, shard_data=args.shard_data)
   model = Diffusion(cfg, device=args.device, backbone=backbone)
+  logger = MetricsLogger(log_dir=args.log_dir,
+                         run_name=f'{cfg.task}-pretrain')
+  hook = None if args.no_sample_eval else _sample_eval_hook(cfg, args)
+  trainer = train_diff.Trainer(model, cfg, ckpt_dir=args.ckpt_dir,
+                               logger=logger, sample_eval_fn=hook)
+  try:
+    state = trainer.init_or_restore(train_it)
+    state = trainer.fit(state, train_it, valid_it, num_steps=args.max_steps)
+    if args.ckpt_dir:
+      train_diff.save_checkpoint(args.ckpt_dir, state, train_it.state_dict())
+  finally:
+    logger.finish()
+  return {'state': state, 'metrics_path': logger.path}
+
+
+def _restored(cfg: Config, args, backbone) -> Diffusion:
+  """The model, holding the EMA weights of the newest checkpoint under
+  ``--ckpt_dir`` where there is one."""
+  model = Diffusion(cfg, device=args.device, backbone=backbone)
+  if args.ckpt_dir and train_diff.has_checkpoint(args.ckpt_dir):
+    state = train_diff.restore_checkpoint(
+        args.ckpt_dir, train_diff.init_state(model, cfg))
+    with torch.no_grad():
+      for name, p in model.backbone.named_parameters():
+        p.copy_(state.ema.shadow[name])
+  elif args.ckpt_dir:
+    LOGGER.warning('no checkpoint under --ckpt_dir %s: a randomly '
+                   'initialized model', args.ckpt_dir)
+  return model
+
+
+def _ppl_eval(cfg: Config, args, backbone) -> dict:
+  """NLL, bits per token and perplexity over 16 validation batches, on
+  the EMA weights of the newest checkpoint under ``--ckpt_dir``."""
+  _, valid_it, _ = gosai.get_dataloaders(cfg, skip_train=True,
+                                         data_dir=args.data_dir)
+  model = Diffusion(cfg, device=args.device, backbone=backbone)
+  trainer = train_diff.Trainer(model, cfg, ckpt_dir=args.ckpt_dir)
+  nll = trainer.evaluate(trainer.init_or_restore(), valid_it, max_batches=16)
+  out = {'nll': nll, 'bpd': nll / np.log(2), 'ppl': float(np.exp(nll))}
+  LOGGER.info('val/nll %.4f bpd %.4f ppl %.4f', out['nll'], out['bpd'],
+              out['ppl'])
+  return out
+
+
+def _sample_eval(cfg: Config, args, backbone, ar_model) -> dict:
+  model = _restored(cfg, args, backbone)
   sampler = model.sampler(cfg.loader.eval_batch_size)
   all_tokens = []
   for i in range(cfg.sampling.num_sample_batches):
@@ -117,6 +191,26 @@ def run(args, cfg: Config | None = None, backbone=None, ar_model=None
   return {'tokens': tokens, 'gen_ppl': ppl}
 
 
+def run(args, cfg: Config | None = None, backbone=None, ar_model=None
+        ) -> dict:
+  """Run ``args.mode``. ``cfg`` replaces the config the flags build;
+  ``backbone`` and ``ar_model`` replace the randomly initialised
+  denoiser and gen-ppl scorer (tests). Returns, for ``train``,
+  {'state': the TrainState, 'metrics_path'}; ``ppl_eval``, {'nll', 'bpd',
+  'ppl'}; ``sample_eval``, {'tokens': (N, L) int array of every batch,
+  'gen_ppl': float or None}."""
+  cfg = cfg or build_config(args)
+  _reject_unported(args, cfg)
+  LOGGER.info('config:\n%s', json.dumps(cfg.to_dict(), indent=2,
+                                        default=str))
+  common.full_f32()
+  if args.mode == 'train':
+    return _train(cfg, args, backbone)
+  if args.mode == 'ppl_eval':
+    return _ppl_eval(cfg, args, backbone)
+  return _sample_eval(cfg, args, backbone, ar_model)
+
+
 def parser() -> argparse.ArgumentParser:
   p = argparse.ArgumentParser(description='MDLM diffusion pretraining')
   p.add_argument('--task', default='dna', choices=['dna', 'rna'])
@@ -127,14 +221,22 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument('--set', nargs='*', default=None,
                  help='dotted overrides, e.g. sampling.steps=64')
   p.add_argument('--ckpt_dir', default='./checkpoints',
-                 help='an existing directory raises (checkpoint loading '
-                      'is not ported); a missing one means random weights')
-  p.add_argument('--data_dir', default=None)
-  p.add_argument('--max_steps', type=int, default=None)
-  p.add_argument('--shard_data', action='store_true', default=False)
-  p.add_argument('--log_dir', default='./log')
-  p.add_argument('--no_sample_eval', action='store_true', default=False)
-  p.add_argument('--eval_oracle_checkpoint_path', default=None)
+                 help="this package's checkpoints: train writes and resumes "
+                      'from them, ppl_eval and sample_eval read the EMA '
+                      'weights; a directory holding other files raises')
+  p.add_argument('--data_dir', default=None,
+                 help='directory of gosai_{train,val,test}.csv (default '
+                      '$SVDD_DATA_DIR; the synthetic split without one)')
+  p.add_argument('--max_steps', type=int, default=None,
+                 help='training steps of this run (optim.max_steps)')
+  p.add_argument('--shard_data', action='store_true', default=False,
+                 help='no effect on one process')
+  p.add_argument('--log_dir', default='./log',
+                 help='metrics JSONL output directory')
+  p.add_argument('--no_sample_eval', action='store_true', default=False,
+                 help='skip the in-training sample-quality validation')
+  p.add_argument('--eval_oracle_checkpoint_path', default=None,
+                 help='not ported yet: raises')
   p.add_argument('--gen_ppl_model', default=None,
                  help="'ar' scores the samples with the repo's own AR "
                       'backbone; any other name falls back to it (the '

@@ -1,6 +1,10 @@
 """Typed configuration: the subset of ``svdd_tpu/config.py`` that the
 ported paths read, with the same field names and defaults.
 
+The ``parallel`` fields other than ``precision`` belong to the parallel
+paths (ROADMAP A16), which are not ported: ``check_single_device``
+raises for any value but the single-device one.
+
 The JAX module cannot be imported here (``svdd_tpu/__init__.py`` pulls
 in JAX), so the dataclasses are restated. ``Config.from_yaml`` needs
 PyYAML, imported when it is called; ``text_mdlm_config()`` builds the
@@ -70,8 +74,76 @@ class SamplingConfig:
 
 
 @dataclass
+class TrainingConfig:
+  ema: float = 0.9999
+  antithetic_sampling: bool = True
+  importance_sampling: bool = False
+  sampling_eps: float = 1e-3
+  change_of_variables: bool = False
+  # the per-step batch is split into this many microbatches; their
+  # losses and gradients are averaged before one optimizer update
+  accum_steps: int = 1
+
+
+@dataclass
+class OptimConfig:
+  weight_decay: float = 0.0
+  lr: float = 3e-4
+  beta1: float = 0.9
+  beta2: float = 0.999
+  eps: float = 1e-8
+  grad_clip: float = 1.0
+  warmup_steps: int = 2500
+  max_steps: int = 131_500
+  lr_schedule: str = 'constant_warmup'   # constant_warmup / cosine_decay_warmup
+  lr_min: float = 1e-6
+
+
+@dataclass
+class EvalConfig:
+  checkpoint_path: str = ''
+  disable_ema: bool = False
+  generate_samples: bool = True
+  subset_size: int = 5000
+  val_check_interval: int = 1000
+
+
+@dataclass
+class CheckpointingConfig:
+  save_dir: str = './checkpoints'
+  resume_from_ckpt: bool = True
+  every_n_steps: int = 1000
+
+
+@dataclass
 class ParallelConfig:
+  data_axis: int = -1          # -1: all devices
+  model_axis: int = 1
+  fsdp: bool = False
+  fsdp_min_size: int = 2 ** 14
   precision: str = 'bf16'      # compute dtype of the dit/dimamba forwards
+  pipeline_stages: int = 1
+  pipeline_microbatches: int = 0
+  pipeline_virtual: int = 1
+
+
+# the parallel fields' single-device values: one device, no sharding
+_SINGLE_DEVICE = {'model_axis': 1, 'fsdp': False, 'pipeline_stages': 1,
+                  'pipeline_virtual': 1}
+
+
+def check_single_device(config: 'Config') -> None:
+  """Raise for a ``parallel`` setting that needs more than one device
+  (``data_axis`` is -1, all devices, or 1; the rest as
+  ``_SINGLE_DEVICE``): the parallel paths are not ported (A16)."""
+  par = config.parallel
+  bad = {k: getattr(par, k) for k, v in _SINGLE_DEVICE.items()
+         if getattr(par, k) != v}
+  if par.data_axis not in (-1, 1):
+    bad['data_axis'] = par.data_axis
+  if bad:
+    raise NotImplementedError(f'parallel {bad}: the parallel paths are '
+                              'not ported yet (ROADMAP A16)')
 
 
 @dataclass
@@ -80,6 +152,7 @@ class Config:
   backbone: str = 'cnn'
   parameterization: str = 'subs'
   time_conditioning: bool = False
+  T: int = 0                   # 0 = continuous time
   seed: int = 1
   task: str = 'dna'            # dna / rna / rna_saluki / text
   alphabet_size: int = 4
@@ -88,6 +161,11 @@ class Config:
   model: ModelConfig = field(default_factory=ModelConfig)
   loader: LoaderConfig = field(default_factory=LoaderConfig)
   sampling: SamplingConfig = field(default_factory=SamplingConfig)
+  training: TrainingConfig = field(default_factory=TrainingConfig)
+  optim: OptimConfig = field(default_factory=OptimConfig)
+  eval: EvalConfig = field(default_factory=EvalConfig)
+  checkpointing: CheckpointingConfig = field(
+      default_factory=CheckpointingConfig)
   parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
   @property

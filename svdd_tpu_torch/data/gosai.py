@@ -1,14 +1,44 @@
-"""DNA detokenizer (``svdd_tpu/data/gosai.py:batch_dna_detokenize``), in
-numpy: ids 0-3 map to 'A', 'C', 'G', 'T' and every other id to 'N', as
-the JAX package's native detokenizer does
-(``svdd_tpu/native/dna_kernels.cc:dna_detokenize``). The sample_eval CLI
-logs its samples, DNA or text tokens alike, through it."""
+"""Gosai enhancer data (``svdd_tpu/data/gosai.py``), in numpy: the DNA
+tokenizer and detokenizer, the CSV-backed dataset with the JAX package's
+deterministic synthetic split in its place where no CSV is present, and
+the resumable shuffling batch iterator.
+
+The tokenizer and the CSV reader follow the JAX package's native
+library (``svdd_tpu/native/dna_kernels.cc``), which that package takes
+whenever it is built: 'A', 'C', 'G', 'T' in either case map to 0-3 and
+every other character to 4; a row whose field count differs from the
+header's, or whose sequence is not ``length`` long, is skipped; a class
+field is read as C's ``strtof`` reads it, so an empty one is 0. The
+detokenizer maps ids 0-3 to 'A', 'C', 'G', 'T' and every other id to
+'N'. The sample_eval CLI logs its samples, DNA or text tokens alike,
+through it.
+
+The CSVs are ``gosai_{split}.csv`` under ``data_dir``, or under the
+``SVDD_DATA_DIR`` environment variable; with neither, or no file, the
+split is synthetic. One process reads the whole split: the row-sharded
+reads of the JAX package's multi-host jobs belong to the parallel paths
+(ROADMAP A16).
+"""
 
 from __future__ import annotations
+
+import csv
+import os
+import re
+import zlib
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
 _ALPHABET = np.array(list('ACGTN'))
+_LUT = np.full(256, 4, np.int32)
+for _i, _ch in enumerate('ACGT'):
+  _LUT[ord(_ch)] = _LUT[ord(_ch.lower())] = _i
+CLASS_COLUMNS = ('hepg2', 'k562', 'sknsh')
+SYNTHETIC_SIZES = {'train': 4096, 'val': 512, 'test': 512}
+_FLOAT_PREFIX = re.compile(
+    r'\s*[+-]?(?:inf(?:inity)?|nan|(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?)',
+    re.IGNORECASE)
 
 
 def batch_dna_detokenize(batch_seq) -> list[str]:
@@ -16,3 +46,170 @@ def batch_dna_detokenize(batch_seq) -> list[str]:
   tokens = np.asarray(batch_seq)
   chars = _ALPHABET[np.where((tokens >= 0) & (tokens < 4), tokens, 4)]
   return [''.join(row) for row in chars]
+
+
+def dna_tokenize_batch(seqs: list[str]) -> np.ndarray:
+  """N strings of one length -> (N, L) int32 tokens."""
+  if not seqs:
+    return np.zeros((0, 0), np.int32)
+  blob = np.frombuffer(''.join(seqs).encode('latin-1'), np.uint8)
+  return _LUT[blob].reshape(len(seqs), -1)
+
+
+def _strtof(field: str) -> float:
+  """The float C's ``strtof`` reads from the start of ``field``; 0 where
+  none does (an empty field)."""
+  m = _FLOAT_PREFIX.match(field)
+  return float(m.group(0)) if m else 0.0
+
+
+def read_gosai_csv(path: str, length: int):
+  """(tokens (R, L) int32, clss (R, 3) float32) of the rows of ``path``
+  with a ``seq`` field of ``length`` characters and the header's field
+  count."""
+  seqs, clss = [], []
+  with open(path, newline='') as f:
+    rows = csv.reader(f)
+    header = next(rows)
+    seq_idx = header.index('seq')
+    cls_idx = [header.index(c) for c in CLASS_COLUMNS]
+    for row in rows:
+      if len(row) != len(header) or len(row[seq_idx]) != length:
+        continue
+      seqs.append(row[seq_idx])
+      clss.append([_strtof(row[i]) for i in cls_idx])
+  return (dna_tokenize_batch(seqs).reshape(len(seqs), length),
+          np.asarray(clss, np.float32).reshape(len(seqs), len(cls_idx)))
+
+
+def _synthetic_split(split: str, n: int, length: int,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+  """The JAX package's deterministic stand-in split, bit for bit:
+  uniform ACGT sequences, a GCGC motif planted in about 30% of them, and
+  'activity' labels from the motif counts plus noise. The generator's
+  seed is the crc32 of '<split>:<seed>', the same in every process."""
+  rng = np.random.default_rng(
+      zlib.crc32(f'{split}:{seed}'.encode()) % (2 ** 31))
+  seqs = rng.integers(0, 4, size=(n, length), dtype=np.int64)
+  motif = np.array([2, 1, 2, 1])
+  hot = rng.random(n) < 0.3
+  pos = rng.integers(0, length - 4, size=n)
+  for i in np.nonzero(hot)[0]:
+    seqs[i, pos[i]:pos[i] + 4] = motif
+  windows = np.lib.stride_tricks.sliding_window_view(seqs, 4, axis=1)
+  counts = (windows == motif).all(-1).sum(-1).astype(np.float32)
+  clss = np.stack([
+      counts + 0.1 * rng.standard_normal(n).astype(np.float32),
+      0.5 * counts + 0.1 * rng.standard_normal(n).astype(np.float32),
+      rng.standard_normal(n).astype(np.float32),
+  ], axis=1)
+  return {'seqs': seqs.astype(np.int32), 'clss': clss}
+
+
+class GosaiDataset:
+  """One split: ``seqs`` (N, L) int32 and ``clss`` (N, 3) float32, from
+  ``gosai_{split}.csv`` or, without one, the synthetic split."""
+
+  def __init__(self, split: str = 'train', length: int = 200,
+               data_dir: Optional[str] = None,
+               synthetic_size: Optional[int] = None):
+    data_dir = data_dir or os.environ.get('SVDD_DATA_DIR')
+    path = data_dir and os.path.join(data_dir, f'gosai_{split}.csv')
+    if path and os.path.exists(path):
+      self.seqs, self.clss = read_gosai_csv(path, length)
+      self.synthetic = False
+    else:
+      n = synthetic_size or SYNTHETIC_SIZES.get(split, 512)
+      d = _synthetic_split(split, n, length)
+      self.seqs, self.clss = d['seqs'], d['clss']
+      self.synthetic = True
+    self.length = self.seqs.shape[1]
+
+  def __len__(self):
+    return len(self.seqs)
+
+  def __getitem__(self, idx):
+    return {'seqs': self.seqs[idx], 'clss': self.clss[idx],
+            'attention_mask': np.ones(self.length, np.float32)}
+
+
+class FaultTolerantIterator:
+  """Resumable shuffling batch iterator: the epoch's order is a
+  permutation drawn from ``seed + epoch``; (epoch, counter, seed)
+  round-trip through ``state_dict`` / ``load_state_dict``, so training
+  resumes mid-epoch exactly. Iterating is endless, epoch after epoch;
+  ``drop_last`` drops an epoch's short last batch."""
+
+  def __init__(self, dataset: GosaiDataset, batch_size: int,
+               shuffle: bool = True, seed: int = 0,
+               drop_last: bool = True):
+    self.dataset = dataset
+    self.batch_size = batch_size
+    self.shuffle = shuffle
+    self.seed = seed
+    self.drop_last = drop_last
+    self.epoch = 0
+    self.counter = 0
+    self.restarted = False
+
+  def state_dict(self) -> Dict:
+    return {'epoch': self.epoch, 'counter': self.counter,
+            'seed': self.seed}
+
+  def load_state_dict(self, state: Dict) -> None:
+    self.epoch = int(state['epoch'])
+    self.counter = int(state['counter'])
+    self.seed = int(state.get('seed', self.seed))
+    self.restarted = True
+
+  def _epoch_order(self) -> np.ndarray:
+    order = np.arange(len(self.dataset))
+    if self.shuffle:
+      np.random.default_rng(self.seed + self.epoch).shuffle(order)
+    return order
+
+  def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+    while True:
+      order = self._epoch_order()
+      start = self.counter if self.restarted else 0
+      self.restarted = False
+      self.counter = start
+      limit = len(order) - (self.batch_size - 1 if self.drop_last else 0)
+      while self.counter < limit:
+        idx = order[self.counter:self.counter + self.batch_size]
+        self.counter += len(idx)
+        yield {
+            'seqs': self.dataset.seqs[idx],
+            'clss': self.dataset.clss[idx],
+            'attention_mask': np.ones(
+                (len(idx), self.dataset.length), np.float32),
+        }
+      self.epoch += 1
+      self.counter = 0
+
+
+def get_dataloaders(config, *, num_shards: int = 1, shard_index: int = 0,
+                    skip_train: bool = False, skip_valid: bool = False,
+                    data_dir: Optional[str] = None,
+                    shard_data: bool = False):
+  """(train, valid, test) iterators of ``loader.global_batch_size`` and
+  ``loader.eval_global_batch_size`` rows; train shuffled from
+  ``config.seed``. One shard only: ``shard_data`` changes nothing on one
+  process, as in the JAX package; more shards raise (A16)."""
+  del shard_index, shard_data
+  if num_shards != 1:
+    raise NotImplementedError(f'num_shards={num_shards}: sharded data '
+                              'loading is not ported yet (ROADMAP A16)')
+  length = config.model.length
+
+  def make(split, bs, shuffle):
+    ds = GosaiDataset(split, length=length, data_dir=data_dir)
+    return FaultTolerantIterator(ds, bs, shuffle=shuffle, seed=config.seed)
+
+  train = None if skip_train else make(
+      'train', config.loader.global_batch_size, True)
+  valid = None if skip_valid else make(
+      'val', config.loader.eval_global_batch_size, False)
+  test = None if skip_valid else make(
+      'test', config.loader.eval_global_batch_size, False)
+  return train, valid, test

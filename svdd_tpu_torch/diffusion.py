@@ -1,7 +1,11 @@
-"""The Diffusion bundle's decode half (``svdd_tpu/diffusion.py``):
-backbone (CNN, DiT or DiMamba) + schedule + SUBS parameterization + the
-unguided (ddpm, ddpm_cache), SVDD-MC (with scheduled M), SVDD-PM
-(Tweedie), TDS, DPS and classifier-guidance samplers."""
+"""The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT
+or DiMamba) + schedule + SUBS parameterization + the unguided (ddpm,
+ddpm_cache), SVDD-MC (with scheduled M), SVDD-PM (Tweedie), TDS, DPS and
+classifier-guidance samplers, and the CNN denoiser's training loss.
+
+The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
+the gradient-guided ones); ``loss`` runs under autograd, and with
+``train=True`` it is the training mode (the denoiser's dropout)."""
 
 from __future__ import annotations
 
@@ -60,8 +64,10 @@ class Diffusion:
     self.parameterization = config.parameterization
     self.time_conditioning = config.time_conditioning
     if self.parameterization != 'subs':
+      item = 'A14' if self.parameterization == 'ar' else 'A1'
       raise NotImplementedError(f'parameterization '
-                                f'{self.parameterization!r} is not ported')
+                                f'{self.parameterization!r} is not ported '
+                                f'yet (ROADMAP {item})')
     self.schedule = schedules.get_schedule(
         config.noise.type, sigma_min=config.noise.sigma_min,
         sigma_max=config.noise.sigma_max, eps=config.noise.eps)
@@ -92,6 +98,38 @@ class Diffusion:
     of the tokens' own, differentiable with respect to it (DPS)."""
     logits = self.backbone(x, self._process_sigma(sigma), x_onehot=x_onehot)
     return self._parameterize(logits, x)
+
+  def loss(self, x0: torch.Tensor, attention_mask=None, *,
+           train: bool = False, generator: torch.Generator | None = None,
+           noise=None) -> mdlm.LossOutput:
+    """The continuous-time SUBS NELBO of the clean tokens x0 (B, L):
+    times from ``training.sampling_eps`` (antithetic, optionally through
+    the schedule's importance transform), x0 masked to x_t, the denoiser
+    on x_t. ``noise`` = (t_uniforms (B,), mask_uniforms (B, L)) in place
+    of the draws from ``generator``, which also draws the dropout masks
+    when ``train``. Differentiable in the backbone's parameters."""
+    cfg = self.config
+    if cfg.T > 0:
+      raise NotImplementedError(f'T={cfg.T}: discrete-time training is '
+                                'not ported yet (ROADMAP A1)')
+    if cfg.backbone != 'cnn':
+      raise NotImplementedError(f'training the {cfg.backbone!r} backbone '
+                                'is not ported yet (ROADMAP A14)')
+    if noise is None:
+      noise = (mdlm.uniforms(x0.shape[:1], generator, self.device),
+               mdlm.uniforms(tuple(x0.shape), generator, self.device))
+    t_u, q_u = noise
+    t = mdlm.sample_t(t_u, cfg.training.sampling_eps,
+                      cfg.training.antithetic_sampling)
+    if cfg.training.importance_sampling:
+      t = self.schedule.importance_transform(t)
+    sigma, dsigma = self.schedule(t)
+    move_chance = (1 - torch.exp(-sigma))[:, None]
+    xt = mdlm.q_xt(x0, move_chance, self.mask_index, q_u)
+    logits = self.backbone(xt, self._process_sigma(sigma), train=train,
+                           generator=generator)
+    return mdlm.nelbo_subs(self._parameterize(logits, xt), x0, sigma, dsigma,
+                           attention_mask)
 
   def denoise_fn(self) -> S.DenoiseFn:
     return self.forward

@@ -1,10 +1,16 @@
 """Core MDLM math on tensors (``svdd_tpu/mdlm.py``): the SUBS
 parameterization, the reverse-step density, the all-MASK prior, the
-Gumbel-max categorical draw and the value nets' one-hot transform."""
+Gumbel-max categorical draw, the value nets' one-hot transform, and the
+training half: the forward masking ``q_xt``, the (antithetic) time draw
+``sample_t`` and the continuous-time SUBS NELBO.
+
+Each random function takes its uniforms as an argument, or draws them
+from a ``torch.Generator``, so a test can pin it to the JAX function on
+the uniforms JAX drew."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,3 +78,48 @@ def transform_samples(samples: Tensor, num_classes: int = 4,
   keep = samples != num_classes
   onehot = F.one_hot(torch.where(keep, samples, 0).long(), num_classes)
   return (onehot * keep[..., None]).to(dtype)
+
+
+def uniforms(shape: Tuple[int, ...], generator: torch.Generator,
+             device=None) -> Tensor:
+  """U[0, 1) float32 noise of ``shape`` from ``generator``."""
+  return torch.rand(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+
+
+def q_xt(x0: Tensor, move_chance: Tensor, mask_index: int,
+         u: Tensor) -> Tensor:
+  """Forward masking: a token becomes MASK where its uniform ``u`` (the
+  shape of x0) is below ``move_chance`` (broadcast against x0, e.g.
+  (B, 1))."""
+  return torch.where(u < move_chance, mask_index, x0)
+
+
+def sample_t(u: Tensor, sampling_eps: float,
+             antithetic: bool = True) -> Tensor:
+  """Training times from the (n,) uniforms ``u``; antithetic: row i's
+  time lies in [i/n, (i+1)/n), (u/n + i/n) mod 1."""
+  if antithetic:
+    n = u.shape[0]
+    offset = torch.arange(n, dtype=torch.float32, device=u.device) / n
+    u = (u / n + offset) % 1
+  return (1 - sampling_eps) * u + sampling_eps
+
+
+class LossOutput(NamedTuple):
+  loss: Tensor        # scalar token-mean NLL
+  nlls: Tensor        # (B, L) per-token NLL * mask
+  token_mask: Tensor  # (B, L)
+
+
+def nelbo_subs(log_p_x0: Tensor, x0: Tensor, sigma: Tensor,
+               dsigma: Tensor,
+               attention_mask: Optional[Tensor] = None) -> LossOutput:
+  """Continuous-time SUBS NELBO: -log p_theta(x0) * dsigma / expm1(sigma),
+  averaged over the tokens of ``attention_mask``."""
+  log_p_theta = torch.gather(log_p_x0, -1, x0[..., None].long())[..., 0]
+  loss = -log_p_theta * (dsigma / torch.expm1(sigma))[:, None]
+  if attention_mask is None:
+    attention_mask = torch.ones_like(loss)
+  nlls = loss * attention_mask
+  return LossOutput(nlls.sum() / attention_mask.sum(), nlls, attention_mask)

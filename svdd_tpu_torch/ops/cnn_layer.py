@@ -96,11 +96,14 @@ def relu_input_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
 
 
 def cnn_layer_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
-                    dilation: int = 1, eps: float = 1e-6):
+                    dilation: int = 1, eps: float = 1e-6, residual=None):
   """x (N, L, C); bias_row (N, C); ln_scale/ln_bias/conv_bias (C,);
-  kernel (K, C, C) flax layout. SAME padding."""
+  kernel (K, C, C) flax layout. SAME padding. ``residual`` (x's shape)
+  replaces x in the residual add: training with dropout passes the
+  undropped activations (``cnn_layer_reference``'s ``residual``)."""
   return torch.relu(relu_input_plain(x, bias_row, ln_scale, ln_bias, kernel,
-                                     conv_bias, dilation, eps)) + x
+                                     conv_bias, dilation, eps)) + (
+                                         x if residual is None else residual)
 
 
 def cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,

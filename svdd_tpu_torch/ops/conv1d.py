@@ -164,6 +164,48 @@ class _ConvShifted(torch.autograd.Function):
     return dx, dkernel.to(kernel.dtype), None
 
 
+class _ConvPlainBwd(torch.autograd.Function):
+  """The conv with its bias: forward ``_conv_forward``, as an unrecorded
+  conv computes it; backward ``conv_bwd_f32``'s per-tap products on any
+  device, the gradients rounded to x's dtype as a conv in that dtype
+  returns them. The products sum in a fixed order, where cuDNN's weight
+  gradient sums with atomics, or, made deterministic, takes FFT
+  algorithms (about 37 ms and 17 GiB more a step in f32 at the
+  pretraining shapes)."""
+
+  @staticmethod
+  def forward(ctx, x, kernel, bias, dilation):
+    ctx.save_for_backward(x, kernel)
+    ctx.dilation = dilation
+    ctx.bias_dtype = None if bias is None else bias.dtype
+    return _conv_forward(x, kernel, bias, dilation)
+
+  @staticmethod
+  def backward(ctx, ct):
+    x, kernel = ctx.saved_tensors
+    dt = x.dtype
+    ct = ct.to(dt)
+    dx, dw = conv_bwd_f32(x, kernel.to(dt), ct, ctx.dilation)
+    db = (None if ctx.bias_dtype is None
+          else ct.float().sum((0, 1)).to(dt).to(ctx.bias_dtype))
+    return dx.to(dt), dw.to(dt).to(kernel.dtype), db, None
+
+
+def conv1d_deterministic(x: torch.Tensor, kernel: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         dilation: int = 1) -> torch.Tensor:
+  """``conv1d_shifted``'s value for a conv off the backward kernel's gate
+  (``conv_bwd_ok``), recorded for autograd with a backward that sums in
+  a fixed order on the card (``_ConvPlainBwd``): the CNN denoiser's
+  stem and 1x1 convs in training, whose resumed runs must repeat the
+  uninterrupted ones bit for bit."""
+  recorded = torch.is_grad_enabled() and (x.requires_grad
+                                          or kernel.requires_grad)
+  if recorded:
+    return _ConvPlainBwd.apply(x, kernel, bias, dilation)
+  return _conv_forward(x, kernel, bias, dilation)
+
+
 def conv1d_shifted(x: torch.Tensor, kernel: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    dilation: int = 1) -> torch.Tensor:

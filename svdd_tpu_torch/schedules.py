@@ -9,7 +9,8 @@ reverse step reads no value back from the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+import math
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -23,6 +24,8 @@ class Schedule:
   name: str
   total: Callable[[Tensor], Tensor]
   rate: Callable[[Tensor], Tensor]
+  # importance-sampling change of variables u -> t
+  importance_transform: Optional[Callable[[Tensor], Tensor]] = None
 
   def __call__(self, t) -> Tuple[Tensor, Tensor]:
     t = torch.as_tensor(t, dtype=torch.float32)
@@ -38,7 +41,16 @@ def loglinear(eps: float = 1e-3) -> Schedule:
   def rate(t):
     return (1 - eps) / (1 - (1 - eps) * t)
 
-  return Schedule('loglinear', total, rate)
+  sigma_max = -math.log1p(-(1 - eps))
+  sigma_min = eps   # the reference's sigma_min is eps + total(0) = eps
+
+  def importance_transform(t):
+    f_T = math.log1p(-math.exp(-sigma_max))
+    f_0 = math.log1p(-math.exp(-sigma_min))
+    sigma_t = -torch.log1p(-torch.exp(t * f_T + (1 - t) * f_0))
+    return -torch.expm1(-sigma_t) / (1 - eps)
+
+  return Schedule('loglinear', total, rate, importance_transform)
 
 
 def get_schedule(noise_type: str, *, sigma_min: float = 1e-4,

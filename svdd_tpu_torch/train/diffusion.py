@@ -1,0 +1,397 @@
+"""MDLM diffusion pretraining of the denoiser (``svdd_tpu/train/diffusion.py``).
+
+One optimizer step: the batch split into ``training.accum_steps``
+microbatches, each with its own times, masks and dropout; their losses
+and gradients averaged; the gradients clipped to ``optim.grad_clip`` by
+their global norm (optax's rule: unchanged below the norm, else scaled
+by max_norm / norm, no epsilon); AdamW (``torch.optim.AdamW``, its
+default implementation) at the schedule's rate for the number of updates
+already made, so the first update of a warmup has rate 0; then the EMA.
+The parameters, the optimizer's moments and the EMA shadow are updated
+in place.
+
+The state's ``generator`` draws every random number of training; a
+checkpoint holds it with the parameters, buffers, optimizer state, EMA
+and the data iterator's position, so a run resumed from one continues
+as the uninterrupted run does, bit for bit: on the card every gradient
+of the denoiser sums in a fixed order (the layers' backward kernel B6,
+and ``ops.conv1d.conv1d_deterministic`` for the stem and 1x1 convs), so
+the trainer needs no process-wide cuDNN setting.
+
+Checkpoints are ``<ckpt_dir>/step_<n>.pt``, written to a temporary file
+and renamed, the newest three kept; the best by validation NLL is kept
+under ``<ckpt_dir>/best/``. They are read with ``torch.load(...,
+weights_only=True)``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import os
+import re
+import time
+from typing import Any, Optional
+
+import torch
+
+from svdd_tpu_torch import utils
+from svdd_tpu_torch.config import Config
+from svdd_tpu_torch.diffusion import Diffusion
+from svdd_tpu_torch.models import ema as ema_lib
+
+LOGGER = logging.getLogger(__name__)
+FORMAT = 'svdd_tpu_torch.train.diffusion/1'
+KEEP = 3
+_CKPT = re.compile(r'step_(\d+)\.pt$')
+
+
+def make_schedule(config: Config):
+  """count -> learning rate, from ``optim.lr_schedule``."""
+  o = config.optim
+  if o.lr_schedule == 'cosine_decay_warmup':
+    return utils.cosine_decay_warmup_schedule(o.lr, o.warmup_steps,
+                                              o.max_steps, o.lr_min)
+  return utils.constant_warmup_schedule(o.lr, o.warmup_steps)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+  """optax.clip_by_global_norm in place: every gradient becomes
+  (g / ||g||) * max_norm where the global norm ||g|| is at least
+  max_norm, and stays as it is below. Returns the norm, on the
+  gradients' device (nothing is read back); a few multi-tensor ops, not
+  a handful per tensor."""
+  grads = list(grads)
+  norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+  keep = norm < max_norm
+  torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+  torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+  return norm
+
+
+class Optimizer:
+  """optax.chain(clip_by_global_norm, adamw(schedule)) over ``params``;
+  ``count`` is the number of updates made."""
+
+  def __init__(self, config: Config, params):
+    o = config.optim
+    self.params = list(params)
+    self.schedule = make_schedule(config)
+    self.max_norm = o.grad_clip
+    self.adamw = torch.optim.AdamW(self.params, lr=0.0,
+                                   betas=(o.beta1, o.beta2), eps=o.eps,
+                                   weight_decay=o.weight_decay)
+    self.count = 0
+
+  def step(self) -> None:
+    """One update from the parameters' ``.grad``."""
+    clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
+    for group in self.adamw.param_groups:
+      group['lr'] = self.schedule(self.count)
+    self.adamw.step()
+    self.count += 1
+
+  def state_dict(self) -> dict:
+    return {'adamw': self.adamw.state_dict(), 'count': self.count}
+
+  def load_state_dict(self, state: dict) -> None:
+    self.adamw.load_state_dict(state['adamw'])
+    self.count = int(state['count'])
+
+
+def make_optimizer(config: Config, params) -> Optimizer:
+  return Optimizer(config, params)
+
+
+@dataclasses.dataclass
+class TrainState:
+  """The trained model (its backbone's parameters and buffers), the
+  optimizer, the EMA of the parameters and the generator of the noise;
+  ``step`` counts the optimizer updates."""
+  step: int
+  model: Diffusion
+  optimizer: Optimizer
+  ema: ema_lib.EMAState
+  generator: torch.Generator
+
+
+def init_state(model: Diffusion, config: Config,
+               generator: Optional[torch.Generator] = None) -> TrainState:
+  """A fresh state on ``model``'s backbone (trained in place); the
+  generator is seeded from ``config.seed`` unless given."""
+  if generator is None:
+    generator = torch.Generator(model.device).manual_seed(config.seed)
+  params = dict(model.backbone.named_parameters())
+  return TrainState(0, model, make_optimizer(config, params.values()),
+                    ema_lib.init(params, config.training.ema), generator)
+
+
+def _batch_to(batch, device) -> dict:
+  """The batch's tokens (int64) and attention mask as device tensors."""
+  out = {'seqs': torch.as_tensor(batch['seqs']).to(device, torch.long)}
+  if batch.get('attention_mask') is not None:
+    out['attention_mask'] = torch.as_tensor(batch['attention_mask']).to(
+        device, torch.float32)
+  return out
+
+
+def train_step(state: TrainState, batch, config: Config, noise=None
+               ) -> torch.Tensor:
+  """One optimizer step on ``batch`` (numpy arrays or device tensors);
+  returns the mean loss (a 0-dim device tensor). ``noise``: one
+  (t_uniforms, mask_uniforms) pair per microbatch, in place of the
+  generator's draws (tests)."""
+  accum = max(1, config.training.accum_steps)
+  model = state.model
+  b = _batch_to(batch, model.device)
+  n = b['seqs'].shape[0]
+  if n % accum:
+    raise ValueError(f'batch {n} does not split into {accum} microbatches')
+  mb = n // accum
+  params = state.optimizer.params
+  for p in params:
+    p.grad = None
+  loss = None
+  for i in range(accum):
+    rows = slice(i * mb, (i + 1) * mb)
+    mask = b.get('attention_mask')
+    out = model.loss(b['seqs'][rows], None if mask is None else mask[rows],
+                     train=True, generator=state.generator,
+                     noise=None if noise is None else noise[i])
+    out.loss.backward()
+    loss = out.loss.detach() if loss is None else loss + out.loss.detach()
+  if accum > 1:
+    loss = loss / accum
+    with torch.no_grad():
+      torch._foreach_div_([p.grad for p in params], accum)
+  state.optimizer.step()
+  ema_lib.update(state.ema, dict(model.backbone.named_parameters()))
+  state.step += 1
+  return loss
+
+
+def eval_step(model: Diffusion, batch, generator=None, noise=None):
+  """(sum of the masked token NLLs, token count), 0-dim device tensors,
+  of ``model`` (the EMA weights, as the trainer passes it) on ``batch``."""
+  b = _batch_to(batch, model.device)
+  with torch.inference_mode():
+    out = model.loss(b['seqs'], b.get('attention_mask'),
+                     generator=generator, noise=noise)
+  return out.nlls.sum(), out.token_mask.sum()
+
+
+@dataclasses.dataclass
+class Trainer:
+  """Trains, validates and checkpoints. ``logger``: a
+  ``observability.MetricsLogger``; ``sample_eval_fn``: (diffusion holding
+  the EMA weights, generator) -> dict of sample-quality metrics, run after
+  each validation."""
+  model: Diffusion
+  config: Config
+  ckpt_dir: Optional[str] = None
+  logger: Any = None
+  sample_eval_fn: Any = None
+
+  def __post_init__(self):
+    self._ema_model = None
+    self._best_nll = None
+
+  def eval_model(self, state: TrainState) -> Diffusion:
+    """A Diffusion holding the EMA weights (the live model when
+    ``eval.disable_ema``); one copy of the backbone, refreshed each
+    call."""
+    if self.config.eval.disable_ema:
+      return state.model
+    if self._ema_model is None:
+      self._ema_model = Diffusion(self.config, device=state.model.device,
+                                  backbone=copy.deepcopy(state.model.backbone))
+    shadow = ema_lib.params(state.ema)
+    with torch.no_grad():
+      for name, p in self._ema_model.backbone.named_parameters():
+        p.copy_(shadow[name])
+    return self._ema_model
+
+  def init_or_restore(self, train_iter=None) -> TrainState:
+    state = init_state(self.model, self.config)
+    if self.ckpt_dir and self.config.checkpointing.resume_from_ckpt:
+      restore_checkpoint(self.ckpt_dir, state, train_iter)
+    return state
+
+  def fit(self, state: TrainState, train_iter, valid_iter=None,
+          num_steps: Optional[int] = None, log_every: int = 100,
+          eval_every: Optional[int] = None,
+          ckpt_every: Optional[int] = None) -> TrainState:
+    """``num_steps`` more steps (``optim.max_steps`` by default). Every
+    ``log_every`` steps the loss is read back and logged; every
+    ``eval_every`` the validation NLL (with the best checkpoint and the
+    sample-quality hook); every ``ckpt_every`` a checkpoint.
+    ``SVDD_CRASH_AT_STEP=n`` raises after step n's checkpoint, as a
+    worker dying between checkpoints would."""
+    num_steps = num_steps or self.config.optim.max_steps
+    eval_every = eval_every or self.config.eval.val_check_interval
+    ckpt_every = ckpt_every or self.config.checkpointing.every_n_steps
+    iter_state = getattr(train_iter, 'state_dict', lambda: {})
+    it = iter(train_iter)
+    t0 = time.time()
+    for _ in range(num_steps):
+      loss = train_step(state, next(it), self.config)
+      step = state.step
+      if step % log_every == 0:
+        loss = float(loss)
+        steps_per_s = log_every / max(time.time() - t0, 1e-9)
+        LOGGER.info('step %d loss %.4f (%.2f steps/s)', step, loss,
+                    steps_per_s)
+        if self.logger is not None:
+          self.logger.log({'train/loss': loss,
+                           'train/steps_per_s': steps_per_s}, step=step)
+        t0 = time.time()
+      if valid_iter is not None and step % eval_every == 0:
+        nll = self.evaluate(state, valid_iter)
+        LOGGER.info('step %d val/nll %.4f', step, nll)
+        if self.logger is not None:
+          self.logger.log({'val/nll': nll}, step=step)
+        if self.ckpt_dir:
+          self.save_best(state, nll, iter_state())
+        if self.sample_eval_fn is not None:
+          gen = torch.Generator(state.model.device).manual_seed(17 + step)
+          qmetrics = self.sample_eval_fn(self.eval_model(state), gen)
+          LOGGER.info('step %d sample-quality: %s', step,
+                      {k: round(float(v), 4) for k, v in qmetrics.items()})
+          if self.logger is not None:
+            self.logger.log(qmetrics, step=step)
+      if self.ckpt_dir and step % ckpt_every == 0:
+        save_checkpoint(self.ckpt_dir, state, iter_state())
+      crash_at = os.environ.get('SVDD_CRASH_AT_STEP')
+      if crash_at and step >= int(crash_at):
+        raise RuntimeError(f'SVDD_CRASH_AT_STEP fault injection: dying at '
+                           f'step {step}')
+    return state
+
+  def evaluate(self, state: TrainState, valid_iter, max_batches: int = 8,
+               noise=None) -> float:
+    """Token-mean NLL over ``max_batches`` validation batches on the EMA
+    weights, the noise from a generator seeded 0 (or ``noise``, a pair a
+    batch)."""
+    model = self.eval_model(state)
+    gen = torch.Generator(model.device).manual_seed(0)
+    total, count = 0.0, 0.0
+    for i, batch in zip(range(max_batches), iter(valid_iter)):
+      nll, n = eval_step(model, batch, gen,
+                         None if noise is None else noise[i])
+      total += float(nll)
+      count += float(n)
+    return total / max(count, 1.0)
+
+  def save_best(self, state: TrainState, val_nll: float,
+                iterator_state: Optional[dict] = None) -> None:
+    """Keep ``state`` under ``<ckpt_dir>/best/`` if its validation NLL is
+    the lowest so far (the one checkpoint there)."""
+    best_dir = os.path.join(self.ckpt_dir, 'best')
+    if self._best_nll is None:
+      kept = latest_checkpoint(best_dir)
+      self._best_nll = (float('inf') if kept is None
+                        else _load(kept).get('val_nll', float('inf')))
+    if val_nll < self._best_nll:
+      self._best_nll = val_nll
+      save_checkpoint(best_dir, state, iterator_state, keep=1,
+                      val_nll=val_nll)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_paths(ckpt_dir: str) -> list:
+  """The port's checkpoints under ``ckpt_dir``, oldest step first."""
+  if not os.path.isdir(ckpt_dir):
+    return []
+  found = [(int(m.group(1)), os.path.join(ckpt_dir, name))
+           for name in os.listdir(ckpt_dir) if (m := _CKPT.match(name))]
+  return [p for _, p in sorted(found)]
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+  paths = checkpoint_paths(ckpt_dir)
+  return paths[-1] if paths else None
+
+
+def has_checkpoint(ckpt_dir: str) -> bool:
+  """Whether ``ckpt_dir`` holds one of the port's checkpoints, at its top
+  or under ``best/``."""
+  return bool(checkpoint_paths(ckpt_dir)
+              or checkpoint_paths(os.path.join(ckpt_dir, 'best')))
+
+
+def state_dict(state: TrainState, iterator_state: Optional[dict] = None,
+               **extra) -> dict:
+  it = {'epoch': 0, 'counter': 0, 'seed': 0}
+  it.update(iterator_state or {})
+  return {'format': FORMAT, 'step': state.step,
+          'model': state.model.backbone.state_dict(),
+          'optimizer': state.optimizer.state_dict(),
+          'ema': {'decay': state.ema.decay,
+                  'num_updates': state.ema.num_updates,
+                  'shadow': state.ema.shadow},
+          'generator': state.generator.get_state(),
+          'iterator': it, **extra}
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    iterator_state: Optional[dict] = None, keep: int = KEEP,
+                    **extra) -> str:
+  """Write ``step_<n>.pt`` through a temporary file and a rename, then
+  delete all but the newest ``keep``. Returns its path."""
+  os.makedirs(ckpt_dir, exist_ok=True)
+  path = os.path.join(ckpt_dir, f'step_{state.step}.pt')
+  tmp = path + '.tmp'
+  torch.save(state_dict(state, iterator_state, **extra), tmp)
+  os.replace(tmp, path)
+  for old in checkpoint_paths(ckpt_dir)[:-keep]:
+    os.remove(old)
+  return path
+
+
+def _load(path: str) -> dict:
+  ckpt = torch.load(path, map_location='cpu', weights_only=True)
+  if ckpt.get('format') != FORMAT:
+    raise ValueError(f'{path} is not a {FORMAT} checkpoint')
+  return ckpt
+
+
+def load_state(state: TrainState, ckpt: dict, train_iter=None) -> TrainState:
+  """Load a checkpoint's dict into ``state`` in place (and the iterator's
+  position into ``train_iter``)."""
+  state.step = int(ckpt['step'])
+  state.model.backbone.load_state_dict(ckpt['model'])
+  state.optimizer.load_state_dict(ckpt['optimizer'])
+  state.ema.num_updates = int(ckpt['ema']['num_updates'])
+  with torch.no_grad():
+    for k, s in state.ema.shadow.items():
+      s.copy_(ckpt['ema']['shadow'][k])
+  state.generator.set_state(ckpt['generator'])
+  if train_iter is not None:
+    train_iter.load_state_dict(ckpt['iterator'])
+  return state
+
+
+def restore_checkpoint(ckpt_dir: str, state: TrainState,
+                       train_iter=None) -> TrainState:
+  """The newest checkpoint under ``ckpt_dir`` into ``state``; the state
+  as it is where there is none."""
+  path = latest_checkpoint(ckpt_dir)
+  if path is None:
+    return state
+  load_state(state, _load(path), train_iter)
+  LOGGER.info('restored checkpoint at step %d', state.step)
+  return state
+
+
+def restore_best_checkpoint(ckpt_dir: str, state: TrainState) -> TrainState:
+  """The lowest-validation-NLL checkpoint (``best/``), else the newest."""
+  best_dir = os.path.join(ckpt_dir, 'best')
+  if latest_checkpoint(best_dir) is not None:
+    return restore_checkpoint(best_dir, state)
+  return restore_checkpoint(ckpt_dir, state)

@@ -83,6 +83,42 @@ def cnn_from_jax(variables,
   return model.eval()
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+  return t.detach().float().cpu().numpy()
+
+
+def cnn_params_to_jax(tensors) -> dict:
+  """The flax CNNModel ``params`` tree (numpy arrays) of a mapping from
+  the port's CNN parameter names (``named_parameters()``) to tensors of
+  their shapes: the parameters themselves, or per-parameter state such
+  as an EMA shadow or Adam's moments."""
+  t = {k: _np(v) for k, v in tensors.items()}
+  n_layers = sum(1 for k in t if k.endswith('.ln_scale'))
+  p = {'time_linear': {'kernel': t['time_linear.weight'].T,
+                       'bias': t['time_linear.bias']},
+       'stem': {'kernel': t['stem_kernel'], 'bias': t['stem_bias']}}
+  for i in range(n_layers):
+    pre = f'layers.{i}.'
+    p[f'norm_{i}'] = {'scale': t[pre + 'ln_scale'], 'bias': t[pre + 'ln_bias']}
+    p[f'conv_{i}'] = {'kernel': t[pre + 'kernel'],
+                      'bias': t[pre + 'conv_bias']}
+    p[f'time_{i}'] = {'kernel': t[pre + 'time.weight'].T,
+                      'bias': t[pre + 'time.bias']}
+  for j in (0, 1):
+    p[f'final_{j}'] = {'kernel': t[f'final_{j}_kernel'],
+                       'bias': t[f'final_{j}_bias']}
+  return p
+
+
+def cnn_to_jax(model: CNNModel) -> dict:
+  """The inverse of ``cnn_from_jax``: the flax CNNModel variables
+  (``params`` and the Fourier ``buffers``) of the port's model, as
+  nested dicts of float32 numpy arrays."""
+  return {'params': cnn_params_to_jax(dict(model.named_parameters())),
+          'buffers': {'GaussianFourierProjection_0': {
+              'W': _np(model.gfp.W)}}}
+
+
 def _conv(mod, p) -> None:
   """A module holding a flax Conv1D's ``kernel`` and ``bias``."""
   _copy(mod.kernel, p['Conv1D_0']['kernel'])

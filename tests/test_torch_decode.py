@@ -224,8 +224,12 @@ def test_port_imports_no_jax():
           'svdd_tpu_torch.ops.flash_attention, svdd_tpu_torch.ops.norms, '
           'svdd_tpu_torch.eval.gen_ppl, svdd_tpu_torch.data.gosai, '
           'svdd_tpu_torch.ops.im2col, svdd_tpu_torch.ops.fused_conv, '
-          'svdd_tpu_torch.models.convgru, svdd_tpu_torch.models.basenji; '
-          "bad = [m for m in ('jax', 'flax', 'svdd_tpu') if m in sys.modules]; "
+          'svdd_tpu_torch.models.convgru, svdd_tpu_torch.models.basenji, '
+          'svdd_tpu_torch.train.diffusion, svdd_tpu_torch.models.ema, '
+          'svdd_tpu_torch.eval.validation, svdd_tpu_torch.eval.metrics, '
+          'svdd_tpu_torch.observability, svdd_tpu_torch.utils; '
+          "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'svdd_tpu') "
+          'if m in sys.modules]; '
           'assert not bad, bad')
   env = dict(os.environ, PYTHONPATH=REPO)
   out = subprocess.run([sys.executable, '-c', code], capture_output=True,

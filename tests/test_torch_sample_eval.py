@@ -203,8 +203,8 @@ def test_batch_dna_detokenize_matches_svdd_tpu():
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--mode', 'train'], 'A12'),
-    (['--mode', 'ppl_eval'], 'A12'),
+    (['--eval_oracle_checkpoint_path', 'oracle.ckpt'], 'A17'),
+    (['--set', 'parallel.pipeline_stages=2'], 'A16'),
     (['--gen_ppl_ar_checkpoint', 'ar.ckpt'], 'A17'),
     (['--task', 'rna'], 'A10'),
 ])
@@ -214,6 +214,10 @@ def test_sample_eval_rejects_what_is_not_ported(extra, match):
 
 
 def test_sample_eval_rejects_an_existing_checkpoint(tmp_path):
+  """A --ckpt_dir holding files but no checkpoint of the port (an orbax
+  step directory, a reference .pt) is another package's checkpoint."""
+  (tmp_path / '1000').mkdir()
+  (tmp_path / 'model.pt').write_bytes(b'not a port checkpoint')
   args = main_gosai.parser().parse_args(
       ['--mode', 'sample_eval', '--device', 'cpu', '--ckpt_dir',
        str(tmp_path)])
