@@ -22,7 +22,8 @@ exits non-zero and prints no result:
      their gates, which must take the plain version bit for bit; B3, B4
      and B8 also at short points, N = 6 and 8, B4 at the classifier's
      seven N = 512 pools, B5 at its N = 512, B1 also at SVDD-PM's
-     5120 candidate rows), with the times of both, the
+     5120 candidate rows, B7 and B8 also at the value-net trainers'
+     1,024 and 64 rows, dx and dW), with the times of both, the
      time of one PyTorch call computing the same function where there is
      one, and the least time the card could take for the work; times are
      the card's own for a call (the profiler), CUDA-event medians beside
@@ -60,6 +61,18 @@ exits non-zero and prints no result:
      ``--mode ppl_eval`` and ``--mode sample_eval`` reading the f32 run's
      checkpoint; one training step on 8 rows on the card against the
      CPU (loss, every gradient, every updated parameter), f32 and bf16;
+     then value-net and oracle training at full width: ``cli.train_oracle
+     --task dna`` (the 3-task Enformer, batch 64, and ``--small``) with
+     its validation Pearson; ``cli.train --task dna`` at batch 8 (1,024
+     states a grad step) from the f32 pretraining checkpoint and that
+     oracle, MC in f32 and under the bf16 switches and CD-Q in f32, each
+     with exact launch counts (B4 x 7, B5 x 11, B7 x 6, B8 x 7 a grad
+     step); ``cli.eval`` on the MC value net; two runs from one seed,
+     a restored state and two resumes from it, each equal bit for bit;
+     one 8-row grad step on the card against the CPU (loss, gradients,
+     updated parameters and running statistics; in f32 also against the
+     step in float64 on the card's relu masks), f32 and bf16; traced MC
+     grad steps (f32, bf16), a CD-Q iteration and an oracle step;
   6. one step of each decode (the guided ones in bf16 too; PM and TDS
      with a valid posterior carry, as after their first step) under
      torch.profiler: host ms per step,
@@ -1142,19 +1155,24 @@ def _conv_bwd_against_plain(x, w, ct, d, name, label):
           compare_sum(f'{label} dkernel', dw, want_dw, name)]
 
 
-def check_conv1d_bwd(dtype, gen):
-  """B7 at the six k=5 tower convs at N = 512, against the plain version,
-  each timed by the card's own time for a call (device_ms, the profiler:
-  the kernels and the wrapper's copies) and by CUDA events around it
-  (median_ms), beside aten.convolution_backward (dgrad and wgrad in one
-  call; TF32 off in f32); then at CONV_BWD_POINTS. ms is the six convs of
+# the rows the value-net trainers' grad steps give B7 and B8: an MC (or
+# CD-Q) step at --batch_size 8 regresses 128 x 8 states, the oracle
+# trainer's step 64 sequences
+VALUE_TRAIN_ROWS = (1024, 64)
+
+
+def _conv_bwd_tower(n, dtype, gen):
+  """B7 at the six k=5 tower convs at N rows against the plain version,
+  dx and dkernel, each conv timed by the card's own time for a call
+  (device_ms, the profiler: the kernels and the wrapper's copies) and by
+  CUDA events around it (median_ms), beside aten.convolution_backward
+  (dgrad and wgrad in one call; TF32 off in f32). ms is the six convs of
   one value-net backward, device time; flops count the live rows
   (live_rows)."""
   import torch
   from svdd_tpu_torch.ops import conv1d as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
   name = str(dtype).split('.')[-1]
-  n = N_GRAD
   errs, per_conv, flops, nbytes = [], [], 0, 0
   for l, cin, cout in TOWER_CONVS:
     x, w, ct = _conv_bwd_inputs(n, l, cin, cout, dtype, gen)
@@ -1178,17 +1196,12 @@ def check_conv1d_bwd(dtype, gen):
                      'tflops': fl / ms / 1e9})
     del x, ct, w, x_ncl, ct_ncl, w_oik
     torch.cuda.empty_cache()
-  points = {}
-  for n_, l, cin, cout, d in CONV_BWD_POINTS:
-    x, w, ct = _conv_bwd_inputs(n_, l, cin, cout, dtype, gen)
-    label = f'conv1d_bwd N={n_} L={l} {cin}->{cout} d={d}'
-    dx_err, dw_err = _conv_bwd_against_plain(x, w, ct, d, name, label)
-    points[label] = {'dx': dx_err[0], 'dkernel': dw_err[0]}
   total = lambda k: sum(c[k] for c in per_conv)
   r = {'shapes': [c['shape'] for c in per_conv],
        'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
-       'max_abs_err_points': points,
+       'max_abs_err_dx': max(e[0] for e in errs[0::2]),
+       'max_abs_err_dkernel': max(e[0] for e in errs[1::2]),
        # the six tower convs of one value-net backward
        'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
@@ -1196,6 +1209,33 @@ def check_conv1d_bwd(dtype, gen):
        'library': 'torch.ops.aten.convolution_backward',
        'per_conv': per_conv, 'flops': flops, 'bytes': nbytes}
   return _cnn_rates(r, name)
+
+
+def _train_rows_entry(r: dict) -> dict:
+  """A training-row point of B7 or B8 as the kernels line keeps it."""
+  return {k: r[k] for k in ('max_abs_err', 'max_abs_err_dx',
+                            'max_abs_err_dkernel', 'max_abs_err_dW', 'ms',
+                            'median_ms', 'plain_ms', 'library_ms',
+                            'bound_ms', 'bound_by', 'peak', 'tflops',
+                            'bound_share') if k in r}
+
+
+def check_conv1d_bwd(dtype, gen):
+  """B7 at the six tower convs at the guided decoders' N = 512
+  (``_conv_bwd_tower``), then at the value-net trainers' rows
+  (VALUE_TRAIN_ROWS, ``train_rows``) and at CONV_BWD_POINTS."""
+  name = str(dtype).split('.')[-1]
+  r = _conv_bwd_tower(N_GRAD, dtype, gen)
+  r['train_rows'] = {str(n): _train_rows_entry(_conv_bwd_tower(n, dtype, gen))
+                     for n in VALUE_TRAIN_ROWS}
+  points = {}
+  for n_, l, cin, cout, d in CONV_BWD_POINTS:
+    x, w, ct = _conv_bwd_inputs(n_, l, cin, cout, dtype, gen)
+    label = f'conv1d_bwd N={n_} L={l} {cin}->{cout} d={d}'
+    dx_err, dw_err = _conv_bwd_against_plain(x, w, ct, d, name, label)
+    points[label] = {'dx': dx_err[0], 'dkernel': dw_err[0]}
+  r['max_abs_err_points'] = points
+  return r
 
 
 # B8 is also held at short points, (N, L, C, residual): N = 6 (off the
@@ -1245,16 +1285,15 @@ def _pool_bwd_points(dtype) -> dict:
   return points
 
 
-def check_attn_pool_bwd(dtype, gen):
+def _pool_bwd_tower(n, dtype, gen):
   """B8 at the seven tower pools with their residuals (odd lengths 25,
-  13 and 7 among them), against the plain version, each timed by the
-  card's own time for a call (device_ms) and by CUDA events (median_ms);
-  ms is the seven pools of one value-net backward, device time. Then at
-  POOL_BWD_POINTS."""
+  13 and 7 among them) at N rows, against the plain version, dx and dW,
+  each timed by the card's own time for a call (device_ms) and by CUDA
+  events (median_ms); ms is the seven pools of one value-net backward,
+  device time."""
   import torch
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
-  n = N_GRAD
   errs, per_pool, flops, nbytes = [], [], 0, 0
   for l, c in TOWER_POOLS:
     lh = (l + 1) // 2
@@ -1275,13 +1314,25 @@ def check_attn_pool_bwd(dtype, gen):
   r = {'shapes': [p['shape'] for p in per_pool],
        'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
+       'max_abs_err_dx': max(e[0] for e in errs[0::2]),
+       'max_abs_err_dW': max(e[0] for e in errs[1::2]),
        # the seven pools of one value-net backward
        'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'plain_median_ms': total('plain_median_ms'), 'library_ms': None,
-       'per_pool': per_pool, 'flops': flops, 'bytes': nbytes,
-       'max_abs_err_points': _pool_bwd_points(dtype)}
+       'per_pool': per_pool, 'flops': flops, 'bytes': nbytes}
   return _cnn_rates(r, name)
+
+
+def check_attn_pool_bwd(dtype, gen):
+  """B8 at the seven tower pools at the classifier's N = 512
+  (``_pool_bwd_tower``), then at the value-net trainers' rows
+  (VALUE_TRAIN_ROWS, ``train_rows``) and at POOL_BWD_POINTS."""
+  r = _pool_bwd_tower(N_GRAD, dtype, gen)
+  r['train_rows'] = {str(n): _train_rows_entry(_pool_bwd_tower(n, dtype, gen))
+                     for n in VALUE_TRAIN_ROWS}
+  r['max_abs_err_points'] = _pool_bwd_points(dtype)
+  return r
 
 
 # B12 at the text preset's DiT and AR shapes: the 64-row decode batch,
@@ -2195,7 +2246,8 @@ def run_sample_eval(which: str):
   cfg.sampling.steps = steps
   cfg.sampling.num_sample_batches = 1
   argv = ['--mode', 'sample_eval', '--device', 'cuda', '--ckpt_dir',
-          os.path.join(REPO, 'build', 'chip_smoke', 'no_checkpoint')]
+          os.path.join(REPO, 'build', 'chip_smoke', 'no_checkpoint'),
+          '--data_dir', _no_data_dir()]
   if scorer:
     argv += ['--gen_ppl_model', scorer]
   args = main_gosai.parser().parse_args(argv)
@@ -2456,6 +2508,15 @@ def _train_dir(name: str) -> str:
   return path
 
 
+def _no_data_dir() -> str:
+  """The data directory of every run that reads the Gosai splits: an
+  empty directory of the checkout, so that each run draws the synthetic
+  split, whatever the host holds under $SVDD_DATA_DIR or /data/svdd."""
+  path = _train_dir('no_data')
+  os.makedirs(path)
+  return path
+
+
 def run_train(bf16: bool) -> dict:
   """``main_gosai --mode train --task dna`` through its ``run`` at full
   width (hidden 128, 20 layers, L=200) on the synthetic split: global
@@ -2474,7 +2535,7 @@ def run_train(bf16: bool) -> dict:
   name = 'train_bf16' if bf16 else 'train_f32'
   root = _train_dir(name)
   argv = ['--mode', 'train', '--task', 'dna', '--device', 'cuda',
-          '--max_steps', str(TRAIN_STEPS),
+          '--max_steps', str(TRAIN_STEPS), '--data_dir', _no_data_dir(),
           '--ckpt_dir', os.path.join(root, 'ckpt'),
           '--log_dir', os.path.join(root, 'log'), '--set', *TRAIN_SET]
   args = main_gosai.parser().parse_args(argv)
@@ -2543,7 +2604,8 @@ def _resume_run(name: str, steps: int, ckpt_dir: str, crash: bool = False):
   from svdd_tpu_torch.train import diffusion as train_diff
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(
       ['--set', *TRAIN_SET]))
-  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True)
+  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True,
+                                         data_dir=_no_data_dir())
   rows = _LossRows()
   trainer = train_diff.Trainer(Diffusion(cfg, device='cuda'), cfg,
                                ckpt_dir=ckpt_dir, logger=rows)
@@ -2611,7 +2673,8 @@ def run_ckpt_readers(ckpt_dir: str) -> dict:
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.cli import main_gosai
-  common = ['--device', 'cuda', '--ckpt_dir', ckpt_dir, '--set', *TRAIN_SET,
+  common = ['--device', 'cuda', '--ckpt_dir', ckpt_dir,
+            '--data_dir', _no_data_dir(), '--set', *TRAIN_SET,
             'sampling.num_sample_batches=1']
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(common))
   _build.reset_launches()
@@ -2920,7 +2983,8 @@ def profile_train_step(bf16: bool) -> dict:
   from svdd_tpu_torch.train import diffusion as train_diff
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(
       ['--set', *TRAIN_SET]))
-  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True)
+  train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True,
+                                         data_dir=_no_data_dir())
   with bf16_switches(bf16):
     trainer = train_diff.Trainer(Diffusion(cfg, device='cuda'), cfg)
   state = trainer.init_or_restore()
@@ -2937,10 +3001,11 @@ def profile_train_step(bf16: bool) -> dict:
           'tokens_per_s': rows * length / (r['host_step_ms'] / 1e3), **r}
 
 
-def train_phase() -> dict:
+def train_phase():
   """Phase 5, each part emitting its line: the two CLI training runs,
   resume, the checkpoint readers and the training step against the CPU.
-  Returns the launch counts of its runs of the main path."""
+  Returns the launch counts of its runs of the main path and the f32
+  run's checkpoint directory."""
   import torch
   runs, trained = {}, {}
   for bf16 in (False, True):
@@ -2964,7 +3029,7 @@ def train_phase() -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'train_step_vs_cpu', **r})
-  return runs
+  return runs, trained['train_f32']['ckpt_dir']
 
 
 def train_profiles() -> None:
@@ -2975,6 +3040,831 @@ def train_profiles() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'profile', **prof})
+
+
+# ---------------------------------------------------------------------------
+# phase 5, continued: value-net and reward-oracle training
+# ---------------------------------------------------------------------------
+
+VALUE_L = 200            # the DNA task's length
+VALUE_BATCH = 8          # cli.train --batch_size: 128 x 8 states a step
+VALUE_ITERS = 2          # MC iterations of a cli.train run
+VALUE_EVAL_EVERY = 2     # its evaluations and checkpoint writes
+CDQ_ITERS = 2
+ORACLE_BATCH = 64
+ORACLE_ITERS = 20
+EVAL_BATCH = 64          # cli.eval's rows
+VALUE_LR = 2e-4          # cli.train's --learning_rate
+# the kernels one grad step of the full-width value net launches: the
+# training forward's 7 pools (B4) and 11 L=2 attentions (B5), the
+# backward's 6 k=5 tower convs (B7) and 7 pools (B8)
+VALUE_STEP_LAUNCHES = {'attn_pool': 7, 'attn_l2': 11, 'conv1d_bwd': 6,
+                       'attn_pool_bwd': 7}
+
+
+def _value_dir(name: str) -> str:
+  path = _train_dir(name)
+  os.makedirs(path)
+  return path
+
+
+def _tower_length(model) -> int:
+  """The length the Enformer ``model``'s tower pools VALUE_L to."""
+  length = VALUE_L
+  for _ in range(len(model.trunk.tower.convs) + 1):
+    length = (length + 1) // 2
+  return length
+
+
+def _enformer_launches(model, train: bool) -> dict:
+  """The kernel launches of one forward of an Enformer built as ``model``
+  at L=200 (the eval forward's B3 hand-offs and last pool; a training
+  forward's pools) and, for ``train``, of its backward."""
+  n_conv = len(model.trunk.tower.convs) + 1
+  l2 = len(model.trunk.transformers) if _tower_length(model) == 2 else 0
+  if train:
+    return {'attn_pool': n_conv, 'attn_l2': l2, 'conv1d_bwd': n_conv - 1,
+            'attn_pool_bwd': n_conv}
+  return {'attn_pool_prologue_im2col': n_conv - 1, 'attn_pool': 1,
+          'attn_l2': l2}
+
+
+def _add(total: dict, launches: dict, times: int = 1) -> dict:
+  for k, v in launches.items():
+    total[k] = total.get(k, 0) + v * times
+  return total
+
+
+def _check_launches(name: str, got: dict, want: dict) -> dict:
+  got = {k: v for k, v in got.items() if v}
+  want = {k: v for k, v in want.items() if v}
+  if got != want:
+    raise AssertionError(f'{name}: launches {got}, expected {want}')
+  return got
+
+
+def run_train_oracle(root: str, small: bool) -> dict:
+  """``cli.train_oracle --task dna`` through its ``run``: the 3-task
+  Enformer oracle (full width, or ``--small``), batch 64 of the synthetic
+  split, ORACLE_ITERS AdamW steps, then the validation Pearson on 512
+  rows and its checkpoint. The launch counts, set to 0 just before and
+  read just after, are exactly ORACLE_ITERS grad steps' and one eval
+  forward's."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import train_oracle
+  name = 'train_oracle_small' if small else 'train_oracle'
+  path = os.path.join(root, f'{name}.pt')
+  argv = ['--task', 'dna', '--batch_size', str(ORACLE_BATCH), '--max_iters',
+          str(ORACLE_ITERS), '--log_every', '5', '--save_path', path,
+          '--device', 'cuda', '--data_dir', _no_data_dir()]
+  argv += ['--small'] if small else []
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = train_oracle.run(train_oracle.parser().parse_args(argv))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  model = out['module']
+  want = _add(_add({}, _enformer_launches(model, True), ORACLE_ITERS),
+              _enformer_launches(model, False))
+  launches = _check_launches(name, _build.launches(), want)
+  losses = out['losses']
+  if (not np.isfinite(list(losses.values())).all()
+      or not np.isfinite(out['val_pearson']) or not os.path.exists(path)
+      or not out['synthetic']):
+    raise AssertionError(f'{name}: {out}')
+  return {'run': name, 'batch_size': ORACLE_BATCH, 'iters': ORACLE_ITERS,
+          'width': model.config(), 'losses': losses,
+          'val_pearson': out['val_pearson'], 'wall_s': wall,
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'launches': launches, 'path': path}
+
+
+def _value_argv(root: str, name: str, diffusion_ckpt: str, oracle: str,
+                iters: int, cdq: bool = False) -> list:
+  return ['--task', 'dna', '--device', 'cuda', '--batch_size',
+          str(VALUE_BATCH), '--max_iters', str(iters), '--eval_every',
+          str(VALUE_EVAL_EVERY), '--val_batch_num', '1', '--learning_rate',
+          str(VALUE_LR), '--diffusion_checkpoint_path', diffusion_ckpt,
+          '--reward_checkpoint_path', oracle, '--out_dir', root,
+          '--run_name', name,
+          '--save_path', os.path.join(root, f'{name}.pt'),
+          '--save_state_path', os.path.join(root, f'{name}_state.pt')] + (
+              ['--cdq'] if cdq else [])
+
+
+def run_value_train(root: str, name: str, diffusion_ckpt: str, oracle: str,
+                    bf16: bool = False, cdq: bool = False) -> dict:
+  """``cli.train --task dna`` through its ``run`` at full width (the
+  denoiser of the f32 pretraining run's checkpoint, the full-width
+  oracle just trained, a random full-width value net), batch 8, 128
+  steps, MC targets or ``cdq``, with one evaluation trajectory and an
+  evaluation and checkpoint every VALUE_EVAL_EVERY iterations. The
+  launch counts, set to 0 just before and read just after, must be
+  exactly: 20 denoiser layers x 129 forwards (128 steps and the noise
+  removal) a trajectory; an oracle eval forward a trajectory; the value
+  net's eval forwards (128 an evaluation, and CD-Q's bootstrap forward
+  an iteration); VALUE_STEP_LAUNCHES a grad step; CD-Q's candidate draw
+  a step."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import train as cli_train
+  from svdd_tpu_torch.models.enformer import EnformerValueModel
+  iters = CDQ_ITERS if cdq else VALUE_ITERS
+  args = cli_train.parser().parse_args(
+      _value_argv(root, name, diffusion_ckpt, oracle, iters, cdq))
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with bf16_switches(bf16):
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = cli_train.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launches()
+  state, trainer = out['state'], out['trainer']
+  steps = trainer.diffusion.config.sampling.steps
+  trajectories = iters + 1
+  evals = -(-iters // VALUE_EVAL_EVERY)
+  eval_fwd = _enformer_launches(state.module, False)
+  want = {'cnn_layer': CNN_LAYERS * (steps + 1) * trajectories}
+  _add(want, eval_fwd, trajectories + evals * steps + (iters if cdq else 0))
+  _add(want, VALUE_STEP_LAUNCHES, iters)
+  if cdq:
+    want['gumbel_candidates'] = steps * iters
+  launches = _check_launches(name, launches, want)
+  rows = [json.loads(line) for line in open(out['metrics_path'])]
+  if ([r['_step'] for r in rows] != list(range(VALUE_EVAL_EVERY, iters + 1,
+                                               VALUE_EVAL_EVERY))
+      or not all(np.isfinite(v) for r in rows for k, v in r.items()
+                 if k.startswith('eval/'))
+      or state.step != iters
+      or state.module.compute_dtype != (torch.bfloat16 if bf16
+                                        else torch.float32)):
+    raise AssertionError(f'{name}: metrics {rows}, step {state.step}')
+  return {'run': name, 'targets': 'cdq' if cdq else 'mc',
+          'value_dtype': str(state.module.compute_dtype).split('.')[-1],
+          'batch_size': VALUE_BATCH, 'steps': steps, 'iters': iters,
+          'rows_a_step': steps * VALUE_BATCH, 'eval_last': rows[-1],
+          'wall_s': wall,
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'launches': launches, 'save_path': args.save_path,
+          'state_path': args.save_state_path}
+
+
+def run_value_eval(root: str, diffusion_ckpt: str, oracle: str,
+                   value_path: str) -> dict:
+  """``cli.eval`` through its ``run``, reading the f32 MC run's value net:
+  one batch of EVAL_BATCH unguided samples (128 steps), the value net's
+  predictions against the oracle's rewards."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import eval as cli_eval
+  args = cli_eval.parser().parse_args(
+      ['--task', 'dna', '--device', 'cuda', '--batch_size', str(EVAL_BATCH),
+       '--val_batch_num', '1', '--diffusion_checkpoint_path', diffusion_ckpt,
+       '--reward_checkpoint_path', oracle, '--load_checkpoint_path',
+       value_path, '--out_dir', root, '--run_name', 'value_eval'])
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = cli_eval.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {k: v for k, v in _build.launches().items() if v}
+  if (out['n'] != EVAL_BATCH
+      or not np.isfinite([out['pearson'], out['mse']]).all()
+      or launches.get('cnn_layer', 0) == 0 or launches.get('attn_l2', 0) == 0):
+    raise AssertionError(f'value_eval: {out}, launches {launches}')
+  return {'run': 'value_eval', **out, 'wall_s': wall, 'launches': launches}
+
+
+def _value_trainer(diffusion_ckpt: str, oracle: str, cdq: bool = False):
+  """A ValueTrainer as cli.train builds it (f32), for the determinism and
+  profile checks."""
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import train as cli_train
+  from svdd_tpu_torch.train import value as train_val
+  args = cli_train.parser().parse_args(_value_argv(
+      REPO, 'probe', diffusion_ckpt, oracle, 1, cdq))
+  common.full_f32()
+  cfg = common.task_config(args)
+  tcfg = train_val.ValueTrainerConfig(
+      learning_rate=args.learning_rate, batch_size=args.batch_size, cdq=cdq)
+  return train_val.ValueTrainer(
+      common.load_diffusion(args, cfg), common.load_value_function(args, cfg),
+      common.load_reward_fn(args, cfg), tcfg), args.seed
+
+
+def _same_state(a, b) -> bool:
+  import torch
+  sa, sb = a.module.state_dict(), b.module.state_dict()
+  oa, ob = a.optimizer.adamw.state_dict(), b.optimizer.adamw.state_dict()
+  moments = all(torch.equal(oa['state'][i][k], ob['state'][i][k])
+                for i in oa['state'] for k in ('exp_avg', 'exp_avg_sq'))
+  return (all(torch.equal(sa[k], sb[k]) for k in sa) and moments
+          and a.step == b.step and a.optimizer.count == b.optimizer.count
+          and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def check_value_determinism(root: str, diffusion_ckpt: str,
+                            oracle: str) -> dict:
+  """On the card, f32, full width: two trainers from the same seed, 2 MC
+  iterations each, end with the same parameters, running statistics,
+  Adam moments and generator bit for bit (every gradient sums in a fixed
+  order: B7, B8, conv1d_deterministic, cuBLAS); the state saved after
+  them restores bit for bit; two fresh trainers resumed from it, one
+  more iteration each, agree bit for bit. Also the kernel launches of
+  one grad step: exactly the oracle's eval forward (the MC targets) and
+  VALUE_STEP_LAUNCHES."""
+  import torch
+  from svdd_tpu_torch import _build
+  runs = []
+  for _ in range(2):
+    trainer, seed = _value_trainer(diffusion_ckpt, oracle)
+    state = trainer.init_state(seed)
+    trainer.train(state, 2)
+    runs.append((trainer, state))
+  (trainer, a), (_, b) = runs
+  same_runs = _same_state(a, b)
+  del runs, b
+  path = os.path.join(root, 'determinism_state.pt')
+  trainer.save_state(path, a)
+  restored = trainer.restore_state(path, 0)
+  same_restore = _same_state(a, restored)
+  del restored
+  resumed = []
+  for _ in range(2):
+    t, _ = _value_trainer(diffusion_ckpt, oracle)
+    state = t.restore_state(path, 0)
+    samples, mid_x, _ = t.trajectory()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t.grad_step(state, samples, mid_x)
+    torch.cuda.synchronize()
+    # the MC targets' oracle forward, then the training forward and
+    # backward
+    step_launches = _check_launches(
+        'value grad step', _build.launches(),
+        _add(_enformer_launches(t.vf.module, False), VALUE_STEP_LAUNCHES))
+    resumed.append(state)
+  same_resumes = _same_state(*resumed)
+  os.remove(path)
+  r = {'runs_equal': same_runs, 'restore_equal': same_restore,
+       'resumes_equal': same_resumes, 'iters': 2,
+       'grad_step_launches': step_launches}
+  if not (same_runs and same_restore and same_resumes):
+    raise AssertionError(f'value training on the card is not deterministic: '
+                         f'{r}')
+  return r
+
+
+VALUE_CPU_ROWS = 8
+# An FFN relu input of the value net's training step may take the other
+# side of 0 on the card than in float64 where it lies within this share
+# of the relu's largest |input| (after 11 blocks of 3xTF32 products the
+# card's inputs lie about 1e-5 relative from float64's: flips up to
+# 1.0e-4 absolute at inputs of a few units on an H100)
+VALUE_RELU_EDGE = 1e-4
+# the bf16 step's further batches (same value net; states, targets and
+# dropout masks from each seed): the CPU's bf16-to-f32 distance of the
+# loss, one number, can cancel on one batch; its largest over these and
+# the step's own batch is the loss's noise
+VALUE_BF16_SEEDS = (6, 7, 8)
+# the bf16 step on the card through the kernels against the same step
+# on the card through their plain versions (every other op the same):
+# the predictions by norm within the bf16 kernel tolerance (TOL), the
+# loss within a quarter of it
+VALUE_WITNESS_TOL = {'predictions': 2 ** -5, 'loss': 2 ** -7}
+
+
+def _value_step_inputs():
+  """A full-width value net (random, every bias, norm scale and running
+  statistic perturbed) on the CPU, 8 states at L=200 with masked rows,
+  their targets and the 33 dropout masks (keep 0.6) of one training
+  forward, from seed 5."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch.models.enformer import EnformerValueModel
+  g = torch.Generator().manual_seed(5)
+  model = EnformerValueModel(generator=torch.Generator().manual_seed(1))
+  with torch.no_grad():
+    for name, t in list(model.named_parameters()) + list(
+        model.named_buffers()):
+      if name.endswith(('bias', 'mean')):
+        t.add_(0.1 * torch.randn(t.shape, generator=g))
+      elif name.endswith(('scale', 'var')):
+        t.mul_(0.7 + 0.6 * torch.rand(t.shape, generator=g))
+  return (model, *_value_step_batch(model, g, np.random.default_rng(5)))
+
+
+def _value_step_batch(model, g, rs):
+  """8 states at L=200 with masked rows and their targets (from the
+  torch generator ``g``), and the 33 dropout masks (keep 0.6) of one
+  training forward of ``model`` (from the numpy generator ``rs``)."""
+  import torch
+  from svdd_tpu_torch import mdlm
+  tokens = torch.randint(0, 5, (VALUE_CPU_ROWS, VALUE_L), generator=g)
+  onehots = mdlm.transform_samples(tokens)
+  targets = torch.randn(VALUE_CPU_ROWS, generator=g)
+  c = model.trunk.pointwise.kernel.shape[1]
+  shape = (VALUE_CPU_ROWS, _tower_length(model))
+  masks = []
+  for _ in model.trunk.transformers:
+    for width in (c, 2 * c, c):
+      masks.append(rs.random(shape + (width,)) < 0.6)
+  return onehots, targets, masks
+
+
+@contextlib.contextmanager
+def plain_kernels():
+  """The value net's training kernels (B4, B5, B7, B8) routed to their
+  plain versions on the card's tensors for the enclosed runs (a
+  witness: every other op as before), restored after."""
+  from svdd_tpu_torch.ops import attn_l2, attn_pool, conv1d
+
+  def l2(q, k, v, bc, bp, relk, heads):
+    return attn_l2.attn_l2_plain(q, k, v, bc, bp, relk, heads,
+                                 attn_l2.attn_l2_body_rounds(
+                                     q.shape[0], q.shape[2], v.shape[2]))
+
+  routes = [(attn_pool, '_attn_pool', attn_pool.attn_pool_plain),
+            (attn_pool, 'attn_pool_bwd', attn_pool.attn_pool_bwd_plain),
+            (attn_l2, '_attn_l2', l2),
+            (conv1d, 'conv1d_bwd', conv1d.conv1d_bwd_plain)]
+  saved = [(mod, name, getattr(mod, name)) for mod, name, _ in routes]
+  for mod, name, fn in routes:
+    setattr(mod, name, fn)
+  try:
+    yield
+  finally:
+    for mod, name, fn in saved:
+      setattr(mod, name, fn)
+
+
+def _value_forward(model, dev, onehots, targets, masks, dtype):
+  """The training forward of a copy of ``model`` on ``dev`` computing
+  in ``dtype``: (loss, predictions)."""
+  import copy
+  import torch
+  from svdd_tpu_torch.models.blocks import DropoutMasks
+  m = copy.deepcopy(model).to(dev)
+  m.compute_dtype = dtype
+  with torch.no_grad():
+    preds = m(onehots.to(dev), train=True, masks=DropoutMasks(masks=masks))
+    loss = ((preds - targets.to(dev)) ** 2).mean()
+  return float(loss), preds.float().cpu()
+
+
+def _value_step_once(model, dev, onehots, targets, masks, dtype, taps=None):
+  """One grad step of a copy of ``model`` on ``dev`` computing in
+  ``dtype`` (cli.train's optimizer, the first update's rate): (loss,
+  {name: clipped gradient}, {name: update}, {buffer: running statistic
+  after}, the predictions). ``taps`` gets each FFN's relu input (the up
+  projection's output, before its dropout mask)."""
+  import copy
+  import torch
+  from svdd_tpu_torch.models.blocks import DropoutMasks
+  from svdd_tpu_torch.train.diffusion import Optimizer
+  m = copy.deepcopy(model).to(dev)
+  m.compute_dtype = dtype
+  opt = Optimizer(m.parameters(), lambda count: VALUE_LR, 1.0, (0.9, 0.95),
+                  weight_decay=0.1)
+  hooks = [] if taps is None else [
+      b.ffn.up.register_forward_hook(
+          lambda mod, i, o: taps.append(o.detach().float().cpu()))
+      for b in m.trunk.transformers]
+  preds = m(onehots.to(dev), train=True, masks=DropoutMasks(masks=masks))
+  loss = ((preds - targets.to(dev)) ** 2).mean()
+  loss.backward()
+  opt.step()
+  for h in hooks:
+    h.remove()
+  before = dict(model.named_parameters())
+  named = dict(m.named_parameters())
+  return (float(loss.detach()),
+          {k: p.grad.detach().cpu() for k, p in named.items()},
+          {k: p.detach().cpu() - before[k].detach() for k, p in named.items()},
+          {k: b.detach().cpu() for k, b in m.named_buffers()},
+          preds.detach().float().cpu())
+
+
+def _enformer_f64(m, x, drop_masks, relu_masks=None, flips=None):
+  """The Enformer value model ``m`` (float64 parameters) in training mode,
+  by plain float64 ops through no kernel and no plain version of the
+  port: BatchNorm on the batch, gelu_enformer, SAME convs, the pairwise
+  pools with their residuals, the transformer blocks in their general
+  form (the relative-position attention by einsums) with their dropouts
+  (``drop_masks`` in call order, keep 0.6), the pointwise stage and the
+  head. Where ``relu_masks`` holds another run's FFN relu masks, each
+  relu takes that run's side of 0, and ``flips`` gets, a relu, how many
+  inputs that mask puts on the other side and the largest |input| among
+  them and the largest |input| of the relu."""
+  import math
+  import torch
+  import torch.nn.functional as F
+  from svdd_tpu_torch.models.enformer import (relative_positional_basis,
+                                              relative_shift)
+  f64 = torch.float64
+  drops, relus = iter(drop_masks), iter(relu_masks or [])
+
+  def drop(y):
+    return torch.where(torch.as_tensor(next(drops)), y / 0.6,
+                       torch.zeros((), dtype=f64))
+
+  def conv(h, kernel, bias):
+    k = kernel.shape[0]
+    return F.conv1d(h.transpose(1, 2), kernel.permute(2, 1, 0), bias,
+                    padding=(k - 1) // 2).transpose(1, 2)
+
+  def bn(h, norm):
+    mean = h.mean((0, 1))
+    var = torch.clamp((h * h).mean((0, 1)) - mean * mean, min=0.0)
+    return (h - mean) * (torch.rsqrt(var + norm.eps) * norm.scale) + norm.bias
+
+  gelu = lambda h: h * torch.sigmoid(1.702 * h)
+
+  def pool(y, w, res):
+    s = y + res
+    odd = s.shape[1] % 2
+    if odd:
+      s = F.pad(s, (0, 0, 0, 1))
+    d = s[:, 0::2] - s[:, 1::2]
+    wgt = torch.sigmoid(d @ w)
+    if odd:
+      wgt = torch.cat([wgt[:, :-1], torch.ones_like(wgt[:, -1:])], dim=1)
+    return s[:, 1::2] + d * wgt
+
+  def block(h, blk):
+    y = conv(gelu(bn(h, blk.norm)), blk.kernel, blk.bias)
+    return pool(y, blk.pool.w, h) if blk.pool is not None else y
+
+  tower = m.trunk.tower
+  h = block(conv(x, tower.stem_kernel, tower.stem_bias), tower.stem_block)
+  for c, p in zip(tower.convs, tower.pools):
+    h = block(block(h, c), p)
+  for blk in m.trunk.transformers:
+    a = blk.attn
+    n, hh, dk = h.shape[1], a.heads, a.dim_key
+    y = F.layer_norm(h, h.shape[-1:], blk.norm.scale, blk.norm.bias, 1e-5)
+    q = (y @ a.to_q.weight.T / math.sqrt(dk)).reshape(-1, n, hh, dk)
+    k = (y @ a.to_k.weight.T).reshape(-1, n, hh, dk)
+    v = (y @ a.to_v.weight.T).reshape(-1, n, hh, a.dim_value)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    rel_k = (torch.as_tensor(relative_positional_basis(
+        n, a.num_rel_pos_features), dtype=f64) @ a.to_rel_k.weight.T)
+    rel_k = rel_k.reshape(2 * n - 1, hh, dk).transpose(0, 1)
+    content = torch.einsum('bhid,bhjd->bhij',
+                           q + a.rel_content_bias.reshape(hh, 1, dk), k)
+    rel = relative_shift(torch.einsum(
+        'bhid,hjd->bhij', q + a.rel_pos_bias.reshape(hh, 1, dk), rel_k))
+    att = torch.softmax(content + rel, dim=-1)
+    out = torch.einsum('bhij,bhjd->bhid', att, v).transpose(1, 2)
+    out = F.linear(out.reshape(-1, n, hh * a.dim_value), a.to_out.weight,
+                   a.to_out.bias)
+    h = h + drop(out)
+    f = blk.ffn
+    u = drop(F.linear(F.layer_norm(h, h.shape[-1:], f.norm.scale,
+                                   f.norm.bias, 1e-5),
+                      f.up.weight, f.up.bias))
+    if relu_masks is not None:
+      mask = next(relus)
+      other = (u > 0) != mask
+      flips.append((int(other.sum()), float(u.detach()[other].abs().max())
+                    if other.any() else 0.0, float(u.detach().abs().max())))
+      u = u * mask.to(f64)
+    else:
+      u = torch.relu(u)
+    h = h + drop(F.linear(u, f.down.weight, f.down.bias))
+  pw = m.trunk.pointwise
+  h = gelu(gelu(bn(h, pw.norm)) @ pw.kernel[0] + pw.bias)
+  return (h @ m.head.kernel[0] + m.head.bias).mean(1)[..., 0]
+
+
+def _value_step_f64(model, onehots, targets, masks, relu_masks=None):
+  """The grad step's loss and clipped gradients in float64 on the CPU
+  (``_enformer_f64``), on ``relu_masks`` where given; and the flips."""
+  import copy
+  import torch
+  from svdd_tpu_torch.train.diffusion import clip_by_global_norm_
+  m = copy.deepcopy(model).double()
+  flips = []
+  preds = _enformer_f64(m, onehots.double(), masks, relu_masks, flips)
+  loss = ((preds - targets.double()) ** 2).mean()
+  loss.backward()
+  named = dict(m.named_parameters())
+  clip_by_global_norm_([p.grad for p in named.values()], 1.0)
+  return float(loss.detach()), {k: p.grad for k, p in named.items()}, flips
+
+
+def _relu_masks_of(taps, masks) -> list:
+  """Each FFN relu's mask of a run: its dropout mask and a positive up
+  projection."""
+  import torch
+  return [torch.as_tensor(d) & (t > 0) for t, d in zip(taps, masks[1::3])]
+
+
+def _replay_value_update(model, grads) -> dict:
+  """The update the first AdamW step makes on the CPU from ``model``'s
+  parameters and the given (clipped) gradients: {name: update}."""
+  import copy
+  import torch
+  from svdd_tpu_torch.train.diffusion import Optimizer
+  m = copy.deepcopy(model)
+  named = dict(m.named_parameters())
+  opt = Optimizer(named.values(), lambda count: VALUE_LR, None, (0.9, 0.95),
+                  weight_decay=0.1)
+  for k, p in named.items():
+    p.grad = grads[k].clone()
+  opt.step()
+  before = dict(model.named_parameters())
+  with torch.no_grad():
+    return {k: p - before[k] for k, p in named.items()}
+
+
+def check_value_step(f32_cpu=None):
+  """One grad step of the full-width value net on 8 rows (L=200) with the
+  same 33 dropout masks on the card and on the CPU (``_value_step_once``):
+  the updated parameters within TRAIN_TOL by norm of the update AdamW
+  makes on the CPU from the card's gradients (AdamW's first update is lr
+  * g / (|g| + eps): a gradient within rounding of 0, as a conv bias
+  ahead of a training BatchNorm has, flips its element by 2 lr on either
+  side), the running statistics within TRAIN_TOL of the CPU's by norm.
+
+  f32: the loss within TRAIN_TOL of the CPU's and of the same step in
+  float64 on the card's relu masks (``_value_step_f64``). Every clipped
+  gradient's distance by norm to that float64 step within F64_MULT times
+  the CPU's distance to the float64 step on its own masks plus F64_FLOOR
+  of the gradient's norm and of the largest gradient's (the biases ahead
+  of a training BatchNorm have a zero gradient in exact arithmetic,
+  rounding noise in f32); and, relative to the gradient's norm, within
+  TRAIN_TOL, or within F64_MULT times the CPU's own relative distance
+  where that is the larger. Each relu mask differs from float64's only
+  where |input| <= VALUE_RELU_EDGE of the relu's largest. Every leaf's
+  two relative distances go on a line of their own
+  (``value_step_f64_leaves``).
+
+  bf16 (given ``f32_cpu``, the f32 run's CPU results): each gradient,
+  the statistics and the predictions by ``bf16_close`` against the CPU's
+  own bf16-to-f32 distance; the loss, on this batch and on the batches of
+  VALUE_BF16_SEEDS (training forwards only, their predictions held as
+  these), by ``bf16_close`` against the largest of the CPU's bf16-to-f32
+  loss distances over these batches; and, as a witness, the same step on
+  the card through the kernels' plain versions (``plain_kernels``): the
+  predictions and the loss within VALUE_WITNESS_TOL of the kernels'
+  step, each gradient by ``bf16_close`` against the CPU's noise.
+
+  Returns the report and the CPU results."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  bf16 = f32_cpu is not None
+  dtype = torch.bfloat16 if bf16 else torch.float32
+  model, onehots, targets, masks = _value_step_inputs()
+  card_taps, cpu_taps = [], []
+  _build.reset_launches()
+  got = _value_step_once(model, 'cuda', onehots, targets, masks, dtype,
+                         card_taps)
+  torch.cuda.synchronize()
+  launches = _check_launches('value step vs cpu', _build.launches(),
+                             VALUE_STEP_LAUNCHES)
+  want = _value_step_once(model, 'cpu', onehots, targets, masks, dtype,
+                          cpu_taps)
+  norm = torch.linalg.vector_norm
+  rel = lambda a, b: float(norm(a.double() - b.double())
+                           / max(float(norm(b.double())), 1e-30))
+  loss_err = abs(got[0] - want[0]) / abs(want[0])
+  grad_rel = {k: rel(got[1][k], want[1][k]) for k in want[1]}
+  replay = _replay_value_update(model, got[1])
+  upd_rel = {k: rel(got[2][k], u) for k, u in replay.items()}
+  stat_rel = {k: rel(got[3][k], w) for k, w in want[3].items()}
+  r = {'compute_dtype': str(dtype).split('.')[-1], 'rows': VALUE_CPU_ROWS,
+       'loss_card': got[0], 'loss_cpu': want[0], 'loss_rel_err': loss_err,
+       'max_grad_rel_norm_err': max(grad_rel.values()),
+       'worst_grad': max(grad_rel, key=grad_rel.get),
+       'max_update_rel_err': max(upd_rel.values()),
+       'worst_update': max(upd_rel, key=upd_rel.get),
+       'max_stat_rel_err': max(stat_rel.values()),
+       'worst_stat': max(stat_rel, key=stat_rel.get),
+       'params': sum(u.numel() for u in replay.values()),
+       'launches': launches}
+  ok = (max(upd_rel.values()) <= TRAIN_TOL
+        and all(torch.isfinite(v).all() for v in got[1].values()))
+  if not bf16:
+    ok = ok and max(stat_rel.values()) <= TRAIN_TOL
+    card_masks = _relu_masks_of(card_taps, masks)
+    cpu_masks = _relu_masks_of(cpu_taps, masks)
+    loss64, g64, flips_card = _value_step_f64(model, onehots, targets, masks,
+                                              card_masks)
+    _, g64_cpu, flips_cpu = _value_step_f64(model, onehots, targets, masks,
+                                            cpu_masks)
+    dist = lambda a, b: float(norm(a.double() - b))
+    top = max(float(norm(g)) for g in g64.values())
+    card64 = {k: dist(got[1][k], g) for k, g in g64.items()}
+    cpu64 = {k: dist(want[1][k], g) for k, g in g64_cpu.items()}
+    # each relu's flips: the largest |input| among them over the largest
+    # |input| of the relu
+    edge = max((e / big for _, e, big in flips_card + flips_cpu),
+               default=0.0)
+    rel = lambda d, g: {k: e / max(float(norm(g[k])), F64_FLOOR * top)
+                        for k, e in d.items()}
+    rel64, rel_cpu = rel(card64, g64), rel(cpu64, g64_cpu)
+    bad = [k for k, e in card64.items()
+           if not e <= F64_MULT * cpu64[k]
+           + F64_FLOOR * (float(norm(g64[k])) + top)]
+    bad += [f'{k} (cap)' for k, e in rel64.items()
+            if not e <= max(TRAIN_TOL, F64_MULT * rel_cpu[k])]
+    emit({'phase': 'value_step_f64_leaves',
+          'card_and_cpu_rel_to_f64': {
+              k: [float(f'{rel64[k]:.3g}'), float(f'{rel_cpu[k]:.3g}')]
+              for k in rel64}})
+    r.update(loss_card_vs_f64=abs(got[0] - loss64) / abs(loss64),
+             max_grad_card_vs_f64=max(rel64.values()),
+             worst_grad_card_vs_f64=max(rel64, key=rel64.get),
+             max_grad_cpu_vs_f64=max(rel_cpu.values()),
+             worst_grad_cpu_vs_f64=max(rel_cpu, key=rel_cpu.get),
+             leaves=len(rel64),
+             leaves_card_past_train_tol=sum(e > TRAIN_TOL
+                                            for e in rel64.values()),
+             leaves_cpu_past_train_tol=sum(e > TRAIN_TOL
+                                           for e in rel_cpu.values()),
+             max_ratio_card_to_cpu=max(
+                 card64[k] / max(cpu64[k], 1e-300) for k in card64),
+             relu_flips_card_vs_f64=(sum(c for c, _, _ in flips_card),
+                                     max((e for _, e, _ in flips_card),
+                                         default=0.0)),
+             relu_flips_cpu_vs_f64=(sum(c for c, _, _ in flips_cpu),
+                                    max((e for _, e, _ in flips_cpu),
+                                        default=0.0)),
+             relu_flip_edge=edge, not_close=bad)
+    ok = (ok and loss_err <= TRAIN_TOL and r['loss_card_vs_f64'] <= TRAIN_TOL
+          and not bad and edge <= VALUE_RELU_EDGE)
+  else:
+    grad_noise = {k: rel(want[1][k], f32_cpu[1][k]) for k in want[1]}
+    stat_noise = {k: rel(want[3][k], f32_cpu[3][k]) for k in want[3]}
+    bad = [k for k in grad_rel
+           if not bf16_close(grad_rel[k], grad_noise[k], 1.0)]
+    bad += [k for k in stat_rel
+            if not bf16_close(stat_rel[k], stat_noise[k], 1.0)]
+    # (card bf16, CPU bf16, CPU f32) losses and (card-to-CPU, CPU
+    # bf16-to-f32) prediction distances, by batch seed
+    losses = {5: (got[0], want[0], f32_cpu[0])}
+    preds = {5: (rel(got[4], want[4]), rel(want[4], f32_cpu[4]))}
+    for seed in VALUE_BF16_SEEDS:
+      batch = _value_step_batch(model, torch.Generator().manual_seed(seed),
+                                np.random.default_rng(seed))
+      card, cpu, cpu32 = (_value_forward(model, dev, *batch, dt)
+                          for dev, dt in (('cuda', dtype), ('cpu', dtype),
+                                          ('cpu', torch.float32)))
+      losses[seed] = (card[0], cpu[0], cpu32[0])
+      preds[seed] = (rel(card[1], cpu[1]), rel(cpu[1], cpu32[1]))
+    loss_errs = {s: abs(c - w) / abs(w) for s, (c, w, _) in losses.items()}
+    loss_noises = {s: abs(w - w32) / abs(w)
+                   for s, (_, w, w32) in losses.items()}
+    loss_noise = max(loss_noises.values())
+    bad += [f'loss (batch {s})' for s, e in loss_errs.items()
+            if not bf16_close(e, loss_noise, 1.0)]
+    bad += [f'predictions (batch {s})' for s, (e, n) in preds.items()
+            if not bf16_close(e, n, 1.0)]
+    # the witness: the same step on the card through the plain versions
+    _build.reset_launches()
+    with plain_kernels():
+      plain = _value_step_once(model, 'cuda', onehots, targets, masks, dtype)
+    torch.cuda.synchronize()
+    plain_launches = {k: _build.launches()[k] for k in VALUE_STEP_LAUNCHES}
+    if any(plain_launches.values()):
+      raise AssertionError(f'value step through the plain versions '
+                           f'launched {plain_launches}')
+    witness = {'predictions': rel(got[4], plain[4]),
+               'loss': abs(got[0] - plain[0]) / abs(plain[0])}
+    bad += [f'witness {k}' for k, e in witness.items()
+            if not e <= VALUE_WITNESS_TOL[k]]
+    wit_grad = {k: rel(got[1][k], plain[1][k]) for k in got[1]}
+    bad += [f'witness {k}' for k, e in wit_grad.items()
+            if not bf16_close(e, grad_noise[k], 1.0)]
+    r.update(cpu_bf16_vs_f32_loss=loss_noises[5],
+             loss_card_cpu_cpu32_by_batch=losses,
+             loss_rel_err_by_batch=loss_errs,
+             cpu_bf16_vs_f32_loss_by_batch=loss_noises,
+             loss_noise=loss_noise,
+             pred_rel_err=preds[5][0], cpu_bf16_vs_f32_pred_rel=preds[5][1],
+             pred_rel_err_and_noise_by_batch=preds,
+             cpu_bf16_vs_f32_max_grad_rel=max(grad_noise.values()),
+             witness_pred_rel=witness['predictions'],
+             witness_loss_rel=witness['loss'],
+             witness_max_grad_rel=max(wit_grad.values()),
+             witness_worst_grad=max(wit_grad, key=wit_grad.get),
+             not_close=bad)
+    ok = ok and not bad
+  if not ok:
+    raise AssertionError(f'value step card vs cpu: {r}')
+  return r, want
+
+
+def profile_value_steps(diffusion_ckpt: str, oracle: str) -> list:
+  """Traced steps (``trace_step``, after a warm-up): one MC grad step of
+  the full-width value net on a fixed trajectory (1024 states), f32 and
+  under the bf16 switches; one CD-Q iteration (trajectory and grad step),
+  f32; one step of the full-width oracle trainer (batch 64), f32. Each
+  with its peak memory."""
+  import torch
+  from svdd_tpu_torch.cli import train_oracle
+  from svdd_tpu_torch.data.gosai import FaultTolerantIterator, GosaiDataset
+  from svdd_tpu_torch.models.blocks import DropoutMasks
+  out = []
+
+  def traced(algo, once, **extra):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = trace_step(once)
+    out.append({'algo': algo, **extra, **r,
+                'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30})
+
+  for bf16 in (False, True):
+    with bf16_switches(bf16):
+      trainer, seed = _value_trainer(diffusion_ckpt, oracle)
+    state = trainer.init_state(seed)
+    samples, mid_x, _ = trainer.trajectory()
+
+    def once():
+      trainer.grad_step(state, samples, mid_x)
+      torch.cuda.synchronize()
+
+    traced('value_mc_step_bf16' if bf16 else 'value_mc_step', once,
+           rows=samples.shape[0] * (mid_x.shape[0] + 1))
+    del trainer, state
+    torch.cuda.empty_cache()
+  trainer, seed = _value_trainer(diffusion_ckpt, oracle, cdq=True)
+  state = trainer.init_state(seed)
+
+  def cdq_once():
+    trainer.train_step(state)
+    torch.cuda.synchronize()
+
+  traced('value_cdq_iteration', cdq_once, rows=VALUE_BATCH * 128)
+  del trainer, state
+  torch.cuda.empty_cache()
+  dev = torch.device('cuda')
+  module = train_oracle.build_module(False,
+                                     torch.Generator(dev).manual_seed(0))
+  opt = train_oracle.make_optimizer(module, 1e-3)
+  train = GosaiDataset('train', data_dir=_no_data_dir())
+  batch = next(iter(FaultTolerantIterator(train, ORACLE_BATCH)))
+  seqs = torch.as_tensor(batch['seqs'], device=dev).long()
+  labels = torch.as_tensor(batch['clss'], device=dev)
+  gen = torch.Generator(dev).manual_seed(1)
+
+  def oracle_once():
+    train_oracle.train_step(module, opt, seqs, labels,
+                            DropoutMasks(generator=gen))
+    torch.cuda.synchronize()
+
+  traced('oracle_step', oracle_once, rows=ORACLE_BATCH)
+  return out
+
+
+def value_phase(diffusion_ckpt: str) -> dict:
+  """Phase 5's value-net and oracle training, each part emitting its
+  line: the oracle trainer (full width and --small), cli.train (MC f32,
+  MC under the bf16 switches, CD-Q f32) chained through the pretraining
+  run's and the oracle's checkpoints, cli.eval on the MC value net,
+  determinism and resume, and the 8-row step against the CPU (f32, then
+  bf16). Returns the launch counts of its runs of the main path."""
+  import torch
+  root = _value_dir('value')
+  runs = {}
+
+  def done(r, phase='value_train'):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': phase, **r})
+    if 'launches' in r and 'run' in r:
+      runs[r['run']] = {'launches': r['launches']}
+    return r
+
+  oracle = done(run_train_oracle(root, False))['path']
+  done(run_train_oracle(root, True))
+  value_path = None
+  for name, kw in (('value_mc', {}), ('value_mc_bf16', {'bf16': True}),
+                   ('value_cdq', {'cdq': True})):
+    r = done(run_value_train(root, name, diffusion_ckpt, oracle, **kw))
+    # the trainer states (2.6 GB each at full width) are not read again
+    os.remove(r['state_path'])
+    value_path = value_path or r['save_path']
+  done(run_value_eval(root, diffusion_ckpt, oracle, value_path))
+  done(check_value_determinism(root, diffusion_ckpt, oracle),
+       'value_determinism')
+  ref = None
+  for _ in range(2):
+    r, ref = check_value_step(ref)
+    done(r, 'value_step_vs_cpu')
+  for prof in profile_value_steps(diffusion_ckpt, oracle):
+    done(prof, 'profile')
+  return runs
 
 
 def kernel_checks() -> list:
@@ -3120,7 +4010,9 @@ def main() -> None:
     emit({'phase': 'decode', **decodes[name]})
   runs.update(decodes)
 
-  runs.update(train_phase())
+  train_runs, diffusion_ckpt = train_phase()
+  runs.update(train_runs)
+  runs.update(value_phase(diffusion_ckpt))
 
   for algo, bf16 in ([(a, False) for a in PATH_KERNELS]
                      + [(a, True) for a in GUIDED]):
@@ -3160,7 +4052,8 @@ def main() -> None:
                                       'max_abs_err_points', 'off_gate',
                                       'achieved_tb_s', 'classifier_pools',
                                       'classifier_n512', 'plain_median_ms',
-                                      'library_median_ms', 'n5120')
+                                      'library_median_ms', 'n5120',
+                                      'train_rows')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -3170,7 +4063,8 @@ def main() -> None:
       if bf.get('library_ms') is not None:
         entry['library_ms_bf16'] = bf['library_ms']
       for k in ('median_ms', 'achieved_tb_s', 'classifier_pools',
-                'classifier_n512', 'max_abs_err_points', 'n5120'):
+                'classifier_n512', 'max_abs_err_points', 'n5120',
+                'train_rows'):
         if k in bf:
           entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:

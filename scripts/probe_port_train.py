@@ -36,7 +36,7 @@ def main() -> None:
   torch.backends.cudnn.allow_tf32 = False
   smi = smoke.nvidia_smi()
   smoke.emit({'phase': 'build', 'nvcc_build_s': _build.build()})
-  runs = smoke.train_phase()
+  runs, _ = smoke.train_phase()
   smoke.emit({'phase': 'launches', **{k: v['launches'] for k, v in
                                       runs.items()}})
   if not args.no_profile:

@@ -45,7 +45,8 @@ def run(bf16: bool, cudnn_backward: bool, deterministic: bool) -> None:
   from svdd_tpu_torch.train import diffusion as train_diff
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(
       ['--set', *smoke.TRAIN_SET]))
-  batch = next(iter(gosai.get_dataloaders(cfg, skip_valid=True)[0]))
+  batch = next(iter(gosai.get_dataloaders(
+      cfg, skip_valid=True, data_dir=smoke._no_data_dir())[0]))
   saved = cnn.conv1d_deterministic
   if cudnn_backward:
     cnn.conv1d_deterministic = conv1d.conv1d_shifted

@@ -1,11 +1,18 @@
-"""Shared decode-CLI scaffold (``svdd_tpu/cli/common.py``): the same
-flag surface, plus ``--device``, the model builders and the run tail
-that writes the npz and one JSONL metrics row.
+"""Shared CLI scaffold (``svdd_tpu/cli/common.py``): the same flag
+surface, plus ``--device``, the model loaders and the run tail that
+writes the npz and one JSONL metrics row.
 
-Checkpoint loading is not ported yet: every checkpoint flag raises
-``NotImplementedError``, and the models take random weights drawn from
-``--seed`` (diffusion), seed 1 (value net) and the synthetic motif
-oracle, as the JAX CLI does without checkpoint flags.
+The checkpoint flags read the port's own files:
+``--diffusion_checkpoint_path`` a pretraining checkpoint of
+``main_gosai --mode train`` (a ``step_<n>.pt``, or its ``--ckpt_dir``),
+whose EMA weights the denoiser takes; ``--reward_checkpoint_path`` a
+``cli.train_oracle --save_path`` file, the Enformer reward oracle;
+``--load_checkpoint_path`` and ``--pre_model_path`` a ``cli.train
+--save_path`` file, the value net. Any other file (a reference ``.pt``,
+an orbax directory) raises ``NotImplementedError`` naming ROADMAP A17.
+Without them the models take random weights drawn from the config's
+seed (diffusion) and seed 1 (value net), and the reward is the synthetic
+motif oracle, as the JAX CLI does without checkpoint flags.
 """
 
 from __future__ import annotations
@@ -23,12 +30,13 @@ import torch
 from svdd_tpu_torch import rewards, value as value_lib
 from svdd_tpu_torch.config import Config, dna_config
 from svdd_tpu_torch.diffusion import Diffusion
+from svdd_tpu_torch.train import diffusion as train_diff
 
 LOGGER = logging.getLogger(__name__)
 
-CHECKPOINT_FLAGS = ('load_checkpoint_path', 'pre_model_path',
-                    'diffusion_checkpoint_path', 'reward_checkpoint_path',
-                    'saluki_body_path', 'saluki_body')
+VALUE_CHECKPOINT_FLAGS = ('load_checkpoint_path', 'pre_model_path',
+                          'reward_checkpoint_path')
+SALUKI_FLAGS = ('saluki_body_path', 'saluki_body')
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -88,13 +96,39 @@ def reject_saluki(args, cli_name: str) -> None:
         'decode.py (SVDD-MC) or decode_tweedie.py (SVDD-PM)')
 
 
+def diffusion_checkpoint(path: str) -> str:
+  """The port's pretraining checkpoint at ``path``: the file itself, or
+  the newest ``step_<n>.pt`` of a directory (at its top, else under
+  ``best/``). Any other file or directory raises naming A17."""
+  found = train_diff.checkpoint_file(path)
+  ckpt = None
+  if found is not None:
+    try:
+      ckpt = torch.load(found, map_location='cpu', weights_only=True,
+                        mmap=True)
+    except Exception:   # not a torch file, or pickled objects
+      ckpt = None
+  if not isinstance(ckpt, dict) or ckpt.get('format') != train_diff.FORMAT:
+    raise NotImplementedError(
+        f'--diffusion_checkpoint_path {path}: not a pretraining checkpoint '
+        f'of this package ({train_diff.FORMAT}); reading the reference '
+        '.pt layouts and orbax checkpoints is not ported yet (ROADMAP A17)')
+  return found
+
+
 def reject_unported(args) -> None:
-  """Raise for flags whose machinery is not ported yet."""
-  for name in CHECKPOINT_FLAGS:
+  """Raise for flags whose machinery is not ported yet, and for
+  checkpoint files this package did not write (before any model is
+  built)."""
+  for name in SALUKI_FLAGS:
     if getattr(args, name, None):
-      raise NotImplementedError(
-          f'--{name}: checkpoint loading is not ported to svdd_tpu_torch '
-          'yet; run without it for random weights')
+      raise NotImplementedError(f'--{name}: the RNA saluki task is not '
+                                'ported yet (ROADMAP A10)')
+  for name in VALUE_CHECKPOINT_FLAGS:
+    if getattr(args, name, None):
+      value_lib.load_checkpoint(getattr(args, name), mmap=True)
+  if getattr(args, 'diffusion_checkpoint_path', None):
+    diffusion_checkpoint(args.diffusion_checkpoint_path)
   if args.task != 'dna':
     raise NotImplementedError(f'--task {args.task}: only dna is ported')
   if args.dist:
@@ -112,12 +146,30 @@ def task_config(args) -> Config:
 
 
 def load_diffusion(args, cfg: Config) -> Diffusion:
-  LOGGER.warning('no --diffusion_checkpoint_path: using randomly '
-                 'initialized diffusion model')
-  return Diffusion(cfg, device=args.device)
+  """The denoiser: the EMA weights of ``--diffusion_checkpoint_path``, or
+  random ones."""
+  model = Diffusion(cfg, device=args.device)
+  path = getattr(args, 'diffusion_checkpoint_path', None)
+  if path:
+    train_diff.load_ema_weights(model, diffusion_checkpoint(path))
+    LOGGER.info('loaded diffusion checkpoint %s', path)
+  else:
+    LOGGER.warning('no --diffusion_checkpoint_path: using randomly '
+                   'initialized diffusion model')
+  return model
 
 
 def load_reward_fn(args, cfg: Config):
+  """The Enformer oracle of ``--reward_checkpoint_path`` (float32, task 0
+  read), or the synthetic motif oracle."""
+  path = getattr(args, 'reward_checkpoint_path', None)
+  if path:
+    ckpt = value_lib.load_checkpoint(path)
+    gen = torch.Generator(torch.device(args.device)).manual_seed(0)
+    oracle = rewards.RewardOracle.create_dna(gen, **ckpt['config'])
+    oracle.module.load_state_dict(ckpt['model'])
+    LOGGER.info('loaded reward oracle %s', path)
+    return oracle
   LOGGER.warning('no --reward_checkpoint_path: using synthetic motif '
                  'oracle')
   return rewards.synthetic_motif_oracle(cfg.model.length)
@@ -125,9 +177,20 @@ def load_reward_fn(args, cfg: Config):
 
 def load_value_function(args, cfg: Config,
                         **module_kwargs) -> value_lib.ValueFunction:
+  """The value net of ``--load_checkpoint_path`` (or ``--pre_model_path``),
+  at the checkpoint's widths, or a random one of ``module_kwargs``'s
+  widths (the full width by default)."""
+  gen = torch.Generator(torch.device(args.device)).manual_seed(1)
+  path = args.load_checkpoint_path or args.pre_model_path
+  if path:
+    ckpt = value_lib.load_checkpoint(path)
+    vf = value_lib.ValueFunction.create(args.task, cfg.model.length, gen,
+                                        model=args.model, **ckpt['config'])
+    vf.module.load_state_dict(ckpt['model'])
+    LOGGER.info('loaded value net %s', path)
+    return vf
   LOGGER.warning('no --load_checkpoint_path: value net is randomly '
                  'initialized')
-  gen = torch.Generator(torch.device(args.device)).manual_seed(1)
   return value_lib.ValueFunction.create(
       args.task, cfg.model.length, gen, model=args.model,
       n_tasks=args.n_task, **module_kwargs)

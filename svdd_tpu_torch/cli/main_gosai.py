@@ -139,11 +139,8 @@ def _restored(cfg: Config, args, backbone) -> Diffusion:
   ``--ckpt_dir`` where there is one."""
   model = Diffusion(cfg, device=args.device, backbone=backbone)
   if args.ckpt_dir and train_diff.has_checkpoint(args.ckpt_dir):
-    state = train_diff.restore_checkpoint(
-        args.ckpt_dir, train_diff.init_state(model, cfg))
-    with torch.no_grad():
-      for name, p in model.backbone.named_parameters():
-        p.copy_(state.ema.shadow[name])
+    train_diff.load_ema_weights(model,
+                                train_diff.checkpoint_file(args.ckpt_dir))
   elif args.ckpt_dir:
     LOGGER.warning('no checkpoint under --ckpt_dir %s: a randomly '
                    'initialized model', args.ckpt_dir)
@@ -226,7 +223,8 @@ def parser() -> argparse.ArgumentParser:
                       'weights; a directory holding other files raises')
   p.add_argument('--data_dir', default=None,
                  help='directory of gosai_{train,val,test}.csv (default '
-                      '$SVDD_DATA_DIR; the synthetic split without one)')
+                      '$SVDD_DATA_DIR, else /data/svdd; the synthetic '
+                      'split without one)')
   p.add_argument('--max_steps', type=int, default=None,
                  help='training steps of this run (optim.max_steps)')
   p.add_argument('--shard_data', action='store_true', default=False,

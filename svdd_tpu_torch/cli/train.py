@@ -1,0 +1,134 @@
+"""Value-net training CLI, MC and CD-Q (``svdd_tpu/cli/train.py``).
+
+  python -m svdd_tpu_torch.cli.train --task dna --batch_size 8 \
+      --max_iters 1000 --diffusion_checkpoint_path ckpt/step_40.pt \
+      --reward_checkpoint_path oracle.pt --save_path value.pt
+
+Trains the Enformer value net (``--model enformer``) against the frozen
+denoiser of ``--diffusion_checkpoint_path`` (the EMA weights of a
+``main_gosai --mode train`` checkpoint) with the targets of
+``--reward_checkpoint_path``'s oracle (``cli.train_oracle --save_path``;
+the synthetic motif oracle without it): MC targets, or CD-Q with
+``--cdq``. Every ``--eval_every`` iterations it logs the per-timestep
+MSE and Pearson correlation on ``--val_batch_num`` pre-sampled
+trajectories to ``{out_dir}/{run_name}.metrics.jsonl`` and writes
+``--save_path`` (the value net, which ``--load_checkpoint_path`` of the
+decoders and ``cli.eval`` read) and ``--save_state_path`` (the trainer
+state, which ``--resume_state_path`` resumes). The value net computes
+in bf16 under SVDD_VALUE_BF16=1 and the denoiser under SVDD_CNN_BF16=1;
+otherwise in f32 with TF32 off. ``--batch_size`` keeps JAX's default of
+256, whose MC step regresses 128 x 256 states: pass a small one.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from svdd_tpu_torch import value as value_lib
+from svdd_tpu_torch.cli import common
+from svdd_tpu_torch.observability import MetricsLogger
+from svdd_tpu_torch.train import value as train_val
+
+LOGGER = logging.getLogger(__name__)
+
+
+def _reject(args) -> None:
+  if args.model == 'multienformer':
+    raise NotImplementedError('--model multienformer: the multisep value '
+                              'model and its trainer are not ported yet '
+                              '(ROADMAP A11)')
+  if args.dist or args.fsdp:
+    raise NotImplementedError('--dist / --fsdp: the parallel paths are not '
+                              'ported yet (ROADMAP A16)')
+  if args.task != 'dna':
+    raise NotImplementedError(f'--task {args.task}: the RNA task is not '
+                              'ported yet (ROADMAP A10)')
+  common.reject_unported(args)
+
+
+def run(args, cfg=None, value_kwargs=None) -> dict:
+  """Train. ``cfg`` and ``value_kwargs`` (EnformerValueModel arguments)
+  replace the full-size DNA models, for tests. Returns the trainer, its
+  final state and the metrics file's path."""
+  _reject(args)
+  common.full_f32()
+  cfg = cfg or common.task_config(args)
+  diffusion = common.load_diffusion(args, cfg)
+  reward_fn = common.load_reward_fn(args, cfg)
+  vf = common.load_value_function(args, cfg, **(value_kwargs or {}))
+  tcfg = train_val.ValueTrainerConfig(
+      learning_rate=args.learning_rate, grad_norm_clip=args.grad_norm_clip,
+      max_iter=args.max_iters, cdq=args.cdq, batch_size=args.batch_size,
+      lr_decay=args.lr_decay)
+  trainer = train_val.ValueTrainer(diffusion, vf, reward_fn, tcfg)
+  if args.resume_state_path:
+    state = trainer.restore_state(args.resume_state_path, args.seed)
+    LOGGER.info('resumed trainer state at step %d (tokens %.3g)',
+                state.step, state.tokens)
+  else:
+    state = trainer.init_state(args.seed)
+
+  eval_batches = eval_targets = None
+  if args.val_batch_num > 0:
+    gen = torch.Generator(diffusion.device).manual_seed(args.seed + 1)
+    eval_batches, eval_targets = train_val.build_eval_timestep_batches(
+        diffusion, reward_fn, args.batch_size, args.val_batch_num, gen)
+
+  logger = MetricsLogger(log_dir=args.out_dir, run_name=args.run_name or
+                         f'{args.task}-{args.reward_name}-valuetrain')
+  iters_done = 0
+  try:
+    while iters_done < tcfg.max_iter:
+      chunk = min(args.eval_every, tcfg.max_iter - iters_done)
+      state = trainer.train(state, chunk)
+      iters_done += chunk
+      if eval_batches is not None:
+        losses, pearsons = trainer.evaluate_seq_step(state, eval_batches,
+                                                     eval_targets)
+        mid = len(losses) // 2
+        LOGGER.info('it %d per-timestep MSE head/mid/tail: %.4f / %.4f / '
+                    '%.4f  pearson: %.3f / %.3f / %.3f', iters_done,
+                    losses[0], losses[mid], losses[-1], pearsons[0],
+                    pearsons[mid], pearsons[-1])
+        logger.log({'eval/mse_head': losses[0], 'eval/mse_mid': losses[mid],
+                    'eval/mse_tail': losses[-1],
+                    'eval/pearson_head': pearsons[0],
+                    'eval/pearson_mid': pearsons[mid],
+                    'eval/pearson_tail': pearsons[-1]}, step=iters_done)
+      if args.save_path:
+        value_lib.save_checkpoint(args.save_path, state.module)
+        LOGGER.info('saved value net to %s', args.save_path)
+      if args.save_state_path:
+        trainer.save_state(args.save_state_path, state)
+        LOGGER.info('saved full trainer state to %s', args.save_state_path)
+  finally:
+    logger.finish()
+  return {'trainer': trainer, 'state': state, 'metrics_path': logger.path}
+
+
+def parser():
+  p = common.make_parser('value-network training (MC / CD-Q)')
+  p.add_argument('--max_iters', type=int, default=50_000)
+  p.add_argument('--learning_rate', type=float, default=2e-4)
+  p.add_argument('--grad_norm_clip', type=float, default=1.0)
+  p.add_argument('--lr_decay', action='store_true', default=False)
+  p.add_argument('--eval_every', type=int, default=200)
+  p.add_argument('--save_path', type=str, default=None)
+  p.add_argument('--save_state_path', type=str, default=None,
+                 help='full trainer state (value net, optimizer, token '
+                      'counter, generator) for exact resume')
+  p.add_argument('--resume_state_path', type=str, default=None)
+  p.add_argument('--fsdp', action='store_true', default=False,
+                 help='not ported (ROADMAP A16)')
+  return p
+
+
+def main() -> None:
+  logging.basicConfig(level=logging.INFO)
+  run(parser().parse_args())
+
+
+if __name__ == '__main__':
+  main()

@@ -13,9 +13,10 @@ detokenizer maps ids 0-3 to 'A', 'C', 'G', 'T' and every other id to
 'N'. The sample_eval CLI logs its samples, DNA or text tokens alike,
 through it.
 
-The CSVs are ``gosai_{split}.csv`` under ``data_dir``, or under the
-``SVDD_DATA_DIR`` environment variable; with neither, or no file, the
-split is synthetic. One process reads the whole split: the row-sharded
+The CSVs are ``gosai_{split}.csv`` under ``data_dir``, or under
+``DATA_DIR``: the ``SVDD_DATA_DIR`` environment variable, else
+``/data/svdd``, as the JAX package's module constant; with no file there
+the split is synthetic. One process reads the whole split: the row-sharded
 reads of the JAX package's multi-host jobs belong to the parallel paths
 (ROADMAP A16).
 """
@@ -36,6 +37,7 @@ for _i, _ch in enumerate('ACGT'):
   _LUT[ord(_ch)] = _LUT[ord(_ch.lower())] = _i
 CLASS_COLUMNS = ('hepg2', 'k562', 'sknsh')
 SYNTHETIC_SIZES = {'train': 4096, 'val': 512, 'test': 512}
+DATA_DIR = os.environ.get('SVDD_DATA_DIR', '/data/svdd')
 _FLOAT_PREFIX = re.compile(
     r'\s*[+-]?(?:inf(?:inity)?|nan|(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?)',
     re.IGNORECASE)
@@ -113,9 +115,8 @@ class GosaiDataset:
   def __init__(self, split: str = 'train', length: int = 200,
                data_dir: Optional[str] = None,
                synthetic_size: Optional[int] = None):
-    data_dir = data_dir or os.environ.get('SVDD_DATA_DIR')
-    path = data_dir and os.path.join(data_dir, f'gosai_{split}.csv')
-    if path and os.path.exists(path):
+    path = os.path.join(data_dir or DATA_DIR, f'gosai_{split}.csv')
+    if os.path.exists(path):
       self.seqs, self.clss = read_gosai_csv(path, length)
       self.synthetic = False
     else:

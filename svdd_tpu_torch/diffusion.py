@@ -1,7 +1,8 @@
 """The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT
 or DiMamba) + schedule + SUBS parameterization + the unguided (ddpm,
 ddpm_cache), SVDD-MC (with scheduled M), SVDD-PM (Tweedie), TDS, DPS and
-classifier-guidance samplers, and the CNN denoiser's training loss.
+classifier-guidance samplers, the CD-Q trajectory sampler of value-net
+training, and the CNN denoiser's training loss.
 
 The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
 the gradient-guided ones); ``loss`` runs under autograd, and with
@@ -139,7 +140,8 @@ class Diffusion:
 
   def _reverse(self, step_fn, batch_size: int, num_steps, eps: float,
                grad_steps: bool = False, aux_init=None,
-               removal_from_aux: bool = False):
+               removal_from_aux: bool = False, collect_mid: bool = False,
+               collect_aux: bool = False):
     cfg = self.config
     return S.reverse_process(
         step_fn, self.forward, self.schedule, batch_size=batch_size,
@@ -147,7 +149,8 @@ class Diffusion:
         num_steps=num_steps or cfg.sampling.steps, eps=eps,
         noise_removal=cfg.sampling.noise_removal, device=self.device,
         grad_steps=grad_steps, aux_init=aux_init,
-        removal_from_aux=removal_from_aux)
+        removal_from_aux=removal_from_aux, collect_mid=collect_mid,
+        collect_aux=collect_aux)
 
   @staticmethod
   def _phased(make_step, sample_M: int, m_schedule):
@@ -158,18 +161,32 @@ class Diffusion:
     return [(make_step(int(m)), int(n)) for n, m in m_schedule]
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
-              eps: float = 1e-5):
+              eps: float = 1e-5, collect_mid: bool = False):
     """Uncontrolled sampler, ``sampling.predictor`` 'ddpm' or
-    'ddpm_cache': generator -> SampleResult."""
+    'ddpm_cache': generator -> SampleResult; ``collect_mid`` fills its
+    ``mid_x`` (the value-net trainer's states)."""
     pred = self.config.sampling.predictor
     if pred == 'ddpm':
       step = S.ddpm_step(self.forward, self.schedule, self.mask_index)
-      return self._reverse(step, batch_size, num_steps, eps)
+      return self._reverse(step, batch_size, num_steps, eps,
+                           collect_mid=collect_mid)
     if pred == 'ddpm_cache':
       step = S.ddpm_cache_step(self.forward, self.schedule, self.mask_index)
       return self._reverse(step, batch_size, num_steps, eps,
-                           aux_init=(None, False))
+                           aux_init=(None, False), collect_mid=collect_mid)
     raise NotImplementedError(f'predictor {pred!r} is not ported yet')
+
+  def cdq_sampler(self, batch_size: int, *, repeats: int = 10,
+                  num_steps: int | None = None, eps: float = 1e-5):
+    """CD-Q trajectory collection (``svdd_tpu/diffusion.py:335-353``):
+    generator -> SampleResult whose ``extra`` stacks every step's
+    candidates (steps, B, repeats, L) and whose ``mid_x`` the
+    trajectory's states."""
+    step = G.cdq_step(self.forward, self.schedule, self.mask_index, repeats)
+    aux_init = torch.zeros((batch_size, repeats, self.config.model.length),
+                           dtype=torch.long, device=self.device)
+    return self._reverse(step, batch_size, num_steps, eps, aux_init=aux_init,
+                         collect_mid=True, collect_aux=True)
 
   def controlled_sampler(self, value_fn, batch_size: int, *,
                          sample_M: int = 10,

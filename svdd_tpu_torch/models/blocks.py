@@ -1,7 +1,7 @@
 """Value-net building blocks (``svdd_tpu/models/blocks.py``): Dense,
-LayerNorm, eval BatchNorm, the pairwise attention pool, max and average
-pools, ChannelTransform, Stem, the ConvBlock in any op order, the FFN
-and the ConvHead.
+LayerNorm, BatchNorm (eval and training), dropout, the pairwise
+attention pool, max and average pools, ChannelTransform, Stem, the
+ConvBlock in any op order, the FFN and the ConvHead.
 
 Channel-last (N, L, C). Random initialisation follows flax's defaults
 (lecun-normal kernels, zero biases, unit norms, 2*I pool logits), so a
@@ -19,6 +19,13 @@ conv (``conv1d_shifted``), then the pool with the residual absorbed
 (``attn_pool``, or ``attn_pool_fused`` off the grid); the tower selects
 it with ``fused=False``. Basenji's dilation-1 NACDR convs take the
 NACDR eval fast path (``ops/conv1d.py:conv1d_prologue``).
+
+Training (``train=True``) is flax's ``apply(train=True,
+mutable=['batch_stats'])``: BatchNorm normalises by the batch's
+statistics and moves its running averages, dropout is live with masks
+from a ``DropoutMasks``, and a ConvBlock runs its ops in order (the
+plain differentiable form; JAX gates its eval fast paths on ``not
+train``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -105,9 +113,62 @@ class LayerNorm(nn.Module):
             + self.bias.to(dt))
 
 
+class DropoutMasks:
+  """The dropout masks of one training forward, in the order the dropouts
+  are called: drawn from ``generator`` (a ``torch.Generator`` on the
+  activations' device; a position is kept where a uniform is below the
+  keep rate, as ``jax.random.bernoulli``), or, given ``masks``, taken
+  from that list of boolean arrays (the tests inject JAX's)."""
+
+  def __init__(self, generator: Optional[torch.Generator] = None,
+               masks=None):
+    if (generator is None) == (masks is None):
+      raise ValueError('DropoutMasks takes a generator or a list of masks')
+    self.generator = generator
+    self.masks = None if masks is None else list(masks)
+    self.calls = 0
+
+  def __call__(self, shape, keep: float, device) -> torch.Tensor:
+    if self.masks is not None:
+      mask = torch.as_tensor(np.asarray(self.masks[self.calls], bool),
+                             device=device)
+      if tuple(mask.shape) != tuple(shape):
+        raise ValueError(f'dropout mask {self.calls}: {tuple(mask.shape)} '
+                         f'for activations {tuple(shape)}')
+    else:
+      mask = torch.rand(shape, generator=self.generator, device=device) < keep
+    self.calls += 1
+    return mask
+
+
+def dropout(x: torch.Tensor, rate: float,
+            masks: Optional[DropoutMasks]) -> torch.Tensor:
+  """flax ``nn.Dropout`` in training: select(mask, x / keep, 0), keep =
+  1 - rate rounded to x's dtype as JAX rounds a Python float operand (a
+  division, not a product with 1 / keep: the two round differently).
+  Inert at rate 0 (no mask is drawn, as flax returns the input) and
+  without ``masks`` (eval)."""
+  if rate == 0.0 or masks is None:
+    return x
+  keep = 1.0 - rate
+  mask = masks(x.shape, keep, x.device)
+  kept = x / float(torch.tensor(keep, dtype=x.dtype))
+  return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+
+
 class BatchNorm(nn.Module):
-  """Eval-mode BatchNorm over channels (flax ``nn.BatchNorm`` with
-  ``use_running_average``): a per-channel affine."""
+  """BatchNorm over channels, flax's ``nn.BatchNorm`` (epsilon 1e-5,
+  momentum 0.9). Eval (``use_running_average``): a per-channel affine of
+  the running statistics. Training: the batch's statistics over every
+  axis but the last, in f32, the variance flax's fast form E[x^2] -
+  E[x]^2 clipped at 0 (biased), the normalisation in flax's order
+  (``_normalize``) rounded once to x's dtype, and the running averages
+  moved in place as ra <- 0.9 ra + 0.1 stat (not
+  ``F.batch_norm(training=True)``, which moves the variance by the
+  unbiased estimate with the opposite momentum)."""
+
+  momentum = 0.9
 
   def __init__(self, dim: int, device=None, eps: float = 1e-5):
     super().__init__()
@@ -142,12 +203,27 @@ class BatchNorm(nn.Module):
     mul = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
     return (x32 - self.mean.float()) * mul + self.bias.float()
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    """bf16 in flax's order, rounded once; f32 as ``affine()``."""
+  def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """Eval: bf16 in flax's order, rounded once; f32 as ``affine()``.
+    ``train``: ``_train``."""
+    if train:
+      return self._train(x)
     if x.dtype == torch.bfloat16:
       return self._flax_norm(x.float()).to(x.dtype)
     scale, shift = self.affine()
     return (x.float() * scale + shift).to(x.dtype)
+
+  def _train(self, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    dims = tuple(range(x.ndim - 1))
+    mean = x32.mean(dims)
+    var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+    with torch.no_grad():
+      m = self.momentum
+      self.mean.copy_(m * self.mean + (1 - m) * mean)
+      self.var.copy_(m * self.var + (1 - m) * var)
+    mul = torch.rsqrt(var + self.eps) * self.scale.float()
+    return ((x32 - mean) * mul + self.bias.float()).to(x.dtype)
 
 
 def defers_bias(dtype: torch.dtype) -> bool:
@@ -313,7 +389,8 @@ class ConvBlock(nn.Module):
     norm, activation and conv run through ``conv1d_prologue`` (kernel
     B11c and one product, or kernel B14);
   * otherwise the ops in order (``fused=False`` is the JAX package's
-    ``unfused_guard``, the form a gradient takes).
+    ``unfused_guard``, the form a gradient takes; ``train`` takes it too,
+    with the norm on the batch's statistics and ``dropout`` live).
   ``defer_pool`` hands this block's attention pool to the next block as
   a handoff; a trailing residual (order ending in R) with an attention
   pool rides into the pool."""
@@ -323,7 +400,8 @@ class ConvBlock(nn.Module):
                dilation: int = 1, act_func: Optional[str] = 'relu',
                pool_func: Optional[str] = None,
                pool_size: Optional[int] = None, norm: bool = True,
-               residual: bool = False, order: str = 'CDNRA'):
+               residual: bool = False, order: str = 'CDNRA',
+               dropout: float = 0.0):
     super().__init__()
     if sorted(order) != list('ACDNR'):
       raise ValueError(f'ConvBlock order {order!r}')
@@ -331,6 +409,7 @@ class ConvBlock(nn.Module):
       raise NotImplementedError('attention pooling takes pool_size 2')
     dev = generator.device
     self.dilation, self.act_func, self.order = dilation, act_func, order
+    self.dropout = dropout
     self.pool_func, self.pool_size = pool_func, pool_size
     self.residual = residual
     norm_dim = (in_channels if order.index('N') < order.index('C')
@@ -386,9 +465,14 @@ class ConvBlock(nn.Module):
                      out_bias=self.bias.float() + b_in)
 
   def forward(self, x, defer_pool: bool = False, fused: bool = True,
-              lnc: bool = False):
+              lnc: bool = False, train: bool = False,
+              masks: Optional[DropoutMasks] = None):
     """``lnc``: this block's attention pool is in the L-major eval tower
-    (``AttentionPool.forward``)."""
+    (``AttentionPool.forward``). ``train``: the ops in order, BatchNorm
+    on the batch (moving its running averages) and dropout from
+    ``masks``."""
+    if train:
+      return self._ops(x, train, masks)
     k_taps = self.kernel.shape[0]
     nacdr_fast = (self.order == 'NACDR' and self.norm is not None
                   and self.dilation == 1 and k_taps > 1)
@@ -413,20 +497,29 @@ class ConvBlock(nn.Module):
       if defers_bias(out.dtype):
         return PendingBias(out, self.bias.float())
       return out + self.bias.to(cols.dtype)
-    x_input = self._residual_input(x)
     if fused and nacdr_fast:
+      x_input = self._residual_input(x)
       scale, shift = self.norm.probe_affine(x.dtype)
       y = conv1d_prologue(x, self.kernel, self.bias, scale, shift,
                           self.act_func)
       if self.residual and not self._defer_residual():
         y, x_input = y + x_input, None
       return self._pool(y, x_input, defer_pool, lnc)
+    return self._ops(x, False, None, defer_pool, lnc)
+
+  def _ops(self, x, train: bool, masks, defer_pool: bool = False,
+           lnc: bool = False):
+    """The ops in the order of ``order`` (the JAX block's generic loop,
+    ``blocks.py:497-520``), then the pool."""
+    x_input = self._residual_input(x)
     pending = None
     for op in self.order:
       if op == 'C':
         x = self._conv(x)
+      elif op == 'D':
+        x = dropout(x, self.dropout, masks)
       elif op == 'N' and self.norm is not None:
-        x = self.norm(x)
+        x = self.norm(x, train)
       elif op == 'R' and self.residual:
         if self._defer_residual():
           pending = x_input
@@ -438,16 +531,20 @@ class ConvBlock(nn.Module):
 
 
 class FeedForwardBlock(nn.Module):
-  """LN -> Dense(2C) -> relu -> Dense(C)."""
+  """LN -> Dense(2C) -> dropout -> relu -> Dense(C) -> dropout (two flax
+  ``LinearBlock``s); the dropouts live only given ``masks`` (training)."""
 
-  def __init__(self, dim: int, generator: torch.Generator):
+  def __init__(self, dim: int, generator: torch.Generator,
+               dropout: float = 0.0):
     super().__init__()
+    self.dropout = dropout
     self.norm = LayerNorm(dim, generator.device)
     self.up = Dense(dim, 2 * dim, generator)
     self.down = Dense(2 * dim, dim, generator)
 
-  def forward(self, x):
-    return self.down(torch.relu(self.up(self.norm(x))))
+  def forward(self, x, masks: Optional[DropoutMasks] = None):
+    h = torch.relu(dropout(self.up(self.norm(x)), self.dropout, masks))
+    return dropout(self.down(h), self.dropout, masks)
 
 
 class ConvHead(nn.Module):

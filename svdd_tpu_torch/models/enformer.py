@@ -12,6 +12,18 @@ tower pools 200 -> 100 -> 50 -> 25 -> 13 -> 7 -> 4 -> 2, so the
 transformer stack runs at length 2, where the attention goes through
 the L=2 kernel (``ops/attn_l2.py``); other lengths take the general
 relative-position attention in plain torch.
+
+``train=True`` is the JAX module's ``apply(train=True,
+mutable=['batch_stats'])``: the tower's blocks in their plain form (the
+k=5 convs' backward on kernel B7, the pools on B4 forward and B8
+backward, never the L-major eval pipeline, ``enformer.py:273,294,356``)
+with BatchNorm on the batch's statistics, whose running averages the
+forward moves in the module's buffers; the stem conv recorded by
+``conv1d_deterministic``, so that no weight gradient of training sums
+with atomics; and the three dropouts of each transformer block live at
+``ff_dropout`` (after the attention and in the FFN's two linear blocks),
+their masks from a ``blocks.DropoutMasks``. The pointwise block's
+dropout is ``ff_dropout // 8`` = 0.0, as in JAX, so inert.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ from torch import nn
 
 from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.ops.attn_l2 import attn_l2
-from svdd_tpu_torch.ops.conv1d import conv1d_shifted
+from svdd_tpu_torch.ops.conv1d import conv1d_deterministic, conv1d_shifted
 from svdd_tpu_torch.ops.kernel_utils import gelu_enformer
 
 
@@ -164,20 +176,24 @@ class EnformerAttention(nn.Module):
 
 
 class EnformerTransformerBlock(nn.Module):
-  """Pre-LN attention and FFN, each with a residual."""
+  """Pre-LN attention and FFN, each with a residual; in training the
+  attention's output and the FFN's two linear blocks take dropout at
+  ``ff_dropout`` (``masks``)."""
 
   def __init__(self, dim: int, generator: torch.Generator,
-               n_heads: int = 8, key_len: int = 64):
+               n_heads: int = 8, key_len: int = 64,
+               ff_dropout: float = 0.4):
     super().__init__()
+    self.ff_dropout = ff_dropout
     self.norm = blocks.LayerNorm(dim, generator.device)
     self.attn = EnformerAttention(
         dim, generator, heads=n_heads, dim_key=key_len,
         dim_value=dim // n_heads, num_rel_pos_features=dim // n_heads)
-    self.ffn = blocks.FeedForwardBlock(dim, generator)
+    self.ffn = blocks.FeedForwardBlock(dim, generator, dropout=ff_dropout)
 
-  def forward(self, x):
-    x = x + self.attn(self.norm(x))
-    return x + self.ffn(x)
+  def forward(self, x, masks: blocks.DropoutMasks | None = None):
+    x = x + blocks.dropout(self.attn(self.norm(x)), self.ff_dropout, masks)
+    return x + self.ffn(x, masks)
 
 
 class EnformerConvTower(nn.Module):
@@ -204,21 +220,28 @@ class EnformerConvTower(nn.Module):
       self.pools.append(blocks.ConvBlock(filters[i], filters[i], 1,
                                          generator, **pooled))
 
-  def forward(self, x, fused: bool = True):
+  def forward(self, x, fused: bool = True, train: bool = False,
+              masks: blocks.DropoutMasks | None = None):
+    """``train``: the plain form with BatchNorm on the batch (module
+    docstring); ``fused`` is then ignored."""
+    fused = fused and not train
     # the JAX tower's L-major pipeline: the eval tower at an even input
     # length (its default SVDD_TOWER_LNC=1), where the pools' dispatch
     # tiles N by 8 (ops.attn_pool.wlogits_body_takes)
     defer = fused and len(self.convs) > 0
     lnc = defer and x.shape[1] % 2 == 0
-    if fused and blocks.defers_bias(x.dtype):
+    if train:
+      x = conv1d_deterministic(x, self.stem_kernel, self.stem_bias)
+    elif fused and blocks.defers_bias(x.dtype):
       x = blocks.PendingBias(conv1d_shifted(x, self.stem_kernel),
                              self.stem_bias.float())
     else:
       x = conv1d_shifted(x, self.stem_kernel, self.stem_bias)
-    x = self.stem_block(x, defer_pool=defer, lnc=lnc)
+    mode = dict(train=train, masks=masks)
+    x = self.stem_block(x, defer_pool=defer, lnc=lnc, **mode)
     for i, (conv, pool) in enumerate(zip(self.convs, self.pools)):
-      x = pool(conv(x, fused=fused),
-               defer_pool=fused and i < len(self.convs) - 1, lnc=lnc)
+      x = pool(conv(x, fused=fused, **mode),
+               defer_pool=fused and i < len(self.convs) - 1, lnc=lnc, **mode)
     return x
 
 
@@ -228,28 +251,34 @@ class EnformerTrunk(nn.Module):
 
   def __init__(self, generator: torch.Generator, n_conv: int = 7,
                channels: int = 1536, n_transformers: int = 11,
-               n_heads: int = 8, key_len: int = 64):
+               n_heads: int = 8, key_len: int = 64,
+               ff_dropout: float = 0.4):
     super().__init__()
     self.tower = EnformerConvTower(generator, n_blocks=n_conv,
                                    out_channels=channels)
     self.transformers = nn.ModuleList([
-        EnformerTransformerBlock(channels, generator, n_heads, key_len)
+        EnformerTransformerBlock(channels, generator, n_heads, key_len,
+                                 ff_dropout)
         for _ in range(n_transformers)])
+    # the JAX trunk's floor division: 0.4 // 8 == 0.0
     self.pointwise = blocks.ConvBlock(channels, 2 * channels, 1,
                                       generator, act_func='gelu_enformer',
-                                      order='NACDR')
+                                      order='NACDR',
+                                      dropout=ff_dropout // 8)
 
-  def forward(self, x, fused: bool = True):
-    x = self.tower(x, fused)
+  def forward(self, x, fused: bool = True, train: bool = False,
+              masks: blocks.DropoutMasks | None = None):
+    x = self.tower(x, fused, train, masks)
     for block in self.transformers:
-      x = block(x)
-    return gelu_enformer(self.pointwise(x))
+      x = block(x, masks if train else None)
+    return gelu_enformer(self.pointwise(x, train=train, masks=masks))
 
 
 class EnformerValueModel(nn.Module):
   """Trunk + average-pool ConvHead: (N, L, 4) one-hot -> (N,) value
   (or (N, n_tasks)), in float32. ``fused=False`` takes the
-  differentiable tower (module docstring)."""
+  differentiable tower; ``train=True`` the training forward, which needs
+  ``masks`` for its dropouts (module docstring)."""
 
   def __init__(self, n_tasks: int = 1, n_conv: int = 7,
                channels: int = 1536, n_transformers: int = 11,
@@ -265,6 +294,22 @@ class EnformerValueModel(nn.Module):
                                n_transformers, n_heads, key_len)
     self.head = blocks.ConvHead(n_tasks, 2 * channels, generator)
 
-  def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
-    x = self.head(self.trunk(x.to(self.compute_dtype), fused)).float()
+  def forward(self, x: torch.Tensor, fused: bool = True,
+              train: bool = False,
+              masks: blocks.DropoutMasks | None = None) -> torch.Tensor:
+    if train and masks is None:
+      raise ValueError('a training forward needs the DropoutMasks of its '
+                       'dropouts')
+    x = self.trunk(x.to(self.compute_dtype), fused, train, masks)
+    x = self.head(x).float()
     return x[..., 0] if self.n_tasks == 1 else x
+
+  def config(self) -> dict:
+    """The constructor's widths, which a checkpoint records."""
+    trunk = self.trunk
+    attn = trunk.transformers[0].attn if trunk.transformers else None
+    return {'n_tasks': self.n_tasks, 'n_conv': len(trunk.tower.convs) + 1,
+            'channels': trunk.pointwise.kernel.shape[1],
+            'n_transformers': len(trunk.transformers),
+            'n_heads': attn.heads if attn else 8,
+            'key_len': attn.dim_key if attn else 64}

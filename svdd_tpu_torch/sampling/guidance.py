@@ -23,6 +23,7 @@ accepts injected Gumbel noise, so it can be pinned against the JAX step.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from svdd_tpu_torch import mdlm
 from svdd_tpu_torch.ops.fused_sample import gumbel_candidates
+from svdd_tpu_torch.rewards import RewardOracle
 from svdd_tpu_torch.sampling.sampler import (DenoiseFn, move_chances,
                                              sigma_batch)
 from svdd_tpu_torch.schedules import Schedule
@@ -68,6 +70,25 @@ def svdd_mc_step(denoise_fn: DenoiseFn, value_fn: ValueFn,
     scores = value_fn(candidates.reshape(b * repeats, l)).reshape(
         b, repeats)
     return _select_best(candidates, scores)
+
+  return step
+
+
+def cdq_step(denoise_fn: DenoiseFn, schedule: Schedule, mask_index: int,
+             repeats: int = 10):
+  """CD-Q trajectory collection (``guidance.py:433-450``): ``repeats``
+  candidate next states a row by the candidate draw (B2); the step
+  returns them all as its aux (the reverse loop stacks them with
+  ``collect_aux``) and keeps the last as the trajectory."""
+
+  def step(aux, x, t, t_next, generator, gumbel=None):
+    b, _ = x.shape
+    _, mct, mcs = move_chances(schedule, t, t_next)
+    log_p = denoise_fn(x, sigma_batch(schedule, t, b, x.device))
+    log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
+    candidates = _draw_candidates(log_q, x, mask_index, repeats,
+                                  generator, gumbel)
+    return candidates, candidates[:, -1]
 
   return step
 
@@ -260,7 +281,11 @@ def dps_gradient(denoise_onehot_fn, reward_fn, x, sigma,
   """d mean(reward(softmax(E[x0|xt])[..., :4])) / d onehot(x), with
   respect to the full 5-channel one-hot: through the copy/merge of the
   unmasked positions and a softmax over all 5 channels
-  (``guidance.py:375-387``)."""
+  (``guidance.py:375-387``). A ``RewardOracle`` is differentiated through
+  its unfused tower (``fused=False``), as JAX traces this gradient under
+  ``unfused_guard``."""
+  if isinstance(reward_fn, RewardOracle):
+    reward_fn = functools.partial(reward_fn, fused=False)
   copy = (x != mask_index).float()[..., None]
   with torch.enable_grad():
     onehot = F.one_hot(x.long(), mask_index + 1).float().requires_grad_(True)

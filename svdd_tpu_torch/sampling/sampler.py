@@ -19,6 +19,12 @@ and its ESS on the card, so these loops read nothing back.
 lengths sum to num_steps (scheduled-M decoding); one generator flows
 through the phases, so a one-phase list draws as the plain form.
 
+``collect_mid`` keeps the state after every step but the last (the
+result's ``mid_x``, (num_steps - 1, B, L)), ``collect_aux`` the aux
+after every step stacked (the CD-Q candidates), as the value-net
+trainer's targets read them (``svdd_tpu/sampling/sampler.py:199,
+236-238``).
+
 The loop runs under ``torch.inference_mode()``; a loop of gradient
 steps (DPS, classifier guidance) runs under ``torch.no_grad()`` instead,
 since tensors made in inference mode cannot enter autograd, and each
@@ -39,7 +45,9 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 class SampleResult(NamedTuple):
   samples: torch.Tensor        # (B, L) final tokens (mask-free)
-  extra: Any = None            # the final aux of a step that carries one
+  extra: Any = None            # the final aux of a step that carries one,
+                               # or every step's aux stacked (collect_aux)
+  mid_x: Any = None            # (num_steps - 1, B, L) with collect_mid
 
 
 def timestep_grid(num_steps: int, eps: float) -> torch.Tensor:
@@ -130,7 +138,8 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     num_steps: int, eps: float = 1e-5,
                     noise_removal: bool = True, device='cuda',
                     grad_steps: bool = False, aux_init=None,
-                    removal_from_aux: bool = False):
+                    removal_from_aux: bool = False,
+                    collect_mid: bool = False, collect_aux: bool = False):
   """prior -> num_steps steps -> final argmax noise removal.
   Returns sample(generator) -> SampleResult. ``step_fn``: one step
   function or a phase list [(step_fn, n_steps), ...] (lengths >= 1,
@@ -141,7 +150,7 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
   denoiser's forward of the final x at sigma(t_last) (the guided steps'
   carry_posterior; TDS's dict nests it under 'post'), so noise removal
   argmaxes it over the non-mask vocabulary instead of running that
-  forward."""
+  forward. ``collect_mid``, ``collect_aux``: the module docstring."""
   timesteps = timestep_grid(num_steps, eps)
   phases = _phases(step_fn, num_steps)
 
@@ -149,6 +158,7 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
     with torch.no_grad() if grad_steps else torch.inference_mode():
       x = mdlm.sample_prior((batch_size, length), mask_index, device)
       aux = aux_init
+      mids, auxs = [], []
       start = 0
       for fn, n in phases:
         for i in range(start, start + n):
@@ -156,12 +166,18 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
             x = fn(x, timesteps[i], timesteps[i + 1], generator)
           else:
             aux, x = fn(aux, x, timesteps[i], timesteps[i + 1], generator)
+          if collect_mid:
+            mids.append(x)
+          if collect_aux:
+            auxs.append(aux)
         start += n
       if noise_removal and removal_from_aux:
         post = aux['post'] if isinstance(aux, dict) else aux
         x = torch.argmax(post[0][..., :-1], dim=-1)
       elif noise_removal:
         x = argmax_noise_removal(denoise_fn, schedule, x, timesteps[-1])
-    return SampleResult(samples=x, extra=aux)
+      mid_x = torch.stack(mids[:-1]) if collect_mid else None
+      extra = torch.stack(auxs) if collect_aux else aux
+    return SampleResult(samples=x, extra=extra, mid_x=mid_x)
 
   return sample

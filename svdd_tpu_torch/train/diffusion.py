@@ -72,22 +72,24 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 
 class Optimizer:
-  """optax.chain(clip_by_global_norm, adamw(schedule)) over ``params``;
-  ``count`` is the number of updates made."""
+  """optax.chain(clip_by_global_norm(max_norm), adamw(schedule)) over
+  ``params`` (no clipping where ``max_norm`` is None); ``schedule``:
+  count -> learning rate; ``count`` is the number of updates made."""
 
-  def __init__(self, config: Config, params):
-    o = config.optim
+  def __init__(self, params, schedule, max_norm: Optional[float],
+               betas=(0.9, 0.999), eps: float = 1e-8,
+               weight_decay: float = 1e-4):
     self.params = list(params)
-    self.schedule = make_schedule(config)
-    self.max_norm = o.grad_clip
-    self.adamw = torch.optim.AdamW(self.params, lr=0.0,
-                                   betas=(o.beta1, o.beta2), eps=o.eps,
-                                   weight_decay=o.weight_decay)
+    self.schedule = schedule
+    self.max_norm = max_norm
+    self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=tuple(betas),
+                                   eps=eps, weight_decay=weight_decay)
     self.count = 0
 
   def step(self) -> None:
     """One update from the parameters' ``.grad``."""
-    clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
+    if self.max_norm is not None:
+      clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
     for group in self.adamw.param_groups:
       group['lr'] = self.schedule(self.count)
     self.adamw.step()
@@ -102,7 +104,9 @@ class Optimizer:
 
 
 def make_optimizer(config: Config, params) -> Optimizer:
-  return Optimizer(config, params)
+  o = config.optim
+  return Optimizer(params, make_schedule(config), o.grad_clip,
+                   (o.beta1, o.beta2), o.eps, o.weight_decay)
 
 
 @dataclasses.dataclass
@@ -339,6 +343,14 @@ def state_dict(state: TrainState, iterator_state: Optional[dict] = None,
           'iterator': it, **extra}
 
 
+def write_atomic(path: str, obj: dict) -> None:
+  """``torch.save`` of one dict to a temporary file, renamed to ``path``,
+  so a reader never sees a partial file."""
+  tmp = path + '.tmp'
+  torch.save(obj, tmp)
+  os.replace(tmp, path)
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     iterator_state: Optional[dict] = None, keep: int = KEEP,
                     **extra) -> str:
@@ -346,9 +358,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
   delete all but the newest ``keep``. Returns its path."""
   os.makedirs(ckpt_dir, exist_ok=True)
   path = os.path.join(ckpt_dir, f'step_{state.step}.pt')
-  tmp = path + '.tmp'
-  torch.save(state_dict(state, iterator_state, **extra), tmp)
-  os.replace(tmp, path)
+  write_atomic(path, state_dict(state, iterator_state, **extra))
   for old in checkpoint_paths(ckpt_dir)[:-keep]:
     os.remove(old)
   return path
@@ -387,6 +397,25 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
   load_state(state, _load(path), train_iter)
   LOGGER.info('restored checkpoint at step %d', state.step)
   return state
+
+
+def checkpoint_file(path: str) -> Optional[str]:
+  """The checkpoint ``path`` names: a file itself, or the newest
+  ``step_<n>.pt`` of a directory (at its top, else under ``best/``);
+  None where there is none."""
+  if os.path.isdir(path):
+    return (latest_checkpoint(path)
+            or latest_checkpoint(os.path.join(path, 'best')))
+  return path if os.path.isfile(path) else None
+
+
+def load_ema_weights(model: Diffusion, path: str) -> Diffusion:
+  """``model`` holding the EMA weights of the checkpoint file ``path``."""
+  shadow = _load(path)['ema']['shadow']
+  with torch.no_grad():
+    for name, p in model.backbone.named_parameters():
+      p.copy_(shadow[name])
+  return model
 
 
 def restore_best_checkpoint(ckpt_dir: str, state: TrainState) -> TrainState:

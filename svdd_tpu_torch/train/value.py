@@ -1,0 +1,257 @@
+"""Value-net training, MC and CD-Q (``svdd_tpu/train/value.py``).
+
+Each iteration samples a full trajectory from the frozen diffusion
+model (the unguided sampler with ``collect_mid``, or the CD-Q sampler of
+10 candidates a step), builds the regression targets from it (MC: the
+final reward for every state; CD-Q: the mean value of the next step's
+candidates under the current value net), and takes one optimizer step
+on the value net's MSE in training mode (BatchNorm on the batch, its
+running averages moved; dropout live). The optimizer is optax's
+clip_by_global_norm then AdamW (betas (0.9, 0.95), weight decay 0.1),
+the learning rate constant or, with ``lr_decay``, the token schedule at
+the update count (``utils.token_cosine_lr_mult``); A12's ``Optimizer``,
+its clip and ``torch.optim.AdamW`` path.
+
+Randomness follows the JAX trainer's keys. The state's ``generator``
+(JAX's ``state.rng``, seeded from the run's seed) draws the MC
+subsample's steps and the dropout masks, and is saved with the state.
+The trajectories come from the trainer's own generator, seeded 0 in
+every trainer and never saved, as JAX's ``_sample_key = key(0)``
+(``train/value.py:126, 257-264``): a run resumed from a saved state
+draws other trajectories than the uninterrupted run would have.
+
+On the card every gradient sums in a fixed order (kernels B7 and B8,
+``ops.conv1d.conv1d_deterministic`` for the stem, cuBLAS products
+elsewhere), so two runs from one seed, and two resumes from one saved
+state, agree bit for bit.
+
+The trainer state is one ``torch.save`` dict (``save_state``): the
+value net's parameters and running statistics, AdamW's state and update
+count, the generator, the step and the token counter.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from svdd_tpu_torch import mdlm, utils
+from svdd_tpu_torch import value as value_lib
+from svdd_tpu_torch.diffusion import Diffusion
+from svdd_tpu_torch.models.blocks import DropoutMasks
+from svdd_tpu_torch.models.enformer import EnformerValueModel
+from svdd_tpu_torch.train.diffusion import Optimizer, write_atomic
+
+LOGGER = logging.getLogger(__name__)
+FORMAT = 'svdd_tpu_torch.train.value/1'
+
+
+@dataclasses.dataclass
+class ValueTrainerConfig:
+  """``svdd_tpu/train/value.py:44-67``, less the settings no MC or
+  CD-Q step reads (the evaluation period is ``cli.train``'s, the RNA
+  task's are A10's)."""
+  learning_rate: float = 3e-4
+  betas: tuple = (0.9, 0.95)
+  grad_norm_clip: float = 1.0
+  weight_decay: float = 0.1
+  lr_decay: bool = False
+  warmup_tokens: float = 375e2
+  final_tokens: float = 260e7
+  max_iter: int = 50_000
+  cdq: bool = False
+  batch_size: int = 32
+  mc_subsample: Optional[int] = None
+  tokens_per_iter: float = 32 * 128 * 200 * 4
+
+
+@dataclasses.dataclass
+class ValueTrainState:
+  """The value net being trained (its parameters and BatchNorm running
+  statistics, JAX's params and extras), the optimizer, the generator of
+  the dropout masks and subsample draws, the step and the tokens seen."""
+  step: int
+  module: EnformerValueModel
+  optimizer: Optimizer
+  generator: torch.Generator
+  tokens: float = 0.0
+
+
+class ValueTrainer:
+  """Fits a value net against a frozen ``Diffusion`` (``svdd_tpu/train/
+  value.py:70-298``). ``reward_fn``: (N, L, 4) one-hots -> (N,) rewards
+  (a ``RewardOracle`` or the synthetic motif oracle)."""
+
+  def __init__(self, diffusion: Diffusion, vf: value_lib.ValueFunction,
+               reward_fn, tcfg: ValueTrainerConfig):
+    self.diffusion = diffusion
+    self.vf = vf
+    self.tcfg = tcfg
+    self._reward_fn = reward_fn
+    if tcfg.cdq:
+      self._sampler = diffusion.cdq_sampler(tcfg.batch_size, repeats=10)
+    else:
+      self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True)
+    # the trajectories' generator: seeded 0 in every trainer, not saved
+    # with the state (JAX's _sample_key, module docstring)
+    self._sample_gen = torch.Generator(diffusion.device).manual_seed(0)
+
+  def learning_rate(self, count: int) -> float:
+    """The rate of update ``count`` (updates already made)."""
+    t = self.tcfg
+    if not t.lr_decay:
+      return t.learning_rate
+    return t.learning_rate * utils.token_cosine_lr_mult(
+        count * t.tokens_per_iter, t.warmup_tokens, t.final_tokens)
+
+  def init_state(self, seed: int) -> ValueTrainState:
+    """A fresh state on a copy of the value function's module (the value
+    function itself stays as it is); its generator seeded ``seed``."""
+    module = copy.deepcopy(self.vf.module)
+    t = self.tcfg
+    opt = Optimizer(module.parameters(), self.learning_rate,
+                    t.grad_norm_clip, t.betas, weight_decay=t.weight_decay)
+    gen = torch.Generator(self.diffusion.device).manual_seed(seed)
+    return ValueTrainState(0, module, opt, gen, 0.0)
+
+  def trajectory(self):
+    """One trajectory of the frozen model: (samples (B, L), mid_x (S-1,
+    B, L), the CD-Q candidates (S, B, 10, L) or None), as normal
+    tensors (the sampler runs in inference mode)."""
+    res = self._sampler(self._sample_gen)
+    cands = res.extra.clone() if self.tcfg.cdq else None
+    return res.samples.clone(), res.mid_x.clone(), cands
+
+  def targets(self, state: ValueTrainState, samples, mid_x,
+              cdq_candidates=None, subsample_idx=None
+              ) -> value_lib.ValueBatch:
+    """The iteration's regression batch; CD-Q bootstraps from the current
+    value net in eval mode (its running statistics, no gradient)."""
+    with torch.no_grad():
+      if self.tcfg.cdq:
+        return value_lib.cdq_targets(
+            samples, mid_x, cdq_candidates, self._reward_fn,
+            lambda oh: state.module(oh))
+      return value_lib.mc_targets(
+          samples, mid_x, self._reward_fn, generator=state.generator,
+          num_subsample=self.tcfg.mc_subsample, subsample_idx=subsample_idx)
+
+  def grad_step(self, state: ValueTrainState, samples, mid_x,
+                cdq_candidates=None, masks: Optional[DropoutMasks] = None,
+                subsample_idx=None) -> torch.Tensor:
+    """The grad step on one trajectory (``train/value.py:155-233``): the
+    targets, the MSE of the training forward, one update; the state
+    changes in place. ``masks``, ``subsample_idx``: injected in place of
+    the state generator's draws (tests). Returns the loss (a 0-dim device
+    tensor; nothing is read back)."""
+    batch = self.targets(state, samples, mid_x, cdq_candidates,
+                         subsample_idx)
+    if masks is None:
+      masks = DropoutMasks(generator=state.generator)
+    for p in state.optimizer.params:
+      p.grad = None
+    loss = value_lib.value_loss(
+        lambda oh: state.module(oh, train=True, masks=masks), batch)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    state.tokens += self.tcfg.tokens_per_iter
+    return loss.detach()
+
+  def train_step(self, state: ValueTrainState) -> torch.Tensor:
+    """One iteration: a trajectory, then the grad step on it."""
+    return self.grad_step(state, *self.trajectory())
+
+  def train(self, state: ValueTrainState, num_iters: int,
+            log_every: int = 50) -> ValueTrainState:
+    t0 = time.time()
+    for _ in range(num_iters):
+      loss = self.train_step(state)
+      if state.step % log_every == 0:
+        LOGGER.info('value step %d MSE %.5f (%.2f it/s)', state.step,
+                    float(loss), log_every / max(time.time() - t0, 1e-9))
+        t0 = time.time()
+    return state
+
+  def updated_value_function(self, state: ValueTrainState
+                             ) -> value_lib.ValueFunction:
+    return value_lib.ValueFunction(state.module, self.vf.length)
+
+  # -- the full trainer state ----------------------------------------------
+
+  def save_state(self, path: str, state: ValueTrainState) -> None:
+    write_atomic(path, {
+        'format': FORMAT, 'step': state.step,
+        'model': state.module.state_dict(),
+        'optimizer': state.optimizer.state_dict(),
+        'generator': state.generator.get_state(), 'tokens': state.tokens})
+
+  def restore_state(self, path: str, seed: int) -> ValueTrainState:
+    """Resume: parameters, running statistics, AdamW's moments and count
+    (the schedule's position) and the generator continue."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    if ckpt.get('format') != FORMAT:
+      raise ValueError(f'{path} is not a {FORMAT} trainer state')
+    state = self.init_state(seed)
+    state.module.load_state_dict(ckpt['model'])
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.generator.set_state(ckpt['generator'])
+    state.step = int(ckpt['step'])
+    state.tokens = float(ckpt['tokens'])
+    return state
+
+  # -- per-timestep evaluation ---------------------------------------------
+
+  def evaluate_seq_step(self, state: ValueTrainState, eval_batches,
+                        eval_targets):
+    """Per-timestep MSE and Pearson correlation of the value net (eval
+    mode) over the pre-generated batches, in float32 numpy as the JAX
+    trainer computes them."""
+    losses, pearsons = [], []
+    with torch.inference_mode():
+      for onehots, target in zip(eval_batches, eval_targets):
+        p = state.module(onehots).float().cpu().numpy().reshape(-1)
+        y = target.float().cpu().numpy().reshape(-1)
+        losses.append(float(np.mean((p - y) ** 2)))
+        denom = p.std() * y.std()
+        pearsons.append(float(np.mean((p - p.mean()) * (y - y.mean()))
+                              / denom) if denom > 0 else 0.0)
+    return losses, pearsons
+
+
+class MultiSepTrainer:
+  """The time-binned multisep value model's trainer comes with that
+  model (ROADMAP A11)."""
+
+  def __init__(self, *args, **kwargs):
+    raise NotImplementedError('MultiSepTrainer: the multisep value model '
+                              'is not ported yet (ROADMAP A11)')
+
+
+def build_eval_timestep_batches(diffusion: Diffusion, reward_fn,
+                                batch_size: int, val_batch_num: int,
+                                generator: torch.Generator):
+  """Per-timestep eval batches from ``val_batch_num`` full trajectories
+  (``svdd_tpu/train/value.py:397-425``): (eval_batches[t],
+  eval_targets[t]) for t in 0..S-1, the one-hots of every trajectory's
+  state after step t (the last: the final samples) and the final
+  samples' rewards."""
+  sampler = diffusion.sampler(batch_size, collect_mid=True)
+  steps = diffusion.config.sampling.steps
+  all_samples = [[] for _ in range(steps)]
+  all_targets = [[] for _ in range(steps)]
+  for _ in range(val_batch_num):
+    res = sampler(generator)
+    with torch.inference_mode():
+      target = reward_fn(mdlm.transform_samples(res.samples))
+    for t, s in enumerate(list(res.mid_x) + [res.samples]):
+      all_samples[t].append(mdlm.transform_samples(s))
+      all_targets[t].append(target)
+  return ([torch.cat(s) for s in all_samples],
+          [torch.cat(t) for t in all_targets])

@@ -1,5 +1,6 @@
 """Small helpers (``svdd_tpu/utils.py``): the scheduled-M parser of the
-decode CLIs and the pretraining learning-rate schedules."""
+decode CLIs, the pretraining learning-rate schedules and the value-net
+trainer's token schedule."""
 
 from __future__ import annotations
 
@@ -90,3 +91,15 @@ def cosine_decay_warmup_schedule(lr: float, warmup_steps: int,
        cosine_decay_schedule(lr, max(total_steps - warmup_steps, 1),
                              alpha=lr_min / lr)],
       [warmup_steps])
+
+
+def token_cosine_lr_mult(tokens: float, warmup_tokens: float,
+                         final_tokens: float) -> float:
+  """The value-net trainer's learning-rate multiplier at ``tokens``
+  tokens seen (``svdd_tpu/utils.py:116-125``): a linear warmup to 1, then
+  a cosine decay floored at 0.1."""
+  if tokens < warmup_tokens:
+    return tokens / max(warmup_tokens, 1.0)
+  progress = (tokens - warmup_tokens) / max(final_tokens - warmup_tokens,
+                                            1.0)
+  return max(0.1, 0.5 * (1.0 + math.cos(math.pi * progress)))

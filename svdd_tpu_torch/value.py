@@ -1,14 +1,28 @@
-"""Value-function API (``svdd_tpu/value.py``): the value-net factory
-and the bundle whose ``score_tokens`` the guided samplers call."""
+"""Value-function API and value-net training targets
+(``svdd_tpu/value.py``): the value-net factory, the bundle whose
+``score_tokens`` the guided samplers call, the reward oracle's input,
+the MC and CD-Q regression targets and the MSE objective, and the
+value net's checkpoint file.
+
+A value net or reward oracle that ``cli.train`` or ``cli.train_oracle``
+saved is one ``torch.save`` dict (``save_checkpoint``): the format tag,
+the module's widths (``EnformerValueModel.config``) and its state dict
+(parameters and BatchNorm running statistics). ``load_checkpoint``
+reads it back and raises ``NotImplementedError`` naming ROADMAP A17 for
+any other file (a reference ``.pt``, an orbax directory).
+"""
 
 from __future__ import annotations
 
 import os
+from typing import NamedTuple, Optional
 
 import torch
 
 from svdd_tpu_torch import mdlm
 from svdd_tpu_torch.models.enformer import EnformerValueModel
+
+FORMAT = 'svdd_tpu_torch.value/1'
 
 
 def build_value_module(task: str, model: str = 'enformer',
@@ -29,7 +43,8 @@ def build_value_module(task: str, model: str = 'enformer',
 
 
 class ValueFunction:
-  """A value module in eval mode, scoring token sequences."""
+  """A value module scoring token sequences (eval mode; the trainers
+  call the module with ``train=True``)."""
 
   def __init__(self, module: EnformerValueModel, length: int):
     self.module = module.eval()
@@ -57,3 +72,119 @@ class ValueFunction:
     them: classifier guidance takes its gradient
     (``svdd_tpu/value.py:as_onehot_fn``)."""
     return lambda onehot4: self.score_onehot(onehot4, fused=False)
+
+
+# ---------------------------------------------------------------------------
+# The reward oracle as the trainers take it
+# ---------------------------------------------------------------------------
+
+
+def make_reward_transform(task: str = 'dna'):
+  """Tokens -> the reward oracle's input: the 4-channel one-hot for
+  DNA. The port's oracles hold their weights, so a reward function is one
+  callable of that input (JAX's (apply_fn, variables) pair has no
+  counterpart); the RNA saluki input comes with the RNA task."""
+  if task in ('rna', 'rna_saluki'):
+    raise NotImplementedError(f'--task {task}: the RNA task is not ported '
+                              'yet (ROADMAP A10)')
+  return mdlm.transform_samples
+
+
+# ---------------------------------------------------------------------------
+# Training targets
+# ---------------------------------------------------------------------------
+
+
+class ValueBatch(NamedTuple):
+  onehots: torch.Tensor              # (N, L, 4) states, timesteps flattened
+  targets: torch.Tensor              # (N,) regression targets
+  time_indices: Optional[torch.Tensor] = None   # (N, L) step of each state
+
+
+def mc_targets(samples, mid_x, reward_fn,
+               generator: Optional[torch.Generator] = None,
+               num_subsample: Optional[int] = None,
+               subsample_idx: Optional[torch.Tensor] = None) -> ValueBatch:
+  """Monte-Carlo targets (``svdd_tpu/value.py:166-202``): every state of
+  the trajectory regresses onto the final sample's reward. samples (B,
+  L), mid_x (S-1, B, L): S*B pairs, the mid states step by step, then
+  the final ones. ``num_subsample`` keeps that many distinct random mid
+  steps (``subsample_idx`` given, or drawn uniformly without
+  replacement from ``generator``, as ``jax.random.choice`` draws them
+  from its key in another stream)."""
+  s_minus_1, b, l = mid_x.shape
+  target = reward_fn(mdlm.transform_samples(samples))          # (B,)
+  if num_subsample is not None and num_subsample < s_minus_1:
+    if subsample_idx is None:
+      if generator is None:
+        raise ValueError('num_subsample requires a generator or indices')
+      subsample_idx = torch.randperm(s_minus_1, generator=generator,
+                                     device=generator.device)[:num_subsample]
+    idx = torch.as_tensor(subsample_idx, device=mid_x.device).long()
+    mid_x = mid_x[idx]
+    steps = torch.cat([idx, torch.tensor([s_minus_1], device=idx.device)])
+    s_minus_1 = num_subsample
+  else:
+    steps = torch.arange(s_minus_1 + 1, device=mid_x.device)
+  states = torch.cat([mid_x.reshape(-1, l), samples], dim=0)
+  onehots = mdlm.transform_samples(states)
+  targets = target.repeat(s_minus_1 + 1)
+  time_idx = steps.repeat_interleave(b)[:, None].expand(-1, l).int()
+  return ValueBatch(onehots, targets, time_idx)
+
+
+def cdq_targets(samples, mid_x, all_candidates, reward_fn,
+                value_fn) -> ValueBatch:
+  """CD-Q bootstrapped targets (``svdd_tpu/value.py:205-228``): the state
+  after step j regresses onto the mean value (no gradient) of the
+  candidates drawn at step j + 1, the final state onto its reward.
+  all_candidates (S, B, M, L) from ``Diffusion.cdq_sampler``."""
+  s, b, m, l = all_candidates.shape
+  target = reward_fn(mdlm.transform_samples(samples))          # (B,)
+  cand = all_candidates[1:].reshape((s - 1) * b * m, l)
+  with torch.no_grad():
+    cand_vals = value_fn(mdlm.transform_samples(cand))
+  case_avg = cand_vals.reshape(s - 1, b, m).mean(dim=-1)         # (S-1, B)
+  states = torch.cat([mid_x.reshape(-1, l), samples], dim=0)
+  onehots = mdlm.transform_samples(states)
+  targets = torch.cat([case_avg.reshape(-1), target], dim=0)
+  return ValueBatch(onehots, targets)
+
+
+def value_loss(value_fn_onehot, batch: ValueBatch) -> torch.Tensor:
+  """MSE objective (``svdd_tpu/value.py:231-234``)."""
+  preds = value_fn_onehot(batch.onehots)
+  return ((preds.reshape(-1) - batch.targets.reshape(-1)) ** 2).mean()
+
+
+# ---------------------------------------------------------------------------
+# The value net's checkpoint file
+# ---------------------------------------------------------------------------
+
+
+def save_checkpoint(path: str, module: EnformerValueModel) -> None:
+  """Write ``module`` (widths, parameters, running statistics) to
+  ``path``, through a temporary file and a rename."""
+  from svdd_tpu_torch.train.diffusion import write_atomic
+  if os.path.dirname(path):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+  write_atomic(path, {'format': FORMAT, 'config': module.config(),
+                      'model': module.state_dict()})
+
+
+def load_checkpoint(path: str, mmap: bool = False) -> dict:
+  """The dict ``save_checkpoint`` wrote (``mmap``: its tensors mapped,
+  not read); any other file raises."""
+  ckpt = None
+  if os.path.isfile(path):
+    try:
+      ckpt = torch.load(path, map_location='cpu', weights_only=True,
+                        mmap=mmap)
+    except Exception:   # not a torch file, or pickled objects
+      ckpt = None
+  if not isinstance(ckpt, dict) or ckpt.get('format') != FORMAT:
+    raise NotImplementedError(
+        f'{path}: not a value-net or oracle checkpoint of this package '
+        f'({FORMAT}); reading the reference .pt layouts and orbax '
+        'checkpoints is not ported yet (ROADMAP A17)')
+  return ckpt

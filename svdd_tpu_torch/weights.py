@@ -203,6 +203,97 @@ def enformer_value_from_jax(
   return model.eval()
 
 
+def _block_to_jax(t, pre: str, stats: bool = False) -> dict:
+  """A ConvBlock's flax tree from ``t`` ({port name: array}) under the
+  port prefix ``pre``: its params, or (``stats``) its batch stats."""
+  if stats:
+    return {'Norm_0': {'BatchNorm_0': {'mean': t[pre + 'norm.mean'],
+                                       'var': t[pre + 'norm.var']}}}
+  out = {'Conv1D_0': {'kernel': t[pre + 'kernel'], 'bias': t[pre + 'bias']}}
+  if pre + 'norm.scale' in t:
+    out['Norm_0'] = {'BatchNorm_0': {'scale': t[pre + 'norm.scale'],
+                                     'bias': t[pre + 'norm.bias']}}
+  if pre + 'channel_transform.kernel' in t:
+    out['ChannelTransform_0'] = {'Conv1D_0': {
+        'kernel': t[pre + 'channel_transform.kernel'],
+        'bias': t[pre + 'channel_transform.bias']}}
+  if pre + 'pool.w' in t:
+    out['Pool_0'] = {'AttentionPool_0': {'to_attn_logits': t[pre + 'pool.w']}}
+  return out
+
+
+def _transformer_to_jax(t, pre: str, heads: int) -> dict:
+  dense = lambda name, bias=True: dict(
+      {'kernel': t[f'{pre}{name}.weight'].T},
+      **({'bias': t[f'{pre}{name}.bias']} if bias else {}))
+  rel = lambda name: t[pre + name].reshape(1, heads, 1, -1)
+  attn = {name: dense('attn.' + name, False)
+          for name in ('to_q', 'to_k', 'to_v', 'to_rel_k')}
+  attn.update(to_out=dense('attn.to_out'),
+              rel_content_bias=rel('attn.rel_content_bias'),
+              rel_pos_bias=rel('attn.rel_pos_bias'))
+  return {'LayerNorm_0': {'scale': t[pre + 'norm.scale'],
+                          'bias': t[pre + 'norm.bias']},
+          'EnformerAttention_0': attn,
+          'FeedForwardBlock_0': {
+              'LinearBlock_0': {
+                  'Norm_0': {'LayerNorm_0': {
+                      'scale': t[pre + 'ffn.norm.scale'],
+                      'bias': t[pre + 'ffn.norm.bias']}},
+                  'Dense_0': dense('ffn.up')},
+              'LinearBlock_1': {'Dense_0': dense('ffn.down')}}}
+
+
+def enformer_params_to_jax(tensors, model: EnformerValueModel,
+                           stats: bool = False) -> dict:
+  """The flax EnformerValueModel ``params`` tree (numpy float32 arrays)
+  of a mapping from the port's parameter names (``named_parameters()``)
+  to tensors of their shapes: the parameters, their gradients or Adam's
+  moments; with ``stats``, the ``batch_stats`` tree of the mapping's
+  BatchNorm buffers (``named_buffers()``). ``model`` gives the widths;
+  more than one transformer block is stacked as JAX's ``nn.scan``
+  stacks it."""
+  t = {k: _np(v) for k, v in tensors.items()}
+  cfg = model.config()
+  tower = {}
+  blocks_of = [('stem_block', 'trunk.tower.stem_block.')]
+  for i in range(1, cfg['n_conv']):
+    blocks_of += [(f'conv_{i}', f'trunk.tower.convs.{i - 1}.'),
+                  (f'pool_{i}', f'trunk.tower.pools.{i - 1}.')]
+  for name, pre in blocks_of:
+    tower[name] = _block_to_jax(t, pre, stats)
+  trunk = {'EnformerConvTower_0': tower,
+           'pointwise': _block_to_jax(t, 'trunk.pointwise.', stats)}
+  if stats:
+    return {'EnformerTrunk_0': trunk}
+  tower['stem_conv'] = {'kernel': t['trunk.tower.stem_kernel'],
+                        'bias': t['trunk.tower.stem_bias']}
+  layers = [_transformer_to_jax(t, f'trunk.transformers.{j}.',
+                                cfg['n_heads'])
+            for j in range(cfg['n_transformers'])]
+  if len(layers) == 1:
+    trunk['transformer_0'] = layers[0]
+  else:
+    def stack(*trees):
+      if isinstance(trees[0], dict):
+        return {k: stack(*(tr[k] for tr in trees)) for k in trees[0]}
+      return np.stack(trees)
+    trunk['transformer_stack'] = {'EnformerTransformerBlock_0':
+                                  stack(*layers)}
+  return {'EnformerTrunk_0': trunk, 'ConvHead_0': {
+      'ChannelTransformBlock_0': {'ChannelTransform_0': {'Conv1D_0': {
+          'kernel': t['head.kernel'], 'bias': t['head.bias']}}}}}
+
+
+def enformer_to_jax(model: EnformerValueModel) -> dict:
+  """The inverse of ``enformer_value_from_jax``: the flax variables
+  (``params`` and ``batch_stats``) of the port's model."""
+  return {'params': enformer_params_to_jax(dict(model.named_parameters()),
+                                           model),
+          'batch_stats': enformer_params_to_jax(dict(model.named_buffers()),
+                                                model, stats=True)}
+
+
 def basenji_from_jax(variables, **config) -> Basenji:
   """A Basenji trunk (on CPU, float32) holding the flax Basenji's
   variables, params and ``batch_stats`` of every block; ``config`` are

@@ -1,7 +1,9 @@
 """Weights for the svdd_tpu_torch tests: flax variables of the shapes a
 traced ``init`` makes (``jax.eval_shape``; compiling ``init`` costs
-seconds on one core), drawn with numpy as flax initialises them."""
+seconds on one core), drawn with numpy as flax initialises them; and
+flax's dropout on injected masks (``FlaxMasks``)."""
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,3 +72,40 @@ def random_variables(init, *args, rs):
     return rs.normal(size=shape).astype(np.float32)
 
   return perturb(jax.tree_util.tree_map_with_path(fill, dict(shapes)), rs)
+
+
+class FlaxMasks:
+  """flax ``nn.Dropout.__call__`` taking its masks in call order from a
+  list (``set``), for the test that installs it with its monkeypatch:
+  flax's select(mask, x / keep, 0), the rate-0 and deterministic cases as
+  flax returns them. The port's forward takes the same list
+  (``blocks.DropoutMasks(masks=...)``)."""
+
+  def __init__(self):
+    self.masks, self.i = [], 0
+
+  def set(self, masks):
+    self.masks, self.i = list(masks), 0
+    return self
+
+  def install(self, monkeypatch):
+    owner = self
+
+    def call(self, inputs, deterministic=None, rng=None):
+      det = self.deterministic if deterministic is None else deterministic
+      if self.rate == 0.0 or det:
+        return inputs
+      mask = jnp.asarray(owner.masks[owner.i])
+      owner.i += 1
+      return jax.lax.select(mask, inputs / (1.0 - self.rate),
+                            jnp.zeros_like(inputs))
+
+    monkeypatch.setattr(nn.Dropout, '__call__', call)
+    return self
+
+
+def dropout_masks(rs, n, c, blocks=1, length=2, keep=0.6):
+  """The dropout masks of one Enformer training forward: per transformer
+  block the attention output's, the FFN's up and down projections'."""
+  return [rs.random((n, length, w)) < keep for _ in range(blocks)
+          for w in (c, 2 * c, c)]
