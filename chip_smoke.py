@@ -49,8 +49,8 @@ exits non-zero and prints no result:
      through ``decode.run_decode`` scored by the full-width Enformer
      reward oracle (f32, 16 steps); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
-     ddpm_cache, 128 steps, scored by the AR backbone) and DiMamba
-     (--task dna, 512 rows, 128 steps); all full-width random-weight
+     ddpm_cache, 64 steps, scored by the AR backbone) and DiMamba
+     (--task dna, 512 rows, 64 steps); all full-width random-weight
      models; and SVDD-MC for 8 steps with the channels=1152 value net;
   5. diffusion pretraining of the full-width denoiser: ``main_gosai
      --mode train --task dna`` at global batch 512 in two microbatches,
@@ -73,13 +73,27 @@ exits non-zero and prints no result:
      updated parameters and running statistics; in f32 also against the
      step in float64 on the card's relu masks), f32 and bf16; traced MC
      grad steps (f32, bf16), a CD-Q iteration and an oracle step;
-  6. one step of each decode (the guided ones in bf16 too; PM and TDS
-     with a valid posterior carry, as after their first step) under
-     torch.profiler: host ms per step,
+  6. one step of each decode (the guided ones in bf16 too, and the RNA
+     task's in f32; PM and TDS with a valid posterior carry, as after
+     their first step) under torch.profiler: host ms per step,
      the card's busy ms and idle share, and kernel ms by kind; one
      DiT forward at the text preset's 512 rows; and one training step
      (batch 512, f32 and bf16) with its tokens per second;
-then the kernels line (launches summed over the runs of phases 3-5),
+  7. the RNA task (L=50; phase 2 also holds B1 at 512 and 5,120 rows, B6
+     at 512 and B2 at (512, 10, 50, 5) against their plain versions at
+     L=50, the ``kernel_rna`` lines; in bf16 B6 rounds as JAX's
+     reference VJP below L=100): the ConvGRU value net and oracle on 512
+     rows on the card against the CPU, eval and training forwards with
+     their gradients; the six decoders at --task rna, B=512, 128 steps,
+     f32 and under the bf16 switches (the ConvGRU stays f32), with exact
+     launch counts; sample_eval with the analytic predictor;
+     ``cli.train_oracle --task rna``, ``main_gosai --mode train --task
+     rna`` (B6 exactly 20 x 2 x steps, the sample-quality hook scored by
+     that oracle), ``cli.train --task rna`` (MC) and ``cli.eval``, runs
+     and resumes bit for bit; and the stages of
+     ``svdd_tpu_torch/pipeline.py`` for both tasks, a few steps each;
+then the kernels line (launches summed over the runs of phases 3-5 and
+7; B1's, B6's and B2's RNA points under ``rna``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -594,14 +608,14 @@ def check_cnn_layer(dtype, gen):
   return r
 
 
-def _cnn_forward(n: int, dtype, gen):
-  """B1 against its plain version at (n, 200, 128), all four dilations,
-  and the times of one 20-layer forward (``check_cnn_layer``), with the
-  rates of ``_cnn_rates``."""
+def _cnn_forward(n: int, dtype, gen, l: int = CNN_SHAPE[1]):
+  """B1 against its plain version at (n, l, 128) (L = 200 by default),
+  all four dilations, and the times of one 20-layer forward
+  (``check_cnn_layer``), with the rates of ``_cnn_rates``."""
   import torch.nn.functional as F
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  _, l, c = CNN_SHAPE
+  c = CNN_SHAPE[2]
   name = str(dtype).split('.')[-1]
   args, _ = _cnn_inputs(n, l, dtype, gen)
   res = {}
@@ -1033,10 +1047,21 @@ def check_cnn_layer_bwd(dtype, gen):
   the longest L a block holds, and at pretraining's microbatch
   (CNN_TRAIN_ROWS, one launch each). ms is one backward of the 20
   layers, each layer's the card's time for a call (device_ms)."""
+  r = _cnn_backward(*CNN_SHAPE[:2], dtype, gen)
+  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=True)
+  r['max_abs_err_train_rows'] = _cnn_train_rows(dtype, gen, bwd=True)
+  return r
+
+
+def _cnn_backward(n: int, l: int, dtype, gen):
+  """B6 against its plain version at (n, l, 128), all four dilations, on
+  the kernel's relu mask with ``_cnn_bwd_against_plain``'s checks, and
+  the times of one 20-layer backward (``check_cnn_layer_bwd``), with the
+  rates of ``_cnn_rates``."""
   import torch
   from svdd_tpu_torch.ops import cnn_layer as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
-  n, l, c = CNN_SHAPE
+  c = CNN_SHAPE[2]
   name = str(dtype).split('.')[-1]
   args, ct = _cnn_inputs(n, l, dtype, gen)
   res, flips, flops, nbytes = {}, 0, 0, 0
@@ -1074,9 +1099,8 @@ def check_cnn_layer_bwd(dtype, gen):
        'per_dilation_ms': {str(d): r_[2] for d, r_ in res.items()},
        'per_dilation_plain_ms': {str(d): r_[3] for d, r_ in res.items()},
        'per_dilation_library_ms': {str(d): r_[4] for d, r_ in res.items()},
-       'flops': flops, 'bytes': nbytes}
-  r['max_abs_err_by_length'] = _cnn_lengths(dtype, gen, bwd=True)
-  r['max_abs_err_train_rows'] = _cnn_train_rows(dtype, gen, bwd=True)
+       'flops': flops, 'bytes': nbytes,
+       'rounds_as_reference': K.bwd_rounds_as_reference(l)}
   return _cnn_rates(r, name)
 
 
@@ -2087,25 +2111,28 @@ def _check_ess(trace, steps: int, batch: int = 512) -> None:
 
 def run_decode(algo: str, run_name: str | None = None,
                steps: int = DECODE_STEPS, value_kwargs=None,
-               bf16: bool = False, extra_argv=()):
+               bf16: bool = False, extra_argv=(), task: str = 'dna'):
   """One decode through its CLI's ``run``: B=512, 128 steps (or
-  ``steps``), L=200, float32 (or, ``bf16``, under the bf16 switches),
-  --skip_best_of_n, M=10 for SVDD-MC and SVDD-PM, TDS at the CLI's alpha
-  0.5, the value net of ``value_kwargs`` (EnformerValueModel arguments)
-  where given, ``extra_argv`` appended; the launch counts are set to 0
-  just before and read just after, and every kernel of the path
-  (``run_name``'s) must have run."""
+  ``steps``), --task dna (L=200) or rna (L=50, the ConvGRU value net),
+  float32 (or, ``bf16``, under the bf16 switches), --skip_best_of_n,
+  M=10 for SVDD-MC and SVDD-PM, TDS at the CLI's alpha 0.5, DG through
+  decode_DG's parser, the value net of ``value_kwargs``
+  (EnformerValueModel arguments) where given, ``extra_argv`` appended;
+  the launch counts are set to 0 just before and read just after: every
+  kernel of the path (``run_name``'s) must have run, and an RNA decode's
+  counts must be exactly ``rna_decode_launches``'."""
   run_name = run_name or algo
   import numpy as np
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.cli import common
   from svdd_tpu_torch.cli import decode as cli_decode
-  from svdd_tpu_torch.cli import (decode_classfier, decode_DPS, decode_TDS,
-                                  decode_tweedie)
+  from svdd_tpu_torch.cli import (decode_classfier, decode_DG, decode_DPS,
+                                  decode_TDS, decode_tweedie)
   run, parser, suffix = {
       'svdd_mc': (cli_decode.run, cli_decode.parser(), ''),
       'dps': (decode_DPS.run, decode_DPS.parser(), decode_DPS.NPZ_SUFFIX),
+      'dg': (decode_DPS.run, decode_DG.parser(), decode_DPS.NPZ_SUFFIX),
       'classifier': (decode_classfier.run, decode_classfier.parser(),
                      decode_classfier.NPZ_SUFFIX),
       'svdd_pm': (decode_tweedie.run, decode_tweedie.parser(),
@@ -2113,7 +2140,7 @@ def run_decode(algo: str, run_name: str | None = None,
       'tds': (decode_TDS.run, decode_TDS.parser(), decode_TDS.NPZ_SUFFIX),
   }[algo]
   out_dir = os.path.join(REPO, 'build', 'chip_smoke', run_name)
-  argv = ['--task', 'dna', '--batch_size', '512', '--skip_best_of_n',
+  argv = ['--task', task, '--batch_size', '512', '--skip_best_of_n',
           '--device', 'cuda', '--num_steps', str(steps),
           '--out_dir', out_dir, '--run_name', f'chip_smoke_{run_name}']
   if algo in ('svdd_mc', 'svdd_pm'):
@@ -2129,7 +2156,10 @@ def run_decode(algo: str, run_name: str | None = None,
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = _build.launches()
-  need = {**PATH_KERNELS, **OFFGRID_KERNELS, **BF16_RUNS}[run_name]
+  if task == 'rna':
+    _check_launches(run_name, launches, rna_decode_launches(algo, steps))
+  need = {**PATH_KERNELS, **OFFGRID_KERNELS, **BF16_RUNS,
+          **RNA_RUNS}[run_name]
   missing = [k for k in need if launches[k] == 0]
   if missing:
     raise AssertionError(f'{run_name} decode never launched {missing}')
@@ -2137,12 +2167,16 @@ def run_decode(algo: str, run_name: str | None = None,
   row = json.loads(open(os.path.join(
       out_dir, f'{args.run_name}.metrics.jsonl')).read().splitlines()[-1])
   dtype = 'bfloat16' if bf16 else 'float32'
+  # the RNA value net, the ConvGRU, computes in f32 under the switches
+  value_dtype = 'float32' if task == 'rna' else dtype
   if row['denoiser_dtype'] != dtype or row.get('value_dtype',
-                                               dtype) != dtype:
+                                               value_dtype) != value_dtype:
     raise AssertionError(f'{run_name}: metrics row dtypes {row}')
-  out = {'algo': algo, 'run': run_name, 'task': 'dna', 'batch_size': 512,
-         'length': 200, 'steps': steps, 'compute_dtype': dtype,
-         'value_net': value_kwargs or 'EnformerValueModel defaults',
+  out = {'algo': algo, 'run': run_name, 'task': task, 'batch_size': 512,
+         'length': 50 if task == 'rna' else 200, 'steps': steps,
+         'compute_dtype': dtype,
+         'value_net': value_kwargs or ('ConvGRUValueModel' if task == 'rna'
+                                       else 'EnformerValueModel defaults'),
          'npz': os.path.basename(common.npz_path(args, suffix))}
   if algo in ('svdd_mc', 'svdd_pm'):
     out['sample_M'] = 10
@@ -2222,15 +2256,16 @@ def run_oracle_decode(run_name: str):
 
 
 SAMPLE_EVAL = {
-    # which: (rows, steps, --gen_ppl_model)
-    'text_mdlm': (64, 128, 'ar'),
-    'dimamba': (512, 128, None),
+    # which: (rows, steps, --gen_ppl_model); 64 steps since the RNA phase
+    # came (128 before), to keep the smoke near half its time limit
+    'text_mdlm': (64, 64, 'ar'),
+    'dimamba': (512, 64, None),
 }
 
 
 def run_sample_eval(which: str):
   """One ``main_gosai --mode sample_eval`` run through its ``run`` at
-  full width (``sample_eval_backbone``), one batch, 128 steps; the text
+  full width (``sample_eval_backbone``), one batch, 64 steps; the text
   preset with its ddpm_cache predictor at 64 rows (cut from 512 and 1000
   steps for the smoke's time) scored by the AR backbone, DiMamba at the
   DNA task's 512 rows with the ddpm predictor. The launch counts are set
@@ -2306,7 +2341,7 @@ def _kind(name: str) -> str:
   return next((k for frag, k in KINDS if frag in low), 'other')
 
 
-def profile_step(algo: str, bf16: bool = False):
+def profile_step(algo: str, bf16: bool = False, task: str = 'dna'):
   """One step of a decode at its shapes (B=512, L=200, M=10 for SVDD-MC
   and SVDD-PM, the same models, the CLIs' synthetic oracle as PM's and
   TDS's reward, whose steps run with a valid posterior carry, as every
@@ -2324,7 +2359,9 @@ def profile_step(algo: str, bf16: bool = False):
   the profiler. port_kernel_events: the port's kernels in its trace;
   port_kernel_launches: the wrapper launches the step counted;
   trace_complete: the trace holds at least one kernel a launch.
-  ``bf16``: a guided step with the models the bf16 switches build."""
+  ``bf16``: a guided step with the models the bf16 switches build.
+  ``task`` 'rna': the guided step at --task rna (L=50, the ConvGRU value
+  net)."""
   import torch
   from svdd_tpu_torch import mdlm
   from svdd_tpu_torch.cli import common
@@ -2346,7 +2383,7 @@ def profile_step(algo: str, bf16: bool = False):
                                cfg.mask_index)
   else:
     args = common.make_parser('chip smoke').parse_args(
-        ['--task', 'dna', '--batch_size', '512', '--sample_M', '10',
+        ['--task', task, '--batch_size', '512', '--sample_M', '10',
          '--device', 'cuda'])
     cfg = common.task_config(args)
     batch = args.batch_size
@@ -2394,8 +2431,10 @@ def profile_step(algo: str, bf16: bool = False):
       step(x, t, t_next, gen)
     torch.cuda.synchronize()
 
-  return {'algo': f'{algo}_bf16' if bf16 else algo, 'batch_size': batch,
-          'length': cfg.model.length, **trace_step(once)}
+  name = f'{algo}_bf16' if bf16 else algo
+  return {'algo': f'rna_{name}' if task == 'rna' else name,
+          'batch_size': batch, 'length': cfg.model.length,
+          **trace_step(once)}
 
 
 def trace_step(once) -> dict:
@@ -3867,6 +3906,454 @@ def value_phase(diffusion_ckpt: str) -> dict:
   return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the RNA task (L = 50, the ConvGRU value net and oracle)
+# ---------------------------------------------------------------------------
+
+RNA_L = 50
+# B1 at the RNA step's rows and at SVDD-PM's candidate forward, B*M
+RNA_ROWS = (512, 5120)
+RNA_MODEL_ROWS = 512
+RNA_KEEP = 0.9           # 1 - the ConvGRU's dropout
+RNA_MODEL_TOL = 1e-3     # f32 card vs CPU, whole models (check_models')
+RNA_GUIDED = ('svdd_mc', 'dps', 'dg', 'classifier', 'svdd_pm', 'tds')
+# the kernels each RNA decode must launch: the ConvGRU runs none (its
+# 64-channel convs are off B7's and B11c's gates, and its GRU is a loop
+# of library products, as JAX's is a lax.scan)
+RNA_PATH_KERNELS = {'svdd_mc': ('cnn_layer', 'gumbel_candidates'),
+                    'dps': ('cnn_layer', 'cnn_layer_bwd'),
+                    'dg': ('cnn_layer', 'cnn_layer_bwd'),
+                    'classifier': ('cnn_layer',),
+                    'svdd_pm': ('cnn_layer', 'gumbel_candidates'),
+                    'tds': ('cnn_layer',)}
+RNA_RUNS = {f'rna_{algo}{sfx}': kernels
+            for algo, kernels in RNA_PATH_KERNELS.items()
+            for sfx in ('', '_bf16')}
+RNA_TRAIN_STEPS = 10
+RNA_TRAIN_SET = ['training.accum_steps=2', 'optim.warmup_steps=5',
+                 'eval.val_check_interval=10',
+                 'checkpointing.every_n_steps=10']
+RNA_VALUE_BATCH = 8      # cli.train --batch_size: 128 x 8 states a step
+# the pipelines' phase: a few steps of each stage at full width, their
+# trajectories and decodes at PIPE_STEPS steps
+PIPE_STEPS = 32
+PIPE_M_SCHEDULE = '24:12,8:4'
+
+
+def rna_decode_launches(algo: str, steps: int) -> dict:
+  """The exact kernel launches of an RNA decode at --skip_best_of_n, 512
+  rows: 20 B1 launches a denoiser forward (the guided loop's: SVDD-MC and
+  classifier guidance one a step; DPS and DG two, the gradient's and the
+  step's; SVDD-PM one a step and the first step's fresh one, its carried
+  posterior replacing the rest; TDS two a step and the first step's
+  fresh one; the noise removal's, unless the carried posterior replaces
+  it; and the baseline's steps + 1), 20 B6 a DPS or DG step, one B2 a
+  step of SVDD-MC and SVDD-PM."""
+  loop = {'svdd_mc': steps, 'classifier': steps, 'dps': 2 * steps,
+          'dg': 2 * steps, 'svdd_pm': steps + 1, 'tds': 2 * steps + 1}[algo]
+  removal = 0 if algo in ('svdd_pm', 'tds') else 1
+  want = {'cnn_layer': CNN_LAYERS * (loop + removal + steps + 1)}
+  if algo in ('dps', 'dg'):
+    want['cnn_layer_bwd'] = CNN_LAYERS * steps
+  if algo in ('svdd_mc', 'svdd_pm'):
+    want['gumbel_candidates'] = steps
+  return want
+
+
+def check_rna_kernels(dtype, gen) -> dict:
+  """B1 at the RNA task's rows, 512 and B*M = 5120, x L = 50, all four
+  dilations, against its plain version (``_cnn_forward``: ms a 20-layer
+  forward, F.conv1d of the normalised input the library yardstick); B6
+  at 512 x 50 against its plain version on the kernel's relu mask, with
+  the mask checks (``_cnn_backward``), which below L = 100 rounds as
+  JAX's reference VJP in bf16 (``bwd_rounds_as_reference``)."""
+  out = {f'cnn_layer_n{n}': _cnn_forward(n, dtype, gen, RNA_L)
+         for n in RNA_ROWS}
+  out['cnn_layer_bwd_n512'] = _cnn_backward(RNA_ROWS[0], RNA_L, dtype, gen)
+  return out
+
+
+def check_rna_gumbel(gen) -> dict:
+  """B2 at the RNA step's shape (512, 10, 50, 5), half the positions
+  masked: every draw equal to the plain version's on the kernel's noise,
+  unmasked tokens copied, one launch a call; timed beside the plain
+  version, its bound ``gumbel_bound`` of this run's masked draws."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.mdlm import gumbel_noise
+  from svdd_tpu_torch.ops import fused_sample as K
+  b, m, l, v, mask = RNA_ROWS[0], 10, RNA_L, 5, 4
+  log_q = torch.log_softmax(torch.randn(b, l, v, device='cuda',
+                                        generator=gen), -1)
+  x = torch.randint(0, 4, (b, l), device='cuda', generator=gen)
+  x = torch.where(torch.rand(b, l, device='cuda', generator=gen) < 0.5,
+                  mask, x)
+  before = _build.LAUNCHES['gumbel_candidates']
+  out, noise = K.gumbel_candidates(log_q, x, m, mask, gen,
+                                   return_noise=True)
+  if _build.LAUNCHES['gumbel_candidates'] != before + 1:
+    raise AssertionError('gumbel_candidates rna: not one launch')
+  err = int((out - K.gumbel_candidates_plain(log_q, x, noise, mask))
+            .abs().max())
+  keep = (x != mask)[:, None].expand(-1, m, -1)
+  if err or not torch.equal(out[keep], x[:, None].expand(-1, m, -1)[keep]):
+    raise AssertionError(f'gumbel_candidates rna: max abs err {err} or '
+                         'unmasked tokens changed')
+
+  def plain():
+    return K.gumbel_candidates_plain(log_q, x, gumbel_noise(
+        (b, m, l, v), gen, 'cuda'), mask)
+  es = x.element_size()
+  n_drawn = int((~keep).sum())
+  bound_ms, bound_by, work = gumbel_bound(
+      n_drawn, v, b * l * v * 4 + b * l * es + b * m * l * es)
+  return {'shape': [b, m, l, v], 'max_abs_err': err, 'masked_draws': n_drawn,
+          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen), plain),
+          'bound_ms': bound_ms, 'bound_by': bound_by, 'work': work}
+
+
+def _rna_masks(n: int, seed: int) -> list:
+  """The dropout masks of one ConvGRU training forward of n rows at L=50,
+  in JAX's call order (the five ConvBlocks', the FFN's two)."""
+  import numpy as np
+  rs = np.random.default_rng(seed)
+  return ([rs.random((n, RNA_L, 64)) < RNA_KEEP for _ in range(5)]
+          + [rs.random((n, RNA_L, 128)) < RNA_KEEP,
+             rs.random((n, RNA_L, 64)) < RNA_KEEP])
+
+
+def _convgru_run(model, x, train: bool, masks):
+  """(output, input gradient of mean(out^2), parameter gradients, buffers)
+  of one forward of a copy of ``model`` on ``x``'s device."""
+  import copy
+  from svdd_tpu_torch.models.blocks import DropoutMasks
+  m = copy.deepcopy(model)
+  xx = x.clone().requires_grad_(True)
+  y = m(xx, fused=False, train=train,
+        masks=DropoutMasks(masks=masks) if train else None)
+  (y ** 2).mean().backward()
+  return (y.detach().cpu(), xx.grad.cpu(),
+          {k: p.grad.cpu() for k, p in m.named_parameters()},
+          {k: b.cpu() for k, b in m.named_buffers()})
+
+
+def check_convgru() -> dict:
+  """The ConvGRU value net (``build_value_module('rna')``) and the RNA
+  oracle's (``RewardOracle.create_rna``) on RNA_MODEL_ROWS rows, L=50, on
+  the card against the CPU with the same weights, f32 (TF32 off): the
+  eval output and the input gradient of mean(out^2) (the classifier's
+  gradient), then a training forward on the same dropout masks: output,
+  input gradient, every parameter's gradient (by norm, 1e-6 of the
+  largest gradient's norm beside: the ConvBlocks' conv biases, ahead of a
+  training BatchNorm, have a zero gradient in exact arithmetic) and the
+  moved running statistics; RNA_MODEL_TOL relative. No port kernel runs:
+  the launch counts stay 0."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build, mdlm, rewards
+  from svdd_tpu_torch import value as value_lib
+  g = torch.Generator().manual_seed(3)
+  x = mdlm.transform_samples(torch.randint(0, 5, (RNA_MODEL_ROWS, RNA_L),
+                                           generator=g))
+  masks = _rna_masks(RNA_MODEL_ROWS, 4)
+  norm = torch.linalg.vector_norm
+  report = {'rows': RNA_MODEL_ROWS, 'length': RNA_L}
+  _build.reset_launches()
+  for name, make in (
+      ('value', lambda gen: value_lib.build_value_module('rna',
+                                                         generator=gen)),
+      ('oracle', lambda gen: rewards.RewardOracle.create_rna(gen).module)):
+    cpu = make(torch.Generator().manual_seed(5))
+    gpu = copy.deepcopy(cpu).cuda()
+    for train in (False, True):
+      got = _convgru_run(gpu, x.cuda(), train, masks)
+      want = _convgru_run(cpu, x, train, masks)
+      tag = f'{name}_{"train" if train else "eval"}'
+      out_err = float((got[0] - want[0]).abs().max())
+      gx_rel = float(norm(got[1] - want[1]) / norm(want[1]))
+      r = {'out_max_abs_err': out_err,
+           'out_max_abs': float(want[0].abs().max()),
+           'input_grad_rel_norm_err': gx_rel}
+      ok = (torch.allclose(got[0], want[0], rtol=RNA_MODEL_TOL,
+                           atol=RNA_MODEL_TOL * r['out_max_abs'])
+            and gx_rel <= RNA_MODEL_TOL)
+      if train:
+        top = max(float(norm(v)) for v in want[2].values())
+        rel = {k: float(norm(got[2][k] - v)) / (float(norm(v)) + 1e-3 * top)
+               for k, v in want[2].items()}
+        stats = max(float((got[3][k] - v).abs().max()
+                          / (v.abs().max() + 1e-12))
+                    for k, v in want[3].items())
+        r.update(param_grad_max_rel_norm_err=max(rel.values()),
+                 running_stats_max_rel_err=stats)
+        ok = ok and max(rel.values()) <= RNA_MODEL_TOL and stats <= 1e-4
+      report[tag] = r
+      if not ok or not torch.isfinite(got[0]).all():
+        raise AssertionError(f'convgru {tag} card vs cpu: {r}')
+  launches = {k: v for k, v in _build.launches().items() if v}
+  if launches:
+    raise AssertionError(f'convgru: port kernels launched {launches}')
+  return report
+
+
+def run_rna_sample_eval() -> dict:
+  """``main_gosai --mode sample_eval --task rna --set
+  sampling.predictor=analytic`` through its ``run``: the full-width
+  denoiser at L=50, random weights, one batch of 512, 128 analytic steps
+  and ``denoiser_final``; B1 launched exactly 20 x 129 times."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  args = main_gosai.parser().parse_args(
+      ['--mode', 'sample_eval', '--task', 'rna', '--device', 'cuda',
+       '--ckpt_dir', os.path.join(REPO, 'build', 'chip_smoke',
+                                  'no_checkpoint'),
+       '--data_dir', _no_data_dir(), '--set', 'sampling.predictor=analytic',
+       f'sampling.steps={DECODE_STEPS}', 'sampling.num_sample_batches=1',
+       'loader.eval_batch_size=512'])
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _check_launches('rna_sample_eval_analytic', _build.launches(),
+                             {'cnn_layer': CNN_LAYERS * (DECODE_STEPS + 1)})
+  tokens = out['tokens']
+  if tokens.shape != (512, RNA_L) or tokens.min() < 0 or tokens.max() > 3:
+    raise AssertionError(f'rna sample_eval: tokens {tokens.shape} in '
+                         f'[{tokens.min()}, {tokens.max()}]')
+  return {'path': 'rna_sample_eval_analytic', 'task': 'rna',
+          'predictor': 'analytic', 'batch_size': 512, 'length': RNA_L,
+          'steps': DECODE_STEPS, 'wall_s': wall, 'launches': launches,
+          'distinct_tokens': int(np.unique(tokens).size)}
+
+
+def _rna_value_argv(root: str, name: str, ckpt: str, oracle: str,
+                    iters: int) -> list:
+  return ['--task', 'rna', '--device', 'cuda', '--batch_size',
+          str(RNA_VALUE_BATCH), '--max_iters', str(iters), '--eval_every',
+          str(VALUE_EVAL_EVERY), '--val_batch_num', '1', '--learning_rate',
+          str(VALUE_LR), '--diffusion_checkpoint_path', ckpt,
+          '--reward_checkpoint_path', oracle, '--out_dir', root,
+          '--run_name', name, '--reward_name', 'MRL',
+          '--save_path', os.path.join(root, f'{name}.pt'),
+          '--save_state_path', os.path.join(root, f'{name}_state.pt')]
+
+
+def rna_train_phase() -> dict:
+  """The RNA training chain, each part emitting its line:
+  ``cli.train_oracle --task rna`` (the ConvGRU MRL oracle, batch 64,
+  ORACLE_ITERS steps); ``main_gosai --mode train --task rna`` at full
+  width (L=50, global batch 512 in two microbatches, RNA_TRAIN_STEPS
+  steps, validation, the sample-quality hook scored by that oracle and a
+  checkpoint at the last step; B6 launched exactly 20 x 2 x steps);
+  ``cli.train --task rna`` (MC, batch 8, VALUE_ITERS iterations) from
+  the checkpoint and the oracle (B1 exactly 20 x 129 a trajectory, no
+  other kernel: the ConvGRU runs none); ``cli.eval --task rna`` on that
+  value net; two ``cli.train`` runs from one seed and two resumes from
+  one saved state, each pair equal bit for bit. Returns the launch
+  counts of its runs."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import eval as cli_eval
+  from svdd_tpu_torch.cli import main_gosai, train_oracle
+  from svdd_tpu_torch.cli import train as cli_train
+  root = _value_dir('rna')
+  runs = {}
+
+  def launched(name, want=None):
+    torch.cuda.synchronize()
+    got = _build.launches()
+    return (_check_launches(name, got, want) if want is not None
+            else {k: v for k, v in got.items() if v})
+
+  oracle = os.path.join(root, 'oracle.pt')
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = train_oracle.run(train_oracle.parser().parse_args(
+      ['--task', 'rna', '--batch_size', str(ORACLE_BATCH), '--max_iters',
+       str(ORACLE_ITERS), '--log_every', '5', '--save_path', oracle,
+       '--device', 'cuda', '--data_dir', _no_data_dir()]))
+  r = {'run': 'rna_train_oracle', 'batch_size': ORACLE_BATCH,
+       'iters': ORACLE_ITERS, 'losses': out['losses'],
+       'val_pearson': out['val_pearson'],
+       'wall_s': time.perf_counter() - t0,
+       'launches': launched('rna_train_oracle', {})}
+  if not np.isfinite([*out['losses'].values(), out['val_pearson']]).all():
+    raise AssertionError(f'rna_train_oracle: {r}')
+  emit({'phase': 'rna_train', **r})
+
+  args = main_gosai.parser().parse_args(
+      ['--mode', 'train', '--task', 'rna', '--device', 'cuda',
+       '--max_steps', str(RNA_TRAIN_STEPS), '--data_dir', _no_data_dir(),
+       '--ckpt_dir', os.path.join(root, 'ckpt'),
+       '--log_dir', os.path.join(root, 'log'),
+       '--eval_oracle_checkpoint_path', oracle, '--set', *RNA_TRAIN_SET])
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = launched('rna_train')
+  want_bwd = CNN_LAYERS * 2 * RNA_TRAIN_STEPS
+  rows = [json.loads(line) for line in open(out['metrics_path'])]
+  quality = [q for q in rows if 'kmer_pearson' in q]
+  if (launches.get('cnn_layer_bwd') != want_bwd or len(quality) != 1
+      or not np.isfinite([q['val/nll'] for q in rows
+                          if 'val/nll' in q]).all()):
+    raise AssertionError(f'rna_train: launches {launches} (B6 should run '
+                         f'{want_bwd} times), metrics {rows}')
+  cfg = out['state'].model.config
+  r = {'run': 'rna_train', 'batch_size': cfg.loader.global_batch_size,
+       'accum_steps': cfg.training.accum_steps, 'length': cfg.model.length,
+       'steps': out['state'].step, 'wall_s': wall,
+       'sample_quality': {k: v for k, v in quality[0].items()
+                          if not k.startswith('_')},
+       'launches': launches}
+  runs['rna_train'] = {'launches': launches}
+  emit({'phase': 'rna_train', **r})
+  ckpt = os.path.join(root, 'ckpt')
+
+  steps = DECODE_STEPS
+  trained = []
+  for name in ('rna_value_mc', 'rna_value_mc_again'):
+    args = cli_train.parser().parse_args(_rna_value_argv(
+        root, name, ckpt, oracle, VALUE_ITERS))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = cli_train.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launched(name, {'cnn_layer': CNN_LAYERS * (steps + 1)
+                               * (VALUE_ITERS + 1)})
+    state = out['state']
+    if state.step != VALUE_ITERS or state.module.compute_dtype != \
+        torch.float32:
+      raise AssertionError(f'{name}: step {state.step}')
+    trained.append(state)
+    rows = [json.loads(line) for line in open(out['metrics_path'])]
+    r = {'run': name, 'targets': 'mc', 'batch_size': RNA_VALUE_BATCH,
+         'steps': steps, 'iters': VALUE_ITERS, 'eval_last': rows[-1],
+         'wall_s': wall, 'launches': launches}
+    runs[name] = {'launches': launches}
+    emit({'phase': 'rna_train', **r})
+  value_path = os.path.join(root, 'rna_value_mc.pt')
+
+  args = cli_eval.parser().parse_args(
+      ['--task', 'rna', '--device', 'cuda', '--batch_size', str(EVAL_BATCH),
+       '--val_batch_num', '1', '--diffusion_checkpoint_path', ckpt,
+       '--reward_checkpoint_path', oracle, '--load_checkpoint_path',
+       value_path, '--out_dir', root, '--run_name', 'rna_value_eval'])
+  _build.reset_launches()
+  out = cli_eval.run(args)
+  launches = launched('rna_value_eval',
+                      {'cnn_layer': CNN_LAYERS * (steps + 1)})
+  if out['n'] != EVAL_BATCH or not np.isfinite([out['pearson'],
+                                                out['mse']]).all():
+    raise AssertionError(f'rna_value_eval: {out}')
+  runs['rna_value_eval'] = {'launches': launches}
+  emit({'phase': 'rna_train', 'run': 'rna_value_eval', **out,
+        'launches': launches})
+
+  resumed = []
+  for _ in range(2):
+    out = cli_train.run(cli_train.parser().parse_args(_rna_value_argv(
+        root, 'rna_value_resume', ckpt, oracle, 1)[:-4] + [
+            '--resume_state_path',
+            os.path.join(root, 'rna_value_mc_state.pt'),
+            '--max_iters', '1', '--val_batch_num', '0']))
+    resumed.append(out['state'])
+  r = {'runs_equal': _same_state(*trained),
+       'resumes_equal': _same_state(*resumed),
+       'resumed_step': resumed[0].step}
+  if not (r['runs_equal'] and r['resumes_equal']):
+    raise AssertionError(f'rna value training on the card is not '
+                         f'deterministic: {r}')
+  emit({'phase': 'rna_value_determinism', **r})
+  return runs
+
+
+def run_pipelines() -> dict:
+  """``svdd_tpu_torch/pipeline.py``'s stages of both tasks chained on the
+  card at full width, a few steps each (pretrain 5 steps at batch 16,
+  the oracle 3, the value net 2; trajectories and decodes at PIPE_STEPS
+  steps, B=64, M=10; DNA with a scheduled-M decode too): no quality
+  gate, the stages must run and report finite values. Returns the launch
+  counts of each pipeline."""
+  import dataclasses
+  import math
+  import torch
+  from svdd_tpu_torch import _build, pipeline
+  from svdd_tpu_torch.config import dna_config, rna_config
+  from svdd_tpu_torch.utils import parse_m_schedule
+  recipe = pipeline.Recipe(pretrain_steps=5, train_batch=16, oracle_steps=3,
+                           value_steps=2, decode_batch=64, sample_M=10)
+  runs = {}
+  for task in ('rna', 'dna'):
+    cfg = (rna_config if task == 'rna' else dna_config)()
+    cfg.sampling.steps = PIPE_STEPS
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if task == 'rna':
+      results, _ = pipeline.rna(cfg, _no_data_dir(), 'cuda', recipe)
+    else:
+      results, _ = pipeline.dna(
+          cfg, _no_data_dir(), 'cuda', recipe, seed_offset=100,
+          m_schedule=parse_m_schedule(PIPE_M_SCHEDULE),
+          sched_label=PIPE_M_SCHEDULE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches().items() if v}
+    need = ('cnn_layer', 'cnn_layer_bwd', 'gumbel_candidates') + (
+        () if task == 'rna' else ('attn_pool_prologue_im2col', 'attn_pool',
+                                  'attn_l2', 'conv1d_bwd', 'attn_pool_bwd'))
+    values = [v for row in results['report'].values() for v in row.values()]
+    values += [results[k] for k in ('value_mse_first', 'value_mse_last',
+                                    'diffusion_loss_last')]
+    if [k for k in need if k not in launches] or not all(
+        math.isfinite(v) for v in values) or not results['card']:
+      raise AssertionError(f'pipeline {task}: launches {launches}, '
+                           f'{results}')
+    name = f'pipeline_{task}'
+    runs[name] = {'launches': launches}
+    emit({'phase': 'pipeline', 'run': name, 'wall_s': wall,
+          'recipe': dataclasses.asdict(recipe), 'steps': PIPE_STEPS,
+          **results, 'launches': launches})
+  return runs
+
+
+def rna_phase() -> dict:
+  """Phase 7, each part emitting its line: the ConvGRU on the card
+  against the CPU; the six RNA decoders through their CLIs at B=512, 128
+  steps, f32 and under the bf16 switches (the ConvGRU stays f32 under
+  them), with exact launch counts; sample_eval with the analytic
+  predictor; the training chain; the pipelines' stages. Returns the
+  launch counts of its runs of the main path."""
+  import torch
+  emit({'phase': 'rna_models', **check_convgru()})
+  torch.cuda.empty_cache()
+  runs = {}
+  for bf16 in (False, True):
+    for algo in RNA_GUIDED:
+      name = f'rna_{algo}_bf16' if bf16 else f'rna_{algo}'
+      r = run_decode(algo, name, bf16=bf16, task='rna')
+      torch.cuda.synchronize()
+      torch.cuda.empty_cache()
+      emit({'phase': 'decode', **r})
+      runs[name] = r
+  r = run_rna_sample_eval()
+  emit({'phase': 'decode', **r})
+  runs[r['path']] = r
+  runs.update(rna_train_phase())
+  torch.cuda.empty_cache()
+  runs.update(run_pipelines())
+  torch.cuda.empty_cache()
+  return runs
+
+
 def kernel_checks() -> list:
   """(name, check(dtype, generator)) of the kernel phase, in order; each
   runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
@@ -3944,6 +4431,22 @@ def main() -> None:
   torch.cuda.synchronize()
   emit({'phase': 'cnn_layer_past_limit', **r})
 
+  # B1, B6 and B2 at the RNA task's shapes (L = 50)
+  rna_kernels = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    dname = str(dtype).split('.')[-1]
+    for key, r in check_rna_kernels(dtype, gen).items():
+      if 'bound_ms' not in r:
+        r['bound_ms'], r['bound_by'] = bound(r['flops'], r['bytes'], dname)
+      rna_kernels[(key, dname)] = r
+      emit({'phase': 'kernel_rna', 'kernel': key, 'dtype': dname, **r})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+  r = check_rna_gumbel(gen)
+  rna_kernels[('gumbel_candidates', 'float32')] = r
+  emit({'phase': 'kernel_rna', 'kernel': 'gumbel_candidates',
+        'dtype': 'float32', **r})
+
   # float32, then bf16 held against the f32 run's CPU results
   model_ref = grad_ref = None
   for _ in range(2):
@@ -4020,11 +4523,19 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit({'phase': 'profile', **prof})
+  for algo in RNA_PATH_KERNELS:
+    if algo == 'dg':          # DPS's step
+      continue
+    prof = profile_step(algo, task='rna')
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': 'profile', **prof})
   r = time_dit_forward()
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   emit({'phase': 'profile', 'algo': 'dit_forward', **r})
   train_profiles()
+  runs.update(rna_phase())
 
   kernels = []
   for name in _build.KERNELS:
@@ -4071,6 +4582,17 @@ def main() -> None:
       entry.update({k: f32[k] for k in ('peak', 'tflops', 'bound_share',
                                         'fma_bound_ms', 'fma_bound_share')})
       entry.update(tflops_bf16=bf['tflops'], bound_share_bf16=bf['bound_share'])
+    rna = {k: {dt: rna_kernels[(k, dt)] for dt in ('float32', 'bfloat16')
+               if (k, dt) in rna_kernels}
+           for k, _ in rna_kernels if k == name or k.startswith(f'{name}_n')}
+    if rna:
+      entry['rna'] = {
+          k: {dt: {f: r[f] for f in ('shape', 'max_abs_err', 'ms',
+                                     'plain_ms', 'library_ms', 'bound_ms',
+                                     'bound_by', 'tflops', 'bound_share',
+                                     'rounds_as_reference')
+                   if f in r} for dt, r in by_dt.items()}
+          for k, by_dt in rna.items()}
     for suffix, key in (('d128', 'head_dim_128'), ('l200', 'length_200')):
       more = {dt: results.get((f'{name}_{suffix}', dt))
               for dt in ('float32', 'bfloat16')}

@@ -44,7 +44,7 @@ SIGNATURES = {
                               [_P] * 7 + [_I] * 6 + [_P]),
     'svdd_attn_l2': ('attn_l2', [_P] * 8 + [_I] * 6 + [_P]),
     'svdd_cnn_layer_bwd': ('cnn_layer_bwd',
-                           [_P] * 18 + [_I] * 5 + [_F, _I, _P]),
+                           [_P] * 18 + [_I] * 5 + [_F, _I, _I, _P]),
     'svdd_conv1d_bwd': ('conv1d_bwd', [_P] * 7 + [_I] * 7 + [_P]),
     'svdd_attn_pool_bwd': ('attn_pool_bwd', [_P] * 9 + [_I] * 5 + [_P]),
     'svdd_flash_attention': ('flash_attention',

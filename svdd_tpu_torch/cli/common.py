@@ -9,10 +9,16 @@ whose EMA weights the denoiser takes; ``--reward_checkpoint_path`` a
 ``cli.train_oracle --save_path`` file, the Enformer reward oracle;
 ``--load_checkpoint_path`` and ``--pre_model_path`` a ``cli.train
 --save_path`` file, the value net. Any other file (a reference ``.pt``,
-an orbax directory) raises ``NotImplementedError`` naming ROADMAP A17.
-Without them the models take random weights drawn from the config's
-seed (diffusion) and seed 1 (value net), and the reward is the synthetic
-motif oracle, as the JAX CLI does without checkpoint flags.
+an orbax directory) raises ``NotImplementedError`` naming ROADMAP A17,
+and a file of the other task (an Enformer for ``--task rna``, a ConvGRU
+for ``--task dna``) raises ``ValueError``. Without them the models take
+random weights drawn from the config's seed (diffusion) and seed 1
+(value net), and the reward is the synthetic motif oracle, as the JAX
+CLI does without checkpoint flags.
+
+``--task rna`` is the RNA 5'UTR task: L=50 (``rna_config``), the
+ConvGRU value net and MRL oracle. ``--task rna_saluki`` and the saluki
+flags raise naming ROADMAP A1.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 
 from svdd_tpu_torch import rewards, value as value_lib
-from svdd_tpu_torch.config import Config, dna_config
+from svdd_tpu_torch.config import Config, dna_config, rna_config
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.train import diffusion as train_diff
 
@@ -44,7 +50,7 @@ def make_parser(description: str) -> argparse.ArgumentParser:
   p.add_argument('--run_name', type=str, required=False)
   p.add_argument('--debug', action='store_true', default=False)
   p.add_argument('--task', type=str, default='dna',
-                 help='dna (rna / rna_saluki are not ported yet)')
+                 help='dna or rna (rna_saluki is not ported yet)')
   p.add_argument('--saluki_body', type=int, default=0)
   p.add_argument('--saluki_body_path', type=str, default=None)
   p.add_argument('--saluki_final_length', type=int, default=12288)
@@ -123,20 +129,25 @@ def reject_unported(args) -> None:
   for name in SALUKI_FLAGS:
     if getattr(args, name, None):
       raise NotImplementedError(f'--{name}: the RNA saluki task is not '
-                                'ported yet (ROADMAP A10)')
+                                'ported yet (ROADMAP A1)')
+  value_lib.reject_saluki(args.task)
+  if args.task not in ('dna', 'rna'):
+    raise NotImplementedError(f'--task {args.task}: only dna and rna are '
+                              'ported')
   for name in VALUE_CHECKPOINT_FLAGS:
     if getattr(args, name, None):
-      value_lib.load_checkpoint(getattr(args, name), mmap=True)
+      value_lib.load_checkpoint(getattr(args, name), mmap=True,
+                                task=args.task)
   if getattr(args, 'diffusion_checkpoint_path', None):
     diffusion_checkpoint(args.diffusion_checkpoint_path)
-  if args.task != 'dna':
-    raise NotImplementedError(f'--task {args.task}: only dna is ported')
   if args.dist:
     raise NotImplementedError('--dist: the parallel paths are not ported')
 
 
 def task_config(args) -> Config:
-  cfg = dna_config()
+  """The task's preset (``rna_config`` for rna, L=50) with the length,
+  step and batch flags."""
+  cfg = rna_config() if args.task == 'rna' else dna_config()
   if args.length:
     cfg.model.length = args.length
   if args.num_steps:
@@ -159,15 +170,25 @@ def load_diffusion(args, cfg: Config) -> Diffusion:
   return model
 
 
+def load_oracle(path: str, task: str, device) -> rewards.RewardOracle:
+  """The reward oracle a ``cli.train_oracle --save_path`` file holds: the
+  Enformer (DNA, float32, task 0 read) or the ConvGRU (RNA)."""
+  ckpt = value_lib.load_checkpoint(path, task=task)
+  gen = torch.Generator(torch.device(device)).manual_seed(0)
+  create = (rewards.RewardOracle.create_rna
+            if value_lib.checkpoint_task(task) == 'rna'
+            else rewards.RewardOracle.create_dna)
+  oracle = create(gen, **ckpt['config'])
+  oracle.module.load_state_dict(ckpt['model'])
+  return oracle
+
+
 def load_reward_fn(args, cfg: Config):
-  """The Enformer oracle of ``--reward_checkpoint_path`` (float32, task 0
-  read), or the synthetic motif oracle."""
+  """The oracle of ``--reward_checkpoint_path`` (``load_oracle``), or the
+  synthetic motif oracle at the task's length."""
   path = getattr(args, 'reward_checkpoint_path', None)
   if path:
-    ckpt = value_lib.load_checkpoint(path)
-    gen = torch.Generator(torch.device(args.device)).manual_seed(0)
-    oracle = rewards.RewardOracle.create_dna(gen, **ckpt['config'])
-    oracle.module.load_state_dict(ckpt['model'])
+    oracle = load_oracle(path, args.task, args.device)
     LOGGER.info('loaded reward oracle %s', path)
     return oracle
   LOGGER.warning('no --reward_checkpoint_path: using synthetic motif '
@@ -179,11 +200,12 @@ def load_value_function(args, cfg: Config,
                         **module_kwargs) -> value_lib.ValueFunction:
   """The value net of ``--load_checkpoint_path`` (or ``--pre_model_path``),
   at the checkpoint's widths, or a random one of ``module_kwargs``'s
-  widths (the full width by default)."""
+  widths (the full width by default): the Enformer for DNA, the ConvGRU
+  for RNA."""
   gen = torch.Generator(torch.device(args.device)).manual_seed(1)
   path = args.load_checkpoint_path or args.pre_model_path
   if path:
-    ckpt = value_lib.load_checkpoint(path)
+    ckpt = value_lib.load_checkpoint(path, task=args.task)
     vf = value_lib.ValueFunction.create(args.task, cfg.model.length, gen,
                                         model=args.model, **ckpt['config'])
     vf.module.load_state_dict(ckpt['model'])

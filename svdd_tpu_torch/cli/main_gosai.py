@@ -4,28 +4,34 @@ defaults, plus ``--device``.
 
   python -m svdd_tpu_torch.cli.main_gosai --mode train --task dna \
       --max_steps 1000 --set training.accum_steps=2
+  python -m svdd_tpu_torch.cli.main_gosai --mode train --task rna
   python -m svdd_tpu_torch.cli.main_gosai --mode ppl_eval
   python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
       --set backbone=dimamba
   python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
       --config svdd_tpu_torch/configs/text_mdlm.yaml --gen_ppl_model ar
 
+``--task rna`` takes the RNA preset (L=50, ``rna_config``).
 ``train`` trains the CNN denoiser on the Gosai splits (the synthetic
 split where no CSV is found, ``data/gosai.py``), logs to
 ``<log_dir>/<task>-pretrain.metrics.jsonl`` (train/loss every 100 steps;
-val/nll and the sample-quality metrics of the EMA weights, which use the
-synthetic motif oracle, every ``eval.val_check_interval``) and
+val/nll and the sample-quality metrics of the EMA weights every
+``eval.val_check_interval``, scored by the oracle of
+``--eval_oracle_checkpoint_path``, a ``cli.train_oracle --save_path``
+file of the task (the Enformer for dna, the ConvGRU for rna), or the
+synthetic motif oracle without one) and
 checkpoints into ``--ckpt_dir``, resuming from the newest checkpoint
 there. ``ppl_eval`` reports the validation NLL, bits per token
 and perplexity of the checkpoint's EMA weights; ``sample_eval`` draws
 ``sampling.num_sample_batches`` batches of ``loader.eval_batch_size``
-unguided samples from them (the ``sampling.predictor``, ddpm or
-ddpm_cache), logs the first four of each batch through the DNA
+unguided samples from them (the ``sampling.predictor``, ddpm,
+ddpm_cache or analytic), logs the first four of each batch through the DNA
 detokenizer and, with ``--gen_ppl_model``, their generative perplexity
 under the repo's AR backbone. Without a checkpoint the model takes
 random weights from ``seed``. A ``--ckpt_dir`` holding other files and no
 checkpoint of the port (an orbax directory, a reference ``.pt``) raises,
-as do the reward-oracle and AR-scorer checkpoint flags (ROADMAP A17).
+as do an oracle file this package did not write and the AR-scorer
+checkpoint flag (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ import torch
 
 from svdd_tpu_torch import rewards
 from svdd_tpu_torch.cli import common
-from svdd_tpu_torch.config import Config, check_single_device, dna_config
+from svdd_tpu_torch import value as value_lib
+from svdd_tpu_torch.config import (Config, check_single_device, dna_config,
+                                   rna_config)
 from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.eval import gen_ppl, validation
@@ -71,11 +79,8 @@ def parse_overrides(pairs):
 def build_config(args) -> Config:
   if args.config:
     cfg = Config.from_yaml(args.config)
-  elif args.task == 'rna':
-    raise NotImplementedError('--task rna: the RNA task is not ported yet '
-                              '(ROADMAP A10)')
   else:
-    cfg = dna_config()
+    cfg = rna_config() if args.task == 'rna' else dna_config()
   overrides = parse_overrides(args.set)
   return cfg.override(**overrides) if overrides else cfg
 
@@ -83,8 +88,8 @@ def build_config(args) -> Config:
 def _reject_unported(args, cfg: Config) -> None:
   check_single_device(cfg)
   if args.eval_oracle_checkpoint_path:
-    raise NotImplementedError('--eval_oracle_checkpoint_path: checkpoint '
-                              'loading is not ported yet (ROADMAP A17)')
+    value_lib.load_checkpoint(args.eval_oracle_checkpoint_path, mmap=True,
+                              task=cfg.task)
   if args.gen_ppl_ar_checkpoint:
     raise NotImplementedError('--gen_ppl_ar_checkpoint: checkpoint loading '
                               'is not ported yet (ROADMAP A17)')
@@ -99,14 +104,19 @@ def _reject_unported(args, cfg: Config) -> None:
 def _sample_eval_hook(cfg: Config, args):
   """The in-training sample-quality hook: 2 batches of up to 64 samples
   from the EMA weights against the train and val splits, scored by the
-  synthetic motif oracle."""
+  task's oracle of ``--eval_oracle_checkpoint_path`` (the RNA ConvGRU or
+  the DNA Enformer) or the synthetic motif oracle."""
   datasets = {split: gosai.GosaiDataset(split, length=cfg.model.length,
                                         data_dir=args.data_dir)
               for split in ('train', 'val')}
-  oracle_fn = rewards.synthetic_motif_oracle(cfg.model.length)
+  if args.eval_oracle_checkpoint_path:
+    oracle_fn = common.load_oracle(args.eval_oracle_checkpoint_path,
+                                   cfg.task, args.device)
+  else:
+    oracle_fn = rewards.synthetic_motif_oracle(cfg.model.length)
+    LOGGER.warning('sample-eval: no --eval_oracle_checkpoint_path, using '
+                   'the synthetic motif oracle')
   bs = min(cfg.loader.eval_batch_size, 64)
-  LOGGER.warning('sample-eval: no --eval_oracle_checkpoint_path, using the '
-                 'synthetic motif oracle')
 
   def hook(ema_model, generator):
     return validation.distribution_eval(ema_model, datasets, generator,
@@ -234,7 +244,8 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument('--no_sample_eval', action='store_true', default=False,
                  help='skip the in-training sample-quality validation')
   p.add_argument('--eval_oracle_checkpoint_path', default=None,
-                 help='not ported yet: raises')
+                 help='a cli.train_oracle --save_path file of the task, '
+                      'the sample-quality oracle (other files raise)')
   p.add_argument('--gen_ppl_model', default=None,
                  help="'ar' scores the samples with the repo's own AR "
                       'backbone; any other name falls back to it (the '

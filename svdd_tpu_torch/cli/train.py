@@ -4,7 +4,8 @@
       --max_iters 1000 --diffusion_checkpoint_path ckpt/step_40.pt \
       --reward_checkpoint_path oracle.pt --save_path value.pt
 
-Trains the Enformer value net (``--model enformer``) against the frozen
+Trains the value net (the Enformer, ``--model enformer``, for ``--task
+dna``; the ConvGRU for ``--task rna``, in f32 always) against the frozen
 denoiser of ``--diffusion_checkpoint_path`` (the EMA weights of a
 ``main_gosai --mode train`` checkpoint) with the targets of
 ``--reward_checkpoint_path``'s oracle (``cli.train_oracle --save_path``;
@@ -42,15 +43,12 @@ def _reject(args) -> None:
   if args.dist or args.fsdp:
     raise NotImplementedError('--dist / --fsdp: the parallel paths are not '
                               'ported yet (ROADMAP A16)')
-  if args.task != 'dna':
-    raise NotImplementedError(f'--task {args.task}: the RNA task is not '
-                              'ported yet (ROADMAP A10)')
   common.reject_unported(args)
 
 
 def run(args, cfg=None, value_kwargs=None) -> dict:
-  """Train. ``cfg`` and ``value_kwargs`` (EnformerValueModel arguments)
-  replace the full-size DNA models, for tests. Returns the trainer, its
+  """Train. ``cfg`` and ``value_kwargs`` (the value module's arguments)
+  replace the full-size models, for tests. Returns the trainer, its
   final state and the metrics file's path."""
   _reject(args)
   common.full_f32()
@@ -61,7 +59,7 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   tcfg = train_val.ValueTrainerConfig(
       learning_rate=args.learning_rate, grad_norm_clip=args.grad_norm_clip,
       max_iter=args.max_iters, cdq=args.cdq, batch_size=args.batch_size,
-      lr_decay=args.lr_decay)
+      lr_decay=args.lr_decay, task=args.task)
   trainer = train_val.ValueTrainer(diffusion, vf, reward_fn, tcfg)
   if args.resume_state_path:
     state = trainer.restore_state(args.resume_state_path, args.seed)
@@ -74,7 +72,8 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   if args.val_batch_num > 0:
     gen = torch.Generator(diffusion.device).manual_seed(args.seed + 1)
     eval_batches, eval_targets = train_val.build_eval_timestep_batches(
-        diffusion, reward_fn, args.batch_size, args.val_batch_num, gen)
+        diffusion, reward_fn, args.batch_size, args.val_batch_num, gen,
+        task=args.task)
 
   logger = MetricsLogger(log_dir=args.out_dir, run_name=args.run_name or
                          f'{args.task}-{args.reward_name}-valuetrain')

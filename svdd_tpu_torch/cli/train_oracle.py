@@ -1,19 +1,22 @@
-"""Reward-oracle training CLI (``svdd_tpu/cli/train_oracle.py``), the DNA
-task.
+"""Reward-oracle training CLI (``svdd_tpu/cli/train_oracle.py``).
 
+  python -m svdd_tpu_torch.cli.train_oracle --task rna --save_path oracle.pt
   python -m svdd_tpu_torch.cli.train_oracle --task dna --batch_size 64 \
       --max_iters 2000 --save_path oracle.pt
 
-Trains the 3-task Enformer oracle (hepg2, k562, sknsh; ``--small``: 256
-channels, 3 conv blocks, one transformer block) on the Gosai training
-split (``gosai_train.csv`` under ``--data_dir``, ``$SVDD_DATA_DIR`` or
-``/data/svdd``; the synthetic planted-motif split without one): AdamW
-at a constant rate (optax.adamw's defaults: betas (0.9, 0.999), weight
-decay 1e-4; no clipping) on the MSE over the three tasks, in training
-mode (BatchNorm on the batch, dropout live). Then it logs the Pearson
-correlation of task 0 on the first 512 validation rows and writes
-``--save_path``, which ``--reward_checkpoint_path`` of the decoders and
-trainers reads. Float32 with TF32 off.
+Trains the reward oracle on the Gosai training split
+(``gosai_train.csv`` under ``--data_dir``, ``$SVDD_DATA_DIR`` or
+``/data/svdd``; the synthetic planted-motif split without one): for
+``--task rna`` (the default, as in JAX) the one-task ConvGRU MRL oracle
+at L=50 on the first label column; for ``--task dna`` the 3-task
+Enformer (hepg2, k562, sknsh; ``--small``: 256 channels, 3 conv blocks,
+one transformer block) on all three. AdamW at a constant rate
+(optax.adamw's defaults: betas (0.9, 0.999), weight decay 1e-4; no
+clipping) on the MSE, in training mode (BatchNorm on the batch, dropout
+live). Then it logs the Pearson correlation of task 0 on the first 512
+validation rows and writes ``--save_path``, which
+``--reward_checkpoint_path`` of the decoders and trainers reads.
+Float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.cli import common
 from svdd_tpu_torch.data.gosai import FaultTolerantIterator, GosaiDataset
 from svdd_tpu_torch.models.blocks import DropoutMasks
+from svdd_tpu_torch.models.convgru import ConvGRUValueModel
 from svdd_tpu_torch.models.enformer import EnformerValueModel
 from svdd_tpu_torch.train.diffusion import Optimizer
 
@@ -37,9 +41,12 @@ WEIGHT_DECAY = 1e-4   # optax.adamw's default; torch.optim.AdamW's is 1e-2
 VAL_ROWS = 512
 
 
-def build_module(small: bool, generator: torch.Generator
-                 ) -> EnformerValueModel:
-  """The DNA oracle: the 3-task Enformer, full width or ``SMALL``."""
+def build_module(small: bool, generator: torch.Generator,
+                 task: str = 'dna'):
+  """The task's oracle: the one-task ConvGRU (rna; ``small`` changes
+  nothing, as in JAX), or the 3-task Enformer, full width or ``SMALL``."""
+  if task == 'rna':
+    return ConvGRUValueModel(n_tasks=1, generator=generator)
   return EnformerValueModel(n_tasks=3, generator=generator,
                             **(SMALL if small else {}))
 
@@ -51,11 +58,14 @@ def onehot4(seqs: torch.Tensor) -> torch.Tensor:
 
 def train_step(module, optimizer: Optimizer, seqs, labels,
                masks: DropoutMasks) -> torch.Tensor:
-  """One AdamW step on the MSE over all tasks; the module's running
+  """One AdamW step on the MSE over the module's tasks (a one-task
+  module against the first label column); the module's running
   statistics move. Returns the loss (0-dim, on the device)."""
   for p in optimizer.params:
     p.grad = None
   preds = module(onehot4(seqs), train=True, masks=masks)
+  if preds.ndim == 1:
+    labels = labels[:, 0]
   loss = ((preds - labels) ** 2).mean()
   loss.backward()
   optimizer.step()
@@ -73,7 +83,8 @@ def val_pearson(module, val: GosaiDataset, device) -> float:
   with torch.inference_mode():
     seqs = torch.as_tensor(val.seqs[:VAL_ROWS], device=device).long()
     preds = module(onehot4(seqs)).float().cpu().numpy()
-  p0, l0 = preds[:, 0], val.clss[:VAL_ROWS, 0]
+  p0 = preds if preds.ndim == 1 else preds[:, 0]
+  l0 = val.clss[:VAL_ROWS, 0]
   denom = p0.std() * l0.std()
   return (float(((p0 - p0.mean()) * (l0 - l0.mean())).mean() / denom)
           if denom > 0 else 0.0)
@@ -82,12 +93,10 @@ def val_pearson(module, val: GosaiDataset, device) -> float:
 def run(args) -> dict:
   """Train; returns the module, the losses read at the log steps and the
   validation Pearson correlation."""
-  if args.task != 'dna':
-    raise NotImplementedError(f'--task {args.task}: the RNA oracle '
-                              '(ConvGRU) is not ported yet (ROADMAP A10)')
+  value_lib.reject_saluki(args.task)
   common.full_f32()
   device = torch.device(args.device)
-  length = args.length or 200
+  length = args.length or (50 if args.task == 'rna' else 200)
   ds = GosaiDataset('train', length=length, data_dir=args.data_dir)
   val = GosaiDataset('val', length=length, data_dir=args.data_dir)
   if ds.synthetic:
@@ -95,7 +104,8 @@ def run(args) -> dict:
                    'planted-motif dataset')
   it = iter(FaultTolerantIterator(ds, args.batch_size, seed=args.seed))
   module = build_module(args.small,
-                        torch.Generator(device).manual_seed(args.seed))
+                        torch.Generator(device).manual_seed(args.seed),
+                        args.task)
   optimizer = make_optimizer(module, args.learning_rate)
   # the dropout masks' generator, JAX's key(seed + 1)
   gen = torch.Generator(device).manual_seed(args.seed + 1)

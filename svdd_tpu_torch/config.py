@@ -212,6 +212,14 @@ def dna_config(**overrides: Any) -> Config:
   return cfg.override(**overrides) if overrides else cfg
 
 
+def rna_config(**overrides: Any) -> Config:
+  """RNA 5'UTR task (L=50, MRL reward): the DNA preset at length 50
+  (``svdd_tpu/config.py:rna_config``)."""
+  cfg = Config(task='rna')
+  cfg.model.length = 50
+  return cfg.override(**overrides) if overrides else cfg
+
+
 def text_mdlm_config(**overrides: Any) -> Config:
   """The legacy text MDLM preset (``svdd_tpu/configs/text_mdlm.yaml``,
   copied to ``configs/text_mdlm.yaml``): the MDLM paper's small DiT
@@ -229,11 +237,12 @@ def text_mdlm_config(**overrides: Any) -> Config:
 
 def tiny_test_config(task: str = 'dna', **overrides: Any) -> Config:
   """Small config for CPU unit tests (``svdd_tpu.config.tiny_test_config``
-  with the fields this package reads). Only the DNA task is ported."""
-  if task != 'dna':
+  with the fields this package reads): L=16 for the RNA task, 24 for
+  DNA."""
+  if task not in ('dna', 'rna'):
     raise NotImplementedError(f'task {task!r} is not ported yet')
-  cfg = dna_config()
-  cfg.model.length = 24
+  cfg = rna_config() if task == 'rna' else dna_config()
+  cfg.model.length = 16 if task == 'rna' else 24
   cfg.model.hidden_dim = 32
   cfg.model.num_cnn_stacks = 1
   cfg.model.hidden_size = 32

@@ -14,7 +14,12 @@
 //   dx = T(dh0) + ct, d bias_row = sum over L of dh0,
 // with hn the f32 normalised row, dacc rounded to the activation type
 // (exact: ct is already of that type) before the dgrad and wgrad
-// products, and every product summed in f32.
+// products, and every product summed in f32. With ref_round (sequences
+// below L = 100, where JAX differentiates cnn_layer_reference rather
+// than taking the Pallas backward; ops/cnn_layer.bwd_rounds_as_reference)
+// the dgrad pass rounds as that VJP's bf16 ops do: dhs, dhs * T(g),
+// dhs * T(hn) and dh0 each to T before they are used or summed (the
+// wrapper rounds the sums); in f32 every such rounding is exact.
 //
 // What bounds it on an H100: three tap-product passes of the forward's
 // size (recompute, dgrad, wgrad), each 2 C^2 per (row, live tap) whose
@@ -133,7 +138,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                             float* __restrict__ dg_part,
                             float* __restrict__ db_part,
                             float* __restrict__ dbr_part, svdd::Taps taps,
-                            int k_live, int L, float eps) {
+                            int k_live, int L, float eps, int ref_round) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* hs = svdd::cnn::seq_rows<T>(smem);
 
@@ -199,6 +204,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     h0 = (svdd::round_to<T>(x0 + b0) - mu) * rstd;
     h1 = (svdd::round_to<T>(x1 + b1) - mu) * rstd;
   };
+  // dhs and dhn = dhs * g, rounded to T as the reference VJP rounds them
+  // under ref_round
+  auto dhs_of = [&](float a) { return ref_round ? svdd::round_to<T>(a) : a; };
+  auto dhn_of = [&](float a, float g) {
+    return ref_round ? svdd::round_to<T>(svdd::round_to<T>(a) * svdd::round_to<T>(g))
+                     : a * g;
+  };
   // each row's sums of dhn and dhn * hn over this warp's 32 columns
 #pragma unroll
   for (int mi = 0; mi < kMaxM; ++mi) {
@@ -215,8 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int col = 32 * cg + 8 * ni + 2 * t;
           float h0, h1;
           hn_pair(row, col, mu, rstd, h0, h1);
-          const float d0 = acc[mi][ni][2 * h] * ln_g[col];
-          const float d1 = acc[mi][ni][2 * h + 1] * ln_g[col + 1];
+          const float d0 = dhn_of(acc[mi][ni][2 * h], ln_g[col]);
+          const float d1 = dhn_of(acc[mi][ni][2 * h + 1], ln_g[col + 1]);
           s1 += d0 + d1;
           s2 += d0 * h0 + d1 * h1;
         }
@@ -260,12 +272,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         svdd::cnn::load2(ct + at, c[0], c[1]);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float a = acc[mi][ni][2 * h + e];
-          const float dhn = a * ln_g[col + e];
+          const float a = dhs_of(acc[mi][ni][2 * h + e]);
+          const float dhn = dhn_of(a, ln_g[col + e]);
           dh0[e] = rstd * (dhn - m1 - hn[e] * m2);
-          sg[ni][e] += a * hn[e];
+          sg[ni][e] += ref_round ? svdd::round_to<T>(a * svdd::round_to<T>(hn[e]))
+                                 : a * hn[e];
           sb[ni][e] += a;
-          sr[ni][e] += dh0[e];
+          sr[ni][e] += dhs_of(dh0[e]);
           c[e] += svdd::round_to<T>(dh0[e]);
         }
         svdd::cnn::store2(dx + at, c[0], c[1]);
@@ -463,7 +476,7 @@ int launch(const void* x, const void* bias_row, const void* ln_g,
            const void* ct, void* dx, void* dbr, void* dw, void* dg, void* db,
            void* dcb, void* mask_out, void* scratch_t, void* scratch_f,
            const int* offsets,
-           int k_live, int n, int l, int chunks, float eps,
+           int k_live, int n, int l, int chunks, float eps, int ref_round,
            cudaStream_t stream) {
   const svdd::Taps taps = svdd::make_taps(offsets, k_live);
   const int passes = (l + kPassRows - 1) / kPassRows;
@@ -504,7 +517,7 @@ int launch(const void* x, const void* bias_row, const void* ln_g,
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   cnn_bwd_dgrad_ln_kernel<T><<<grid, kThreads, smem, stream>>>(
       xp, brp, gp, static_cast<const T*>(wflip), ctp, dacc, static_cast<T*>(dx),
-      dg_part, db_part, dbr_part, taps, k_live, l, eps);
+      dg_part, db_part, dbr_part, taps, k_live, l, eps, ref_round);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long total = static_cast<long long>(n) * l;
   const int rows_per_chunk = static_cast<int>((total + chunks - 1) / chunks);
@@ -538,7 +551,8 @@ int launch(const void* x, const void* bias_row, const void* ln_g,
 // (N, L, 128) bytes, the relu mask used (1 where y > 0). Scratch:
 // scratch_t 2*N*L*128 elements of T; scratch_f k_live*chunks*128*128 +
 // 4*N*ceil(L/240)*128 floats. The sequence must fit a block's shared
-// memory, as for svdd_cnn_layer. dtype: 0 float32, 1 bfloat16.
+// memory, as for svdd_cnn_layer. dtype: 0 float32, 1 bfloat16. ref_round:
+// round the dgrad pass as cnn_layer_reference's VJP (see the top).
 extern "C" int svdd_cnn_layer_bwd(const void* x, const void* bias_row,
                                   const void* ln_g, const void* ln_b,
                                   const void* wt, const void* wflip,
@@ -548,7 +562,7 @@ extern "C" int svdd_cnn_layer_bwd(const void* x, const void* bias_row,
                                   void* scratch_f,
                                   const void* offsets, int k_live, int n,
                                   int l, int c, int chunks, float eps,
-                                  int dtype, void* stream) {
+                                  int ref_round, int dtype, void* stream) {
   if (c != kC || k_live < 1 || k_live > svdd::kMaxTaps || n < 1 || l < 1 ||
       chunks < 1)
     return cudaErrorInvalidValue;
@@ -557,11 +571,11 @@ extern "C" int svdd_cnn_layer_bwd(const void* x, const void* bias_row,
   if (dtype == 0)
     return launch<float>(x, bias_row, ln_g, ln_b, wt, wflip, cb, ct, dx, dbr,
                          dw, dg, db, dcb, mask_out, scratch_t, scratch_f, offs,
-                         k_live, n, l, chunks, eps, s);
+                         k_live, n, l, chunks, eps, ref_round, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, bias_row, ln_g, ln_b, wt, wflip, cb, ct,
                                  dx, dbr, dw, dg, db, dcb, mask_out, scratch_t,
                                  scratch_f, offs, k_live, n, l, chunks, eps,
-                                 s);
+                                 ref_round, s);
   return cudaErrorInvalidValue;
 }

@@ -150,7 +150,9 @@ class Diffusion:
         noise_removal=cfg.sampling.noise_removal, device=self.device,
         grad_steps=grad_steps, aux_init=aux_init,
         removal_from_aux=removal_from_aux, collect_mid=collect_mid,
-        collect_aux=collect_aux)
+        collect_aux=collect_aux,
+        analytic_removal=cfg.sampling.predictor == 'analytic',
+        vocab_size=self.vocab_size)
 
   @staticmethod
   def _phased(make_step, sample_M: int, m_schedule):
@@ -162,9 +164,11 @@ class Diffusion:
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
               eps: float = 1e-5, collect_mid: bool = False):
-    """Uncontrolled sampler, ``sampling.predictor`` 'ddpm' or
-    'ddpm_cache': generator -> SampleResult; ``collect_mid`` fills its
-    ``mid_x`` (the value-net trainer's states)."""
+    """Uncontrolled sampler, ``sampling.predictor`` 'ddpm', 'ddpm_cache'
+    or 'analytic': generator -> SampleResult; ``collect_mid`` fills its
+    ``mid_x`` (the value-net trainer's states). Under 'analytic' every
+    sampler's noise removal is ``denoiser_final``
+    (``svdd_tpu/diffusion.py:249``)."""
     pred = self.config.sampling.predictor
     if pred == 'ddpm':
       step = S.ddpm_step(self.forward, self.schedule, self.mask_index)
@@ -174,6 +178,11 @@ class Diffusion:
       step = S.ddpm_cache_step(self.forward, self.schedule, self.mask_index)
       return self._reverse(step, batch_size, num_steps, eps,
                            aux_init=(None, False), collect_mid=collect_mid)
+    if pred == 'analytic':
+      step = S.analytic_step(self.forward, self.schedule, self.mask_index,
+                             self.vocab_size)
+      return self._reverse(step, batch_size, num_steps, eps,
+                           collect_mid=collect_mid)
     raise NotImplementedError(f'predictor {pred!r} is not ported yet')
 
   def cdq_sampler(self, batch_size: int, *, repeats: int = 10,

@@ -1,8 +1,10 @@
 """Core MDLM math on tensors (``svdd_tpu/mdlm.py``): the SUBS
 parameterization, the reverse-step density, the all-MASK prior, the
-Gumbel-max categorical draw, the value nets' one-hot transform, and the
-training half: the forward masking ``q_xt``, the (antithetic) time draw
-``sample_t`` and the continuous-time SUBS NELBO.
+Gumbel-max categorical draw (from log-probabilities or probabilities),
+the analytic sampler's score, staggered score and transposed transition,
+the value nets' one-hot transform, and the training half: the forward
+masking ``q_xt``, the (antithetic) time draw ``sample_t`` and the
+continuous-time SUBS NELBO.
 
 Each random function takes its uniforms as an argument, or draws them
 from a ``torch.Generator``, so a test can pin it to the JAX function on
@@ -35,6 +37,17 @@ def sample_categorical(log_probs: Tensor, gumbel: Tensor) -> Tensor:
   return torch.argmax(log_probs + gumbel, dim=-1)
 
 
+def sample_categorical_probs(probs: Tensor, gumbel: Tensor) -> Tensor:
+  """Gumbel-max draw from (possibly unnormalized) probabilities:
+  ``sample_categorical`` of log(max(probs, 1e-35))."""
+  return sample_categorical(torch.log(torch.clamp(probs, min=1e-35)), gumbel)
+
+
+def _lane(x: Tensor, index: int) -> Tensor:
+  """A boolean of x's shape, true on the last axis's lane ``index``."""
+  return torch.arange(x.shape[-1], device=x.device) == index
+
+
 def subs_parameterization(logits: Tensor, xt: Tensor,
                           mask_index: int) -> Tensor:
   """SUBS: p(MASK) = 0 and unmasked positions pinned to their token."""
@@ -61,6 +74,47 @@ def log_q_xs(log_p_x0: Tensor, move_chance_t, move_chance_s,
   log_qs = log_p_x0 + float(torch.log(mct - mcs))
   lane = torch.arange(log_qs.shape[-1], device=log_qs.device)
   return torch.where(lane == mask_index, float(torch.log(mcs)), log_qs)
+
+
+def get_score(log_p_x0: Tensor, x: Tensor, sigma: Tensor,
+              mask_index: int) -> Tensor:
+  """The SUBS score exp(log p_t(y) / p_t(x)) of the analytic sampler
+  (``svdd_tpu/mdlm.py:get_score``). sigma: (B,) or (B, 1)."""
+  if sigma.ndim > 1:
+    sigma = sigma.squeeze(-1)
+  log_k = -torch.log(torch.expm1(sigma))                 # (B,)
+  lane = _lane(log_p_x0, mask_index)
+  masked_score = torch.where(lane, 0.0, log_p_x0 + log_k[:, None, None])
+  onehot = F.one_hot(x.long(), log_p_x0.shape[-1]).bool()
+  unmasked_score = torch.where(onehot, 0.0, NEG_INFINITY)
+  unmasked_score = torch.where(
+      lane, (-log_k[:, None] * torch.ones_like(x, dtype=torch.float32))[
+          ..., None], unmasked_score)
+  masked = (x == mask_index)[..., None]
+  return torch.exp(torch.where(masked, masked_score, unmasked_score))
+
+
+def staggered_score(score: Tensor, dsigma: Tensor, mask_index: int
+                    ) -> Tensor:
+  """``svdd_tpu/mdlm.py:staggered_score``. dsigma: (B,) or (B, 1)."""
+  if dsigma.ndim == 1:
+    dsigma = dsigma[:, None]
+  extra_const = (1 - torch.exp(dsigma)) * score.sum(dim=-1)   # (B, L)
+  score = score * torch.exp(dsigma)[..., None]
+  return torch.where(_lane(score, mask_index),
+                     score + extra_const[..., None], score)
+
+
+def transp_transition(i: Tensor, sigma: Tensor, vocab_size: int,
+                      mask_index: int) -> Tensor:
+  """``svdd_tpu/mdlm.py:transp_transition``. i: (B, L) tokens; sigma
+  (B,) or (B, 1)."""
+  if sigma.ndim == 1:
+    sigma = sigma[:, None]
+  sigma = sigma[..., None]                                    # (B, 1, 1)
+  edge = torch.exp(-sigma) * F.one_hot(i.long(), vocab_size).float()
+  return edge + torch.where(i == mask_index, 1 - torch.exp(-sigma)[..., 0],
+                            0.0)[..., None]
 
 
 def sample_prior(batch_dims: Tuple[int, ...], mask_index: int,

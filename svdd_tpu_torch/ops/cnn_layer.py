@@ -20,13 +20,23 @@ apart). The TPU kernel rounds elsewhere: LN affine in f32 before one
 cast, and each tap's product to the activation type
 (``cnn_layer_pallas.py:119-124, :149, :169``).
 
-The plain backward follows ``_bwd_kernel`` (``cnn_layer_pallas.py:266``):
+The plain backward follows ``_bwd_kernel`` (``cnn_layer_pallas.py:266``)
+where JAX's dispatch takes it, from L = 100 (``pallas_bwd_len_ok``):
 the relu mask of the recomputed conv output, the mirrored tap sum and
 the per-tap weight gradient of the masked cotangent (rounded to the
 activation type, which is exact), and the LayerNorm backward on the f32
-normalised rows. The backward kernel rebuilds the mask with the forward
-kernel's own code (``csrc/cnn_layer.cuh``), so on the card the mask is
-the forward's bit for bit.
+normalised rows. Below L = 100 JAX differentiates ``cnn_layer_reference``
+instead (``cnn_layer_fused``, ``_fused_bwd``), and in bf16 that VJP
+rounds where the reference's bf16 ops round: the tap sum, its products
+with the LN scale and with the normalised rows, and the LN input's
+gradient, each to the activation type, and the parameter gradients of
+the LN scale, LN bias and conv bias (cast to bf16 in the forward) to
+bf16 sums. Off the gate (``bwd_rounds_as_reference``) the plain backward
+and the backward kernel round there too; the reference sums the taps'
+rounded parts, the port rounds their f32 sum once. The backward kernel
+rebuilds the mask with the forward kernel's own code
+(``csrc/cnn_layer.cuh``), so on the card the mask is the forward's bit
+for bit.
 
 Both kernels hold a whole sequence in one block's shared memory
 (``kernel_takes``); a CUDA tensor of a longer sequence takes the plain
@@ -72,6 +82,20 @@ def kernel_takes(l: int, dtype) -> bool:
   return _RING_BYTES[dtype] + (l + 1) * row <= SMEM_MAX
 
 
+# JAX's backward takes the Pallas kernel from this length on, the VJP of
+# cnn_layer_reference below it (cnn_layer_pallas.py:_PALLAS_BWD_MIN_L)
+PALLAS_BWD_MIN_L = 100
+
+
+def bwd_rounds_as_reference(l: int) -> bool:
+  """Whether the backward of a sequence of ``l`` rows rounds as the VJP of
+  ``cnn_layer_reference`` (module docstring), as JAX's dispatch takes
+  that VJP below ``pallas_bwd_len_ok``'s length (L = 50, the RNA task);
+  else as ``_bwd_kernel``. The two differ in bf16 only: in float32 every
+  rounding to the activation type is exact."""
+  return l < PALLAS_BWD_MIN_L
+
+
 def _normalised(x, bias_row, eps: float):
   """(hn, rstd): the f32 normalised rows of T(x + bias_row) and their
   1/std."""
@@ -115,7 +139,9 @@ def cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
   its argument's dtype. ``mask`` (N, L, C), when given, is the relu mask
   in place of this version's own: where a conv output is within
   rounding of 0, the kernel's mask may differ, and the kernel reports
-  the one it used (``cnn_layer_bwd(..., return_mask=True)``)."""
+  the one it used (``cnn_layer_bwd(..., return_mask=True)``). Below
+  ``PALLAS_BWD_MIN_L`` rows it rounds as ``bwd_rounds_as_reference``
+  says."""
   dt = x.dtype
   hn, rstd = _normalised(x, bias_row, eps)
   h = _conv_input(hn, ln_scale, ln_bias, dt)
@@ -125,16 +151,20 @@ def cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel, conv_bias,
   dacc = torch.where(mask.bool(), ct, torch.zeros_like(ct))
   dhs, dkernel = conv_bwd_f32(h, kernel.to(dt), dacc, dilation)
   dacc = dacc.float()
-  dhn = dhs * ln_scale.float()
+  # the reference VJP's roundings (identities in f32)
+  r = ((lambda a: a.to(dt).float())
+       if bwd_rounds_as_reference(x.shape[1]) else (lambda a: a))
+  dhs = r(dhs)
+  dhn = r(dhs * r(ln_scale.float()))
   m1 = dhn.mean(-1, keepdim=True)
   m2 = (dhn * hn).mean(-1, keepdim=True)
   dh0 = rstd * (dhn - m1 - hn * m2)
   return ((dh0.to(dt) + ct),
-          dh0.sum(1).to(bias_row.dtype),
-          (dhs * hn).sum((0, 1)).to(ln_scale.dtype),
-          dhs.sum((0, 1)).to(ln_bias.dtype),
+          r(r(dh0).sum(1)).to(bias_row.dtype),
+          r(r(dhs * r(hn)).sum((0, 1))).to(ln_scale.dtype),
+          r(dhs.sum((0, 1))).to(ln_bias.dtype),
           dkernel.to(kernel.dtype),
-          dacc.sum((0, 1)).to(conv_bias.dtype))
+          r(dacc.sum((0, 1))).to(conv_bias.dtype))
 
 
 def _plain(x) -> bool:
@@ -190,7 +220,8 @@ def cnn_layer_bwd(x, bias_row, ln_scale, ln_bias, kernel, conv_bias, ct,
   (CPU tensors, sequences past ``kernel_takes``); same outputs.
   ``return_mask`` also returns the (N, L, C) relu mask the gradients used
   (the kernel recomputes the forward kernel's, bit for bit), so the
-  kernel can be held against the plain version on the same mask."""
+  kernel can be held against the plain version on the same mask. Both
+  round as ``bwd_rounds_as_reference`` says for the sequence's length."""
   if _plain(x):
     grads = cnn_layer_bwd_plain(x, bias_row, ln_scale, ln_bias, kernel,
                                 conv_bias, ct, dilation, eps)
@@ -208,6 +239,7 @@ def cnn_layer_bwd(x, bias_row, ln_scale, ln_bias, kernel, conv_bias, ct,
   taps = live_taps(k_taps, l, dilation)
   k_live = len(offsets)
   dt = x.dtype
+  ref = bwd_rounds_as_reference(l)
   f32 = dict(dtype=torch.float32, device=x.device)
   x = x.contiguous()
   w = kernel[taps].to(dt)
@@ -238,14 +270,16 @@ def cnn_layer_bwd(x, bias_row, ln_scale, ln_bias, kernel, conv_bias, ct,
       0 if mask is None else mask.data_ptr(), scratch_t.data_ptr(),
       scratch_f.data_ptr(),
       ctypes.addressof(offs), k_live, n, l, c, chunks, eps,
-      _build.dtype_code(x), _build.stream_ptr(x))
+      int(ref), _build.dtype_code(x), _build.stream_ptr(x))
   _build.check(rc, 'svdd_cnn_layer_bwd')
   _build.LAUNCHES['cnn_layer_bwd'] += 1
   dkernel = torch.zeros(kernel.shape, **f32)
   dkernel[taps] = dw
-  grads = (dx, dbr.to(bias_row.dtype), dg.to(ln_scale.dtype),
-           db.to(ln_bias.dtype), dkernel.to(kernel.dtype),
-           dcb.to(conv_bias.dtype))
+  # the reference VJP's sums are in T (bwd_rounds_as_reference)
+  r = (lambda a: a.to(dt)) if ref else (lambda a: a)
+  grads = (dx, r(dbr).to(bias_row.dtype), r(dg).to(ln_scale.dtype),
+           r(db).to(ln_bias.dtype), dkernel.to(kernel.dtype),
+           r(dcb).to(conv_bias.dtype))
   return (*grads, mask.bool()) if return_mask else grads
 
 

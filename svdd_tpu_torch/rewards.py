@@ -1,5 +1,6 @@
 """Reward oracles (``svdd_tpu/rewards.py``): the frozen Enformer oracle
-and the synthetic motif oracle that stands in without trained weights."""
+(DNA), the ConvGRU MRL oracle (RNA) and the synthetic motif oracle that
+stands in without trained weights."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Callable
 
 import torch
 
+from svdd_tpu_torch.models.convgru import ConvGRUValueModel
 from svdd_tpu_torch.models.enformer import EnformerValueModel
 
 RewardFn = Callable[[torch.Tensor], torch.Tensor]   # (N, L, 4) -> (N,)
@@ -26,10 +28,18 @@ class RewardOracle:
     return cls(EnformerValueModel(n_tasks=n_tasks, generator=generator,
                                   **kwargs), task_index=0)
 
+  @classmethod
+  def create_rna(cls, generator: torch.Generator, n_tasks: int = 1,
+                 **kwargs) -> 'RewardOracle':
+    """The RNA MRL oracle: a one-task ConvGRU."""
+    return cls(ConvGRUValueModel(n_tasks=n_tasks, generator=generator,
+                                 **kwargs), task_index=0)
+
   def __call__(self, onehot4: torch.Tensor,
                fused: bool = True) -> torch.Tensor:
-    """(N, L, 4) -> (N,); ``fused=False`` takes the differentiable tower,
-    the form a gradient (DPS) needs."""
+    """(N, L, 4) -> (N,); ``fused=False`` takes the Enformer's
+    differentiable tower, the form a gradient (DPS) needs (the ConvGRU
+    has one form)."""
     out = self.module(onehot4, fused)
     return out[:, self.task_index] if out.ndim == 2 else out
 

@@ -138,10 +138,10 @@ def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
   and replaces the next step's (B,) forward and the removal forward.
   The step takes and returns an aux; without the carry it is passed
   through."""
-  if task != 'dna':
+  if task not in ('dna', 'rna'):
     raise NotImplementedError(
-        f'svdd_pm_step: task {task!r} waits for the RNA task (A10) and '
-        'the saluki input builder (A1); only dna is ported')
+        f'svdd_pm_step: task {task!r} scores through the saluki input '
+        'builder, which is not ported yet (ROADMAP A1)')
   carry_posterior = carry_posterior and tweedie
 
   def step(aux, x, t, t_next, generator, gumbel=None):

@@ -112,6 +112,49 @@ def ddpm_cache_step(denoise_fn: DenoiseFn, schedule: Schedule,
   return step
 
 
+def analytic_step(denoise_fn: DenoiseFn, schedule: Schedule,
+                  mask_index: int, vocab_size: int):
+  """The analytic (score-based) update (``svdd_tpu/sampling/sampler.py:
+  93-110``): the denoiser's score, staggered by dsigma = sigma(t) -
+  sigma(t_next), times the transposed transition, drawn by Gumbel-max
+  over every token (unmasked ones included)."""
+
+  def step(x, t, t_next, generator, gumbel=None):
+    curr_sigma, _ = schedule(t)
+    next_sigma, _ = schedule(t_next)
+    b = x.shape[0]
+    dsigma = torch.full((b,), float(curr_sigma - next_sigma),
+                        dtype=torch.float32, device=x.device)
+    sigma_b = sigma_batch(schedule, t, b, x.device)
+    log_p = denoise_fn(x, sigma_b)
+    score = mdlm.get_score(log_p, x, sigma_b, mask_index)
+    stag = mdlm.staggered_score(score, dsigma, mask_index)
+    probs = stag * mdlm.transp_transition(x, dsigma, vocab_size, mask_index)
+    if gumbel is None:
+      gumbel = mdlm.gumbel_noise(probs.shape, generator, probs.device)
+    return mdlm.sample_categorical_probs(probs, gumbel)
+
+  return step
+
+
+def denoiser_final(denoise_fn: DenoiseFn, schedule: Schedule,
+                   mask_index: int, vocab_size: int, x: torch.Tensor, t,
+                   generator: torch.Generator, gumbel=None) -> torch.Tensor:
+  """The analytic sampler's noise removal (``svdd_tpu/sampling/sampler.py:
+  113-124``): the step at sigma(t) with the MASK lane's probability
+  zeroed."""
+  sigma_b = sigma_batch(schedule, t, x.shape[0], x.device)
+  log_p = denoise_fn(x, sigma_b)
+  score = mdlm.get_score(log_p, x, sigma_b, mask_index)
+  stag = mdlm.staggered_score(score, sigma_b, mask_index)
+  probs = stag * mdlm.transp_transition(x, sigma_b, vocab_size, mask_index)
+  probs = torch.where(
+      torch.arange(vocab_size, device=x.device) == mask_index, 0.0, probs)
+  if gumbel is None:
+    gumbel = mdlm.gumbel_noise(probs.shape, generator, probs.device)
+  return mdlm.sample_categorical_probs(probs, gumbel)
+
+
 def argmax_noise_removal(denoise_fn: DenoiseFn, schedule: Schedule,
                          x: torch.Tensor, t) -> torch.Tensor:
   """Final forward + argmax over the non-mask vocabulary."""
@@ -139,8 +182,12 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     noise_removal: bool = True, device='cuda',
                     grad_steps: bool = False, aux_init=None,
                     removal_from_aux: bool = False,
-                    collect_mid: bool = False, collect_aux: bool = False):
-  """prior -> num_steps steps -> final argmax noise removal.
+                    collect_mid: bool = False, collect_aux: bool = False,
+                    analytic_removal: bool = False, vocab_size: int = 0):
+  """prior -> num_steps steps -> final noise removal: the argmax, or,
+  with ``analytic_removal`` (the analytic predictor; it takes precedence
+  over ``removal_from_aux``, as in JAX), ``denoiser_final`` over
+  ``vocab_size`` tokens.
   Returns sample(generator) -> SampleResult. ``step_fn``: one step
   function or a phase list [(step_fn, n_steps), ...] (lengths >= 1,
   summing to num_steps). ``grad_steps``: the steps take gradients, so
@@ -171,7 +218,10 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
           if collect_aux:
             auxs.append(aux)
         start += n
-      if noise_removal and removal_from_aux:
+      if noise_removal and analytic_removal:
+        x = denoiser_final(denoise_fn, schedule, mask_index, vocab_size, x,
+                           timesteps[-1], generator)
+      elif noise_removal and removal_from_aux:
         post = aux['post'] if isinstance(aux, dict) else aux
         x = torch.argmax(post[0][..., :-1], dim=-1)
       elif noise_removal:

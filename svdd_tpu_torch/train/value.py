@@ -45,7 +45,6 @@ from svdd_tpu_torch import mdlm, utils
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.models.blocks import DropoutMasks
-from svdd_tpu_torch.models.enformer import EnformerValueModel
 from svdd_tpu_torch.train.diffusion import Optimizer, write_atomic
 
 LOGGER = logging.getLogger(__name__)
@@ -55,11 +54,12 @@ FORMAT = 'svdd_tpu_torch.train.value/1'
 @dataclasses.dataclass
 class ValueTrainerConfig:
   """``svdd_tpu/train/value.py:44-67``, less the settings no MC or
-  CD-Q step reads (the evaluation period is ``cli.train``'s, the RNA
-  task's are A10's)."""
+  CD-Q step reads (the evaluation period is ``cli.train``'s; the saluki
+  input's length waits for the saluki task, A1). ``task`` 'dna' or 'rna'
+  (the reward's input is the one-hot of both)."""
   learning_rate: float = 3e-4
   betas: tuple = (0.9, 0.95)
-  grad_norm_clip: float = 1.0
+  grad_norm_clip: Optional[float] = 1.0     # None: no clipping
   weight_decay: float = 0.1
   lr_decay: bool = False
   warmup_tokens: float = 375e2
@@ -69,6 +69,7 @@ class ValueTrainerConfig:
   batch_size: int = 32
   mc_subsample: Optional[int] = None
   tokens_per_iter: float = 32 * 128 * 200 * 4
+  task: str = 'dna'
 
 
 @dataclasses.dataclass
@@ -77,7 +78,7 @@ class ValueTrainState:
   statistics, JAX's params and extras), the optimizer, the generator of
   the dropout masks and subsample draws, the step and the tokens seen."""
   step: int
-  module: EnformerValueModel
+  module: torch.nn.Module           # an EnformerValueModel or ConvGRU
   optimizer: Optimizer
   generator: torch.Generator
   tokens: float = 0.0
@@ -86,10 +87,12 @@ class ValueTrainState:
 class ValueTrainer:
   """Fits a value net against a frozen ``Diffusion`` (``svdd_tpu/train/
   value.py:70-298``). ``reward_fn``: (N, L, 4) one-hots -> (N,) rewards
-  (a ``RewardOracle`` or the synthetic motif oracle)."""
+  (a ``RewardOracle`` or the synthetic motif oracle); the value net an
+  Enformer (DNA) or a ConvGRU (RNA)."""
 
   def __init__(self, diffusion: Diffusion, vf: value_lib.ValueFunction,
                reward_fn, tcfg: ValueTrainerConfig):
+    value_lib.reject_saluki(tcfg.task)
     self.diffusion = diffusion
     self.vf = vf
     self.tcfg = tcfg
@@ -236,12 +239,14 @@ class MultiSepTrainer:
 
 def build_eval_timestep_batches(diffusion: Diffusion, reward_fn,
                                 batch_size: int, val_batch_num: int,
-                                generator: torch.Generator):
+                                generator: torch.Generator,
+                                task: str = 'dna'):
   """Per-timestep eval batches from ``val_batch_num`` full trajectories
   (``svdd_tpu/train/value.py:397-425``): (eval_batches[t],
   eval_targets[t]) for t in 0..S-1, the one-hots of every trajectory's
   state after step t (the last: the final samples) and the final
-  samples' rewards."""
+  samples' rewards (the reward's input ``make_reward_transform(task)``)."""
+  transform = value_lib.make_reward_transform(task)
   sampler = diffusion.sampler(batch_size, collect_mid=True)
   steps = diffusion.config.sampling.steps
   all_samples = [[] for _ in range(steps)]
@@ -249,7 +254,7 @@ def build_eval_timestep_batches(diffusion: Diffusion, reward_fn,
   for _ in range(val_batch_num):
     res = sampler(generator)
     with torch.inference_mode():
-      target = reward_fn(mdlm.transform_samples(res.samples))
+      target = reward_fn(transform(res.samples))
     for t, s in enumerate(list(res.mid_x) + [res.samples]):
       all_samples[t].append(mdlm.transform_samples(s))
       all_targets[t].append(target)

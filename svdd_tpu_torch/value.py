@@ -6,10 +6,13 @@ value net's checkpoint file.
 
 A value net or reward oracle that ``cli.train`` or ``cli.train_oracle``
 saved is one ``torch.save`` dict (``save_checkpoint``): the format tag,
-the module's widths (``EnformerValueModel.config``) and its state dict
-(parameters and BatchNorm running statistics). ``load_checkpoint``
-reads it back and raises ``NotImplementedError`` naming ROADMAP A17 for
-any other file (a reference ``.pt``, an orbax directory).
+the task whose architecture it holds ('dna': the Enformer, 'rna': the
+ConvGRU; a file without the key is a DNA one), the module's
+constructor arguments (``config()``) and its state dict (parameters and
+BatchNorm running statistics). ``load_checkpoint`` reads it back; it
+raises ``NotImplementedError`` naming ROADMAP A17 for any other file (a
+reference ``.pt``, an orbax directory), and ``ValueError`` naming both
+tasks for a file of the other task.
 """
 
 from __future__ import annotations
@@ -20,21 +23,44 @@ from typing import NamedTuple, Optional
 import torch
 
 from svdd_tpu_torch import mdlm
+from svdd_tpu_torch.models.convgru import ConvGRUValueModel
 from svdd_tpu_torch.models.enformer import EnformerValueModel
 
 FORMAT = 'svdd_tpu_torch.value/1'
+RNA_TASKS = ('rna', 'rna_saluki')
+_ARCH = {'dna': 'Enformer', 'rna': 'ConvGRU'}   # a checkpoint's task's net
+
+
+def checkpoint_task(task: str) -> str:
+  """The architecture family of ``task``'s value nets and oracles:
+  'rna' (ConvGRU) or 'dna' (Enformer)."""
+  return 'rna' if task in RNA_TASKS else 'dna'
+
+
+def reject_saluki(task: str) -> None:
+  """The saluki stability task needs its 12,288-long six-channel input
+  builder (``svdd_tpu/mdlm.py:transform_samples_saluki``), A1's rest."""
+  if task == 'rna_saluki':
+    raise NotImplementedError('task rna_saluki: the saluki input builder '
+                              'and oracle are not ported yet (ROADMAP A1)')
 
 
 def build_value_module(task: str, model: str = 'enformer',
                        n_tasks: int = 1,
                        generator: torch.Generator | None = None,
-                       **kwargs) -> EnformerValueModel:
-  """Value-net factory; only the DNA Enformer is ported. Without a
-  ``compute_dtype`` it computes in bfloat16 under SVDD_VALUE_BF16=1, else
-  in float32 (``svdd_tpu/value.py:build_value_module``)."""
+                       **kwargs):
+  """Value-net factory (``svdd_tpu/value.py:build_value_module``): the
+  RNA task takes the ConvGRU whatever ``model`` says, in float32, as JAX
+  returns it before reading SVDD_VALUE_BF16; DNA the Enformer, which
+  without a ``compute_dtype`` computes in bfloat16 under
+  SVDD_VALUE_BF16=1, else in float32. ``kwargs``: the module's
+  constructor arguments (widths)."""
+  reject_saluki(task)
+  if task == 'rna':
+    return ConvGRUValueModel(n_tasks=n_tasks, generator=generator, **kwargs)
   if task != 'dna' or model != 'enformer':
     raise NotImplementedError(f'value model {model!r} for task {task!r} '
-                              'is not ported yet')
+                              'is not ported yet (ROADMAP A11)')
   if ('compute_dtype' not in kwargs
       and os.environ.get('SVDD_VALUE_BF16') == '1'):
     kwargs['compute_dtype'] = torch.bfloat16
@@ -46,7 +72,7 @@ class ValueFunction:
   """A value module scoring token sequences (eval mode; the trainers
   call the module with ``train=True``)."""
 
-  def __init__(self, module: EnformerValueModel, length: int):
+  def __init__(self, module, length: int):
     self.module = module.eval()
     self.length = length
 
@@ -80,13 +106,11 @@ class ValueFunction:
 
 
 def make_reward_transform(task: str = 'dna'):
-  """Tokens -> the reward oracle's input: the 4-channel one-hot for
-  DNA. The port's oracles hold their weights, so a reward function is one
-  callable of that input (JAX's (apply_fn, variables) pair has no
-  counterpart); the RNA saluki input comes with the RNA task."""
-  if task in ('rna', 'rna_saluki'):
-    raise NotImplementedError(f'--task {task}: the RNA task is not ported '
-                              'yet (ROADMAP A10)')
+  """Tokens -> the reward oracle's input: the 4-channel one-hot for DNA
+  and RNA. The port's oracles hold their weights, so a reward function
+  is one callable of that input (JAX's (apply_fn, variables) pair has no
+  counterpart); the saluki input raises (``reject_saluki``)."""
+  reject_saluki(task)
   return mdlm.transform_samples
 
 
@@ -162,19 +186,24 @@ def value_loss(value_fn_onehot, batch: ValueBatch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def save_checkpoint(path: str, module: EnformerValueModel) -> None:
-  """Write ``module`` (widths, parameters, running statistics) to
-  ``path``, through a temporary file and a rename."""
+def save_checkpoint(path: str, module) -> None:
+  """Write ``module`` (an Enformer or a ConvGRU: its task, widths,
+  parameters, running statistics) to ``path``, through a temporary file
+  and a rename."""
   from svdd_tpu_torch.train.diffusion import write_atomic
   if os.path.dirname(path):
     os.makedirs(os.path.dirname(path), exist_ok=True)
-  write_atomic(path, {'format': FORMAT, 'config': module.config(),
+  task = 'rna' if isinstance(module, ConvGRUValueModel) else 'dna'
+  write_atomic(path, {'format': FORMAT, 'task': task,
+                      'config': module.config(),
                       'model': module.state_dict()})
 
 
-def load_checkpoint(path: str, mmap: bool = False) -> dict:
+def load_checkpoint(path: str, mmap: bool = False,
+                    task: Optional[str] = None) -> dict:
   """The dict ``save_checkpoint`` wrote (``mmap``: its tensors mapped,
-  not read); any other file raises."""
+  not read); any other file raises, and so does, given ``task``, a file
+  of the other task's architecture."""
   ckpt = None
   if os.path.isfile(path):
     try:
@@ -187,4 +216,10 @@ def load_checkpoint(path: str, mmap: bool = False) -> dict:
         f'{path}: not a value-net or oracle checkpoint of this package '
         f'({FORMAT}); reading the reference .pt layouts and orbax '
         'checkpoints is not ported yet (ROADMAP A17)')
+  if task is not None:
+    want, held = checkpoint_task(task), ckpt.get('task', 'dna')
+    if held != want:
+      raise ValueError(
+          f'{path}: a {held} checkpoint ({_ARCH[held]}) handed to a {want} '
+          f'run, which needs a {_ARCH[want]}')
   return ckpt

@@ -22,6 +22,7 @@ from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.models.autoregressive import ARModel
 from svdd_tpu_torch.models.basenji import Basenji
 from svdd_tpu_torch.models.cnn import CNNModel
+from svdd_tpu_torch.models.convgru import ConvGRUValueModel, ConvTower
 from svdd_tpu_torch.models.dimamba import DiMamba
 from svdd_tpu_torch.models.dit import DIT
 from svdd_tpu_torch.models.enformer import EnformerValueModel
@@ -294,6 +295,42 @@ def enformer_to_jax(model: EnformerValueModel) -> dict:
                                                 model, stats=True)}
 
 
+def _conv_tower(tower: ConvTower, tp, ts) -> None:
+  """A ConvTower from the flax ConvTower's params and batch stats."""
+  _conv(tower.stem, tp['Stem_0'])
+  for i, block in enumerate(tower.blocks):
+    _conv_block(block, tp[f'ConvBlock_{i}'], ts[f'ConvBlock_{i}'])
+
+
+def _gru_cell(layer, suffix: str, p) -> None:
+  _dense(getattr(layer, f'ih_{suffix}'), p['ih'])
+  _copy(getattr(layer, f'hh_kernel_{suffix}'), p['hh_kernel'])
+  _copy(getattr(layer, f'hh_bias_{suffix}'), p['hh_bias'])
+
+
+def convgru_from_jax(variables, n_tasks: int = 1,
+                     dropout: float = 0.1) -> ConvGRUValueModel:
+  """A ConvGRU value model (on CPU, float32) holding the flax
+  ConvGRUValueModel's variables (params and ``batch_stats``); the
+  tower maps as Basenji's does."""
+  p, stats = variables['params'], variables['batch_stats']
+  tp, ts = p['ConvGRUTrunk_0'], stats['ConvGRUTrunk_0']
+  model = ConvGRUValueModel(n_tasks=n_tasks, dropout=dropout,
+                            generator=_generator())
+  _conv_tower(model.trunk.tower, tp['ConvTower_0'], ts['ConvTower_0'])
+  gp = tp['GRUBlock_0']
+  for i, layer in enumerate(model.trunk.gru.layers):
+    _gru_cell(layer, 'fwd', gp[f'gru_fwd_{i}'])
+    _gru_cell(layer, 'bwd', gp[f'gru_bwd_{i}'])
+  fp, ffn = gp['FeedForwardBlock_0'], model.trunk.gru.ffn
+  _norm(ffn.norm, fp['LinearBlock_0']['Norm_0']['LayerNorm_0'])
+  _dense(ffn.up, fp['LinearBlock_0']['Dense_0'])
+  _dense(ffn.down, fp['LinearBlock_1']['Dense_0'])
+  _conv(model.head, p['ConvHead_0']['ChannelTransformBlock_0'][
+      'ChannelTransform_0'])
+  return model.eval()
+
+
 def basenji_from_jax(variables, **config) -> Basenji:
   """A Basenji trunk (on CPU, float32) holding the flax Basenji's
   variables, params and ``batch_stats`` of every block; ``config`` are
@@ -303,9 +340,7 @@ def basenji_from_jax(variables, **config) -> Basenji:
   p, stats = variables['params'], variables['batch_stats']
   tp, ts = p['ConvTower_0'], stats['ConvTower_0']
   model = Basenji(**config, generator=_generator())
-  _conv(model.tower.stem, tp['Stem_0'])
-  for i, block in enumerate(model.tower.blocks):
-    _conv_block(block, tp[f'ConvBlock_{i}'], ts[f'ConvBlock_{i}'])
+  _conv_tower(model.tower, tp, ts)
   for i, block in enumerate(model.residual_blocks):
     key = f'DilatedResidualBlock_{i}'
     _conv_block(block.conv_0, p[key]['ConvBlock_0'],

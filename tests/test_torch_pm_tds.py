@@ -163,7 +163,7 @@ def test_svdd_pm_step_pinned_to_svdd_tpu(pair, case):
 
 def test_svdd_pm_step_refuses_other_tasks(pair):
   _, tdiff, w = pair
-  with pytest.raises(NotImplementedError, match='A10'):
+  with pytest.raises(NotImplementedError, match=r'ROADMAP A1\)'):
     guidance.svdd_pm_step(tdiff.forward, _torch_reward(w), tdiff.schedule,
                           4, task='rna_saluki')
 

@@ -206,7 +206,7 @@ def test_batch_dna_detokenize_matches_svdd_tpu():
     (['--eval_oracle_checkpoint_path', 'oracle.ckpt'], 'A17'),
     (['--set', 'parallel.pipeline_stages=2'], 'A16'),
     (['--gen_ppl_ar_checkpoint', 'ar.ckpt'], 'A17'),
-    (['--task', 'rna'], 'A10'),
+    (['--set', 'parameterization=d3pm'], 'A1'),
 ])
 def test_sample_eval_rejects_what_is_not_ported(extra, match):
   with pytest.raises(NotImplementedError, match=match):

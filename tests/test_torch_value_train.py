@@ -342,14 +342,15 @@ def test_cdq_targets_match_svdd_tpu(value_vars):
 
 def test_value_loss_and_reward_transform():
   """``value_loss`` is the MSE; the DNA oracle's input is the one-hot of
-  ``mdlm.transform_samples``; the RNA transforms raise naming A10."""
+  ``mdlm.transform_samples``, and the RNA (MRL) oracle's too; the saluki
+  transform raises naming A1."""
   batch = value_lib.ValueBatch(torch.zeros(3, L, 4), torch.tensor([1., 2, 3]))
   assert float(value_lib.value_loss(lambda oh: torch.ones(3), batch)) == (
       pytest.approx(5 / 3))
   assert value_lib.make_reward_transform('dna') is mdlm.transform_samples
-  for task in ('rna', 'rna_saluki'):
-    with pytest.raises(NotImplementedError, match='A10'):
-      value_lib.make_reward_transform(task)
+  assert value_lib.make_reward_transform('rna') is mdlm.transform_samples
+  with pytest.raises(NotImplementedError, match=r'A1\)'):
+    value_lib.make_reward_transform('rna_saluki')
 
 
 # ---------------------------------------------------------------------------

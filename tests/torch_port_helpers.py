@@ -7,6 +7,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from svdd_tpu.diffusion import build_backbone
 
@@ -109,3 +110,17 @@ def dropout_masks(rs, n, c, blocks=1, length=2, keep=0.6):
   block the attention output's, the FFN's up and down projections'."""
   return [rs.random((n, length, w)) < keep for _ in range(blocks)
           for w in (c, 2 * c, c)]
+
+
+@pytest.fixture(autouse=True, scope='module')
+def few_torch_threads():
+  """Two torch intra-op threads while a test file that imports this
+  fixture runs (restored after it): the full test run puts six test
+  processes on the machine's cores, and torch's default of a thread a
+  core makes them spin against each other (three RNA test files: 155 s
+  with the default, 81 s with two, on three processes)."""
+  import torch
+  n = torch.get_num_threads()
+  torch.set_num_threads(2)
+  yield
+  torch.set_num_threads(n)
