@@ -92,8 +92,25 @@ exits non-zero and prints no result:
      that oracle), ``cli.train --task rna`` (MC) and ``cli.eval``, runs
      and resumes bit for bit; and the stages of
      ``svdd_tpu_torch/pipeline.py`` for both tasks, a few steps each;
-then the kernels line (launches summed over the runs of phases 3-5 and
-7; B1's, B6's and B2's RNA points under ``rna``),
+  8. the reference's torch checkpoints and the timed and multisep value
+     models: phase 5's denoiser, oracle and MC value net written in the
+     reference's layouts (Lightning 'state_dict' under 'backbone.', grelu
+     under 'model.', the value trainer's 'model_state_dict' under
+     'module.'; the inverse name maps are this script's) and read back
+     by the CLIs' checkpoint flags bit for bit, then ``cli.decode``
+     (SVDD-MC, B=512, M=10, 8 steps) from those files with exact launch
+     counts; the full-width timed value net on 4 rows, card vs CPU: its
+     output and its fused eval tower's input and weight gradients (B3's
+     backward, the gradient of its reference form); its SVDD-MC decode
+     (``controlled_sampler_timed``, B=512, M=10, 16 steps) with exact
+     launch counts; ``cli.train --model multienformer --task dna`` (ten
+     full-width trunks, batch 8, 2 iterations) from phase 5's
+     checkpoint and oracle with exact launch counts, twice from one seed,
+     equal bit for bit; one 2-trunk multisep step card vs CPU (losses,
+     every leaf's gradient and update, the running statistics'
+     included);
+then the kernels line (launches summed over the runs of phases 3-5, 7
+and 8; B1's, B6's and B2's RNA points under ``rna``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -258,6 +275,10 @@ MASK_EDGE = {'float32': 1e-4, 'bfloat16': 2 ** -6}
 # the bound of a kernel that computes f32 that way (B12)
 PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12, 'tf32x3': 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# device_ms: traces taken before a call falls back to CUDA events, and the
+# calls that fell back in this run
+PROFILE_TRIES = 3
+PROFILER_MISSES = []
 
 
 def bound(flops: float, nbytes: float, dtype: str = 'float32'):
@@ -305,19 +326,35 @@ def device_ms(fn, reps: int = 10, fragment: str | None = None) -> float:
   kernels whose name holds it. Host time between kernels is not
   counted: a call shorter than its wrapper's host time (a bf16 CNN
   layer) is timed by the card's work alone, where CUDA events around it
-  would time the host."""
+  would time the host.
+
+  The profiler can return a trace with no device event at all (it did
+  once, for B14, in a whole smoke run on an H100). Such a trace is taken
+  again, up to PROFILE_TRIES times in all. If every try comes back empty,
+  the call is timed by CUDA events (median_ms) instead, and the miss is
+  recorded in PROFILER_MISSES and emitted on a line of its own."""
   import torch
   from torch.profiler import ProfilerActivity, profile
-  fn()
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
+  for _ in range(PROFILE_TRIES):
+    fn()
     torch.cuda.synchronize()
-  return sum((e.time_range.end - e.time_range.start) / 1e3
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (fragment is None or fragment in e.name)) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if dev:
+      return sum((e.time_range.end - e.time_range.start) / 1e3
+                 for e in dev
+                 if fragment is None or fragment in e.name) / reps
+  ms = median_ms(fn, iters=reps)
+  miss = {'phase': 'profiler_miss', 'tries': PROFILE_TRIES,
+          'fragment': fragment, 'fallback': 'cuda_events_median_ms',
+          'ms': ms}
+  PROFILER_MISSES.append(miss)
+  emit(miss)
+  return ms
 
 
 def timed(call, plain, library=None, reps: int = 10, iters: int = 10) -> dict:
@@ -796,6 +833,12 @@ POOL_POINTS = [(8, 1, 128, False), (8, 3, 256, True), (8, 7, 384, True),
 # the six fused pools, B4 at the last pool and B5 at the value net's heads
 # are held at both, one launch a point
 PATH_ROWS = (512, 2048)
+# the rows of one bin's forward in cli.train --model multienformer at
+# --batch_size 8: 128 // 10 = 12 states of 8 trajectories
+# (run_multisep_train checks it). B3 at the six fused pools, B4 at the
+# last pool, B5 at the value net's heads and B8 at the last pool's
+# backward are held and timed there (``multisep_rows``)
+MULTISEP_ROWS = 96
 
 
 def _pool_inputs(l, c, dtype, gen, n=N_CAND):
@@ -854,45 +897,46 @@ def _pool_points(dtype, im2col: bool, points=POOL_POINTS) -> dict:
   return errs
 
 
-def check_attn_pool_im2col(dtype, gen):
-  """B3 at the six fused pools of one value forward (B*M = 5120), each
-  against the plain version and timed by the card's own time for a call
-  (device_ms, the profiler: the kernel and the wrapper's transpose of W)
-  and by CUDA events (median_ms); then at POOL_POINTS, and at the six
-  pools at PATH_ROWS. ms is the six pools, device time; achieved_tb_s
-  the bytes they must move over it."""
+def _pool_im2col_tower(n, dtype, gen, reps: int = 5, iters: int = 3):
+  """B3 at the six fused pools of one value forward at N = n, each one
+  launch against the plain version and timed by the card's own time for
+  a call (device_ms, the profiler: the kernel and the wrapper's
+  transpose of W) and by CUDA events (median_ms); ms is the six pools,
+  device time; achieved_tb_s the bytes they must move over it."""
   import torch
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_pool as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
   name = str(dtype).split('.')[-1]
   errs, per_pool, flops, nbytes = [], [], 0, 0
   for l, c in POOL_SHAPES:
-    args = _pool_args(l, c, dtype, gen)
+    args = _pool_args(l, c, dtype, gen, n=n)
     lh = (l + 1) // 2
-    flops += 2 * N_CAND * lh * c * c
-    nbytes += _pool_bytes(N_CAND, l, c, args[0].element_size(),
+    flops += 2 * n * lh * c * c
+    nbytes += _pool_bytes(n, l, c, args[0].element_size(),
                           len(live_offsets(5, lh)))
+    before = _build.LAUNCHES['attn_pool_prologue_im2col']
     got = K.pool_prologue_im2col_wlogits(*args)
+    if _build.LAUNCHES['attn_pool_prologue_im2col'] != before + 1:
+      raise AssertionError(f'attn_pool_prologue_im2col N={n} L={l}: '
+                           'no launch')
     want = K.pool_prologue_im2col_wlogits_plain(*args)
-    errs.append(compare(f'attn_pool_prologue_im2col L={l} C={c}', got,
-                        want, name))
+    errs.append(compare(f'attn_pool_prologue_im2col N={n} L={l} C={c}',
+                        got, want, name))
     del got, want
     call = lambda: K.pool_prologue_im2col_wlogits(*args)
     per_pool.append({
-        'shape': [N_CAND, l, c], 'ms': device_ms(call, reps=5),
-        'median_ms': median_ms(call, iters=3),
+        'shape': [n, l, c], 'ms': device_ms(call, reps=reps),
+        'median_ms': median_ms(call, iters=iters),
         'plain_ms': median_ms(
-            lambda: K.pool_prologue_im2col_wlogits_plain(*args), iters=3)})
+            lambda: K.pool_prologue_im2col_wlogits_plain(*args),
+            iters=iters)})
     del args
     torch.cuda.empty_cache()
   total = lambda k: sum(p[k] for p in per_pool)
   r = {'shapes': [p['shape'] for p in per_pool],
        'max_abs_err': max(e[0] for e in errs),
        'max_rel_err': max(e[1] for e in errs),
-       'max_abs_err_points': _pool_points(dtype, True),
-       'max_abs_err_path_rows': _pool_points(
-           dtype, True, [(n, l, c, True) for n in PATH_ROWS
-                         for l, c in POOL_SHAPES]),
        'ms': total('ms'),
        'median_ms': total('median_ms'), 'plain_ms': total('plain_ms'),
        'library_ms': None, 'per_pool': per_pool, 'flops': flops,
@@ -900,19 +944,40 @@ def check_attn_pool_im2col(dtype, gen):
   return _cnn_rates(r, name)
 
 
+def check_attn_pool_im2col(dtype, gen):
+  """B3 at the six fused pools of one value forward (B*M = 5120,
+  ``_pool_im2col_tower``); then at POOL_POINTS, at the six pools at
+  PATH_ROWS, and at MULTISEP_ROWS, timed (``multisep_rows``)."""
+  name = str(dtype).split('.')[-1]
+  r = _pool_im2col_tower(N_CAND, dtype, gen)
+  r.update(max_abs_err_points=_pool_points(dtype, True),
+           max_abs_err_path_rows=_pool_points(
+               dtype, True, [(n, l, c, True) for n in PATH_ROWS
+                             for l, c in POOL_SHAPES]),
+           multisep_rows=_train_rows_entry(_pool_im2col_tower(
+               MULTISEP_ROWS, dtype, gen, reps=10, iters=10)))
+  return r
+
+
 def _attn_pool_at(n, shapes, dtype, gen):
   """B4 with its residual at each (L, C) of shapes at N = n, against the
-  plain version: errors, and ms (device), median_ms, plain_ms, flops and
-  bytes summed over the shapes."""
+  plain version (one launch each): errors, and ms (device), median_ms,
+  plain_ms, flops and bytes summed over the shapes."""
   import torch
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
   errs, r = [], {'ms': 0.0, 'median_ms': 0.0, 'plain_ms': 0.0, 'flops': 0,
                  'bytes': 0}
   for l, c in shapes:
     x, res, w = _pool_inputs(l, c, dtype, gen, n)
-    errs.append(compare(f'attn_pool N={n} L={l} C={c}', K.attn_pool(x, w, res),
+    before = _build.LAUNCHES['attn_pool']
+    got = K.attn_pool(x, w, res)
+    if _build.LAUNCHES['attn_pool'] != before + 1:
+      raise AssertionError(f'attn_pool N={n} L={l}: no launch')
+    errs.append(compare(f'attn_pool N={n} L={l} C={c}', got,
                         K.attn_pool_plain(x, w, res), name))
+    del got
     call = lambda: K.attn_pool(x, w, res)
     r['ms'] += device_ms(call)
     r['median_ms'] += median_ms(call, iters=10)
@@ -930,8 +995,9 @@ def check_attn_pool(dtype, gen):
   """B4 at the last tower pool (5120, 4, 1536) with its residual, timed
   by the card's own time for a call (device_ms) and by CUDA events
   (median_ms); then at the seven tower pools of the classifier's gradient
-  tower at N = 512 (classifier_pools), at POOL_POINTS, and at the last
-  pool at PATH_ROWS."""
+  tower at N = 512 (classifier_pools), at POOL_POINTS, at the last
+  pool at PATH_ROWS, and at the last pool at MULTISEP_ROWS, timed
+  (``multisep_rows``)."""
   name = str(dtype).split('.')[-1]
   r = _attn_pool_at(N_CAND, [LAST_POOL], dtype, gen)
   r.update(shape=[N_CAND, *LAST_POOL], library_ms=None,
@@ -939,6 +1005,9 @@ def check_attn_pool(dtype, gen):
            max_abs_err_path_rows=_pool_points(
                dtype, False, [(n, *LAST_POOL, True) for n in PATH_ROWS]))
   r = _cnn_rates(r, name)
+  r['multisep_rows'] = {'shape': [MULTISEP_ROWS, *LAST_POOL],
+                        **_train_rows_entry(_cnn_rates(_attn_pool_at(
+                            MULTISEP_ROWS, [LAST_POOL], dtype, gen), name))}
   cls = _cnn_rates(_attn_pool_at(N_GRAD, TOWER_POOLS, dtype, gen), name)
   r['classifier_pools'] = {
       'shapes': [[N_GRAD, l, c] for l, c in TOWER_POOLS],
@@ -983,11 +1052,15 @@ def _attn_l2_at(n, dtype, gen):
   does; ``relk_rounding_w_diff``: how far the plain version without that
   rounding (the jnp reference's form) lies from the kernel's w."""
   import torch
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_l2 as K
   name = str(dtype).split('.')[-1]
   h, dk, dv = ATTN_L2_HEADS
   args = _attn_l2_args(n, h, dk, dv, dtype, gen)
+  before = _build.LAUNCHES['attn_l2']
   out, w = K.attn_l2(*args)
+  if _build.LAUNCHES['attn_l2'] != before + 1:
+    raise AssertionError(f'attn_l2 N={n}: no launch')
   out_p, w_p = _attn_l2_plain(args)
   ref_w = K.attn_l2_plain(*args, round_relk=False)[1]
   errs = (compare('attn_l2 out', out, out_p, name),
@@ -1011,8 +1084,8 @@ def _attn_l2_at(n, dtype, gen):
 def check_attn_l2(dtype, gen):
   """B5 at SVDD-MC's N = B*M = 5120, then at the classifier's N = 512
   (classifier_n512), each timed by the card's own time for a call; then
-  at ATTN_L2_POINTS and at the value net's heads at PATH_ROWS (one
-  launch each)."""
+  at MULTISEP_ROWS, timed (``multisep_rows``); then at ATTN_L2_POINTS
+  and at the value net's heads at PATH_ROWS (one launch each)."""
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_l2 as K
@@ -1023,6 +1096,11 @@ def check_attn_l2(dtype, gen):
                                                name)
   small['bound_share'] = small['bound_ms'] / small['ms']
   r['classifier_n512'] = small
+  rows = _attn_l2_at(MULTISEP_ROWS, dtype, gen)
+  rows['bound_ms'], rows['bound_by'] = bound(rows['flops'], rows['bytes'],
+                                             name)
+  rows['bound_share'] = rows['bound_ms'] / rows['ms']
+  r['multisep_rows'] = _train_rows_entry(rows)
   r['max_abs_err_points'] = {}
   for point in ATTN_L2_POINTS + tuple((n, *ATTN_L2_HEADS)
                                       for n in PATH_ROWS):
@@ -1236,8 +1314,9 @@ def _conv_bwd_tower(n, dtype, gen):
 
 
 def _train_rows_entry(r: dict) -> dict:
-  """A training-row point of B7 or B8 as the kernels line keeps it."""
-  return {k: r[k] for k in ('max_abs_err', 'max_abs_err_dx',
+  """A point at a trainer's rows as the kernels line keeps it."""
+  return {k: r[k] for k in ('shape', 'shapes', 'max_abs_err',
+                            'max_abs_err_dx',
                             'max_abs_err_dkernel', 'max_abs_err_dW', 'ms',
                             'median_ms', 'plain_ms', 'library_ms',
                             'bound_ms', 'bound_by', 'peak', 'tflops',
@@ -1309,21 +1388,25 @@ def _pool_bwd_points(dtype) -> dict:
   return points
 
 
-def _pool_bwd_tower(n, dtype, gen):
+def _pool_bwd_tower(n, dtype, gen, shapes=TOWER_POOLS):
   """B8 at the seven tower pools with their residuals (odd lengths 25,
-  13 and 7 among them) at N rows, against the plain version, dx and dW,
-  each timed by the card's own time for a call (device_ms) and by CUDA
-  events (median_ms); ms is the seven pools of one value-net backward,
-  device time."""
+  13 and 7 among them), or at ``shapes``, at N rows, against the plain
+  version, dx and dW (one launch each), each timed by the card's own
+  time for a call (device_ms) and by CUDA events (median_ms); ms is the
+  pools of one value-net backward, device time."""
   import torch
+  from svdd_tpu_torch import _build
   from svdd_tpu_torch.ops import attn_pool as K
   name = str(dtype).split('.')[-1]
   errs, per_pool, flops, nbytes = [], [], 0, 0
-  for l, c in TOWER_POOLS:
+  for l, c in shapes:
     lh = (l + 1) // 2
     x, w, ct, res = _pool_bwd_inputs(n, l, c, dtype, gen)
+    before = _build.LAUNCHES['attn_pool_bwd']
     errs += _pool_bwd_against_plain((x, w, ct, res), name,
-                                    f'attn_pool_bwd L={l} C={c}')
+                                    f'attn_pool_bwd N={n} L={l} C={c}')
+    if _build.LAUNCHES['attn_pool_bwd'] != before + 1:
+      raise AssertionError(f'attn_pool_bwd N={n} L={l}: no launch')
     per_pool.append({'shape': [n, l, c], **timed(
         lambda: K.attn_pool_bwd(x, w, ct, res),
         lambda: K.attn_pool_bwd_plain(x, w, ct, res), reps=5, iters=5)})
@@ -1351,10 +1434,13 @@ def _pool_bwd_tower(n, dtype, gen):
 def check_attn_pool_bwd(dtype, gen):
   """B8 at the seven tower pools at the classifier's N = 512
   (``_pool_bwd_tower``), then at the value-net trainers' rows
-  (VALUE_TRAIN_ROWS, ``train_rows``) and at POOL_BWD_POINTS."""
+  (VALUE_TRAIN_ROWS, ``train_rows``), at the multisep trainer's last
+  pool (MULTISEP_ROWS, ``multisep_rows``) and at POOL_BWD_POINTS."""
   r = _pool_bwd_tower(N_GRAD, dtype, gen)
   r['train_rows'] = {str(n): _train_rows_entry(_pool_bwd_tower(n, dtype, gen))
                      for n in VALUE_TRAIN_ROWS}
+  r['multisep_rows'] = _train_rows_entry(_pool_bwd_tower(
+      MULTISEP_ROWS, dtype, gen, [LAST_POOL]))
   r['max_abs_err_points'] = _pool_bwd_points(dtype)
   return r
 
@@ -4354,6 +4440,766 @@ def rna_phase() -> dict:
   return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the reference's torch checkpoints (A17), the timed and multisep
+# value models and the multisep trainer (A11)
+# ---------------------------------------------------------------------------
+
+REF_DECODE_STEPS = 8      # cli.decode reading the reference-layout files
+TIMED_ROWS = 4            # the timed value net, card vs CPU
+TIMED_DECODE_STEPS = 16   # controlled_sampler_timed at B=512, M=10
+MULTISEP_ITERS = 2        # cli.train --model multienformer, batch VALUE_BATCH
+MULTISEP_MODELS = 10      # the CLI's bins
+# the 2-trunk step card vs CPU: 2 trajectories of 4 steps (3 mid states and
+# the final one: 2 a bin, 4 rows a bin's forward)
+MULTISEP_CPU_MODELS, MULTISEP_CPU_BATCH, MULTISEP_CPU_STEPS = 2, 2, 4
+# f32 card vs CPU: whole models' outputs and gradients (check_models',
+# check_model_grads'), relative by norm; the losses and the replayed
+# AdamW updates within TRAIN_TOL
+MODEL_TOL = 1e-3
+# phase 8's gradients card vs CPU (the timed net's, the multisep step's),
+# each leaf's relative by norm, the CPU's forward taking the card's side
+# of 0 at every FFN relu (``_on_card_relus``): an FFN relu input within
+# rounding of 0 that takes the other side on the card moves the gradient
+# of every leaf upstream of it by up to 1.2e-3 (one such flip in the
+# first chip runs of the timed check), where the same relus read 1.03e-5
+# (NVIDIA H100 80GB HBM3, 700 W)
+GRAD_TOL = 1e-4
+
+
+def _ref_put(sd: dict, name: str, a) -> None:
+  import numpy as np
+  import torch
+  sd[name] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _ref_conv(sd: dict, prefix: str, c) -> None:
+  """A flax Conv1D {'kernel' (K, in, out), 'bias'} as torch Conv1d's."""
+  import numpy as np
+  _ref_put(sd, f'{prefix}.weight', np.transpose(c['kernel'], (2, 1, 0)))
+  _ref_put(sd, f'{prefix}.bias', c['bias'])
+
+
+def _ref_dense(sd: dict, prefix: str, d) -> None:
+  """A flax Dense {'kernel' (in, out)[, 'bias']} as torch Linear's."""
+  _ref_put(sd, f'{prefix}.weight', d['kernel'].T)
+  if 'bias' in d:
+    _ref_put(sd, f'{prefix}.bias', d['bias'])
+
+
+def reference_cnn_dict(model) -> dict:
+  """The port's CNN denoiser as the reference CNNModel's state dict: the
+  inverse of ``svdd_tpu_torch/importers/cnn.py``'s name map."""
+  from svdd_tpu_torch import weights
+  v = weights.cnn_to_jax(model)
+  p, sd = v['params'], {}
+  _ref_conv(sd, 'linear', p['stem'])
+  _ref_put(sd, 'time_embedder.0.W',
+           v['buffers']['GaussianFourierProjection_0']['W'])
+  _ref_dense(sd, 'time_embedder.1', p['time_linear'])
+  for i in range(len(model.layers)):
+    _ref_conv(sd, f'convs.{i}', p[f'conv_{i}'])
+    _ref_dense(sd, f'time_layers.{i}.dense', p[f'time_{i}'])
+    _ref_put(sd, f'norms.{i}.weight', p[f'norm_{i}']['scale'])
+    _ref_put(sd, f'norms.{i}.bias', p[f'norm_{i}']['bias'])
+  _ref_conv(sd, 'final_conv.0', p['final_0'])
+  _ref_conv(sd, 'final_conv.2', p['final_1'])
+  return sd
+
+
+def reference_enformer_dict(model) -> dict:
+  """The port's Enformer (value net or oracle, timed or not) as the
+  reference BaseModel(EnformerTrunk, ConvHead)'s state dict, BatchNorms'
+  ``num_batches_tracked`` included: the inverse of
+  ``svdd_tpu_torch/importers/enformer.py``'s name map."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import weights
+  v = weights.enformer_to_jax(model)
+  p, stats = v['params'], v['batch_stats']['EnformerTrunk_0']
+  trunk = p['EnformerTrunk_0']
+  tower, tower_s = trunk['EnformerConvTower_0'], stats['EnformerConvTower_0']
+  sd = {}
+
+  def block(prefix, bp, bs):
+    _ref_conv(sd, f'{prefix}.conv', bp['Conv1D_0'])
+    bn, st = bp['Norm_0']['BatchNorm_0'], bs['Norm_0']['BatchNorm_0']
+    _ref_put(sd, f'{prefix}.norm.layer.weight', bn['scale'])
+    _ref_put(sd, f'{prefix}.norm.layer.bias', bn['bias'])
+    _ref_put(sd, f'{prefix}.norm.layer.running_mean', st['mean'])
+    _ref_put(sd, f'{prefix}.norm.layer.running_var', st['var'])
+    sd[f'{prefix}.norm.layer.num_batches_tracked'] = torch.tensor(0)
+    if 'Pool_0' in bp:
+      w = bp['Pool_0']['AttentionPool_0']['to_attn_logits']
+      _ref_put(sd, f'{prefix}.pool.layer.to_attn_logits.weight',
+               w.T[:, :, None, None])
+    if 'ChannelTransform_0' in bp:
+      _ref_conv(sd, f'{prefix}.channel_transform.layer',
+                bp['ChannelTransform_0']['Conv1D_0'])
+
+  base = 'embedding.conv_tower.blocks'
+  _ref_conv(sd, f'{base}.0.0', tower['stem_conv'])
+  block(f'{base}.0.1', tower['stem_block'], tower_s['stem_block'])
+  for i in range(1, len(model.trunk.tower.convs) + 1):
+    block(f'{base}.{i}.0', tower[f'conv_{i}'], tower_s[f'conv_{i}'])
+    block(f'{base}.{i}.1', tower[f'pool_{i}'], tower_s[f'pool_{i}'])
+  if 'transformer_stack' in trunk:
+    stack = trunk['transformer_stack']['EnformerTransformerBlock_0']
+
+    def take(tree, j):
+      if isinstance(tree, dict):
+        return {k: take(t, j) for k, t in tree.items()}
+      return np.asarray(tree)[j]
+    layers = [take(stack, j) for j in range(len(model.trunk.transformers))]
+  else:
+    layers = [trunk['transformer_0']]
+  for j, t in enumerate(layers):
+    pre = f'embedding.transformer_tower.blocks.{j}'
+    _ref_put(sd, f'{pre}.norm.layer.weight', t['LayerNorm_0']['scale'])
+    _ref_put(sd, f'{pre}.norm.layer.bias', t['LayerNorm_0']['bias'])
+    a = t['EnformerAttention_0']
+    for name in ('to_q', 'to_k', 'to_v', 'to_rel_k', 'to_out'):
+      _ref_dense(sd, f'{pre}.mha.{name}', a[name])
+    _ref_put(sd, f'{pre}.mha.rel_content_bias', a['rel_content_bias'])
+    _ref_put(sd, f'{pre}.mha.rel_pos_bias', a['rel_pos_bias'])
+    f = t['FeedForwardBlock_0']
+    ln = f['LinearBlock_0']['Norm_0']['LayerNorm_0']
+    _ref_put(sd, f'{pre}.ffn.dense1.norm.layer.weight', ln['scale'])
+    _ref_put(sd, f'{pre}.ffn.dense1.norm.layer.bias', ln['bias'])
+    _ref_dense(sd, f'{pre}.ffn.dense1.linear', f['LinearBlock_0']['Dense_0'])
+    _ref_dense(sd, f'{pre}.ffn.dense2.linear', f['LinearBlock_1']['Dense_0'])
+  block('embedding.pointwise_conv', trunk['pointwise'], stats['pointwise'])
+  _ref_conv(sd, 'head.channel_transform.conv.layer',
+            p['ConvHead_0']['ChannelTransformBlock_0']['ChannelTransform_0'][
+                'Conv1D_0'])
+  if 'TimeEmbedding_0' in p:
+    _ref_put(sd, 'embedding.time_embedding.time_embedding.weight',
+             p['TimeEmbedding_0']['embedding'])
+  return sd
+
+
+def write_reference_files(root: str, denoiser, oracle, value) -> dict:
+  """The three DNA models in the reference's files: the denoiser as a
+  Lightning checkpoint ('state_dict', keys under 'backbone.'), the
+  oracle as a grelu LightningModel checkpoint ('state_dict', keys under
+  'model.') and the value net as the value trainer's dict
+  ('model_state_dict', keys under 'module.'). Returns their paths."""
+  import torch
+  paths = {k: os.path.join(root, k) for k in
+           ('diffusion.ckpt', 'oracle.ckpt', 'value.pt')}
+  pre = lambda sd, p: {p + k: t for k, t in sd.items()}
+  torch.save({'state_dict': pre(reference_cnn_dict(denoiser), 'backbone.'),
+              'epoch': 0, 'global_step': TRAIN_STEPS},
+             paths['diffusion.ckpt'])
+  torch.save({'state_dict': pre(reference_enformer_dict(oracle), 'model.'),
+              'epoch': 0}, paths['oracle.ckpt'])
+  torch.save({'model_state_dict': pre(reference_enformer_dict(value),
+                                      'module.'), 'epoch': 0,
+              'tokens': 0.0}, paths['value.pt'])
+  return paths
+
+
+def _same_weights(a, b) -> bool:
+  import torch
+  sa, sb = a.state_dict(), b.state_dict()
+  return sa.keys() == sb.keys() and all(
+      sa[k].dtype == sb[k].dtype and torch.equal(sa[k].cpu(), sb[k].cpu())
+      for k in sa)
+
+
+def _ref_args(paths: dict, out_dir: str, dev: str, extra=()):
+  from svdd_tpu_torch.cli import decode as cli_decode
+  return cli_decode.parser().parse_args(
+      ['--task', 'dna', '--device', dev, '--out_dir', out_dir,
+       '--diffusion_checkpoint_path', paths['diffusion.ckpt'],
+       '--reward_checkpoint_path', paths['oracle.ckpt'],
+       '--load_checkpoint_path', paths['value.pt'], *extra])
+
+
+def check_reference_imports(root: str, diffusion_ckpt: str, oracle: str,
+                            value: str, dev: str = 'cuda', cfg=None) -> dict:
+  """The f32 pretraining run's denoiser (its EMA weights), the oracle and
+  the MC value net of phase 5, written in the reference's layouts
+  (``write_reference_files``, the inverse name maps above) and read back
+  by the CLIs' checkpoint flags (``checkpoint.import_torch_state_dict``,
+  the prefix rule, ``importers/``, ``weights.*_from_jax``): each equal to
+  its source bit for bit. Returns the report and the files' paths."""
+  import torch
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import decode as cli_decode
+  args = cli_decode.parser().parse_args(
+      ['--task', 'dna', '--device', dev, '--diffusion_checkpoint_path',
+       diffusion_ckpt, '--reward_checkpoint_path', oracle,
+       '--load_checkpoint_path', value])
+  cfg = cfg or common.task_config(args)
+  sources = (common.load_diffusion(args, cfg).backbone,
+             common.load_reward_fn(args, cfg).module,
+             common.load_value_function(args, cfg).module)
+  t0 = time.perf_counter()
+  paths = write_reference_files(root, *sources)
+  write_s = time.perf_counter() - t0
+  ref = _ref_args(paths, root, dev)
+  common.reject_unported(ref)
+  t0 = time.perf_counter()
+  imported = (common.load_diffusion(ref, cfg).backbone,
+              common.load_reward_fn(ref, cfg).module,
+              common.load_value_function(ref, cfg).module)
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+  read_s = time.perf_counter() - t0
+  names = ('denoiser', 'oracle', 'value_net')
+  equal = {n: _same_weights(a, b) for n, a, b in zip(names, imported,
+                                                      sources)}
+  r = {'files': {k: os.path.getsize(p) for k, p in paths.items()},
+       'eval_launches': _enformer_launches(sources[2], False),
+       'equal_bitwise': equal,
+       'params': {n: sum(t.numel() for t in m.state_dict().values())
+                  for n, m in zip(names, sources)},
+       'write_s': write_s, 'import_s': read_s}
+  if not all(equal.values()):
+    raise AssertionError(f'reference imports differ from their sources: {r}')
+  return r, paths
+
+
+def run_reference_decode(paths: dict, out_dir: str, eval_fwd: dict) -> dict:
+  """``cli.decode.run --task dna`` reading the three reference files: B=512,
+  M=10, REF_DECODE_STEPS steps, --skip_best_of_n; the launch counts, set to
+  0 just before and read just after, exactly: 20 B1 launches a denoiser
+  forward (the guided steps', the noise removal's and the baseline's
+  steps + 1), one B2 a step, and ``eval_fwd`` (a full-width Enformer's
+  eval forward) for the value net a step and on the decoded samples, and
+  for the oracle on the decoded and the baseline samples."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import decode as cli_decode
+  steps = REF_DECODE_STEPS
+  args = _ref_args(paths, out_dir, 'cuda', [
+      '--batch_size', '512', '--sample_M', '10', '--num_steps', str(steps),
+      '--skip_best_of_n', '--run_name', 'chip_smoke_reference_decode'])
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  report = cli_decode.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  want = {'cnn_layer': CNN_LAYERS * (2 * steps + 2),
+          'gumbel_candidates': steps}
+  _add(want, eval_fwd, steps + 3)
+  launches = _check_launches('reference_decode', _build.launches(), want)
+  npz_keys = _check_npz(common.npz_path(args))
+  return {'run': 'reference_decode', 'batch_size': 512, 'sample_M': 10,
+          'steps': steps, 'wall_s': wall,
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'guided_reward_mean': report['decoding']['mean'],
+          'baseline_reward_mean': report['baseline']['mean'],
+          'launches': launches, 'npz_keys': npz_keys}
+
+
+def _rel(a, b) -> float:
+  """|a - b| / |b| by norm, in float64."""
+  import torch
+  norm = torch.linalg.vector_norm
+  return float(norm(a.double().cpu() - b.double().cpu())
+               / max(float(norm(b.double().cpu())), 1e-30))
+
+
+def _named_grads(module) -> dict:
+  """{name: gradient on the CPU} of every leaf that has one."""
+  named = list(module.named_parameters()) + list(module.named_buffers())
+  return {k: t.grad.detach().cpu() for k, t in named if t.grad is not None}
+
+
+def _ffn_relu_taps(module, taps: list) -> list:
+  """Forward hooks on each transformer block's FFN up projection of the
+  Enformer ``module``: ``taps`` gets [block, its relu input] a forward.
+  Returns the hooks."""
+  return [b.ffn.up.register_forward_hook(
+      lambda mod, i, o, j=j: taps.append((j, o.detach().float().cpu())))
+          for j, b in enumerate(module.trunk.transformers)]
+
+
+def _on_card_relus(module, card: list, tag=None) -> None:
+  """Make each FFN of the Enformer ``module`` keep, at its relu, the
+  inputs the card's relu kept in the same call (``card``:
+  ``_ffn_relu_taps``' record of the card's run, its keys block or (tag,
+  block)): the relu's output where(card input > 0, input, 0), and its
+  gradient through the same mask, so that a flip at an input within
+  rounding of 0 does not stand for a fault."""
+  import collections
+  import torch
+  from svdd_tpu_torch.models import blocks
+  kept = collections.defaultdict(collections.deque)
+  for key, u in card:
+    kept[key].append(u > 0)
+  for j, b in enumerate(module.trunk.transformers):
+    def forward(x, masks=None, ffn=b.ffn,
+                queue=kept[j if tag is None else (tag, j)]):
+      u = blocks.dropout(ffn.up(ffn.norm(x)), ffn.dropout, masks)
+      h = torch.where(queue.popleft().to(u.device), u,
+                      torch.zeros((), dtype=u.dtype))
+      return blocks.dropout(ffn.down(h), ffn.dropout, masks)
+    b.ffn.forward = forward
+
+
+def _relu_flips(card: list, cpu: list) -> dict:
+  """{block: (relu inputs on other sides of 0, the largest |input| among
+  them over the largest |input| of the relu)} of the FFN relus where the
+  card's and the CPU's inputs (``_ffn_relu_taps``, in call order) differ
+  in sign; raises where a flipped input lies past VALUE_RELU_EDGE of its
+  relu's largest (a flip further from 0 than rounding)."""
+  import torch
+  flips = {}
+  for (j, a), (_, b) in zip(card, cpu):
+    flip = (a > 0) != (b > 0)
+    if flip.any():
+      edge = float(b[flip].abs().max() / b.abs().max())
+      n, e = flips.get(j, (0, 0.0))
+      flips[j] = (n + int(flip.sum()), max(e, edge))
+  if any(e > VALUE_RELU_EDGE for _, e in flips.values()):
+    raise AssertionError(f'relu inputs flipped past the edge: {flips}')
+  return flips
+
+
+def _grads_close(got: dict, want: dict, tol: float) -> dict:
+  """Each gradient's distance by norm within ``tol`` of its own norm plus
+  1e-6 of the largest one's; returns {name: relative distance} and
+  raises naming the leaves off it."""
+  import torch
+  norm = lambda t: float(torch.linalg.vector_norm(t.double()))
+  if got.keys() != want.keys():
+    raise AssertionError(f'gradients of other leaves: '
+                         f'{sorted(set(got) ^ set(want))[:5]}')
+  top = max(norm(t) for t in want.values())
+  dist = {k: norm(got[k].double() - want[k].double()) for k in want}
+  bad = [k for k in want if not torch.isfinite(got[k]).all()
+         or not dist[k] <= tol * norm(want[k]) + 1e-6 * top]
+  if bad:
+    raise AssertionError(f'gradients card vs cpu: {bad[:5]} '
+                         f'{[(dist[k], norm(want[k])) for k in bad[:5]]}')
+  return {k: dist[k] / max(norm(want[k]), 1e-30) for k in want}
+
+
+def _timed_net(dev: str, **widths):
+  """The full-width timed Enformer (random, seed 8), eval mode, f32."""
+  import torch
+  from svdd_tpu_torch import value as value_lib
+  gen = torch.Generator(dev).manual_seed(8)
+  return value_lib.ValueFunction.create('dna', VALUE_L, gen, timed=True,
+                                        compute_dtype=torch.float32, **widths)
+
+
+def check_timed_model(dev: str = 'cuda', rows: int = TIMED_ROWS,
+                      tol: float = GRAD_TOL, **widths) -> dict:
+  """The full-width timed value net on TIMED_ROWS rows at L=200 (steps
+  drawn per position), through its fused eval forward (the tower's six
+  B3 hand-offs, its last pool on B4, the eleven L=2 attentions on B5),
+  card against the CPU with the same weights: the outputs within
+  MODEL_TOL of the largest, and the gradients of mean(out^2) in the
+  one-hot input and in every parameter (the time table's included) by
+  norm within ``tol``, the CPU's FFN relus on the card's side of 0
+  (``_on_card_relus``; each input that took the other side, within
+  rounding of 0, reported by ``_relu_flips``). The backward runs B3's
+  repair (the gradient of its reference form), B8 for the last pool and
+  B5's plain version; the launch counts of the forward and backward are
+  exact."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build, mdlm
+  vf = _timed_net(dev, **widths)
+  g = torch.Generator().manual_seed(9)
+  tokens = torch.randint(0, 5, (rows, VALUE_L), generator=g)
+  steps = torch.randint(0, 128, (rows, VALUE_L), generator=g)
+
+  def grads(module, d, taps):
+    hooks = _ffn_relu_taps(module, taps)
+    if d == 'cpu' and dev != 'cpu':
+      _on_card_relus(module, card_taps)
+    x = mdlm.transform_samples(tokens.to(d)).requires_grad_(True)
+    out = module(x, time_indices=steps.to(d))
+    (out ** 2).mean().backward()
+    for h in hooks:
+      h.remove()
+    return out.detach().cpu(), x.grad.cpu(), _named_grads(module)
+
+  cpu_module = copy.deepcopy(vf.module).cpu()
+  card_taps, cpu_taps = [], []
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+  _build.reset_launches()
+  out_g, gx_g, gw_g = grads(vf.module, dev, card_taps)
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+  launches = _build.launches()
+  out_c, gx_c, gw_c = grads(cpu_module, 'cpu', cpu_taps)
+  if dev == 'cuda':
+    want = _add(_enformer_launches(vf.module, False), {'attn_pool_bwd': 1})
+    launches = _check_launches('timed model', launches, want)
+  out_err = float((out_g - out_c).abs().max())
+  scale = float(out_c.abs().max())
+  flips = _relu_flips(card_taps, cpu_taps)
+  gw_rel = _grads_close(gw_g, gw_c, tol)
+  r = {'rows': rows, 'value_card': out_g.tolist(),
+       'value_cpu': out_c.tolist(), 'value_max_abs_err': out_err,
+       'input_grad_rel_norm_err': _rel(gx_g, gx_c),
+       'max_weight_grad_rel_norm_err': max(gw_rel.values()),
+       'worst_weight_grad': max(gw_rel, key=gw_rel.get),
+       'time_table_grad_rel_norm_err': gw_rel['time_embedding.embedding'],
+       'weight_grads': len(gw_rel),
+       'grad_tol': tol,
+       'relu_flips': {j: list(v) for j, v in flips.items()},
+       'launches': launches}
+  if not (torch.isfinite(out_g).all() and out_err <= MODEL_TOL * scale
+          and r['input_grad_rel_norm_err'] <= tol):
+    raise AssertionError(f'timed model card vs cpu: {r}')
+  return r
+
+
+def run_timed_decode(diffusion_ckpt: str, dev: str = 'cuda', cfg=None,
+                     batch: int = 512, **widths) -> dict:
+  """``Diffusion.controlled_sampler_timed`` (SVDD-MC with the timed net's
+  step-indexed scores) at B=512, M=10, L=200, TIMED_DECODE_STEPS steps,
+  f32, the f32 pretraining run's denoiser and the random full-width timed
+  net; the launch counts exactly 20 B1 a denoiser forward (a step's and
+  the noise removal's), one B2 a step and the timed net's eval forward
+  (6 B3, 1 B4, 11 B5) a step. Each step's index, handed to the value
+  function, runs 0..TIMED_DECODE_STEPS-1."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import decode as cli_decode
+  args = cli_decode.parser().parse_args(
+      ['--task', 'dna', '--device', dev, '--diffusion_checkpoint_path',
+       diffusion_ckpt])
+  cfg = cfg or common.task_config(args)
+  diffusion = common.load_diffusion(args, cfg)
+  vf = _timed_net(dev, **widths)
+  seen = []
+
+  def score(tokens, step):
+    seen.append(step)
+    return vf.score_tokens(tokens, time_indices=torch.full(
+        tokens.shape, step, dtype=torch.int32, device=tokens.device))
+
+  sampler = diffusion.controlled_sampler_timed(
+      score, batch, sample_M=10, num_steps=TIMED_DECODE_STEPS)
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  res = sampler(torch.Generator(dev).manual_seed(10))
+  samples = res.samples.cpu()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  steps = TIMED_DECODE_STEPS
+  if dev == 'cuda':
+    want = _add({'cnn_layer': CNN_LAYERS * (steps + 1),
+                 'gumbel_candidates': steps},
+                _enformer_launches(vf.module, False), steps)
+    launches = _check_launches('timed decode', launches, want)
+  if (seen != list(range(steps))
+      or samples.shape != (batch, cfg.model.length)
+      or not ((samples >= 0) & (samples < 4)).all()):
+    raise AssertionError(f'timed decode: steps {seen}, samples '
+                         f'{tuple(samples.shape)}')
+  return {'run': 'timed_decode', 'batch_size': batch, 'sample_M': 10,
+          'steps': steps, 'step_indices': seen, 'wall_s': wall,
+          'peak_mem_gb': (torch.cuda.max_memory_allocated() / 2 ** 30
+                          if dev == 'cuda' else None),
+          'launches': launches}
+
+
+def _multisep_argv(root: str, name: str, diffusion_ckpt: str, oracle: str,
+                   dev: str = 'cuda') -> list:
+  return ['--task', 'dna', '--device', dev, '--model', 'multienformer',
+          '--batch_size', str(VALUE_BATCH), '--max_iters',
+          str(MULTISEP_ITERS), '--eval_every', '1', '--learning_rate',
+          str(VALUE_LR), '--diffusion_checkpoint_path', diffusion_ckpt,
+          '--reward_checkpoint_path', oracle, '--out_dir', root,
+          '--save_path', os.path.join(root, f'{name}.pt')]
+
+
+def _multisep_leaves(state) -> list:
+  """The state's every leaf and Adam moment, in one order."""
+  st = state.optimizer.adamw.state
+  leaves = state.msm.leaves()
+  return (leaves + [st[t]['exp_avg'] for t in leaves]
+          + [st[t]['exp_avg_sq'] for t in leaves])
+
+
+def _multisep_snapshot(state) -> dict:
+  """The state's leaves and Adam moments on the CPU, its step, count and
+  generator state."""
+  return {'tensors': [t.detach().cpu() for t in _multisep_leaves(state)],
+          'step': state.step, 'count': state.optimizer.count,
+          'generator': state.generator.get_state()}
+
+
+def _same_as_snapshot(snap: dict, state) -> bool:
+  """``state`` equals the snapshot bit for bit (compared on the state's
+  device, a tensor at a time)."""
+  import torch
+  now = _multisep_leaves(state)
+  return (snap['step'] == state.step
+          and snap['count'] == state.optimizer.count
+          and torch.equal(snap['generator'], state.generator.get_state())
+          and len(now) == len(snap['tensors'])
+          and all(torch.equal(t.detach(), s.to(t.device))
+                  for t, s in zip(now, snap['tensors'])))
+
+
+def run_multisep_train(root: str, diffusion_ckpt: str, oracle: str,
+                       dev: str = 'cuda', cfg=None, value_kwargs=None) -> dict:
+  """``cli.train --model multienformer --task dna`` through its ``run``,
+  twice from one seed: ten full-width Enformer trunks binned over 128
+  steps (12 states a bin, 96 rows a bin's forward at batch VALUE_BATCH),
+  MULTISEP_ITERS iterations from the f32 pretraining run's denoiser and
+  the full-width oracle. The launch counts of the first run, set to 0
+  just before and read just after, exactly: a trajectory's 20 B1
+  launches x 129 forwards, the oracle's eval forward, ten eval forwards
+  (6 B3, 1 B4, 11 B5 each) and ten B8 backwards (the last pool's) an
+  iteration. The two runs end with every leaf (the running statistics
+  included), Adam moment, count and generator equal bit for bit. Then
+  one grad step of the second run traced (``trace_step``)."""
+  import gc
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import train as cli_train
+  reports = []
+  for i in range(2):
+    name = f'multisep_{i}'
+    args = cli_train.parser().parse_args(
+        _multisep_argv(root, name, diffusion_ckpt, oracle, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = cli_train.run(args, cfg=cfg, value_kwargs=value_kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launches()
+    state, trainer = out['state'], out['trainer']
+    trunk = state.msm.trunks[0]
+    steps = trainer.diffusion.config.sampling.steps
+    if (steps // MULTISEP_MODELS) * VALUE_BATCH != MULTISEP_ROWS:
+      raise AssertionError(f'{name}: a bin forwards '
+                           f'{(steps // MULTISEP_MODELS) * VALUE_BATCH} '
+                           f'rows, the kernel phase held {MULTISEP_ROWS}')
+    eval_fwd = _enformer_launches(trunk, False)
+    want = {'cnn_layer': CNN_LAYERS * (steps + 1) * MULTISEP_ITERS,
+            'attn_pool_bwd': MULTISEP_MODELS * MULTISEP_ITERS}
+    _add(want, eval_fwd, (MULTISEP_MODELS + 1) * MULTISEP_ITERS)
+    if dev == 'cuda':
+      launches = _check_launches(name, launches, want)
+    # one more step, timed alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, losses = trainer.train_step(state)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    samples, mid = trainer.trajectory(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, losses = trainer.grad_step(state, samples, mid)
+    torch.cuda.synchronize()
+    grad_step_ms = 1e3 * (time.perf_counter() - t0)
+    losses = losses.cpu()
+    if not torch.isfinite(losses).all() or state.step != MULTISEP_ITERS + 2:
+      raise AssertionError(f'{name}: losses {losses}, step {state.step}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if i == 0:
+      snap = _multisep_snapshot(state)
+    else:
+      equal = _same_as_snapshot(snap, state)
+      del snap
+
+      def once():
+        trainer.grad_step(state, samples, mid)
+        torch.cuda.synchronize()
+      profile = trace_step(once)
+    reports.append({
+        'run': name, 'n_models': state.msm.n_models, 'steps': steps,
+        'batch_size': VALUE_BATCH, 'iters': MULTISEP_ITERS,
+        'rows_a_bin': (steps // MULTISEP_MODELS) * VALUE_BATCH,
+        'leaves': sum(t.numel() for t in state.msm.leaves()),
+        'wall_s': wall, 'iteration_s': step_s, 'grad_step_ms': grad_step_ms,
+        'peak_mem_gb': peak, 'per_bin_losses': losses.tolist(),
+        'launches': launches,
+        'saved': os.path.getsize(args.save_path)})
+    # the saved model (9.2 GB at full width) is not read again
+    os.remove(args.save_path)
+    del out, state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+  r = {**reports[0], 'second_run': {k: reports[1][k] for k in (
+      'wall_s', 'iteration_s', 'grad_step_ms', 'peak_mem_gb')},
+       'runs_equal': equal, 'grad_step_profile': profile}
+  if not equal:
+    raise AssertionError(f'multisep training is not deterministic: {r}')
+  return r
+
+
+class _Tagged(list):
+  """A list view that appends (tag, block) keys: trunk ``tag``'s FFN taps
+  go into the shared list as ((tag, block), input)."""
+
+  def __init__(self, target: list, tag):
+    super().__init__()
+    self.target, self.tag = target, tag
+
+  def append(self, item):
+    j, t = item
+    self.target.append(((self.tag, j), t))
+
+
+def check_multisep_step(dev: str = 'cuda', tol: float = GRAD_TOL,
+                        **widths) -> dict:
+  """One ``MultiSepTrainer`` step at MULTISEP_CPU_MODELS full-width trunks
+  (random, seed 11) on a short given trajectory (MULTISEP_CPU_BATCH
+  trajectories of MULTISEP_CPU_STEPS states: 2 a bin, 4 rows a bin's
+  forward) and the motif oracle, card against the CPU: the mean and
+  per-bin losses within TRAIN_TOL, every leaf's gradient (the running
+  statistics' included) by norm within ``tol``, the CPU's FFN relus on
+  the card's side of 0 (as in ``check_timed_model``), and every updated
+  leaf
+  within TRAIN_TOL by norm of the update AdamW makes on the CPU from the
+  card's gradients (AdamW's first update moves an element by the rate
+  whatever its gradient's size)."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build, rewards
+  from svdd_tpu_torch import value as value_lib
+  from svdd_tpu_torch.config import dna_config
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.models.multisep import MultiSepValueModel
+  from svdd_tpu_torch.train import value as train_val
+  from svdd_tpu_torch.train.diffusion import Optimizer
+  gen = torch.Generator().manual_seed(11)
+  msm = MultiSepValueModel.create(
+      lambda g: value_lib.build_value_module(
+          'dna', generator=g, compute_dtype=torch.float32, **widths),
+      n_models=MULTISEP_CPU_MODELS, num_steps=MULTISEP_CPU_STEPS,
+      generator=gen)
+  g = torch.Generator().manual_seed(12)
+  samples = torch.randint(0, 4, (MULTISEP_CPU_BATCH, VALUE_L), generator=g)
+  mid = torch.randint(0, 5, (MULTISEP_CPU_STEPS - 1, MULTISEP_CPU_BATCH,
+                             VALUE_L), generator=g)
+  cfg = dna_config()
+  tcfg = train_val.ValueTrainerConfig(learning_rate=VALUE_LR,
+                                      batch_size=MULTISEP_CPU_BATCH)
+  reward = rewards.synthetic_motif_oracle(VALUE_L)
+
+  def step(d, taps):
+    m = copy.deepcopy(msm).to(d)
+    hooks = [h for i, t in enumerate(m.trunks) for h in _ffn_relu_taps(
+        t, _Tagged(taps, i))]
+    if d == 'cpu' and dev != 'cpu':
+      for i, t in enumerate(m.trunks):
+        _on_card_relus(t, card_taps, tag=i)
+    # the denoiser is not run: the trajectory is given
+    trainer = train_val.MultiSepTrainer(
+        Diffusion(cfg, device=d), m, reward, tcfg)
+    state = trainer.init_state(0)
+    loss, losses = trainer.grad_step(state, samples.to(d), mid.to(d))
+    for h in hooks:
+      h.remove()
+    return (loss.cpu(), losses.cpu(), [_named_grads(t) for t in m.trunks],
+            [{k: v.detach().cpu() for k, v in
+              list(t.named_parameters()) + list(t.named_buffers())}
+             for t in m.trunks])
+
+  card_taps, cpu_taps = [], []
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+  _build.reset_launches()
+  got = step(dev, card_taps)
+  if dev == 'cuda':
+    torch.cuda.synchronize()
+  launches = _build.launches()
+  want = step('cpu', cpu_taps)
+  flips = _relu_flips(card_taps, cpu_taps)
+  if dev == 'cuda':
+    trunk = msm.trunks[0]
+    launches = _check_launches('multisep step', launches, _add(
+        _add({}, _enformer_launches(trunk, False), MULTISEP_CPU_MODELS),
+        {'attn_pool_bwd': MULTISEP_CPU_MODELS}))
+  loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+  bin_err = max(_rel(a[None], b[None]) for a, b in zip(got[1], want[1]))
+  grad_rel, upd_rel = {}, {}
+  for i, trunk in enumerate(msm.trunks):
+    for k, v in _grads_close(got[2][i], want[2][i], tol).items():
+      grad_rel[f'{i}.{k}'] = v
+    # the update AdamW makes on the CPU from the card's gradients
+    m = copy.deepcopy(trunk)
+    named = dict(list(m.named_parameters()) + list(m.named_buffers()))
+    opt = Optimizer(named.values(), lambda count: VALUE_LR, None)
+    for k, t in named.items():
+      t.grad = got[2][i][k].clone()
+    opt.step()
+    before = dict(list(trunk.named_parameters())
+                  + list(trunk.named_buffers()))
+    for k, t in named.items():
+      upd = got[3][i][k] - before[k].detach()
+      upd_rel[f'{i}.{k}'] = _rel(upd, t.detach() - before[k].detach())
+  r = {'n_models': MULTISEP_CPU_MODELS, 'rows_a_bin': 2 * MULTISEP_CPU_BATCH,
+       'loss_card': float(got[0]), 'loss_cpu': float(want[0]),
+       'loss_rel_err': loss_err, 'max_bin_loss_rel_err': bin_err,
+       'max_grad_rel_norm_err': max(grad_rel.values()),
+       'worst_grad': max(grad_rel, key=grad_rel.get),
+       'stat_grads_max_rel_norm_err': max(
+           v for k, v in grad_rel.items() if k.endswith(('.mean', '.var'))),
+       'max_update_rel_err': max(upd_rel.values()),
+       'worst_update': max(upd_rel, key=upd_rel.get),
+       'grad_tol': tol,
+       'relu_flips': [[t, j, *v] for (t, j), v in flips.items()],
+       'leaves': len(upd_rel), 'launches': launches}
+  if not (loss_err <= TRAIN_TOL and bin_err <= TRAIN_TOL
+          and r['max_update_rel_err'] <= TRAIN_TOL):
+    raise AssertionError(f'multisep step card vs cpu: {r}')
+  return r
+
+
+def a17_a11_phase(diffusion_ckpt: str) -> dict:
+  """Phase 8, each part emitting its line: the reference-layout files of
+  phase 5's denoiser, oracle and value net read back bit for bit, and
+  cli.decode from them; the full-width timed net card vs CPU (the fused
+  tower's gradient through B3's repair) and its SVDD-MC decode; cli.train
+  --model multienformer twice from one seed; the 2-trunk multisep step
+  card vs CPU. Returns the launch counts of its runs of the main path."""
+  import torch
+  root = _value_dir('reference')
+  value_root = os.path.join(REPO, 'build', 'chip_smoke', 'value')
+  oracle = os.path.join(value_root, 'train_oracle.pt')
+  value = os.path.join(value_root, 'value_mc.pt')
+  runs = {}
+
+  def done(r, phase):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': phase, **r})
+    if 'launches' in r and 'run' in r:
+      runs[r['run']] = {'launches': r['launches']}
+    return r
+
+  t0 = time.perf_counter()
+  r, paths = check_reference_imports(root, diffusion_ckpt, oracle, value)
+  eval_fwd = r.pop('eval_launches')
+  done(r, 'reference_imports')
+  done(run_reference_decode(paths, root, eval_fwd), 'decode')
+  for p in paths.values():
+    os.remove(p)
+  r = done(check_timed_model(), 'timed_model')
+  runs['timed_model'] = {'launches': r['launches']}
+  done(run_timed_decode(diffusion_ckpt), 'decode')
+  done(run_multisep_train(root, diffusion_ckpt, oracle), 'multisep_train')
+  r = done(check_multisep_step(), 'multisep_step_vs_cpu')
+  runs['multisep_step'] = {'launches': r['launches']}
+  emit({'phase': 'a17_a11', 'wall_s': time.perf_counter() - t0})
+  return runs
+
+
 def kernel_checks() -> list:
   """(name, check(dtype, generator)) of the kernel phase, in order; each
   runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
@@ -4536,6 +5382,7 @@ def main() -> None:
   emit({'phase': 'profile', 'algo': 'dit_forward', **r})
   train_profiles()
   runs.update(rna_phase())
+  runs.update(a17_a11_phase(diffusion_ckpt))
 
   kernels = []
   for name in _build.KERNELS:
@@ -4564,7 +5411,7 @@ def main() -> None:
                                       'achieved_tb_s', 'classifier_pools',
                                       'classifier_n512', 'plain_median_ms',
                                       'library_median_ms', 'n5120',
-                                      'train_rows')
+                                      'train_rows', 'multisep_rows')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -4575,7 +5422,7 @@ def main() -> None:
         entry['library_ms_bf16'] = bf['library_ms']
       for k in ('median_ms', 'achieved_tb_s', 'classifier_pools',
                 'classifier_n512', 'max_abs_err_points', 'n5120',
-                'train_rows'):
+                'train_rows', 'multisep_rows'):
         if k in bf:
           entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:
@@ -4604,6 +5451,8 @@ def main() -> None:
                  if k in r}
             for dt, r in more.items()}
     kernels.append(entry)
+  emit({'phase': 'profiler_misses', 'count': len(PROFILER_MISSES),
+        'misses': PROFILER_MISSES})
   emit({'kernels': kernels})
   print(smi, flush=True)
   emit({'ok': True, 'device': {'platform': 'gpu',

@@ -5,7 +5,8 @@
 
 Each turn runs, in a fresh process from the checkout's root, that
 checkout's ``chip_smoke.run_decode`` for every ALGO (default svdd_mc,
-dps, classifier: the CLI runs at --task dna, B=512, 128 steps), after
+dps, classifier: the CLI runs at --task dna, B=512, 128 steps; an ALGO
+named rna_<algo> runs <algo> at --task rna), after
 building the checkout's kernels (outside the timed decodes). The turns
 go parent, change, change, parent, change, parent, parent, change.
 Prints one JSON line per turn with the decode wall seconds, then one
@@ -31,7 +32,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out = {}
 for algo in sys.argv[1:]:
-  out[algo] = chip_smoke.run_decode(algo)['wall_s']
+  task, name = (('rna', algo[4:]) if algo.startswith('rna_')
+                else ('dna', algo))
+  out[algo] = chip_smoke.run_decode(name, algo, task=task)['wall_s']
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
 print(json.dumps(out))

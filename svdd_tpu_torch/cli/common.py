@@ -8,13 +8,24 @@ The checkpoint flags read the port's own files:
 whose EMA weights the denoiser takes; ``--reward_checkpoint_path`` a
 ``cli.train_oracle --save_path`` file, the Enformer reward oracle;
 ``--load_checkpoint_path`` and ``--pre_model_path`` a ``cli.train
---save_path`` file, the value net. Any other file (a reference ``.pt``,
-an orbax directory) raises ``NotImplementedError`` naming ROADMAP A17,
-and a file of the other task (an Enformer for ``--task rna``, a ConvGRU
-for ``--task dna``) raises ``ValueError``. Without them the models take
-random weights drawn from the config's seed (diffusion) and seed 1
-(value net), and the reward is the synthetic motif oracle, as the JAX
-CLI does without checkpoint flags.
+--save_path`` file, the value net. A file of the other task (an
+Enformer for ``--task rna``, a ConvGRU for ``--task dna``) raises
+``ValueError``.
+
+They also import the reference's torch pickles, as the JAX CLIs do
+(``svdd_tpu/cli/common.py:105-241``): any ``.pt``, ``.pth`` or
+``.ckpt`` file this package did not write (``checkpoint.
+is_reference_file``) is read with ``checkpoint.import_torch_state_dict``,
+its prefix found among JAX's candidates ('backbone.' or
+'module.backbone.' for the denoiser, 'model.' or 'module.' for an
+oracle, 'module.' for a value net), mapped to the flax layout by
+``importers/`` and into the port's modules by ``weights.*_from_jax``:
+the CNN or DiT denoiser, the Enformer (DNA) or ConvGRU (RNA) oracle and
+value net at the file's widths. Any other file (an orbax directory)
+raises ``NotImplementedError`` naming ROADMAP A17. Without the flags
+the models take random weights drawn from the config's seed (diffusion)
+and seed 1 (value net), and the reward is the synthetic motif oracle,
+as the JAX CLI does without checkpoint flags.
 
 ``--task rna`` is the RNA 5'UTR task: L=50 (``rna_config``), the
 ConvGRU value net and MRL oracle. ``--task rna_saluki`` and the saluki
@@ -33,7 +44,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from svdd_tpu_torch import rewards, value as value_lib
+from svdd_tpu_torch import checkpoint as ckpt_lib
+from svdd_tpu_torch import diffusion as diffusion_lib
+from svdd_tpu_torch import importers, rewards, weights
+from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.config import Config, dna_config, rna_config
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.train import diffusion as train_diff
@@ -56,7 +70,8 @@ def make_parser(description: str) -> argparse.ArgumentParser:
   p.add_argument('--saluki_final_length', type=int, default=12288)
   p.add_argument('--n_task', type=int, default=1)
   p.add_argument('--model', type=str, default='enformer',
-                 help='enformer (the other value models are not ported)')
+                 help="enformer; cli.train also takes multienformer (the "
+                      "CLIs raise for timedenformer, as JAX's do)")
   p.add_argument('--batch_size', type=int, default=256)
   p.add_argument('--sample_M', type=int, default=5)
   p.add_argument('--val_batch_num', type=int, default=1)
@@ -117,8 +132,8 @@ def diffusion_checkpoint(path: str) -> str:
   if not isinstance(ckpt, dict) or ckpt.get('format') != train_diff.FORMAT:
     raise NotImplementedError(
         f'--diffusion_checkpoint_path {path}: not a pretraining checkpoint '
-        f'of this package ({train_diff.FORMAT}); reading the reference '
-        '.pt layouts and orbax checkpoints is not ported yet (ROADMAP A17)')
+        f'of this package ({train_diff.FORMAT}) nor a reference torch '
+        'pickle; reading orbax checkpoints is not ported yet (ROADMAP A17)')
   return found
 
 
@@ -135,11 +150,12 @@ def reject_unported(args) -> None:
     raise NotImplementedError(f'--task {args.task}: only dna and rna are '
                               'ported')
   for name in VALUE_CHECKPOINT_FLAGS:
-    if getattr(args, name, None):
-      value_lib.load_checkpoint(getattr(args, name), mmap=True,
-                                task=args.task)
-  if getattr(args, 'diffusion_checkpoint_path', None):
-    diffusion_checkpoint(args.diffusion_checkpoint_path)
+    path = getattr(args, name, None)
+    if path and not ckpt_lib.is_reference_file(path):
+      value_lib.load_checkpoint(path, mmap=True, task=args.task)
+  path = getattr(args, 'diffusion_checkpoint_path', None)
+  if path and not ckpt_lib.is_reference_file(path):
+    diffusion_checkpoint(path)
   if args.dist:
     raise NotImplementedError('--dist: the parallel paths are not ported')
 
@@ -156,11 +172,50 @@ def task_config(args) -> Config:
   return cfg
 
 
+def _reference_state_dict(path: str, prefixes) -> dict:
+  """The reference pickle's state dict, the first of ``prefixes`` that
+  starts a key taken off (``svdd_tpu/cli/common.py:_torch_prefix``)."""
+  sd = ckpt_lib.import_torch_state_dict(path)
+  return ckpt_lib.strip_prefix(sd, ckpt_lib.torch_prefix(sd, prefixes))
+
+
+def import_denoiser(path: str, cfg: Config, device):
+  """The reference Lightning checkpoint's denoiser (the CNN or the DiT
+  of ``cfg.backbone``, its layers counted by ``cfg``), on ``device``."""
+  sd = _reference_state_dict(path, ('backbone.', 'module.backbone.'))
+  if cfg.backbone == 'cnn':
+    return weights.cnn_from_jax(
+        importers.import_cnn_params(sd, 5 * cfg.model.num_cnn_stacks),
+        diffusion_lib.cnn_compute_dtype(), device)
+  if cfg.backbone == 'dit':
+    return weights.dit_from_jax(
+        importers.import_dit_params(sd, cfg.model.n_blocks), cfg,
+        diffusion_lib.compute_dtype(cfg), device)
+  raise NotImplementedError(f'torch import for backbone {cfg.backbone}')
+
+
+def import_value_net(path: str, task: str, prefixes, device,
+                     compute_dtype=torch.float32):
+  """The reference pickle's Enformer (DNA, computing in
+  ``compute_dtype``) or ConvGRU (RNA), on ``device``."""
+  sd = _reference_state_dict(path, prefixes)
+  if value_lib.checkpoint_task(task) == 'rna':
+    return weights.convgru_from_jax(importers.import_convgru_value_model(sd),
+                                    device=device)
+  return weights.enformer_value_from_jax(
+      importers.import_enformer_value_model(sd), compute_dtype, device)
+
+
 def load_diffusion(args, cfg: Config) -> Diffusion:
-  """The denoiser: the EMA weights of ``--diffusion_checkpoint_path``, or
-  random ones."""
-  model = Diffusion(cfg, device=args.device)
+  """The denoiser: the EMA weights of ``--diffusion_checkpoint_path``, the
+  weights of a reference checkpoint, or random ones."""
   path = getattr(args, 'diffusion_checkpoint_path', None)
+  if ckpt_lib.is_reference_file(path):
+    model = Diffusion(cfg, device=args.device,
+                      backbone=import_denoiser(path, cfg, args.device))
+    LOGGER.info('imported torch diffusion ckpt %s', path)
+    return model
+  model = Diffusion(cfg, device=args.device)
   if path:
     train_diff.load_ema_weights(model, diffusion_checkpoint(path))
     LOGGER.info('loaded diffusion checkpoint %s', path)
@@ -187,6 +242,13 @@ def load_reward_fn(args, cfg: Config):
   """The oracle of ``--reward_checkpoint_path`` (``load_oracle``), or the
   synthetic motif oracle at the task's length."""
   path = getattr(args, 'reward_checkpoint_path', None)
+  if ckpt_lib.is_reference_file(path):
+    # grelu LightningModel oracles carry the value nets' layouts under
+    # 'model.'
+    module = import_value_net(path, args.task, ('model.', 'module.', ''),
+                              args.device)
+    LOGGER.info('imported torch reward oracle %s', path)
+    return rewards.RewardOracle(module, task_index=0)
   if path:
     oracle = load_oracle(path, args.task, args.device)
     LOGGER.info('loaded reward oracle %s', path)
@@ -204,6 +266,13 @@ def load_value_function(args, cfg: Config,
   for RNA."""
   gen = torch.Generator(torch.device(args.device)).manual_seed(1)
   path = args.load_checkpoint_path or args.pre_model_path
+  if ckpt_lib.is_reference_file(path):
+    # the JAX CLI creates the value function before it imports
+    value_lib.check_value_model(args.task, args.model)
+    module = import_value_net(path, args.task, ('module.',), args.device,
+                              value_lib.value_compute_dtype())
+    LOGGER.info('imported torch value net %s', path)
+    return value_lib.ValueFunction(module, cfg.model.length)
   if path:
     ckpt = value_lib.load_checkpoint(path, task=args.task)
     vf = value_lib.ValueFunction.create(args.task, cfg.model.length, gen,

@@ -19,6 +19,12 @@ state, which ``--resume_state_path`` resumes). The value net computes
 in bf16 under SVDD_VALUE_BF16=1 and the denoiser under SVDD_CNN_BF16=1;
 otherwise in f32 with TF32 off. ``--batch_size`` keeps JAX's default of
 256, whose MC step regresses 128 x 256 states: pass a small one.
+
+``--model multienformer`` trains the time-binned multisep model instead
+(``_run_multisep``): ten trunks, each regressing its bin of a
+trajectory's states, through their eval forward as JAX trains them.
+``--model timedenformer`` raises JAX's ``ValueError`` (its value
+function cannot be created without time indices).
 """
 
 from __future__ import annotations
@@ -29,17 +35,15 @@ import torch
 
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.cli import common
+from svdd_tpu_torch.models import multisep
 from svdd_tpu_torch.observability import MetricsLogger
 from svdd_tpu_torch.train import value as train_val
 
 LOGGER = logging.getLogger(__name__)
+MULTISEP_MODELS = 10     # the JAX CLI's n_models
 
 
 def _reject(args) -> None:
-  if args.model == 'multienformer':
-    raise NotImplementedError('--model multienformer: the multisep value '
-                              'model and its trainer are not ported yet '
-                              '(ROADMAP A11)')
   if args.dist or args.fsdp:
     raise NotImplementedError('--dist / --fsdp: the parallel paths are not '
                               'ported yet (ROADMAP A16)')
@@ -55,6 +59,8 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   cfg = cfg or common.task_config(args)
   diffusion = common.load_diffusion(args, cfg)
   reward_fn = common.load_reward_fn(args, cfg)
+  if args.model == 'multienformer':
+    return _run_multisep(args, cfg, diffusion, reward_fn, value_kwargs)
   vf = common.load_value_function(args, cfg, **(value_kwargs or {}))
   tcfg = train_val.ValueTrainerConfig(
       learning_rate=args.learning_rate, grad_norm_clip=args.grad_norm_clip,
@@ -105,6 +111,32 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   finally:
     logger.finish()
   return {'trainer': trainer, 'state': state, 'metrics_path': logger.path}
+
+
+def _run_multisep(args, cfg, diffusion, reward_fn, value_kwargs=None) -> dict:
+  """``--model multienformer`` (``svdd_tpu/cli/train.py:136-160``): ten
+  trunks binned over ``cfg.sampling.steps`` (the task's value net: the
+  Enformer, or the ConvGRU for ``--task rna``), drawn from ``--seed``,
+  ``--max_iters`` steps of ``MultiSepTrainer`` at ``--learning_rate``,
+  logged every ``--eval_every``; ``--save_path`` gets the trained
+  model (``models.multisep.save_checkpoint``). As in JAX, the value-net
+  checkpoint flags, the evaluation and the trainer-state flags are not
+  read. Returns the trainer and its final state."""
+  gen = torch.Generator(diffusion.device).manual_seed(args.seed)
+  msm = multisep.MultiSepValueModel.create(
+      lambda g: value_lib.build_value_module(
+          args.task, 'enformer', args.n_task, g, **(value_kwargs or {})),
+      n_models=MULTISEP_MODELS, num_steps=cfg.sampling.steps, generator=gen)
+  tcfg = train_val.ValueTrainerConfig(
+      learning_rate=args.learning_rate, batch_size=args.batch_size,
+      max_iter=args.max_iters, task=args.task)
+  trainer = train_val.MultiSepTrainer(diffusion, msm, reward_fn, tcfg)
+  state = trainer.train(trainer.init_state(args.seed), tcfg.max_iter,
+                        log_every=args.eval_every)
+  if args.save_path:
+    multisep.save_checkpoint(args.save_path, state.msm)
+    LOGGER.info('saved multisep value net to %s', args.save_path)
+  return {'trainer': trainer, 'state': state}
 
 
 def parser():

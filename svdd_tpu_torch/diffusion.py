@@ -1,8 +1,9 @@
 """The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT
 or DiMamba) + schedule + SUBS parameterization + the unguided (ddpm,
-ddpm_cache), SVDD-MC (with scheduled M), SVDD-PM (Tweedie), TDS, DPS and
-classifier-guidance samplers, the CD-Q trajectory sampler of value-net
-training, and the CNN denoiser's training loss.
+ddpm_cache), SVDD-MC (with scheduled M, and with a step-indexed value
+function), SVDD-PM (Tweedie), TDS, DPS and classifier-guidance
+samplers, the CD-Q trajectory sampler of value-net training, and the
+CNN denoiser's training loss.
 
 The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
 the gradient-guided ones); ``loss`` runs under autograd, and with
@@ -208,6 +209,22 @@ class Diffusion:
         lambda m: G.svdd_mc_step(self.forward, value_fn, self.schedule,
                                  self.mask_index, repeats=m),
         sample_M, m_schedule)
+    return self._reverse(step, batch_size, num_steps, eps)
+
+  def controlled_sampler_timed(self, value_fn_timed, batch_size: int, *,
+                               sample_M: int = 10,
+                               num_steps: int | None = None,
+                               eps: float = 1e-5):
+    """SVDD-MC with a step-indexed value function, the timed and
+    multisep value models (``svdd_tpu/diffusion.py:392-410``):
+    ``value_fn_timed(tokens (N, L), step)`` -> (N,): a timed
+    ``ValueFunction``'s ``score_tokens`` with every position at ``step``
+    (the reference's timed loop feeds ``torch.full((B, L), i)``), or a
+    multisep model's ``apply_at_step`` on the one-hots."""
+    steps = num_steps or self.config.sampling.steps
+    step = G.svdd_mc_step_timed(self.forward, value_fn_timed, self.schedule,
+                                self.mask_index, steps, eps,
+                                repeats=sample_M)
     return self._reverse(step, batch_size, num_steps, eps)
 
   def tweedie_sampler(self, reward_fn, batch_size: int, *,

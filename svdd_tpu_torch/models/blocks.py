@@ -39,8 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from svdd_tpu_torch.ops import attn_pool as ap
-from svdd_tpu_torch.ops.conv1d import (conv1d_deterministic, conv1d_prologue,
-                                      conv1d_shifted, conv_bwd_ok)
+from svdd_tpu_torch.ops.conv1d import conv1d_prologue, conv1d_shifted
 from svdd_tpu_torch.ops.kernel_utils import act as activation
 from svdd_tpu_torch.ops.kernel_utils import live_taps
 
@@ -357,19 +356,8 @@ class ChannelTransform(nn.Module):
             + self.bias.to(x.dtype))
 
 
-def train_conv(x, kernel, bias, dilation: int = 1):
-  """A conv of a training forward: ``conv1d_shifted`` (whose backward is
-  kernel B7) on the kernel's gate, ``conv1d_deterministic`` off it, so
-  no training gradient takes cuDNN's atomic weight gradient."""
-  k_taps, c_in, c_out = kernel.shape
-  if conv_bwd_ok(x.shape[1], c_in, c_out, k_taps, dilation):
-    return conv1d_shifted(x, kernel, bias, dilation)
-  return conv1d_deterministic(x, kernel, bias, dilation)
-
-
 class Stem(nn.Module):
-  """Stem conv and activation (the JAX module's pool is never used);
-  ``train``: the conv through ``train_conv``."""
+  """Stem conv and activation (the JAX module's pool is never used)."""
 
   def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                generator: torch.Generator, act_func: str = 'relu'):
@@ -381,8 +369,8 @@ class Stem(nn.Module):
                                          device=generator.device))
 
   def forward(self, x, train: bool = False):
-    conv = train_conv if train else conv1d_shifted
-    return activation(self.act_func, conv(x, self.kernel, self.bias))
+    return activation(self.act_func, conv1d_shifted(x, self.kernel,
+                                                    self.bias))
 
 
 class ConvBlock(nn.Module):
@@ -436,12 +424,11 @@ class ConvBlock(nn.Module):
     self.pool = (AttentionPool(out_channels, dev) if pool_func == 'attn'
                  else None)
 
-  def _conv(self, x, train: bool = False):
+  def _conv(self, x):
     if self.kernel.shape[0] == 1:
       return (torch.matmul(x, self.kernel[0].to(x.dtype))
               + self.bias.to(x.dtype))
-    conv = train_conv if train else conv1d_shifted
-    return conv(x, self.kernel, self.bias, self.dilation)
+    return conv1d_shifted(x, self.kernel, self.bias, self.dilation)
 
   def _residual_input(self, x):
     if not self.residual:
@@ -528,7 +515,7 @@ class ConvBlock(nn.Module):
     pending = None
     for op in self.order:
       if op == 'C':
-        x = self._conv(x, train)
+        x = self._conv(x)
       elif op == 'D':
         x = dropout(x, self.dropout, masks)
       elif op == 'N' and self.norm is not None:

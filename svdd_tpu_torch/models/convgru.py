@@ -18,10 +18,10 @@ order. No ``torch.nn.GRU``: cuDNN's GRU refuses a backward in eval mode
 Training (``train=True``, with the forward's ``DropoutMasks``): the
 tower's BatchNorms on the batch, dropout in JAX's call order (the five
 ConvBlocks' D, then the FFN's two; between stacked GRU layers, none at
-``n_gru=1``), and the convs of the tower through
-``ops.conv1d.conv1d_deterministic``, whose backward sums in a fixed
-order where cuDNN's weight gradient sums with atomics, so a resumed
-run repeats the uninterrupted one bit for bit.
+``n_gru=1``), and the convs of the tower, off B7's gate at 64
+channels, recorded through ``ops.conv1d._ConvPlainBwd``, whose backward
+sums in a fixed order where cuDNN's weight gradient sums with atomics,
+so a resumed run repeats the uninterrupted one bit for bit.
 """
 
 from __future__ import annotations

@@ -18,9 +18,10 @@ mutable=['batch_stats'])``: the tower's blocks in their plain form (the
 k=5 convs' backward on kernel B7, the pools on B4 forward and B8
 backward, never the L-major eval pipeline, ``enformer.py:273,294,356``)
 with BatchNorm on the batch's statistics, whose running averages the
-forward moves in the module's buffers; the stem conv recorded by
-``conv1d_deterministic``, so that no weight gradient of training sums
-with atomics; and the three dropouts of each transformer block live at
+forward moves in the module's buffers; the stem conv's backward summed
+in a fixed order (``ops.conv1d._ConvPlainBwd``, as every recorded conv
+off B7's gate), so that no weight gradient of training sums with
+atomics; and the three dropouts of each transformer block live at
 ``ff_dropout`` (after the attention and in the FFN's two linear blocks),
 their masks from a ``blocks.DropoutMasks``. The pointwise block's
 dropout is ``ff_dropout // 8`` = 0.0, as in JAX, so inert.
@@ -36,7 +37,7 @@ from torch import nn
 
 from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.ops.attn_l2 import attn_l2
-from svdd_tpu_torch.ops.conv1d import conv1d_deterministic, conv1d_shifted
+from svdd_tpu_torch.ops.conv1d import conv1d_shifted
 from svdd_tpu_torch.ops.kernel_utils import gelu_enformer
 
 
@@ -230,9 +231,7 @@ class EnformerConvTower(nn.Module):
     # tiles N by 8 (ops.attn_pool.wlogits_body_takes)
     defer = fused and len(self.convs) > 0
     lnc = defer and x.shape[1] % 2 == 0
-    if train:
-      x = conv1d_deterministic(x, self.stem_kernel, self.stem_bias)
-    elif fused and blocks.defers_bias(x.dtype):
+    if fused and blocks.defers_bias(x.dtype):
       x = blocks.PendingBias(conv1d_shifted(x, self.stem_kernel),
                              self.stem_bias.float())
     else:
@@ -274,17 +273,40 @@ class EnformerTrunk(nn.Module):
     return gelu_enformer(self.pointwise(x, train=train, masks=masks))
 
 
+class TimeEmbedding(nn.Module):
+  """The timed value net's per-step additive embedding
+  (``svdd_tpu/models/enformer.py:TimeEmbedding``): a (128, 4) float32
+  table, normal(1.0) at init, read at each position's step index."""
+
+  def __init__(self, generator: torch.Generator, max_time_steps: int = 128,
+               embedding_size: int = 4):
+    super().__init__()
+    self.embedding = nn.Parameter(torch.randn(
+        max_time_steps, embedding_size, generator=generator,
+        device=generator.device))
+
+  def forward(self, time_indices: torch.Tensor) -> torch.Tensor:
+    return self.embedding[time_indices.long()]
+
+
 class EnformerValueModel(nn.Module):
   """Trunk + average-pool ConvHead: (N, L, 4) one-hot -> (N,) value
   (or (N, n_tasks)), in float32. ``fused=False`` takes the
   differentiable tower; ``train=True`` the training forward, which needs
-  ``masks`` for its dropouts (module docstring)."""
+  ``masks`` for its dropouts (module docstring).
+
+  ``timed=True`` is the timed variant: x + 0.01 * table[time_indices]
+  before the trunk (``time_indices`` (N, L), each state's step). As in
+  JAX, the one-hot is cast to ``compute_dtype`` first and the float32
+  table promotes the sum, so a timed net's trunk computes in float32
+  even with a bf16 ``compute_dtype`` (``enformer.py:438-442``)."""
 
   def __init__(self, n_tasks: int = 1, n_conv: int = 7,
                channels: int = 1536, n_transformers: int = 11,
                n_heads: int = 8, key_len: int = 64,
                compute_dtype: torch.dtype = torch.float32,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None,
+               timed: bool = False):
     super().__init__()
     if generator is None:
       generator = torch.Generator().manual_seed(1)
@@ -293,23 +315,36 @@ class EnformerValueModel(nn.Module):
     self.trunk = EnformerTrunk(generator, n_conv, channels,
                                n_transformers, n_heads, key_len)
     self.head = blocks.ConvHead(n_tasks, 2 * channels, generator)
+    self.time_embedding = TimeEmbedding(generator) if timed else None
+
+  @property
+  def timed(self) -> bool:
+    return self.time_embedding is not None
 
   def forward(self, x: torch.Tensor, fused: bool = True,
               train: bool = False,
-              masks: blocks.DropoutMasks | None = None) -> torch.Tensor:
+              masks: blocks.DropoutMasks | None = None,
+              time_indices: torch.Tensor | None = None) -> torch.Tensor:
     if train and masks is None:
       raise ValueError('a training forward needs the DropoutMasks of its '
                        'dropouts')
-    x = self.trunk(x.to(self.compute_dtype), fused, train, masks)
+    x = x.to(self.compute_dtype)
+    if self.timed:
+      if time_indices is None:
+        raise ValueError('timed model requires time_indices')
+      x = x + 0.01 * self.time_embedding(time_indices)
+    x = self.trunk(x, fused, train, masks)
     x = self.head(x).float()
     return x[..., 0] if self.n_tasks == 1 else x
 
   def config(self) -> dict:
-    """The constructor's widths, which a checkpoint records."""
+    """The constructor's widths (and the timed flag), which a checkpoint
+    records."""
     trunk = self.trunk
     attn = trunk.transformers[0].attn if trunk.transformers else None
     return {'n_tasks': self.n_tasks, 'n_conv': len(trunk.tower.convs) + 1,
             'channels': trunk.pointwise.kernel.shape[1],
             'n_transformers': len(trunk.transformers),
             'n_heads': attn.heads if attn else 8,
-            'key_len': attn.dim_key if attn else 64}
+            'key_len': attn.dim_key if attn else 64,
+            **({'timed': True} if self.timed else {})}

@@ -50,8 +50,11 @@ backward, as JAX differentiates the reference there.
 
 ``attn_pool`` is differentiable: ``_AttnPool`` runs the forward and
 backward kernels on CUDA tensors and the plain pair on CPU tensors. The
-fused ``pool_prologue_im2col_wlogits`` serves the eval forward only; a
-gradient takes the unfused tower (``models/enformer.py``).
+fused ``pool_prologue_im2col_wlogits`` is differentiable too, through
+its plain version (``kernel_utils.with_plain_grad``), as JAX's custom
+VJPs differentiate their jnp references: the guided decoders' gradients
+take the unfused tower (``models/enformer.py``), but the multisep
+trainer differentiates the fused eval tower, as JAX's does.
 
 Math of the w-logits pool, per pair of rows (x0, x1) of s = x +
 residual (added in x's dtype): d = x0 - x1 in f32, logits difference
@@ -149,6 +152,15 @@ def attn_pool_wlogits_reference(x, w, residual=None):
                      device=logits.device).to(dt)
     logits = torch.cat([logits[:, :-1], low], dim=1)
   return attn_pool_reference(s, logits)
+
+
+def pool_prologue_im2col_wlogits_reference(x, w, scale, shift, k_taps: int,
+                                           act_name, residual=None):
+  """The jnp reference of the fused pool (``attn_pool_pallas.py:
+  pool_prologue_im2col_wlogits_reference``): ``attn_pool_wlogits_reference``
+  rounded to x's dtype, then ``nacdr_im2col_reference``."""
+  return nacdr_im2col_reference(attn_pool_wlogits_reference(x, w, residual),
+                                scale, shift, k_taps, act_name)
 
 
 # the VMEM budget of JAX's w-logits tile pickers (attn_pool_pallas.py:
@@ -310,11 +322,26 @@ def pool_prologue_im2col_wlogits(x, w, scale, shift, k_taps: int,
   k_live = len(live_offsets(k_taps, (x.shape[1] + 1) // 2))
   if pool_rounds_as_reference(x, lnc=lnc, k_live=k_live,
                               has_res=residual is not None):
-    return nacdr_im2col_reference(attn_pool_wlogits_reference(x, w, residual),
-                                  scale, shift, k_taps, act_name)
+    return pool_prologue_im2col_wlogits_reference(x, w, scale, shift, k_taps,
+                                                  act_name, residual)
   if _plain(x):
     return pool_prologue_im2col_wlogits_plain(x, w, scale, shift, k_taps,
                                               act_name, residual)
+  # the kernel writes its output outside autograd: its backward is the
+  # gradient of the reference form, as JAX's custom VJPs
+  # (attn_pool_pallas.py:740-787, :1080-1125) take the reference's VJP
+  # (in f32 the plain version's to f32 rounding)
+  plain = lambda *a: pool_prologue_im2col_wlogits_reference(
+      *a[:4], k_taps, act_name, *a[4:])
+  kernel = lambda *a: _pool_prologue_im2col_kernel(*a[:4], k_taps, act_name,
+                                                   *a[4:])
+  inputs = (x, w, scale, shift) + (() if residual is None else (residual,))
+  return with_plain_grad(kernel, plain, *inputs)
+
+
+def _pool_prologue_im2col_kernel(x, w, scale, shift, k_taps: int, act_name,
+                                 residual=None):
+  """The launch of kernel B3: (N, LH, k_live*C) in x's dtype."""
   x, wt, res = _kernel_operands('pool_prologue_im2col_wlogits', x, w,
                                 residual)
   n, l, c = x.shape

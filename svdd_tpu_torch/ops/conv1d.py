@@ -12,10 +12,11 @@ Backward kernel: ``csrc/conv1d_bwd.cu``, which replaces
 f32 as 3xTF32), dead taps getting zero gradients. A conv whose shape
 passes ``conv_bwd_ok`` and that autograd records runs through
 ``_ConvShifted``, whose backward is that kernel on CUDA tensors and
-``conv1d_bwd_plain`` on CPU tensors; every other conv is differentiated
-by PyTorch's own convolution backward, as the JAX package leaves those
-shapes to XLA. The bias gradient is PyTorch's
-reduction in both cases (``conv1d.py:43-46``).
+``conv1d_bwd_plain`` on CPU tensors; every other recorded conv through
+``_ConvPlainBwd``, products over the live taps summed in a fixed order
+on any device, as the JAX package leaves those shapes to XLA (cuDNN's weight
+gradient sums with atomics, so two runs would differ). The bias
+gradient is PyTorch's reduction in both cases (``conv1d.py:43-46``).
 
 ``conv1d_prologue`` is the prologue route of the JAX ``Conv1D``
 (``conv1d.py:238-256``): conv(act(x * scale + shift)) + bias at
@@ -89,6 +90,51 @@ def conv_bwd_f32(x, kernel, ct, dilation: int = 1):
     dx += _shifted(ct32 @ w32[k].T, -off)
     dw[k] = (_shifted(x32, off).reshape(-1, c_in).T
              @ ct32.reshape(-1, c_out))
+  return dx, dw
+
+
+def conv_bwd_taps_f32(x, kernel, ct, dilation: int = 1,
+                      need_dx: bool = True, need_dw: bool = True):
+  """``conv_bwd_f32``'s (dx, dkernel) in a few launches, the cotangent
+  read once for each: dx sums, over the live taps, the tap slices of
+  one product ct @ [W_t^T]_t, each read at its shift through a strided
+  view of the product padded once; dW is one product of x's shifted
+  copies (a strided view of x padded once) with ct. Sums in a fixed
+  order on any device. A gradient not ``need``ed is None."""
+  n, l, c_in = x.shape
+  k_taps, _, c_out = kernel.shape
+  offs = live_offsets(k_taps, l, dilation)
+  taps = live_taps(k_taps, l, dilation)
+  k_live, lo, hi = len(offs), offs[0], offs[-1]
+  ct32 = ct.float().reshape(-1, c_out)
+  dx = dw = None
+  if need_dx:
+    w = kernel[taps].float().permute(2, 0, 1).reshape(c_out, -1)
+    y = (ct32 @ w).reshape(n, l, k_live, c_in)
+    if k_live == 1:
+      dx = y[:, :, 0]
+    else:
+      # dx[:, i] = sum_t y[:, i - off_t, t]: with y padded by hi rows in
+      # front and -lo behind, tap k_live-1-u of row i is row i + u*d
+      yp = F.pad(y, (0, 0, 0, 0, hi, -lo))
+      sn, sl, sk, sc = yp.stride()
+      dx = yp.as_strided((n, l, k_live, c_in),
+                         (sn, sl, dilation * sl - sk, sc),
+                         yp.storage_offset() + (k_live - 1) * sk).sum(2)
+  if need_dw:
+    # x's row i + off_t for tap t: x padded by -lo rows in front and hi
+    # behind, row i + t*d
+    xp = F.pad(x.float(), (0, 0, -lo, hi))
+    sn, sl, sc = xp.stride()
+    cols = xp.as_strided((n, l, k_live, c_in), (sn, sl, dilation * sl, sc),
+                         xp.storage_offset())
+    dw_live = (cols.reshape(-1, k_live * c_in).T @ ct32).reshape(
+        k_live, c_in, c_out)
+    if k_live == k_taps:
+      dw = dw_live
+    else:
+      dw = torch.zeros(kernel.shape, dtype=torch.float32, device=x.device)
+      dw[taps] = dw_live
   return dx, dw
 
 
@@ -166,12 +212,12 @@ class _ConvShifted(torch.autograd.Function):
 
 class _ConvPlainBwd(torch.autograd.Function):
   """The conv with its bias: forward ``_conv_forward``, as an unrecorded
-  conv computes it; backward ``conv_bwd_f32``'s per-tap products on any
+  conv computes it; backward ``conv_bwd_taps_f32``'s products on any
   device, the gradients rounded to x's dtype as a conv in that dtype
-  returns them. The products sum in a fixed order, where cuDNN's weight
-  gradient sums with atomics, or, made deterministic, takes FFT
-  algorithms (about 37 ms and 17 GiB more a step in f32 at the
-  pretraining shapes)."""
+  returns them; a gradient its input does not take is not computed.
+  The products sum in a fixed order, where cuDNN's weight gradient sums
+  with atomics, or, made deterministic, takes FFT algorithms (about 37
+  ms and 17 GiB more a step in f32 at the pretraining shapes)."""
 
   @staticmethod
   def forward(ctx, x, kernel, bias, dilation):
@@ -183,22 +229,24 @@ class _ConvPlainBwd(torch.autograd.Function):
   @staticmethod
   def backward(ctx, ct):
     x, kernel = ctx.saved_tensors
+    need_dx, need_dw, need_db = ctx.needs_input_grad[:3]
     dt = x.dtype
     ct = ct.to(dt)
-    dx, dw = conv_bwd_f32(x, kernel.to(dt), ct, ctx.dilation)
-    db = (None if ctx.bias_dtype is None
-          else ct.float().sum((0, 1)).to(dt).to(ctx.bias_dtype))
-    return dx.to(dt), dw.to(dt).to(kernel.dtype), db, None
+    dx, dw = conv_bwd_taps_f32(x, kernel.to(dt), ct, ctx.dilation, need_dx,
+                               need_dw)
+    db = (ct.float().sum((0, 1)).to(dt).to(ctx.bias_dtype)
+          if need_db and ctx.bias_dtype is not None else None)
+    return (None if dx is None else dx.to(dt),
+            None if dw is None else dw.to(dt).to(kernel.dtype), db, None)
 
 
 def conv1d_deterministic(x: torch.Tensor, kernel: torch.Tensor,
                          bias: Optional[torch.Tensor] = None,
                          dilation: int = 1) -> torch.Tensor:
-  """``conv1d_shifted``'s value for a conv off the backward kernel's gate
-  (``conv_bwd_ok``), recorded for autograd with a backward that sums in
-  a fixed order on the card (``_ConvPlainBwd``): the CNN denoiser's
-  stem and 1x1 convs in training, whose resumed runs must repeat the
-  uninterrupted ones bit for bit."""
+  """``conv1d_shifted``'s value, recorded for autograd with a backward
+  that sums in a fixed order on the card (``_ConvPlainBwd``) whatever
+  the shape: the CNN denoiser's stem and 1x1 convs in training, whose
+  resumed runs must repeat the uninterrupted ones bit for bit."""
   recorded = torch.is_grad_enabled() and (x.requires_grad
                                           or kernel.requires_grad)
   if recorded:
@@ -213,13 +261,16 @@ def conv1d_shifted(x: torch.Tensor, kernel: torch.Tensor,
 
   Recorded for autograd through ``_ConvShifted`` when the shape passes
   ``conv_bwd_ok``; the bias is then added after the conv, as the JAX
-  package adds it."""
+  package adds it. Off that gate through ``_ConvPlainBwd``, whose
+  weight gradient sums in a fixed order."""
   k_taps, c_in, c_out = kernel.shape
   recorded = torch.is_grad_enabled() and (x.requires_grad
                                           or kernel.requires_grad)
   if recorded and conv_bwd_ok(x.shape[1], c_in, c_out, k_taps, dilation):
     out = _ConvShifted.apply(x, kernel.to(x.dtype), dilation)
     return out if bias is None else out + bias.to(x.dtype)
+  if recorded:
+    return _ConvPlainBwd.apply(x, kernel, bias, dilation)
   return _conv_forward(x, kernel, bias, dilation)
 
 

@@ -74,6 +74,38 @@ def svdd_mc_step(denoise_fn: DenoiseFn, value_fn: ValueFn,
   return step
 
 
+def timed_step_index(t, num_steps: int, eps: float = 1e-5) -> int:
+  """The step index of time t on the grid t_i = 1 - i (1 - eps) /
+  num_steps: round((1 - t) num_steps / (1 - eps)) in float32, halves to
+  even (``guidance.py:124-125``); t a host scalar, so nothing is read
+  from the card."""
+  t32 = torch.as_tensor(t, dtype=torch.float32)
+  return int(torch.round((1.0 - t32) * num_steps / (1.0 - eps)))
+
+
+def svdd_mc_step_timed(denoise_fn: DenoiseFn, value_fn_timed,
+                       schedule: Schedule, mask_index: int, num_steps: int,
+                       eps: float = 1e-5, repeats: int = 10):
+  """SVDD-MC with a step-indexed value function (``guidance.py:105-132``),
+  for the timed and multisep value models: ``value_fn_timed(tokens (N,
+  L), step)`` -> (N,), ``step`` the ``timed_step_index`` of the step's
+  time."""
+
+  def step(x, t, t_next, generator, gumbel=None):
+    b, l = x.shape
+    _, mct, mcs = move_chances(schedule, t, t_next)
+    log_p = denoise_fn(x, sigma_batch(schedule, t, b, x.device))
+    log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
+    candidates = _draw_candidates(log_q, x, mask_index, repeats,
+                                  generator, gumbel)
+    step_idx = timed_step_index(t, num_steps, eps)
+    scores = value_fn_timed(candidates.reshape(b * repeats, l),
+                            step_idx).reshape(b, repeats)
+    return _select_best(candidates, scores)
+
+  return step
+
+
 def cdq_step(denoise_fn: DenoiseFn, schedule: Schedule, mask_index: int,
              repeats: int = 10):
   """CD-Q trajectory collection (``guidance.py:433-450``): ``repeats``

@@ -21,8 +21,7 @@ every trainer and never saved, as JAX's ``_sample_key = key(0)``
 draws other trajectories than the uninterrupted run would have.
 
 On the card every gradient sums in a fixed order (kernels B7 and B8,
-``ops.conv1d.conv1d_deterministic`` for the stem, cuBLAS products
-elsewhere), so two runs from one seed, and two resumes from one saved
+``ops.conv1d._ConvPlainBwd`` for the stem, cuBLAS products elsewhere), so two runs from one seed, and two resumes from one saved
 state, agree bit for bit.
 
 The trainer state is one ``torch.save`` dict (``save_state``): the
@@ -45,6 +44,7 @@ from svdd_tpu_torch import mdlm, utils
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.models.blocks import DropoutMasks
+from svdd_tpu_torch.models.multisep import MultiSepValueModel, bin_losses
 from svdd_tpu_torch.train.diffusion import Optimizer, write_atomic
 
 LOGGER = logging.getLogger(__name__)
@@ -157,10 +157,13 @@ class ValueTrainer:
                          subsample_idx)
     if masks is None:
       masks = DropoutMasks(generator=state.generator)
+    # a timed net takes each state's step (``train/value.py:196-215``)
+    extra = ({'time_indices': batch.time_indices}
+             if self.vf.timed and batch.time_indices is not None else {})
     for p in state.optimizer.params:
       p.grad = None
     loss = value_lib.value_loss(
-        lambda oh: state.module(oh, train=True, masks=masks), batch)
+        lambda oh: state.module(oh, train=True, masks=masks, **extra), batch)
     loss.backward()
     state.optimizer.step()
     state.step += 1
@@ -184,7 +187,8 @@ class ValueTrainer:
 
   def updated_value_function(self, state: ValueTrainState
                              ) -> value_lib.ValueFunction:
-    return value_lib.ValueFunction(state.module, self.vf.length)
+    return value_lib.ValueFunction(state.module, self.vf.length,
+                                   self.vf.timed)
 
   # -- the full trainer state ----------------------------------------------
 
@@ -228,13 +232,121 @@ class ValueTrainer:
     return losses, pearsons
 
 
-class MultiSepTrainer:
-  """The time-binned multisep value model's trainer comes with that
-  model (ROADMAP A11)."""
+MULTISEP_FORMAT = 'svdd_tpu_torch.train.multisep/1'
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError('MultiSepTrainer: the multisep value model '
-                              'is not ported yet (ROADMAP A11)')
+
+@dataclasses.dataclass
+class MultiSepTrainState:
+  """The multisep model being trained (every trunk's parameters and
+  running statistics, JAX's stacked variables), AdamW, the generator of
+  the trajectories (JAX's state rng) and the step."""
+  step: int
+  msm: MultiSepValueModel
+  optimizer: Optimizer
+  generator: torch.Generator
+
+
+class MultiSepTrainer:
+  """Trains the time-binned multisep value model (``svdd_tpu/train/
+  value.py:301-395``). Each iteration samples a trajectory of the frozen
+  denoiser (the generator's draw, JAX's key split from the state's rng),
+  regresses every bin's trunk on its bin's states onto the final
+  reward (``models.multisep.bin_losses``, the bins of
+  ``multisep_losses``) and takes one AdamW step (optax's defaults:
+  betas (0.9, 0.999), eps 1e-8, weight decay 1e-4, no clipping) on the
+  mean of the bins' losses.
+
+  As in JAX, the trunks score in their eval form and every leaf of the
+  stacked variables takes a gradient and an update: the parameters and
+  the BatchNorm running means and variances, which the eval forward
+  reads (``svdd_tpu/train/value.py:337-368``). The bins are
+  differentiated one at a time (each bin's loss over n_models), so one
+  bin's activations are alive at a time; the convs off B7's gate sum
+  their weight gradients in a fixed order (``ops.conv1d._ConvPlainBwd``),
+  so two runs from one seed agree bit for bit on the card. The state
+  trains ``msm`` in place."""
+
+  def __init__(self, diffusion: Diffusion, msm: MultiSepValueModel,
+               reward_fn, tcfg: ValueTrainerConfig):
+    value_lib.reject_saluki(tcfg.task)
+    self.diffusion = diffusion
+    self.msm = msm
+    self.tcfg = tcfg
+    self._reward_fn = reward_fn
+    self._transform = value_lib.make_reward_transform(tcfg.task)
+    self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True)
+
+  def init_state(self, seed: int) -> MultiSepTrainState:
+    """A fresh state training ``msm`` in place, its generator seeded
+    ``seed``."""
+    leaves = self.msm.leaves()
+    for t in leaves:
+      t.requires_grad_(True)
+    opt = Optimizer(leaves, lambda _: self.tcfg.learning_rate, None)
+    gen = torch.Generator(self.diffusion.device).manual_seed(seed)
+    return MultiSepTrainState(0, self.msm, opt, gen)
+
+  def trajectory(self, state: MultiSepTrainState):
+    """One trajectory of the frozen denoiser from the state's generator:
+    (samples (B, L), mid_x (S-1, B, L)) as normal tensors."""
+    res = self._sampler(state.generator)
+    return res.samples.clone(), res.mid_x.clone()
+
+  def grad_step(self, state: MultiSepTrainState, samples, mid_x):
+    """The step on one trajectory (``train/value.py:339-370``): the
+    per-bin losses and one update; the state changes in place. Returns
+    (mean loss, per-bin losses), device tensors (nothing is read
+    back)."""
+    with torch.no_grad():
+      states = torch.cat([mid_x, samples[None]], dim=0)           # (S, B, L)
+      onehots = mdlm.transform_samples(states)                    # (S, B, L, 4)
+      targets = self._reward_fn(self._transform(samples))
+    msm = state.msm
+    for t in state.optimizer.params:
+      t.grad = None
+    losses = []
+    for loss in bin_losses(msm, onehots, targets):
+      (loss / msm.n_models).backward()
+      losses.append(loss.detach())
+    state.optimizer.step()
+    state.step += 1
+    losses = torch.stack(losses)
+    return losses.mean(), losses
+
+  def train_step(self, state: MultiSepTrainState):
+    """One iteration: a trajectory, then the step on it."""
+    return self.grad_step(state, *self.trajectory(state))
+
+  def train(self, state: MultiSepTrainState, num_iters: int,
+            log_every: int = 50) -> MultiSepTrainState:
+    for _ in range(num_iters):
+      loss, losses = self.train_step(state)
+      if state.step % log_every == 0:
+        LOGGER.info('multisep step %d mean MSE %.5f (per-bin %s)',
+                    state.step, float(loss),
+                    np.round(losses.cpu().numpy(), 4).tolist())
+    return state
+
+  def save_state(self, path: str, state: MultiSepTrainState) -> None:
+    write_atomic(path, {
+        'format': MULTISEP_FORMAT, 'step': state.step,
+        'model': state.msm.state_dict(),
+        'optimizer': state.optimizer.state_dict(),
+        'generator': state.generator.get_state()})
+
+  def restore_state(self, path: str, seed: int) -> MultiSepTrainState:
+    """Resume: every leaf, AdamW's moments and count, and the generator
+    continue."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    if ckpt.get('format') != MULTISEP_FORMAT:
+      raise ValueError(f'{path} is not a {MULTISEP_FORMAT} trainer state')
+    state = self.init_state(seed)
+    with torch.no_grad():
+      state.msm.load_state_dict(ckpt['model'])
+    state.optimizer.load_state_dict(ckpt['optimizer'])
+    state.generator.set_state(ckpt['generator'])
+    state.step = int(ckpt['step'])
+    return state
 
 
 def build_eval_timestep_batches(diffusion: Diffusion, reward_fn,

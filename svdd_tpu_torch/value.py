@@ -10,9 +10,14 @@ the task whose architecture it holds ('dna': the Enformer, 'rna': the
 ConvGRU; a file without the key is a DNA one), the module's
 constructor arguments (``config()``) and its state dict (parameters and
 BatchNorm running statistics). ``load_checkpoint`` reads it back; it
-raises ``NotImplementedError`` naming ROADMAP A17 for any other file (a
-reference ``.pt``, an orbax directory), and ``ValueError`` naming both
-tasks for a file of the other task.
+raises ``NotImplementedError`` naming ROADMAP A17 for any other file
+(an orbax directory; the CLIs' checkpoint flags import a reference
+``.pt`` through ``importers/`` before they get here), and ``ValueError``
+naming both tasks for a file of the other task.
+
+The value-net factory builds the Enformer and its timed variant
+(``timed=True``, or ``model='timedenformer'``): the multisep model's
+trunks are Enformers (or ConvGRUs) that ``models/multisep.py`` holds.
 """
 
 from __future__ import annotations
@@ -45,53 +50,92 @@ def reject_saluki(task: str) -> None:
                               'and oracle are not ported yet (ROADMAP A1)')
 
 
+def value_compute_dtype() -> torch.dtype:
+  """The Enformer value net's compute dtype where the caller gives none:
+  bfloat16 under SVDD_VALUE_BF16=1, else float32."""
+  return (torch.bfloat16 if os.environ.get('SVDD_VALUE_BF16') == '1'
+          else torch.float32)
+
+
+def check_value_model(task: str, model: str, timed: bool = False) -> None:
+  """Raise as ``ValueFunction.create(task, model=model, timed=timed)``
+  raises, before any module is built: the saluki task (A1), a DNA model
+  other than 'enformer' and 'timedenformer' (``NotImplementedError``, as
+  JAX's factory), and a timed model without ``timed`` (JAX's init
+  without time indices: ``ValueError``, which JAX's CLIs raise for
+  ``--model timedenformer``). The RNA task takes the ConvGRU whatever
+  ``model`` says."""
+  reject_saluki(task)
+  if task == 'rna':
+    return
+  if task != 'dna' or model not in ('enformer', 'timedenformer'):
+    raise NotImplementedError(
+        f'value model {model!r} for task {task!r}: the factory builds '
+        "'enformer' and 'timedenformer', as the JAX package's does")
+  if model == 'timedenformer' and not timed:
+    raise ValueError('timed model requires time_indices')
+
+
 def build_value_module(task: str, model: str = 'enformer',
                        n_tasks: int = 1,
                        generator: torch.Generator | None = None,
-                       **kwargs):
+                       timed: bool = False, **kwargs):
   """Value-net factory (``svdd_tpu/value.py:build_value_module``): the
   RNA task takes the ConvGRU whatever ``model`` says, in float32, as JAX
-  returns it before reading SVDD_VALUE_BF16; DNA the Enformer, which
-  without a ``compute_dtype`` computes in bfloat16 under
-  SVDD_VALUE_BF16=1, else in float32. ``kwargs``: the module's
-  constructor arguments (widths)."""
-  reject_saluki(task)
+  returns it before reading SVDD_VALUE_BF16; DNA the Enformer
+  (``model`` 'enformer', timed with ``timed``, or 'timedenformer',
+  timed always), which without a ``compute_dtype`` computes in bfloat16
+  under SVDD_VALUE_BF16=1, else in float32. Any other ``model`` raises
+  ``NotImplementedError`` as JAX's factory does ('multienformer': its
+  trunks are built by ``cli.train --model multienformer``). ``kwargs``:
+  the module's constructor arguments (widths)."""
+  check_value_model(task, model, timed=True)
   if task == 'rna':
     return ConvGRUValueModel(n_tasks=n_tasks, generator=generator, **kwargs)
-  if task != 'dna' or model != 'enformer':
-    raise NotImplementedError(f'value model {model!r} for task {task!r} '
-                              'is not ported yet (ROADMAP A11)')
-  if ('compute_dtype' not in kwargs
-      and os.environ.get('SVDD_VALUE_BF16') == '1'):
-    kwargs['compute_dtype'] = torch.bfloat16
+  kwargs.setdefault('compute_dtype', value_compute_dtype())
   return EnformerValueModel(n_tasks=n_tasks, generator=generator,
+                            timed=timed or model == 'timedenformer',
                             **kwargs)
 
 
 class ValueFunction:
   """A value module scoring token sequences (eval mode; the trainers
-  call the module with ``train=True``)."""
+  call the module with ``train=True``). ``timed``: the scores take each
+  state's step index (``time_indices``)."""
 
-  def __init__(self, module, length: int):
+  def __init__(self, module, length: int, timed: bool = False):
     self.module = module.eval()
     self.length = length
+    self.timed = timed
 
   @classmethod
   def create(cls, task: str, length: int, generator: torch.Generator,
-             model: str = 'enformer', n_tasks: int = 1,
+             model: str = 'enformer', n_tasks: int = 1, timed: bool = False,
              **kwargs) -> 'ValueFunction':
-    return cls(build_value_module(task, model, n_tasks, generator,
-                                  **kwargs), length)
+    """As ``svdd_tpu/value.py:ValueFunction.create``, whose module init
+    without time indices raises for a timed module: ``model=
+    'timedenformer'`` with ``timed`` False raises the same
+    ``ValueError``, as JAX's CLIs do for ``--model timedenformer``."""
+    check_value_model(task, model, timed)
+    return cls(build_value_module(task, model, n_tasks, generator, timed,
+                                  **kwargs), length, timed)
 
-  def score_onehot(self, onehot4: torch.Tensor,
-                   fused: bool = True) -> torch.Tensor:
+  def score_onehot(self, onehot4: torch.Tensor, fused: bool = True,
+                   time_indices: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """(N, L, 4) one-hot -> (N,) value; ``fused=False`` takes the
-    differentiable tower."""
+    differentiable tower; ``time_indices`` (N, L) the steps of a timed
+    net."""
+    if self.timed:
+      return self.module(onehot4, fused, time_indices=time_indices)
     return self.module(onehot4, fused)
 
-  def score_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+  def score_tokens(self, tokens: torch.Tensor,
+                   time_indices: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """(N, L) tokens (MASK rows zeroed in the one-hot) -> (N,)."""
-    return self.score_onehot(mdlm.transform_samples(tokens))
+    return self.score_onehot(mdlm.transform_samples(tokens),
+                             time_indices=time_indices)
 
   def as_onehot_fn(self):
     """The value on (N, L, 4) one-hots, differentiable with respect to
@@ -214,8 +258,8 @@ def load_checkpoint(path: str, mmap: bool = False,
   if not isinstance(ckpt, dict) or ckpt.get('format') != FORMAT:
     raise NotImplementedError(
         f'{path}: not a value-net or oracle checkpoint of this package '
-        f'({FORMAT}); reading the reference .pt layouts and orbax '
-        'checkpoints is not ported yet (ROADMAP A17)')
+        f'({FORMAT}) nor a reference torch pickle the checkpoint flags '
+        'import; reading orbax checkpoints is not ported yet (ROADMAP A17)')
   if task is not None:
     want, held = checkpoint_task(task), ckpt.get('task', 'dna')
     if held != want:

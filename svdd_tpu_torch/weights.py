@@ -51,14 +51,16 @@ def _norm(mod, p, stats=None) -> None:
     _copy(mod.var, stats['var'])
 
 
-def _generator():
-  return torch.Generator().manual_seed(0)
+def _generator(device='cpu'):
+  """The generator the converters build their modules from (their draws
+  are then overwritten): on ``device``, where the module is built."""
+  return torch.Generator(device).manual_seed(0)
 
 
-def cnn_from_jax(variables,
-                 compute_dtype: torch.dtype = torch.float32) -> CNNModel:
-  """A CNN denoiser (on CPU, computing in ``compute_dtype``) holding the
-  flax CNNModel's variables."""
+def cnn_from_jax(variables, compute_dtype: torch.dtype = torch.float32,
+                 device='cpu') -> CNNModel:
+  """A CNN denoiser (on ``device``, computing in ``compute_dtype``)
+  holding the flax CNNModel's variables."""
   p = variables['params']
   hidden = np.asarray(p['time_linear']['kernel']).shape[0]
   n_layers = sum(1 for k in p if k.startswith('norm_'))
@@ -67,7 +69,7 @@ def cnn_from_jax(variables,
   cfg.model.hidden_dim = hidden
   cfg.model.num_cnn_stacks = n_layers // 5
   model = CNNModel(cfg, alphabet_size=alphabet, compute_dtype=compute_dtype,
-                   generator=_generator())
+                   generator=_generator(device))
   _copy(model.gfp.W, variables['buffers']['GaussianFourierProjection_0']['W'])
   _dense(model.time_linear, p['time_linear'])
   _copy(model.stem_kernel, p['stem']['kernel'])
@@ -166,10 +168,11 @@ def _transformer(block, p) -> None:
 
 
 def enformer_value_from_jax(
-    variables, compute_dtype: torch.dtype = torch.float32
+    variables, compute_dtype: torch.dtype = torch.float32, device='cpu'
 ) -> EnformerValueModel:
-  """An Enformer value model (on CPU, computing in ``compute_dtype``)
-  holding the flax EnformerValueModel's variables (non-timed)."""
+  """An Enformer value model (on ``device``, computing in ``compute_dtype``)
+  holding the flax EnformerValueModel's variables; timed where they hold
+  a ``TimeEmbedding_0`` table."""
   p = variables['params']
   stats = variables['batch_stats']['EnformerTrunk_0']
   trunk_p = p['EnformerTrunk_0']
@@ -186,7 +189,10 @@ def enformer_value_from_jax(
   model = EnformerValueModel(
       n_tasks=n_tasks, n_conv=n_conv, channels=channels,
       n_transformers=len(trees), n_heads=n_heads, key_len=dk,
-      compute_dtype=compute_dtype, generator=_generator())
+      compute_dtype=compute_dtype, generator=_generator(device),
+      timed='TimeEmbedding_0' in p)
+  if model.timed:
+    _copy(model.time_embedding.embedding, p['TimeEmbedding_0']['embedding'])
   tower = model.trunk.tower
   _copy(tower.stem_kernel, tower_p['stem_conv']['kernel'])
   _copy(tower.stem_bias, tower_p['stem_conv']['bias'])
@@ -281,9 +287,12 @@ def enformer_params_to_jax(tensors, model: EnformerValueModel,
       return np.stack(trees)
     trunk['transformer_stack'] = {'EnformerTransformerBlock_0':
                                   stack(*layers)}
-  return {'EnformerTrunk_0': trunk, 'ConvHead_0': {
+  out = {'EnformerTrunk_0': trunk, 'ConvHead_0': {
       'ChannelTransformBlock_0': {'ChannelTransform_0': {'Conv1D_0': {
           'kernel': t['head.kernel'], 'bias': t['head.bias']}}}}}
+  if 'time_embedding.embedding' in t:
+    out['TimeEmbedding_0'] = {'embedding': t['time_embedding.embedding']}
+  return out
 
 
 def enformer_to_jax(model: EnformerValueModel) -> dict:
@@ -293,6 +302,24 @@ def enformer_to_jax(model: EnformerValueModel) -> dict:
                                            model),
           'batch_stats': enformer_params_to_jax(dict(model.named_buffers()),
                                                 model, stats=True)}
+
+
+def multisep_from_jax(stacked, from_jax=enformer_value_from_jax, **kwargs):
+  """The port's list of trunks of a flax multisep model's stacked
+  variables (every leaf with a leading ``n_models`` axis,
+  ``svdd_tpu/models/multisep.py``): trunk i from the leaves' slice i,
+  through ``from_jax`` (``enformer_value_from_jax`` or
+  ``convgru_from_jax``, with ``kwargs``)."""
+  def take(tree, i):
+    if isinstance(tree, dict):
+      return {k: take(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+  first = stacked['params']
+  while isinstance(first, dict):
+    first = next(iter(first.values()))
+  return [from_jax(take(stacked, i), **kwargs)
+          for i in range(np.asarray(first).shape[0])]
 
 
 def _conv_tower(tower: ConvTower, tp, ts) -> None:
@@ -308,15 +335,15 @@ def _gru_cell(layer, suffix: str, p) -> None:
   _copy(getattr(layer, f'hh_bias_{suffix}'), p['hh_bias'])
 
 
-def convgru_from_jax(variables, n_tasks: int = 1,
-                     dropout: float = 0.1) -> ConvGRUValueModel:
-  """A ConvGRU value model (on CPU, float32) holding the flax
+def convgru_from_jax(variables, n_tasks: int = 1, dropout: float = 0.1,
+                     device='cpu') -> ConvGRUValueModel:
+  """A ConvGRU value model (on ``device``, float32) holding the flax
   ConvGRUValueModel's variables (params and ``batch_stats``); the
   tower maps as Basenji's does."""
   p, stats = variables['params'], variables['batch_stats']
   tp, ts = p['ConvGRUTrunk_0'], stats['ConvGRUTrunk_0']
   model = ConvGRUValueModel(n_tasks=n_tasks, dropout=dropout,
-                            generator=_generator())
+                            generator=_generator(device))
   _conv_tower(model.trunk.tower, tp['ConvTower_0'], ts['ConvTower_0'])
   gp = tp['GRUBlock_0']
   for i, layer in enumerate(model.trunk.gru.layers):
@@ -367,13 +394,14 @@ def _transformer_body(block, p) -> None:
 
 
 def dit_from_jax(variables, config: Config,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> DIT:
-  """A DiT (on CPU) holding the flax DIT's variables; ``config`` gives
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 device='cpu') -> DIT:
+  """A DiT (on ``device``) holding the flax DIT's variables; ``config`` gives
   its widths (``model.hidden_size``, ``n_blocks``, ``n_heads``,
   ``cond_dim``)."""
   p = variables['params']
   vocab = np.asarray(p['vocab_embed']).shape[0]
-  model = DIT(config, vocab, compute_dtype, generator=_generator())
+  model = DIT(config, vocab, compute_dtype, generator=_generator(device))
   _copy(model.vocab_embed, p['vocab_embed'])
   _timestep_embedder(model.sigma_map, p['TimestepEmbedder_0'])
   for i, block in enumerate(model.blocks):

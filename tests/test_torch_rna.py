@@ -244,25 +244,23 @@ def test_convgru_from_jax_copies_every_leaf(gru_vars):
 
 
 @pytest.mark.parametrize('length', [16, 50])
-def test_convgru_convs_take_the_plain_path_as_jax(length):
+def test_convgru_convs_take_the_plain_path_as_jax(length, monkeypatch):
   """The ConvGRU's k=5 convs at 64 channels are off JAX's Pallas conv
   backward gate and its im2col gate (C % 128), so JAX leaves them to
   XLA; the port's backward-kernel gate (B7) refuses them too, and a
-  training conv takes ``conv1d_deterministic``."""
+  training conv records the fixed-order backward (``_ConvPlainBwd``)."""
   assert not jconv_bwd.conv_bwd_ok(B, length, 64, 64, 5, 1, 4)
   assert not conv1d.conv_bwd_ok(length, 64, 64, 5)
   assert conv1d.conv_bwd_ok(length, 128, 128, 5)
   calls = []
-  orig = blocks.conv1d_deterministic
-  try:
-    blocks.conv1d_deterministic = lambda *a: calls.append(1) or orig(*a)
-    model = convgru.ConvGRUValueModel(generator=torch.Generator()
-                                      .manual_seed(0))
-    x = torch.zeros(2, length, 4).requires_grad_(True)
-    model(x, train=True, masks=blocks.DropoutMasks(
-        generator=torch.Generator().manual_seed(1))).sum().backward()
-  finally:
-    blocks.conv1d_deterministic = orig
+  orig = conv1d._ConvPlainBwd.apply
+  monkeypatch.setattr(conv1d._ConvPlainBwd, 'apply',
+                      lambda *a: calls.append(1) or orig(*a))
+  model = convgru.ConvGRUValueModel(generator=torch.Generator()
+                                    .manual_seed(0))
+  x = torch.zeros(2, length, 4).requires_grad_(True)
+  model(x, train=True, masks=blocks.DropoutMasks(
+      generator=torch.Generator().manual_seed(1))).sum().backward()
   assert len(calls) == 6                    # the stem and five blocks
 
 

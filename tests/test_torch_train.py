@@ -695,20 +695,24 @@ def test_cli_train_writes_metrics_and_a_checkpoint_that_evals_read(tmp_path):
 def test_conv1d_deterministic_matches_autograd_conv(k, cin, cout, dtype):
   """The training path's stem and 1x1 convs: the forward equals
   ``conv1d_shifted``'s bit for bit; the gradients equal autograd through
-  it (f32: 1e-5 relative; bf16: within a bf16 ulp of the result)."""
-  from svdd_tpu_torch.ops.conv1d import conv1d_deterministic, conv1d_shifted
+  PyTorch's own convolution (f32: 1e-5 relative; bf16: within a bf16
+  ulp of the result)."""
+  from svdd_tpu_torch.ops.conv1d import (_conv_forward, conv1d_deterministic,
+                                         conv1d_shifted)
   rs = np.random.default_rng(14)
   x = _t(rs.normal(size=(4, 24, cin)).astype(np.float32)).to(dtype)
   w = _t(rs.normal(size=(k, cin, cout)).astype(np.float32) / 3)
   b = _t(rs.normal(size=(cout,)).astype(np.float32))
   ct = _t(rs.normal(size=(4, 24, cout)).astype(np.float32)).to(dtype)
   outs, grads = [], []
-  for conv in (conv1d_deterministic, conv1d_shifted):
+  for conv in (conv1d_deterministic, lambda *a: _conv_forward(*a, 1)):
     xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
     out = conv(xs, ws, bs)
     out.backward(ct)
     outs.append(out.detach())
     grads.append([t.grad.float() for t in (xs, ws, bs)])
+  with torch.no_grad():
+    assert torch.equal(outs[0], conv1d_shifted(x, w, b))
   assert torch.equal(outs[0], outs[1])
   tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
          else dict(rtol=2 ** -7, atol=2 ** -7))

@@ -425,9 +425,11 @@ def test_checkpoint_flags_read_the_ports_files(port_files, diffusion,
                                   'load_checkpoint_path', 'pre_model_path'])
 def test_checkpoint_flags_refuse_foreign_files(tmp_path, port_files, flag,
                                                kind):
-  """A file the port did not write (a reference-style ``.pt`` state dict,
-  an orbax directory, a missing path) raises naming ROADMAP A17 before
-  any model is built; so does the other kind of the port's files."""
+  """A file the port did not write (an orbax directory, a missing path)
+  raises naming ROADMAP A17 before any model is built; so does the other
+  kind of the port's files. A reference-style ``.pt`` state dict goes to
+  the importers (``tests/test_torch_importers.py``), which raise the
+  ``KeyError`` of the first key of their layout it lacks, as JAX's do."""
   path = tmp_path / 'foreign'
   if kind == 'reference_pt':
     path = tmp_path / 'model.pt'
@@ -437,8 +439,16 @@ def test_checkpoint_flags_refuse_foreign_files(tmp_path, port_files, flag,
     (path / 'default' / '_METADATA').write_text('{}')
   args = cli_decode.parser().parse_args(['--device', 'cpu', f'--{flag}',
                                          str(path)])
-  with pytest.raises(NotImplementedError, match='A17'):
+  if kind == 'reference_pt':
     common.reject_unported(args)
+    load = (common.load_diffusion if flag == 'diffusion_checkpoint_path'
+            else common.load_reward_fn if flag == 'reward_checkpoint_path'
+            else common.load_value_function)
+    with pytest.raises(KeyError):
+      load(args, _tiny_cfg())
+  else:
+    with pytest.raises(NotImplementedError, match='A17'):
+      common.reject_unported(args)
   swapped = (port_files['value'] if flag == 'diffusion_checkpoint_path'
              else port_files['step_file'])
   args = cli_decode.parser().parse_args(['--device', 'cpu', f'--{flag}',
@@ -540,7 +550,7 @@ def test_cli_eval_runs_on_cpu(trained, port_files):
 
 
 @pytest.mark.parametrize('extra,item', [
-    (['--model', 'multienformer'], 'A11'), (['--dist'], 'A16'),
+    (['--model', 'multienformer', '--dist'], 'A16'), (['--dist'], 'A16'),
     (['--fsdp'], 'A16'), (['--saluki_body_path', 'body.npy'], r'A1\)'),
     (['--task', 'rna_saluki'], r'A1\)')])
 def test_cli_train_refuses_unported(extra, item):

@@ -697,6 +697,21 @@ def test_token_cosine_lr_mult_matches_svdd_tpu():
         pytest.approx(want, rel=1e-6, abs=1e-7))
 
 
-def test_multisep_trainer_waits_for_a11():
-  with pytest.raises(NotImplementedError, match='A11'):
-    train_value.MultiSepTrainer()
+def test_multisep_trainer_waits_for_a11(denoisers):
+  """A11 is ported: ``MultiSepTrainer`` builds on a diffusion model, a
+  multisep model and a reward (its steps are held to JAX's in
+  ``tests/test_torch_timed_multisep.py``), and refuses the saluki task,
+  which waits for A1."""
+  from svdd_tpu_torch.models import multisep
+  _, diff = denoisers
+  gen = torch.Generator().manual_seed(0)
+  msm = multisep.MultiSepValueModel.create(
+      lambda g: value_lib.build_value_module('dna', generator=g, **TINY),
+      n_models=2, num_steps=STEPS, generator=gen)
+  tcfg = train_value.ValueTrainerConfig(batch_size=B)
+  trainer = train_value.MultiSepTrainer(
+      diff, msm, rewards.synthetic_motif_oracle(L), tcfg)
+  assert trainer.init_state(0).msm is msm
+  with pytest.raises(NotImplementedError, match=r'A1\)'):
+    train_value.MultiSepTrainer(
+        diff, msm, None, train_value.ValueTrainerConfig(task='rna_saluki'))
