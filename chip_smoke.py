@@ -13,7 +13,8 @@ exits non-zero and prints no result:
   2. every kernel of the SVDD-MC, DPS, classifier-guidance and
      sample_eval paths, of the Basenji trunk and of the off-grid Enformer
      pool at its full-size shapes (B12 also at head dim 128 and at
-     L = 200), in float32 and bfloat16, against its plain PyTorch
+     L = 200, each against the plain form of the rounding JAX's dispatch
+     takes there), in float32 and bfloat16, against its plain PyTorch
      version on the same inputs (the candidate draw on the noise the
      kernel reports, and by frequencies, its bound by its bytes and its
      logarithms and Philox multiplies; B5 with the relk rounding JAX's
@@ -109,8 +110,21 @@ exits non-zero and prints no result:
      equal bit for bit; one 2-trunk multisep step card vs CPU (losses,
      every leaf's gradient and update, the running statistics'
      included);
-then the kernels line (launches summed over the runs of phases 3-5, 7
-and 8; B1's, B6's and B2's RNA points under ``rna``),
+  9. the DiT, DiMamba and AR backbones: ``main_gosai --mode train`` at
+     full width (the DNA DiT, hidden 768, 12 blocks, 12 heads, L=200, in
+     bf16 and f32; DiMamba, d_model 256, 4 layers; the AR baseline) for a
+     few steps of 64 rows with validation and a checkpoint, B12/B13
+     launched exactly once a block a forward (their backward the plain
+     forms' gradients); one training step of each card vs CPU (loss,
+     every gradient, every update); traced training steps; semi-AR
+     sample_eval from the DiT's checkpoint; the AR net's cached and full
+     decode loops; DPS and DG with the DiT as denoiser; gen-ppl from the
+     AR run's checkpoint (the Hugging Face name falling back on its
+     RuntimeError, as JAX's CLI does); phase 5's denoiser and value net
+     written as exports of the JAX package's checkpoints and read back
+     through the flags bit for bit;
+then the kernels line (launches summed over the runs of phases 3-5 and
+7-9; B1's, B6's and B2's RNA points under ``rna``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -1454,24 +1468,41 @@ RMS_SHAPE = (512 * 200, 256)
 def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
   """B12 on q, k, v sliced from one (B, L, 3, H, D) projection, as the
   backbones pass them (the kernel reads them by stride), against the
-  plain version and timed beside F.scaled_dot_product_attention on
-  contiguous (B, H, L, D) copies. The flops count the causal half. The
+  plain form of the rounding JAX's dispatch takes at (L, D) (the Pallas
+  body's at L % 128 == 0, ``mha``'s elsewhere: ``body_rounds``; in
+  float32 the kernel computes both in its single pass,
+  ``kernel_rounds_as_body``), and
+  timed beside F.scaled_dot_product_attention on contiguous (B, H, L, D)
+  copies. The kernel's mean distance to the other rounding's plain form
+  is reported beside (``mean_abs_err_other_rounding``); in bf16 off the
+  gate, where the kernel rounds as ``mha``, it must exceed the mean
+  distance to its own. The flops count the causal half. The
   float32 kernel runs its products as 3xTF32, so its bound is the work
   at 495/3 TFLOP/s; the FMA bound (67 TFLOP/s) is reported beside it.
   Achieved TFLOP/s and the share of each bound are in the result."""
   import torch
   import torch.nn.functional as F
+  from svdd_tpu_torch.ops import attention as A
   from svdd_tpu_torch.ops import flash_attention as K
-  from svdd_tpu_torch.ops.attention import mha
   name = str(dtype).split('.')[-1]
   b, l, h, d = shape
+  body = K.body_rounds(l, d)
+  plain = A.plain_for(l, d)
+  other = A.mha if body else A.attention_body_plain
   qkv = torch.randn(b, l, 3, h, d, device='cuda', generator=gen).to(dtype)
   q, k, v = qkv.unbind(2)
-  err, rel = compare(f'flash_attention causal={causal}',
-                     K.flash_attention(q, k, v, causal),
-                     mha(q, k, v, causal), name)
+  got = K.flash_attention(q, k, v, causal)
+  err, rel = compare(f'flash_attention causal={causal}', got,
+                     plain(q, k, v, causal), name)
+  own_mean = float((got.float() - plain(q, k, v, causal).float()).abs().mean())
+  other_mean = float((got.float() - other(q, k, v, causal).float()).abs()
+                     .mean())
+  if name == 'bfloat16' and not body and not other_mean > own_mean:
+    raise AssertionError(f'flash_attention L={l} bf16: mean distance to mha '
+                         f'{own_mean}, to the body rounding {other_mean}')
+  del got
   ms = median_ms(lambda: K.flash_attention(q, k, v, causal), iters=10)
-  plain_ms = median_ms(lambda: mha(q, k, v, causal), iters=3)
+  plain_ms = median_ms(lambda: plain(q, k, v, causal), iters=3)
   qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
   lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
       qt, kt, vt, is_causal=causal), iters=10)
@@ -1481,7 +1512,11 @@ def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
   peak = 'tf32x3' if name == 'float32' else name
   bound_ms, bound_by = bound(flops, nbytes, peak)
   r = {'shape': list(shape), 'causal': causal,
-       'max_abs_err': err, 'max_rel_err': rel, 'ms': ms,
+       'rounding': 'pallas_body' if body else 'mha',
+       'kernel_passes': 1 if K.kernel_rounds_as_body(l, d, dtype) else 2,
+       'max_abs_err': err, 'max_rel_err': rel,
+       'mean_abs_err': own_mean, 'mean_abs_err_other_rounding': other_mean,
+       'ms': ms,
        'plain_ms': plain_ms, 'library_ms': lib_ms,
        'library': 'torch.nn.functional.scaled_dot_product_attention',
        'flops': flops, 'bytes': nbytes, 'peak': peak,
@@ -1496,7 +1531,8 @@ def check_flash_attention(dtype, gen, causal: bool, shape=ATTN_SHAPE):
 def check_rmsnorm(dtype, gen):
   """B13 at DiMamba's rows, without a residual (the path's call) and
   with one, against the plain version; timed without the residual beside
-  F.rms_norm (which rounds only once, so it is a yardstick of time)."""
+  F.rms_norm (which rounds only once, so it is a yardstick of time); and
+  at the rows of phase 9's DiMamba training batch (``train_rows``)."""
   import torch
   import torch.nn.functional as F
   from svdd_tpu_torch.ops import norms as K
@@ -1509,12 +1545,24 @@ def check_rmsnorm(dtype, gen):
                   K.fused_add_rmsnorm(x, r, s), K.rmsnorm_plain(x, r, s),
                   name) for r in (None, res)]
   es = x.element_size()
+  xt = x[:BB_TRAIN_ROWS * 200]
+  err_t = compare('rmsnorm train rows', K.fused_add_rmsnorm(xt, None, s),
+                  K.rmsnorm_plain(xt, None, s), name)
+  t = timed(lambda: K.fused_add_rmsnorm(xt, None, s),
+            lambda: K.rmsnorm_plain(xt, None, s),
+            lambda: F.rms_norm(xt, (d,), s, 1e-5), reps=20, iters=20)
+  n_t = xt.shape[0]
+  t_bound = bound(4 * n_t * d, 2 * n_t * d * es + d * es, name)
   return {'shape': list(RMS_SHAPE), 'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
           **timed(lambda: K.fused_add_rmsnorm(x, None, s),
                   lambda: K.rmsnorm_plain(x, None, s),
                   lambda: F.rms_norm(x, (d,), s, 1e-5), reps=20, iters=20),
           'library': 'torch.nn.functional.rms_norm',
+          'train_rows': {'rows': n_t, 'max_abs_err': err_t[0],
+                         'ms': t['ms'], 'plain_ms': t['plain_ms'],
+                         'library_ms': t['library_ms'],
+                         'bound_ms': t_bound[0], 'bound_by': t_bound[1]},
           # square-add, the root, two products per element; x in, out
           'flops': 4 * rows * d, 'bytes': 2 * rows * d * es + d * es}
 
@@ -5200,6 +5248,478 @@ def a17_a11_phase(diffusion_ckpt: str) -> dict:
   return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the DiT, DiMamba and AR backbones trained, sampled and scored;
+# the JAX package's checkpoints as exports
+# ---------------------------------------------------------------------------
+
+BB_TRAIN_STEPS = 4       # main_gosai --mode train steps of each backbone
+BB_TRAIN_ROWS = 64       # its batch (accum 1) and validation batch
+# (run name, backbone, parameterization.precision): the DNA DiT in its
+# bf16 default and in f32, DiMamba and the AR baseline in their bf16
+# default
+BB_RUNS = (('dit_bf16', 'dit', 'bf16'), ('dit_f32', 'dit', 'fp32'),
+           ('dimamba_bf16', 'dimamba', 'bf16'), ('ar_bf16', 'ar', 'bf16'))
+BB_KERNEL = {'dit': 'flash_attention', 'ar': 'flash_attention_causal',
+             'dimamba': 'rmsnorm'}
+BB_STEP_ROWS = 4         # the one-step check, card vs CPU, f32
+SEMI_AR_ROWS, SEMI_AR_STRIDE, SEMI_AR_STRIDES = 4, 8, 2
+KV_ROWS, KV_FULL_ROWS = 64, 8
+DPS_DIT_ROWS, DPS_DIT_STEPS = 64, 8
+
+
+def _bb_config(backbone: str, precision: str):
+  from svdd_tpu_torch.config import dna_config
+  cfg = dna_config(backbone=backbone)
+  cfg.parameterization = 'ar' if backbone == 'ar' else 'subs'
+  cfg.parallel.precision = precision
+  return cfg
+
+
+def _bb_forward_launches(cfg) -> int:
+  """B12 or B13 launches of one forward of the backbone: one a block
+  (DiT, AR), one a layer and the final norm (DiMamba)."""
+  if cfg.backbone == 'dimamba':
+    return cfg.model.n_layer + 1
+  return cfg.model.n_blocks
+
+
+def run_backbone_train(name: str, backbone: str, precision: str) -> dict:
+  """``main_gosai --mode train --task dna --set backbone=...`` through
+  its ``run`` at full width (DiT hidden 768, 12 blocks, 12 heads; AR the
+  same; DiMamba d_model 256, 4 layers; L=200) on the synthetic split:
+  BB_TRAIN_STEPS steps of BB_TRAIN_ROWS rows (accum 1), validation (8
+  batches of BB_TRAIN_ROWS) and a checkpoint at the last step, no
+  sample-quality hook. The launch counts are set to 0 just before and
+  read just after: the backbone's kernel exactly once a block (a layer)
+  a forward, over the training and validation forwards; its backward is
+  the plain form's gradient (no launch)."""
+  import json as _json
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  root = _train_dir(f'bb_{name}')
+  steps = BB_TRAIN_STEPS
+  sets = [f'backbone={backbone}', f'parallel.precision={precision}',
+          f'loader.global_batch_size={BB_TRAIN_ROWS}',
+          f'loader.batch_size={BB_TRAIN_ROWS}',
+          f'loader.eval_global_batch_size={BB_TRAIN_ROWS}',
+          f'loader.eval_batch_size={BB_TRAIN_ROWS}',
+          'training.accum_steps=1', 'optim.warmup_steps=1',
+          f'eval.val_check_interval={steps}',
+          f'checkpointing.every_n_steps={steps}']
+  if backbone == 'ar':
+    sets.append('parameterization=ar')
+  argv = ['--mode', 'train', '--task', 'dna', '--device', 'cuda',
+          '--max_steps', str(steps), '--data_dir', _no_data_dir(),
+          '--ckpt_dir', os.path.join(root, 'ckpt'),
+          '--log_dir', os.path.join(root, 'log'), '--no_sample_eval',
+          '--set', *sets]
+  args = main_gosai.parser().parse_args(argv)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  cfg = out['state'].model.config
+  kernel = BB_KERNEL[backbone]
+  forwards = steps + 8           # the training steps, 8 validation batches
+  want = {k: 0 for k in launches}
+  want[kernel] = forwards * _bb_forward_launches(cfg)
+  if launches != want:
+    raise AssertionError(f'{name}: launches {launches}, want {want}')
+  rows = [_json.loads(line) for line in open(out['metrics_path'])]
+  nlls = [r['val/nll'] for r in rows if 'val/nll' in r]
+  if len(nlls) != 1 or not np.isfinite(nlls).all():
+    raise AssertionError(f'{name}: metrics {rows}')
+  ckpts = sorted(os.listdir(os.path.join(root, 'ckpt')))
+  if ckpts != ['best', f'step_{steps}.pt']:
+    raise AssertionError(f'{name}: checkpoints {ckpts}')
+  n_params = sum(p.numel() for p in out['state'].model.backbone.parameters())
+  return {'run': f'train_{name}', 'backbone': backbone,
+          'parameterization': cfg.parameterization, 'precision': precision,
+          'rows': BB_TRAIN_ROWS, 'length': cfg.model.length, 'steps': steps,
+          'params': n_params, 'wall_s': wall, 'val_nll': nlls[0],
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'launches': launches, 'ckpt_dir': os.path.join(root, 'ckpt')}
+
+
+def profile_backbone_step(name: str, backbone: str, precision: str) -> dict:
+  """One training step of the backbone at BB_TRAIN_ROWS rows (the
+  trainer's ``train_step``, random full-width weights), after a warm-up
+  step, under the profiler: host ms, the card's busy ms and idle share,
+  device ms by kind (``trace_step``)."""
+  import torch
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  cfg = _bb_config(backbone, precision)
+  cfg.optim.warmup_steps = 0
+  model = Diffusion(cfg, device='cuda')
+  state = train_diff.init_state(model, cfg)
+  g = torch.Generator().manual_seed(4)
+  batch = {'seqs': torch.randint(0, 4, (BB_TRAIN_ROWS, 200), generator=g)}
+
+  def once():
+    train_diff.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+
+  prof = trace_step(once)
+  tokens = BB_TRAIN_ROWS * cfg.model.length
+  return {'algo': f'train_step_{name}', 'rows': BB_TRAIN_ROWS,
+          'tokens_per_s': tokens / (prof['host_step_ms'] / 1e3), **prof}
+
+
+def check_backbone_step(backbone: str) -> dict:
+  """One training step of the full-width backbone (random weights, the
+  layers flax zero-initialises drawn non-zero; f32, TF32 off) on
+  BB_STEP_ROWS rows with the same injected time and mask uniforms on
+  the card (B12 or B13 forward, their plain forms' backward) and on the
+  CPU: the loss within TRAIN_TOL relative, every parameter's gradient
+  within TRAIN_TOL by norm (``_grads_close``), and every updated
+  parameter within TRAIN_TOL by norm of the update AdamW makes on the
+  CPU from the card's gradients (AdamW's first update moves an element
+  by about the rate whatever its gradient's size)."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  from svdd_tpu_torch.train.diffusion import Optimizer
+  cfg = _bb_config(backbone, 'fp32')
+  cfg.optim.warmup_steps = 0
+  model = nonzero_init(Diffusion(cfg, device='cpu').backbone, 6)
+  g = torch.Generator().manual_seed(5)
+  n = BB_STEP_ROWS
+  batch = {'seqs': torch.randint(0, 4, (n, 200), generator=g)}
+  noise = [(torch.rand(n, generator=g), torch.rand(n, 200, generator=g))]
+
+  def step(dev):
+    m = Diffusion(cfg, device=dev, backbone=copy.deepcopy(model))
+    state = train_diff.init_state(m, cfg)
+    seen = {}
+    orig = state.optimizer.step
+
+    def keep_grads():
+      seen.update({k: p.grad.detach().cpu().clone()
+                   for k, p in m.backbone.named_parameters()})
+      orig()
+    state.optimizer.step = keep_grads
+    loss = train_diff.train_step(state, batch, cfg,
+                                 None if backbone == 'ar' else
+                                 [tuple(t.to(dev) for t in noise[0])])
+    return float(loss), seen, {k: p.detach().cpu() for k, p in
+                               m.backbone.named_parameters()}
+
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  got = step('cuda')
+  torch.cuda.synchronize()
+  launches = {k: v for k, v in _build.launches().items() if v}
+  want = step('cpu')
+  kernel = BB_KERNEL[backbone]
+  if launches != {kernel: _bb_forward_launches(cfg)}:
+    raise AssertionError(f'{backbone} step launches {launches}')
+  loss_err = abs(got[0] - want[0]) / abs(want[0])
+  grad_rel = _grads_close(got[1], want[1], TRAIN_TOL)
+  # the update AdamW makes on the CPU from the card's gradients
+  m = copy.deepcopy(model)
+  named = dict(m.named_parameters())
+  opt = train_diff.make_optimizer(cfg, named.values())
+  for k, p in named.items():
+    p.grad = got[1][k].clone()
+  opt.step()
+  before = dict(model.named_parameters())
+  upd_rel = {k: _rel(got[2][k] - before[k].detach(),
+                     p.detach() - before[k].detach())
+             for k, p in named.items()}
+  r = {'backbone': backbone, 'rows': n, 'length': 200,
+       'loss_card': got[0], 'loss_cpu': want[0], 'loss_rel_err': loss_err,
+       'max_grad_rel_norm_err': max(grad_rel.values()),
+       'worst_grad': max(grad_rel, key=grad_rel.get),
+       'max_update_rel_err': max(upd_rel.values()),
+       'worst_update': max(upd_rel, key=upd_rel.get),
+       'leaves': len(upd_rel), 'tol': TRAIN_TOL, 'launches': launches}
+  if not (loss_err <= TRAIN_TOL and r['max_update_rel_err'] <= TRAIN_TOL):
+    raise AssertionError(f'{backbone} step card vs cpu: {r}')
+  return r
+
+
+def _bb_model(ckpt_dir: str, backbone: str, precision: str, rows: int):
+  """A Diffusion of the backbone holding the EMA weights of its phase-9
+  training checkpoint."""
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.train import diffusion as train_diff
+  cfg = _bb_config(backbone, precision)
+  cfg.loader.eval_batch_size = rows
+  model = Diffusion(cfg, device='cuda')
+  return train_diff.load_ema_weights(model,
+                                     train_diff.checkpoint_file(ckpt_dir))
+
+
+def run_semi_ar(ckpt_dir: str) -> dict:
+  """``main_gosai --mode sample_eval`` with ``sampling.semi_ar`` on the
+  trained DiT (bf16), SEMI_AR_ROWS rows, SEMI_AR_STRIDES strides of
+  SEMI_AR_STRIDE: B12 exactly 12 a denoiser call (the misses and each
+  stride's final denoise)."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  cfg = _bb_config('dit', 'bf16')
+  cfg.loader.eval_batch_size = SEMI_AR_ROWS
+  cfg.sampling.semi_ar = True
+  cfg.sampling.stride_length = SEMI_AR_STRIDE
+  cfg.sampling.num_strides = SEMI_AR_STRIDES
+  args = main_gosai.parser().parse_args(
+      ['--mode', 'sample_eval', '--device', 'cuda', '--ckpt_dir', ckpt_dir])
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args, cfg)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  calls = out['sampling_steps'] + SEMI_AR_STRIDES + 1
+  if launches['flash_attention'] != 12 * calls:
+    raise AssertionError(f'semi-AR: launches {launches}, calls {calls}')
+  tokens = out['tokens']
+  length = 200 + SEMI_AR_STRIDES * SEMI_AR_STRIDE
+  if tokens.shape != (SEMI_AR_ROWS, length) or tokens.min() < 0 or \
+      tokens.max() > 3:
+    raise AssertionError(f'semi-AR tokens {tokens.shape}')
+  return {'run': 'semi_ar', 'rows': SEMI_AR_ROWS,
+          'strides': SEMI_AR_STRIDES + 1, 'stride_length': SEMI_AR_STRIDE,
+          'sampling_steps': out['sampling_steps'], 'denoiser_calls': calls,
+          'caching_steps': (SEMI_AR_STRIDES + 1) * 1001, 'wall_s': wall,
+          'distinct_tokens': int(np.unique(tokens).size),
+          'launches': launches}
+
+
+def run_ar_samplers(ckpt_dir: str) -> dict:
+  """The trained AR net's decodes: ``ar_sample_kv`` at KV_ROWS rows
+  (bf16, its default; the cached loop launches no kernel, as JAX's runs
+  no Pallas call), then both loops in f32 on KV_FULL_ROWS rows from one
+  noise draw: the full loop (B12 causal, 12 a position) gives the
+  cached loop's tokens."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.models import autoregressive as ar
+  model = _bb_model(ckpt_dir, 'ar', 'bf16', KV_ROWS).backbone
+  gen = torch.Generator('cuda').manual_seed(7)
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  toks = ar.ar_sample_kv(model, KV_ROWS, 200, gen)
+  torch.cuda.synchronize()
+  kv_s = time.perf_counter() - t0
+  kv_launches = _build.launches()
+  if any(kv_launches.values()) or toks.shape != (KV_ROWS, 200):
+    raise AssertionError(f'ar_sample_kv: {kv_launches}, {toks.shape}')
+  f32 = copy.deepcopy(model)
+  f32.compute_dtype = torch.float32
+  noise = torch.empty(KV_FULL_ROWS, 199, 5, device='cuda')
+  noise.exponential_(generator=gen).log_().neg_()
+  kv = ar.ar_sample_kv(f32, KV_FULL_ROWS, 200, noise=noise)
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  full = ar.ar_sample(f32, KV_FULL_ROWS, 200, noise=noise)
+  torch.cuda.synchronize()
+  full_s = time.perf_counter() - t0
+  launches = _build.launches()
+  same_rows = int((kv == full).all(-1).sum())
+  if launches['flash_attention_causal'] != 12 * 199 or \
+      same_rows < KV_FULL_ROWS - 1:
+    raise AssertionError(f'ar_sample: launches {launches}, rows equal to '
+                         f'the cached loop {same_rows}/{KV_FULL_ROWS}')
+  return {'run': 'ar_sample', 'kv_rows': KV_ROWS, 'kv_s': kv_s,
+          'full_rows': KV_FULL_ROWS, 'full_f32_s': full_s,
+          'rows_equal_f32': same_rows, 'launches': launches}
+
+
+def run_dit_guided(ckpt_dir: str) -> list:
+  """DPS and DG (the DPS clone: its CLI's default scale, which is DPS's;
+  another seed) with the trained DiT as the denoiser (bf16), DPS_DIT_ROWS
+  rows,
+  DPS_DIT_STEPS steps, scored by the synthetic motif oracle: each
+  guided step differentiates a one-hot DiT forward, so B12 runs forward
+  and its backward is its plain form's gradient. B12 is launched exactly
+  12 times a DiT forward, and no other kernel at all."""
+  import torch
+  from svdd_tpu_torch import _build, rewards
+  from svdd_tpu_torch.cli import decode_DG, decode_DPS
+  model = _bb_model(ckpt_dir, 'dit', 'bf16', DPS_DIT_ROWS)
+  reward = rewards.synthetic_motif_oracle(200)
+  out = []
+  for seed, (name, cli) in enumerate((('dps_dit', decode_DPS),
+                                      ('dg_dit', decode_DG))):
+    s = cli.parser().parse_args([]).guidance_scale
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = model.dps_sampler(reward, DPS_DIT_ROWS, guidance_scale=s,
+                            num_steps=DPS_DIT_STEPS)(
+                                torch.Generator('cuda').manual_seed(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launches()
+    samples = res.samples
+    # two DiT forwards a step (the one-hot forward of the gradient, and
+    # log p0 at t), and the final argmax noise removal's
+    forwards = 2 * DPS_DIT_STEPS + int(model.config.sampling.noise_removal)
+    want = {k: 0 for k in launches}
+    want['flash_attention'] = forwards * _bb_forward_launches(model.config)
+    if launches != want:
+      raise AssertionError(f'{name}: launches {launches}, want {want}')
+    if samples.shape != (DPS_DIT_ROWS, 200) or int(samples.max()) > 3:
+      raise AssertionError(f'{name}: samples {tuple(samples.shape)}, '
+                           f'max {int(samples.max())}')
+    with torch.no_grad():
+      r = reward(torch.nn.functional.one_hot(samples, 4).float())
+    out.append({'run': name, 'guidance_scale': s, 'rows': DPS_DIT_ROWS,
+                'steps': DPS_DIT_STEPS, 'wall_s': wall,
+                'reward_mean': float(r.mean()), 'launches': launches})
+  return out
+
+
+def run_gen_ppl(dit_ckpt: str, ar_ckpt: str) -> dict:
+  """``main_gosai --mode sample_eval`` of the trained DiT (64 rows, 16
+  steps) with ``--gen_ppl_model gpt2 --gen_ppl_ar_checkpoint`` the AR
+  run's checkpoint: the Hugging Face model is not on the card's machine,
+  so its ``RuntimeError`` leads to the AR scorer (JAX's own fallback,
+  logged), which holds the AR run's EMA weights."""
+  import logging
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  cfg = _bb_config('dit', 'bf16')
+  cfg.loader.eval_batch_size = 64
+  cfg.sampling.steps = 16
+  cfg.sampling.num_sample_batches = 1
+  args = main_gosai.parser().parse_args(
+      ['--mode', 'sample_eval', '--device', 'cuda', '--ckpt_dir', dit_ckpt,
+       '--gen_ppl_model', 'gpt2', '--gen_ppl_ar_checkpoint', ar_ckpt])
+
+  class Grab(logging.Handler):
+    def __init__(self):
+      super().__init__()
+      self.lines = []
+
+    def emit(self, record):
+      self.lines.append(record.getMessage())
+
+  grab = Grab()
+  logging.getLogger(main_gosai.__name__).addHandler(grab)
+  try:
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = main_gosai.run(args, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  finally:
+    logging.getLogger(main_gosai.__name__).removeHandler(grab)
+  launches = _build.launches()
+  fell_back = any('falling back' in m for m in grab.lines)
+  if not np.isfinite(out['gen_ppl']) or not launches['flash_attention'] or \
+      not launches['flash_attention_causal']:
+    raise AssertionError(f'gen_ppl {out["gen_ppl"]}, launches {launches}')
+  return {'run': 'gen_ppl', 'gen_ppl': out['gen_ppl'],
+          'hf_fallback_logged': fell_back, 'scorer': 'ar checkpoint',
+          'wall_s': wall, 'launches': launches}
+
+
+def check_npz_reader(diffusion_ckpt: str) -> dict:
+  """Phase 5's f32 denoiser (its checkpoint's EMA weights) and MC value
+  net written in the export's layout (``weights.cnn_to_jax``,
+  ``weights.enformer_to_jax``: the inverse maps; ``save_export``), then
+  read back through ``--diffusion_checkpoint_path`` and
+  ``--load_checkpoint_path``: every parameter and buffer bit for bit."""
+  import torch
+  from svdd_tpu_torch import checkpoint as ckpt_lib
+  from svdd_tpu_torch import weights
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import decode as cli_decode
+  from svdd_tpu_torch.config import dna_config
+  root = _train_dir('npz_reader')
+  value_path = os.path.join(REPO, 'build', 'chip_smoke', 'value',
+                            'value_mc.pt')
+  cfg = dna_config()
+  args = cli_decode.parser().parse_args(
+      ['--device', 'cuda', '--diffusion_checkpoint_path', diffusion_ckpt,
+       '--load_checkpoint_path', value_path])
+  den = common.load_diffusion(args, cfg).backbone
+  vf = common.load_value_function(args, cfg)
+  t0 = time.perf_counter()
+  paths = {'denoiser': os.path.join(root, 'denoiser.npz'),
+           'value': os.path.join(root, 'value.npz')}
+  ckpt_lib.save_export(paths['denoiser'], 'diffusion',
+                       weights.cnn_to_jax(den.cpu()),
+                       {'step': 0, 'config': {'backbone': 'cnn'}})
+  ckpt_lib.save_export(paths['value'], 'variables',
+                       weights.enformer_to_jax(vf.module.cpu()))
+  write_s = time.perf_counter() - t0
+  args = cli_decode.parser().parse_args(
+      ['--device', 'cuda', '--diffusion_checkpoint_path', paths['denoiser'],
+       '--load_checkpoint_path', paths['value']])
+  t0 = time.perf_counter()
+  common.reject_unported(args)
+  den2 = common.load_diffusion(args, cfg).backbone
+  vf2 = common.load_value_function(args, cfg)
+  torch.cuda.synchronize()
+  read_s = time.perf_counter() - t0
+  same = {'denoiser': _same_weights(den, den2),
+          'value': _same_weights(vf.module, vf2.module)}
+  if not all(same.values()):
+    raise AssertionError(f'npz reader: {same}')
+  sizes = {k: os.path.getsize(p) / 2 ** 20 for k, p in paths.items()}
+  for p in paths.values():
+    os.remove(p)
+  return {'bit_for_bit': same, 'mib': sizes, 'write_s': write_s,
+          'read_s': read_s}
+
+
+def backbones_phase(diffusion_ckpt: str) -> dict:
+  """Phase 9, each part emitting its line: the four backbone training
+  runs, one training step of each backbone card vs CPU, traced training
+  steps, semi-AR sample_eval, the AR loops, DPS and DG with the DiT,
+  gen-ppl from the AR run's checkpoint, and the .npz reader. Returns the
+  launch counts of its runs of the main path."""
+  import torch
+  runs, ckpts = {}, {}
+
+  def done(r, phase):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': phase, **r})
+    if 'launches' in r and 'run' in r:
+      runs[r['run']] = {'launches': r['launches']}
+    return r
+
+  t0 = time.perf_counter()
+  for name, backbone, precision in BB_RUNS:
+    r = done(run_backbone_train(name, backbone, precision), 'backbone_train')
+    ckpts[name] = r['ckpt_dir']
+  for backbone in ('dit', 'dimamba', 'ar'):
+    r = done(check_backbone_step(backbone), 'backbone_step_vs_cpu')
+    runs[f'{backbone}_step_vs_cpu'] = {'launches': r['launches']}
+  for name, backbone, precision in (BB_RUNS[0], BB_RUNS[1], BB_RUNS[2]):
+    done(profile_backbone_step(name, backbone, precision), 'profile')
+  done(run_semi_ar(ckpts['dit_bf16']), 'sample_eval')
+  done(run_ar_samplers(ckpts['ar_bf16']), 'ar_sample')
+  for r in run_dit_guided(ckpts['dit_bf16']):
+    done(r, 'decode')
+  done(run_gen_ppl(ckpts['dit_bf16'], ckpts['ar_bf16']), 'gen_ppl')
+  done(check_npz_reader(diffusion_ckpt), 'npz_reader')
+  emit({'phase': 'backbones', 'wall_s': time.perf_counter() - t0})
+  return runs
+
+
 def kernel_checks() -> list:
   """(name, check(dtype, generator)) of the kernel phase, in order; each
   runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
@@ -5383,6 +5903,7 @@ def main() -> None:
   train_profiles()
   runs.update(rna_phase())
   runs.update(a17_a11_phase(diffusion_ckpt))
+  runs.update(backbones_phase(diffusion_ckpt))
 
   kernels = []
   for name in _build.KERNELS:
@@ -5445,9 +5966,11 @@ def main() -> None:
               for dt in ('float32', 'bfloat16')}
       if more['float32'] is not None:
         entry[key] = {
-            dt: {k: r[k] for k in ('shape', 'max_abs_err', 'ms', 'plain_ms',
-                                   'library_ms', 'bound_ms', 'tflops',
-                                   'bound_share', 'fma_bound_share')
+            dt: {k: r[k] for k in ('shape', 'rounding', 'max_abs_err',
+                                   'mean_abs_err',
+                                   'mean_abs_err_other_rounding', 'ms',
+                                   'plain_ms', 'library_ms', 'bound_ms',
+                                   'tflops', 'bound_share', 'fma_bound_share')
                  if k in r}
             for dt, r in more.items()}
     kernels.append(entry)

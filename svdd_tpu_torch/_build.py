@@ -48,7 +48,7 @@ SIGNATURES = {
     'svdd_conv1d_bwd': ('conv1d_bwd', [_P] * 7 + [_I] * 7 + [_P]),
     'svdd_attn_pool_bwd': ('attn_pool_bwd', [_P] * 9 + [_I] * 5 + [_P]),
     'svdd_flash_attention': ('flash_attention',
-                             [_P] * 4 + [_I] * 13 + [_F, _I, _I, _P]),
+                             [_P] * 4 + [_I] * 13 + [_F, _I, _I, _I, _P]),
     'svdd_rmsnorm': ('rmsnorm', [_P] * 4 + [_LL, _I, _F, _I, _P]),
     'svdd_nacdr_im2col': ('im2col', [_P] * 5 + [_I] * 6 + [_P]),
     'svdd_fused_conv1d': ('fused_conv', [_P] * 7 + [_I] * 7 + [_P]),

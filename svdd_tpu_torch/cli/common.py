@@ -21,8 +21,16 @@ its prefix found among JAX's candidates ('backbone.' or
 oracle, 'module.' for a value net), mapped to the flax layout by
 ``importers/`` and into the port's modules by ``weights.*_from_jax``:
 the CNN or DiT denoiser, the Enformer (DNA) or ConvGRU (RNA) oracle and
-value net at the file's widths. Any other file (an orbax directory)
-raises ``NotImplementedError`` naming ROADMAP A17. Without the flags
+value net at the file's widths.
+
+The JAX package's own checkpoints come as exports
+(``scripts/export_jax_checkpoint.py``, run where JAX runs, writes an
+orbax directory as one ``.npz``; ``checkpoint.load_export``): every flag
+reads one, through ``weights.*_from_jax`` at the run's config (the
+denoiser of ``cfg.backbone``) or the file's widths (the Enformer or
+ConvGRU, by the tree). An orbax directory itself, or any other file,
+raises ``NotImplementedError`` naming ROADMAP A17 and the script.
+Without the flags
 the models take random weights drawn from the config's seed (diffusion)
 and seed 1 (value net), and the reward is the synthetic motif oracle,
 as the JAX CLI does without checkpoint flags.
@@ -117,6 +125,20 @@ def reject_saluki(args, cli_name: str) -> None:
         'decode.py (SVDD-MC) or decode_tweedie.py (SVDD-PM)')
 
 
+DENOISER_EXPORTS = ('diffusion', 'variables')
+VALUE_EXPORTS = ('variables', 'value_state')
+
+
+def _foreign(flag: str, path: str, what: str) -> NotImplementedError:
+  """The error of a checkpoint flag given a file it cannot read."""
+  if ckpt_lib.is_orbax_dir(path):
+    return NotImplementedError(ckpt_lib.orbax_message(flag, path))
+  return NotImplementedError(
+      f'{flag} {path}: not {what} of this package nor a reference torch '
+      "pickle nor an export of the JAX package's checkpoints (ROADMAP "
+      'A17: scripts/export_jax_checkpoint.py writes one)')
+
+
 def diffusion_checkpoint(path: str) -> str:
   """The port's pretraining checkpoint at ``path``: the file itself, or
   the newest ``step_<n>.pt`` of a directory (at its top, else under
@@ -130,11 +152,56 @@ def diffusion_checkpoint(path: str) -> str:
     except Exception:   # not a torch file, or pickled objects
       ckpt = None
   if not isinstance(ckpt, dict) or ckpt.get('format') != train_diff.FORMAT:
-    raise NotImplementedError(
-        f'--diffusion_checkpoint_path {path}: not a pretraining checkpoint '
-        f'of this package ({train_diff.FORMAT}) nor a reference torch '
-        'pickle; reading orbax checkpoints is not ported yet (ROADMAP A17)')
+    raise _foreign('--diffusion_checkpoint_path', path,
+                   f'a pretraining checkpoint ({train_diff.FORMAT})')
   return found
+
+
+def export_task(tree: dict) -> str:
+  """The task whose value-net architecture an exported tree holds."""
+  return 'rna' if 'ConvGRUTrunk_0' in tree.get('params', {}) else 'dna'
+
+
+def check_value_export(path: str, task: str,
+                       leaves: bool = True) -> ckpt_lib.Export:
+  """The value-net export at ``path``, of ``task``'s architecture (without
+  its leaves, ``ckpt_lib.export_header``, where ``leaves`` is false)."""
+  read = ckpt_lib.load_export if leaves else ckpt_lib.export_header
+  e = read(path, VALUE_EXPORTS)
+  want, held = value_lib.checkpoint_task(task), export_task(e.tree)
+  if held != want:
+    raise ValueError(f'{path}: an export of a {held} value net handed to '
+                     f'a {want} run')
+  return e
+
+
+def export_value_net(path: str, task: str, device,
+                     compute_dtype=torch.float32):
+  """The Enformer (DNA, computing in ``compute_dtype``) or ConvGRU (RNA)
+  of an export, on ``device``."""
+  tree = check_value_export(path, task).tree
+  if export_task(tree) == 'rna':
+    head = tree['params']['ConvHead_0']['ChannelTransformBlock_0'][
+        'ChannelTransform_0']['Conv1D_0']['kernel']
+    return weights.convgru_from_jax(tree, n_tasks=int(head.shape[-1]),
+                                    device=device)
+  return weights.enformer_value_from_jax(tree, compute_dtype, device)
+
+
+def export_denoiser(path: str, cfg: Config, device):
+  """The denoiser of ``cfg.backbone`` holding an export's variables (a
+  pretraining state's EMA weights), at ``cfg``'s widths, on ``device``."""
+  e = ckpt_lib.load_export(path, DENOISER_EXPORTS)
+  held = e.meta.get('config', {}).get('backbone')
+  if held is not None and held != cfg.backbone:
+    raise ValueError(f'{path}: an export of a {held} denoiser handed to a '
+                     f'{cfg.backbone} run')
+  if cfg.backbone == 'cnn':
+    return weights.cnn_from_jax(e.tree, diffusion_lib.cnn_compute_dtype(),
+                                device)
+  convert = {'dit': weights.dit_from_jax, 'dimamba': weights.dimamba_from_jax,
+             'ar': weights.ar_from_jax}[cfg.backbone]
+  return convert(e.tree, cfg, diffusion_lib.compute_dtype(cfg), device)
 
 
 def reject_unported(args) -> None:
@@ -151,10 +218,14 @@ def reject_unported(args) -> None:
                               'ported')
   for name in VALUE_CHECKPOINT_FLAGS:
     path = getattr(args, name, None)
-    if path and not ckpt_lib.is_reference_file(path):
+    if ckpt_lib.is_export_file(path):
+      check_value_export(path, args.task, leaves=False)
+    elif path and not ckpt_lib.is_reference_file(path):
       value_lib.load_checkpoint(path, mmap=True, task=args.task)
   path = getattr(args, 'diffusion_checkpoint_path', None)
-  if path and not ckpt_lib.is_reference_file(path):
+  if ckpt_lib.is_export_file(path):
+    ckpt_lib.export_header(path, DENOISER_EXPORTS)
+  elif path and not ckpt_lib.is_reference_file(path):
     diffusion_checkpoint(path)
   if args.dist:
     raise NotImplementedError('--dist: the parallel paths are not ported')
@@ -215,6 +286,11 @@ def load_diffusion(args, cfg: Config) -> Diffusion:
                       backbone=import_denoiser(path, cfg, args.device))
     LOGGER.info('imported torch diffusion ckpt %s', path)
     return model
+  if ckpt_lib.is_export_file(path):
+    model = Diffusion(cfg, device=args.device,
+                      backbone=export_denoiser(path, cfg, args.device))
+    LOGGER.info('read the exported diffusion checkpoint %s', path)
+    return model
   model = Diffusion(cfg, device=args.device)
   if path:
     train_diff.load_ema_weights(model, diffusion_checkpoint(path))
@@ -226,8 +302,12 @@ def load_diffusion(args, cfg: Config) -> Diffusion:
 
 
 def load_oracle(path: str, task: str, device) -> rewards.RewardOracle:
-  """The reward oracle a ``cli.train_oracle --save_path`` file holds: the
-  Enformer (DNA, float32, task 0 read) or the ConvGRU (RNA)."""
+  """The reward oracle a ``cli.train_oracle --save_path`` file (or an
+  export of the JAX package's oracle) holds: the Enformer (DNA, float32,
+  task 0 read) or the ConvGRU (RNA)."""
+  if ckpt_lib.is_export_file(path):
+    return rewards.RewardOracle(export_value_net(path, task, device),
+                                task_index=0)
   ckpt = value_lib.load_checkpoint(path, task=task)
   gen = torch.Generator(torch.device(device)).manual_seed(0)
   create = (rewards.RewardOracle.create_rna
@@ -249,6 +329,9 @@ def load_reward_fn(args, cfg: Config):
                               args.device)
     LOGGER.info('imported torch reward oracle %s', path)
     return rewards.RewardOracle(module, task_index=0)
+  if ckpt_lib.is_export_file(path):
+    LOGGER.info('read the exported reward oracle %s', path)
+    return load_oracle(path, args.task, args.device)
   if path:
     oracle = load_oracle(path, args.task, args.device)
     LOGGER.info('loaded reward oracle %s', path)
@@ -272,6 +355,12 @@ def load_value_function(args, cfg: Config,
     module = import_value_net(path, args.task, ('module.',), args.device,
                               value_lib.value_compute_dtype())
     LOGGER.info('imported torch value net %s', path)
+    return value_lib.ValueFunction(module, cfg.model.length)
+  if ckpt_lib.is_export_file(path):
+    value_lib.check_value_model(args.task, args.model)
+    module = export_value_net(path, args.task, args.device,
+                              value_lib.value_compute_dtype())
+    LOGGER.info('read the exported value net %s', path)
     return value_lib.ValueFunction(module, cfg.model.length)
   if path:
     ckpt = value_lib.load_checkpoint(path, task=args.task)

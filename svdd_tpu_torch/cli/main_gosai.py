@@ -12,7 +12,9 @@ defaults, plus ``--device``.
       --config svdd_tpu_torch/configs/text_mdlm.yaml --gen_ppl_model ar
 
 ``--task rna`` takes the RNA preset (L=50, ``rna_config``).
-``train`` trains the CNN denoiser on the Gosai splits (the synthetic
+``train`` trains the config's backbone (``--set backbone=dit``,
+``dimamba``, or ``backbone=ar parameterization=ar`` for the AR
+baseline) on the Gosai splits (the synthetic
 split where no CSV is found, ``data/gosai.py``), logs to
 ``<log_dir>/<task>-pretrain.metrics.jsonl`` (train/loss every 100 steps;
 val/nll and the sample-quality metrics of the EMA weights every
@@ -26,12 +28,23 @@ and perplexity of the checkpoint's EMA weights; ``sample_eval`` draws
 ``sampling.num_sample_batches`` batches of ``loader.eval_batch_size``
 unguided samples from them (the ``sampling.predictor``, ddpm,
 ddpm_cache or analytic), logs the first four of each batch through the DNA
-detokenizer and, with ``--gen_ppl_model``, their generative perplexity
-under the repo's AR backbone. Without a checkpoint the model takes
-random weights from ``seed``. A ``--ckpt_dir`` holding other files and no
-checkpoint of the port (an orbax directory, a reference ``.pt``) raises,
-as do an oracle file this package did not write and the AR-scorer
-checkpoint flag (ROADMAP A17).
+detokenizer and, with ``--gen_ppl_model``, their generative perplexity:
+under that Hugging Face model, loaded from local files only, falling
+back to the repo's AR backbone where it cannot be loaded
+(``load_eval_model`` raises ``RuntimeError``, on which the JAX CLI falls
+back; a fault while the model scores propagates here), or under the AR
+backbone at once for ``ar``; the AR
+net reads ``--gen_ppl_ar_checkpoint`` (``eval/gen_ppl.load_ar_scorer``).
+With ``sampling.semi_ar`` it samples block-wise instead
+(``sampling/semi_ar.py``: ``num_strides`` strides of ``stride_length``)
+and scores nothing. Without a checkpoint the model takes random weights
+from ``seed``. A ``--ckpt_dir`` may hold an export of the JAX package's
+pretraining checkpoint (``scripts/export_jax_checkpoint.py``), whose EMA
+weights ppl_eval and sample_eval read (train raises: an export holds no
+trainer state). A ``--ckpt_dir`` holding other files and no checkpoint
+of the port nor an export (an orbax directory, a reference ``.pt``)
+raises, as do an oracle file that is neither this package's nor an
+export, and such an AR-scorer file (ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import os
 import numpy as np
 import torch
 
+from svdd_tpu_torch import checkpoint as ckpt_lib
 from svdd_tpu_torch import rewards
 from svdd_tpu_torch.cli import common
 from svdd_tpu_torch import value as value_lib
@@ -53,6 +67,7 @@ from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.eval import gen_ppl, validation
 from svdd_tpu_torch.observability import MetricsLogger
+from svdd_tpu_torch.sampling.semi_ar import semi_ar_sample
 from svdd_tpu_torch.train import diffusion as train_diff
 
 LOGGER = logging.getLogger(__name__)
@@ -85,20 +100,35 @@ def build_config(args) -> Config:
   return cfg.override(**overrides) if overrides else cfg
 
 
-def _reject_unported(args, cfg: Config) -> None:
+def _reject_unported(args, cfg: Config):
+  """Raise for what this package cannot read (before any model is built);
+  returns the export of a denoiser that ``--ckpt_dir`` holds in place of
+  the port's checkpoints, or None."""
   check_single_device(cfg)
-  if args.eval_oracle_checkpoint_path:
-    value_lib.load_checkpoint(args.eval_oracle_checkpoint_path, mmap=True,
-                              task=cfg.task)
+  oracle = args.eval_oracle_checkpoint_path
+  if ckpt_lib.is_export_file(oracle):
+    common.check_value_export(oracle, cfg.task, leaves=False)
+  elif oracle:
+    value_lib.load_checkpoint(oracle, mmap=True, task=cfg.task)
   if args.gen_ppl_ar_checkpoint:
-    raise NotImplementedError('--gen_ppl_ar_checkpoint: checkpoint loading '
-                              'is not ported yet (ROADMAP A17)')
+    gen_ppl.ar_checkpoint(args.gen_ppl_ar_checkpoint)
   d = args.ckpt_dir
-  if d and os.path.exists(d) and not train_diff.has_checkpoint(d) and (
-      not os.path.isdir(d) or os.listdir(d)):
-    raise NotImplementedError(f'--ckpt_dir {d}: holds no checkpoint of this '
-                              'package; reading other checkpoints is not '
-                              'ported yet (ROADMAP A17)')
+  export = None
+  if d and os.path.exists(d) and not train_diff.has_checkpoint(d):
+    export = ckpt_lib.export_in(d, common.DENOISER_EXPORTS)
+    if export is not None:
+      if args.mode == 'train':
+        raise ValueError(f'--ckpt_dir {d}: an export holds the EMA weights '
+                         'of a JAX pretraining state, not the trainer state '
+                         'a training run resumes from')
+    elif not os.path.isdir(d) or os.listdir(d):
+      if ckpt_lib.is_orbax_dir(d):
+        raise NotImplementedError(ckpt_lib.orbax_message('--ckpt_dir', d))
+      raise NotImplementedError(
+          f'--ckpt_dir {d}: holds no checkpoint of this package nor an '
+          "export of the JAX package's (ROADMAP A17: "
+          'scripts/export_jax_checkpoint.py writes one)')
+  return export
 
 
 def _sample_eval_hook(cfg: Config, args):
@@ -144,25 +174,38 @@ def _train(cfg: Config, args, backbone) -> dict:
   return {'state': state, 'metrics_path': logger.path}
 
 
-def _restored(cfg: Config, args, backbone) -> Diffusion:
+def _exported(cfg: Config, args, backbone, export):
+  """``backbone``, or, where ``--ckpt_dir`` holds no checkpoint of the
+  port but an export (``export``, from ``_reject_unported``), the
+  denoiser holding the export's weights."""
+  if backbone is not None or export is None:
+    return backbone
+  LOGGER.info('read the exported diffusion checkpoint %s', export)
+  return common.export_denoiser(export, cfg, args.device)
+
+
+def _restored(cfg: Config, args, backbone, export=None) -> Diffusion:
   """The model, holding the EMA weights of the newest checkpoint under
-  ``--ckpt_dir`` where there is one."""
-  model = Diffusion(cfg, device=args.device, backbone=backbone)
+  ``--ckpt_dir`` where there is one (the port's, else ``export``)."""
+  exported = _exported(cfg, args, backbone, export)
+  model = Diffusion(cfg, device=args.device, backbone=exported)
   if args.ckpt_dir and train_diff.has_checkpoint(args.ckpt_dir):
     train_diff.load_ema_weights(model,
                                 train_diff.checkpoint_file(args.ckpt_dir))
-  elif args.ckpt_dir:
+  elif args.ckpt_dir and exported is backbone:   # no export read
     LOGGER.warning('no checkpoint under --ckpt_dir %s: a randomly '
                    'initialized model', args.ckpt_dir)
   return model
 
 
-def _ppl_eval(cfg: Config, args, backbone) -> dict:
+def _ppl_eval(cfg: Config, args, backbone, export) -> dict:
   """NLL, bits per token and perplexity over 16 validation batches, on
   the EMA weights of the newest checkpoint under ``--ckpt_dir``."""
   _, valid_it, _ = gosai.get_dataloaders(cfg, skip_train=True,
                                          data_dir=args.data_dir)
-  model = Diffusion(cfg, device=args.device, backbone=backbone)
+  # an export's weights are the fresh state's, and so its EMA's
+  model = Diffusion(cfg, device=args.device,
+                    backbone=_exported(cfg, args, backbone, export))
   trainer = train_diff.Trainer(model, cfg, ckpt_dir=args.ckpt_dir)
   nll = trainer.evaluate(trainer.init_or_restore(), valid_it, max_batches=16)
   out = {'nll': nll, 'bpd': nll / np.log(2), 'ppl': float(np.exp(nll))}
@@ -171,8 +214,18 @@ def _ppl_eval(cfg: Config, args, backbone) -> dict:
   return out
 
 
-def _sample_eval(cfg: Config, args, backbone, ar_model) -> dict:
-  model = _restored(cfg, args, backbone)
+def _sample_eval(cfg: Config, args, backbone, ar_model, export) -> dict:
+  model = _restored(cfg, args, backbone, export)
+  if cfg.sampling.semi_ar:
+    steps, _, full = semi_ar_sample(
+        model, cfg.loader.eval_batch_size, cfg.sampling.stride_length,
+        cfg.sampling.num_strides,
+        torch.Generator(model.device).manual_seed(0))
+    LOGGER.info('semi-AR: %d denoiser calls, samples %s', steps,
+                full.shape)
+    for s in gosai.batch_dna_detokenize(full[:4]):
+      LOGGER.info('sample: %s', s)
+    return {'tokens': full, 'gen_ppl': None, 'sampling_steps': steps}
   sampler = model.sampler(cfg.loader.eval_batch_size)
   all_tokens = []
   for i in range(cfg.sampling.num_sample_batches):
@@ -183,18 +236,33 @@ def _sample_eval(cfg: Config, args, backbone, ar_model) -> dict:
       LOGGER.info('sample: %s', s)
   tokens = np.concatenate(all_tokens)
   ppl = None
-  if args.gen_ppl_model:
-    if args.gen_ppl_model != 'ar':
-      LOGGER.warning('gen_ppl: the Hugging Face model %r is not ported; '
-                     'falling back to the local AR backbone',
-                     args.gen_ppl_model)
-    if ar_model is None:
+
+  def ar_fallback() -> float:
+    if ar_model is None and not args.gen_ppl_ar_checkpoint:
       LOGGER.warning('gen_ppl AR fallback: no --gen_ppl_ar_checkpoint, '
                      'scoring with a randomly initialized AR net')
     scorer = gen_ppl.ar_fallback_scorer(cfg, args.gen_ppl_ar_checkpoint,
                                         device=model.device, model=ar_model)
-    ppl = gen_ppl.compute_generative_perplexity_local(tokens, scorer)
-    LOGGER.info('val/gen_ppl (local ar backbone): %.4f', ppl)
+    out = gen_ppl.compute_generative_perplexity_local(tokens, scorer)
+    LOGGER.info('val/gen_ppl (local ar backbone): %.4f', out)
+    return out
+
+  if args.gen_ppl_model == 'ar':
+    ppl = ar_fallback()
+  elif args.gen_ppl_model:
+    # only a model that cannot be loaded falls back; a fault while it
+    # scores (on the card) propagates
+    try:
+      eval_model, tokenizer = gen_ppl.load_eval_model(args.gen_ppl_model)
+    except RuntimeError as exc:
+      LOGGER.warning('gen_ppl: HF model unavailable (%s); falling back to '
+                     'the local AR backbone', exc)
+      return {'tokens': tokens, 'gen_ppl': ar_fallback()}
+    ppl = gen_ppl.compute_generative_perplexity(
+        gosai.batch_dna_detokenize(tokens), eval_model=eval_model,
+        tokenizer=tokenizer, max_length=cfg.model.length,
+        device=model.device)
+    LOGGER.info('val/gen_ppl (%s): %.4f', args.gen_ppl_model, ppl)
   return {'tokens': tokens, 'gen_ppl': ppl}
 
 
@@ -207,15 +275,15 @@ def run(args, cfg: Config | None = None, backbone=None, ar_model=None
   'ppl'}; ``sample_eval``, {'tokens': (N, L) int array of every batch,
   'gen_ppl': float or None}."""
   cfg = cfg or build_config(args)
-  _reject_unported(args, cfg)
+  export = _reject_unported(args, cfg)
   LOGGER.info('config:\n%s', json.dumps(cfg.to_dict(), indent=2,
                                         default=str))
   common.full_f32()
   if args.mode == 'train':
     return _train(cfg, args, backbone)
   if args.mode == 'ppl_eval':
-    return _ppl_eval(cfg, args, backbone)
-  return _sample_eval(cfg, args, backbone, ar_model)
+    return _ppl_eval(cfg, args, backbone, export)
+  return _sample_eval(cfg, args, backbone, ar_model, export)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -230,7 +298,9 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument('--ckpt_dir', default='./checkpoints',
                  help="this package's checkpoints: train writes and resumes "
                       'from them, ppl_eval and sample_eval read the EMA '
-                      'weights; a directory holding other files raises')
+                      "weights (or those of an export of the JAX package's "
+                      'checkpoint held there); a directory holding other '
+                      'files raises')
   p.add_argument('--data_dir', default=None,
                  help='directory of gosai_{train,val,test}.csv (default '
                       '$SVDD_DATA_DIR, else /data/svdd; the synthetic '
@@ -247,11 +317,16 @@ def parser() -> argparse.ArgumentParser:
                  help='a cli.train_oracle --save_path file of the task, '
                       'the sample-quality oracle (other files raise)')
   p.add_argument('--gen_ppl_model', default=None,
-                 help="'ar' scores the samples with the repo's own AR "
-                      'backbone; any other name falls back to it (the '
-                      'Hugging Face path is not ported)')
+                 help='a Hugging Face causal LM name or path for the '
+                      'generative perplexity in sample_eval mode, from '
+                      "local files only, or 'ar' to score with the repo's "
+                      'own AR backbone (also the fallback where the named '
+                      'model cannot be loaded)')
   p.add_argument('--gen_ppl_ar_checkpoint', default=None,
-                 help='not ported yet: raises')
+                 help='the AR scorer: a pretraining checkpoint of this '
+                      'package of the ar backbone, or an export of the '
+                      "JAX package's (random init and a warning without "
+                      'one)')
   p.add_argument('--device', type=str, default='cuda',
                  help="torch device of the run ('cuda' or 'cpu')")
   return p

@@ -71,6 +71,9 @@ class SamplingConfig:
   steps: int = 128
   noise_removal: bool = True
   num_sample_batches: int = 2
+  semi_ar: bool = False        # sample_eval: strided semi-AR sampling
+  stride_length: int = 1
+  num_strides: int = 1
 
 
 @dataclass

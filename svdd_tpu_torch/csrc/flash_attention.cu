@@ -1,18 +1,28 @@
 // Multi-head softmax attention of the DiT and AR backbones, optionally
-// causal:
-//   out[b, i, h] = sum_j p_ij v[b, j, h] / sum_j p_ij,
-//   p_ij = exp(s_ij - max_j s_ij),  s_ij = q[b, i, h] . k[b, j, h] / sqrt(D)
-// with s, the row maxima and the row sums in f32, p rounded to v's type
-// before the p.v product (f32 accumulate), and the division by the f32
-// row sum at the end, as the TPU kernel does.
+// causal, in one of the two roundings the JAX package's dispatch takes
+// on a TPU (svdd_tpu/ops/attention.py:flash_mha):
+//   * the Pallas body's (L a multiple of 128, D of 64):
+//       out[b, i, h] = sum_j p_ij v[b, j, h] / sum_j p_ij,
+//       p_ij = exp(s_ij - max_j s_ij),  s_ij = q[b, i, h] . k[b, j, h] / sqrt(D)
+//     with s, the row maxima and the row sums in f32, p rounded to v's
+//     type before the p.v product (f32 accumulate), and the division by
+//     the f32 row sum at the end;
+//   * XLA's mha elsewhere (mha_rounding): out = sum_j P_ij v[b, j, h]
+//     with P_ij = p_ij / sum_j p_ij normalised in f32 and then rounded to
+//     v's type, so the keys are walked twice: a first pass of q.k alone
+//     for each row's maximum and sum, then the p.v pass. Built for bf16
+//     alone: in float32 the rounding to v's type does nothing and the two
+//     roundings are one function, which the single pass computes.
 //
 // Replaces svdd_tpu/ops/flash_attention_pallas.py:flash_attention
-// (pallas_call :66, body _attn_kernel :31-51).
+// (pallas_call :66, body _attn_kernel :31-51), and XLA's mha
+// (svdd_tpu/ops/attention.py:28) at the shapes JAX's dispatch sends there.
 //
 // What bounds it on an H100: operations. A call does 4 L^2 D flops per
 // (batch, head) against 4 L D elements moved, some 500 flops per byte
-// at L = 1024, D = 64. So both products run on the tensor cores, as
-// warp-level mma.sync in the FlashAttention-2 shape:
+// at L = 1024, D = 64 (the mha rounding adds the first pass's 2 L^2 D
+// and a second exponential a score). So both products run on the tensor
+// cores, as warp-level mma.sync in the FlashAttention-2 shape:
 //   * bf16: m16n8k16 bf16 x bf16 -> f32, the rate the card's bound
 //     assumes (989 TFLOP/s);
 //   * f32: 3xTF32, m16n8k8 tf32 -> f32. Each operand x is split into
@@ -27,7 +37,9 @@
 // Tile: a block is 4 warps (8 for f32 at D = 128), each over 32 query
 // rows as two 16-row m-tiles, and walks the keys in tiles of BN (Shape
 // below) with an online softmax: a running row maximum m and row sum l,
-// the output rescaled by exp(m_old - m_new) when the maximum grows. The
+// the output rescaled by exp(m_old - m_new) when the maximum grows (in
+// the mha rounding the first pass keeps m and l so, and the second
+// normalises each p by the final sum before the p.v product). The
 // L x L scores never leave registers: s is the accumulator of the q.k
 // mma, the softmax runs on it with quad shuffles for the row maxima
 // (each row of an accumulator lies in one quad of 4 lanes), and p,
@@ -36,7 +48,8 @@
 // index is permuted, key 2t -> column t and 2t+1 -> t+4, and v's rows
 // the same way). K and V tiles stream through a double-buffered
 // shared-memory ring filled by 16-byte cp.async (rows past L
-// zero-filled), so the next tile's loads overlap this tile's products;
+// zero-filled; the first pass of the mha rounding loads K alone), so the
+// next tile's loads overlap this tile's products;
 // the query tile is loaded the same way once. Fragments are read by
 // ldmatrix (.trans for bf16 v). Shared-memory rows are padded by 16
 // bytes, which puts the 8 row addresses of every ldmatrix phase on
@@ -50,13 +63,16 @@
 //
 // Rounding: the scores are scaled after the product, in the exp2 domain
 // (2^(s * log2(e)/sqrt(D) - m), one fma and one ex2.approx), not the
-// TPU's exp(s/sqrt(D) - m): a few f32 ulps of p. p is rounded to v's
-// type against the running maximum, not the row's final one. In bf16
-// that rounding can land one bf16 ulp apart from the TPU kernel's for
-// rows whose maximum grows after the first tile, and the plain version
-// (svdd_tpu_torch/ops/attention.py:mha) rounds the normalised
-// probabilities: a bf16 ulp of a term of the p.v sum either way. In f32
-// the products carry 3xTF32's ~2^-20 relative error and are summed in
+// TPU's exp(s/sqrt(D) - m): a few f32 ulps of p. In the body's rounding p
+// is rounded to v's type against the running maximum, not the row's final
+// one: in bf16 that rounding can land one bf16 ulp apart from the TPU
+// kernel's for rows whose maximum grows after the first tile (the plain
+// form, svdd_tpu_torch/ops/attention.py:attention_body_plain, rounds
+// against the final one). The mha rounding normalises by the final sum,
+// as 2^(s c - (m + log2 l)) (a few f32 ulps from the quotient, and no
+// division), and rounds as svdd_tpu_torch/ops/attention.py:mha does. In
+// f32 the
+// products carry 3xTF32's ~2^-20 relative error and are summed in
 // another order.
 #include "common.cuh"
 
@@ -187,7 +203,9 @@ struct Tiles : Shape<T, HD> {
   }
 };
 
-template <typename T, int HD>
+// kNorm: the mha rounding, a statistics pass over the keys, then the p.v
+// pass on probabilities normalised before they are rounded
+template <typename T, int HD, bool kNorm>
 __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out, int L,
@@ -238,10 +256,13 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
 
   const int n_kv = (L + kBN - 1) / kBN;
   const int n_kt = causal ? min(n_kv, (min(q0 + kBM, L) - 1) / kBN + 1) : n_kv;
+  // iterations over the key tiles: one pass, or (kNorm) the statistics
+  // pass and the p.v pass; the ring's stage alternates across both
+  const int n_it = kNorm ? 2 * n_kt : n_kt;
 
   load_tile(Qs, qb, q0, kBM, qsl);
   load_tile(Ks, kb, 0, kBN, ksl);
-  load_tile(Vs, vb, 0, kBN, vsl);
+  if (!kNorm) load_tile(Vs, vb, 0, kBN, vsl);
   cp_async_commit();
 
   // ldmatrix row addresses of this lane. q (A operand) and v (B operand,
@@ -283,17 +304,30 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
       l[mi][r] = 0.f;
     }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_tile(Ks + (st ^ 1) * kBN * kLd, kb, (kt + 1) * kBN, kBN, ksl);
-      load_tile(Vs + (st ^ 1) * kBN * kLd, vb, (kt + 1) * kBN, kBN, vsl);
+  for (int it = 0; it < n_it; ++it) {
+    const int kt = it < n_kt ? it : it - n_kt;
+    const bool stats = kNorm && it < n_kt;   // q.k alone: m and l
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      const int nk = it + 1 < n_kt ? it + 1 : it + 1 - n_kt;
+      load_tile(Ks + (st ^ 1) * kBN * kLd, kb, nk * kBN, kBN, ksl);
+      if (!kNorm || it + 1 >= n_kt)
+        load_tile(Vs + (st ^ 1) * kBN * kLd, vb, nk * kBN, kBN, vsl);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    if (kNorm && it == n_kt) {
+      // the statistics pass is done: each row's full sum, folded into
+      // its shift, 2^(s c - m) / l = 2^(s c - (m + log2 l)), so the p.v
+      // pass normalises with no division
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[mi][r] += log2f(quad_sum(l[mi][r]));
+    }
 
     const int k0 = kt * kBN;
     // a warp whose rows all precede the tile's first key skips it
@@ -367,6 +401,18 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
             }
       }
 
+      if (kNorm && !stats) {
+        // p normalised by the final maximum and sum (the shift), then
+        // rounded below
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+          for (int i = 0; i < kSTiles; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              s[mi][i][j] = exp2_approx(fmaf(s[mi][i][j], scale_log2,
+                                             -m[mi][j >> 1]));
+      } else {
       // online softmax on the accumulators; tile 0 holds key 0, which
       // every row may attend, so m is finite from the first tile on
 #pragma unroll
@@ -389,16 +435,21 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
               rs += s[mi][i][j];
             }
           l[mi][r] = l[mi][r] * alpha + rs;
+          if (!kNorm) {
 #pragma unroll
-          for (int i = 0; i < kOTiles; ++i) {
-            o[mi][i][2 * r] *= alpha;
-            o[mi][i][2 * r + 1] *= alpha;
+            for (int i = 0; i < kOTiles; ++i) {
+              o[mi][i][2 * r] *= alpha;
+              o[mi][i][2 * r + 1] *= alpha;
+            }
           }
         }
+      }
 
       // o += p . v, p rounded to v's type in registers
       const T* vt = Vs + st * kBN * kLd;
-      if constexpr (kBf16) {
+      if (stats) {
+        // the statistics pass reads no v
+      } else if constexpr (kBf16) {
         const uint32_t v_addr = smem_u32(vt) + v_off;
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -461,12 +512,13 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
   }
 
   // out is (B, L, H, HD), contiguous; the division by the row sum last
+  // (kNorm: p was normalised before the product)
 #pragma unroll
   for (int mi = 0; mi < kM; ++mi)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = w0 + 16 * mi + g + 8 * r;
-      const float den = quad_sum(l[mi][r]);
+      const float den = kNorm ? 1.f : quad_sum(l[mi][r]);
       if (row >= L) continue;
       T* orow = out + ((static_cast<size_t>(b) * L + row) * H + h) * HD + 2 * t;
 #pragma unroll
@@ -475,28 +527,46 @@ __global__ void __launch_bounds__(Tiles<T, HD>::kThreads)
     }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kNorm>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int L,
            int H, const int* st, float scale_log2, int causal,
            cudaStream_t stream) {
   using TL = Tiles<T, HD>;
   const size_t smem = TL::smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HD, kNorm>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid((L + TL::kBM - 1) / TL::kBM, B * H);
-  flash_attention_kernel<T, HD><<<grid, TL::kThreads, smem, stream>>>(
+  flash_attention_kernel<T, HD, kNorm><<<grid, TL::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), L, H, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], scale_log2, causal);
   return cudaGetLastError();
 }
 
+// The mha rounding (kNorm) is built for bf16 alone: in float32 v's type
+// is f32, so rounding p before or after the normalisation is one
+// function, and the single pass computes it (the wrapper takes it for
+// float32 at every shape; a float32 call with the flag set is refused).
+template <typename T, int HD>
+int launch_rounding(const void* q, const void* k, const void* v, void* out,
+                    int B, int L, int H, const int* st, float scale_log2,
+                    int causal, int mha_rounding, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (mha_rounding)
+      return launch<T, HD, true>(q, k, v, out, B, L, H, st, scale_log2, causal,
+                                 s);
+  } else {
+    if (mha_rounding) return cudaErrorInvalidValue;
+  }
+  return launch<T, HD, false>(q, k, v, out, B, L, H, st, scale_log2, causal, s);
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B, int L,
              int H, int D, const int* st, float scale_log2, int causal,
-             cudaStream_t s) {
+             int mha_rounding, cudaStream_t s) {
   // 16-byte cp.async: every row start 16-byte aligned
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
@@ -506,8 +576,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
     if (st[i] % static_cast<int>(16 / sizeof(T))) return cudaErrorMisalignedAddress;
   // the head dims built: the presets' 64 and 128 (e.g. the text preset
   // at 6 heads); any other D is refused here and by the wrapper
-  if (D == 64) return launch<T, 64>(q, k, v, out, B, L, H, st, scale_log2, causal, s);
-  if (D == 128) return launch<T, 128>(q, k, v, out, B, L, H, st, scale_log2, causal, s);
+  if (D == 64)
+    return launch_rounding<T, 64>(q, k, v, out, B, L, H, st, scale_log2, causal,
+                                  mha_rounding, s);
+  if (D == 128)
+    return launch_rounding<T, 128>(q, k, v, out, B, L, H, st, scale_log2, causal,
+                                   mha_rounding, s);
   return cudaErrorInvalidValue;
 }
 
@@ -517,13 +591,15 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 // over D, 16-byte aligned, and element strides (batch, position, head)
 // in st[0..2] (q), st[3..5] (k), st[6..8] (v), each a multiple of 16
 // bytes; out (B, L, H, D) contiguous in the same type. D is 64 or 128.
-// scale: 1/sqrt(D). dtype: 0 float32, 1 bfloat16.
+// scale: 1/sqrt(D). mha_rounding: 0 the Pallas body's rounding, 1
+// XLA mha's (p normalised, then rounded; bfloat16 only). dtype: 0
+// float32, 1 bfloat16.
 extern "C" int svdd_flash_attention(const void* q, const void* k, const void* v,
                                     void* out, int B, int L, int H, int D,
                                     int qsb, int qsl, int qsh, int ksb, int ksl,
                                     int ksh, int vsb, int vsl, int vsh,
-                                    float scale, int causal, int dtype,
-                                    void* stream) {
+                                    float scale, int causal, int mha_rounding,
+                                    int dtype, void* stream) {
   // grid.y is B * H, at most 65535
   if (B < 1 || L < 1 || H < 1 || static_cast<long long>(B) * H > 65535)
     return cudaErrorInvalidValue;
@@ -531,9 +607,10 @@ extern "C" int svdd_flash_attention(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, L, H, D, st, scale_log2, causal, s);
+    return dispatch<float>(q, k, v, out, B, L, H, D, st, scale_log2, causal,
+                           mha_rounding, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, out, B, L, H, D, st, scale_log2,
-                                   causal, s);
+                                   causal, mha_rounding, s);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
-"""The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT
-or DiMamba) + schedule + SUBS parameterization + the unguided (ddpm,
-ddpm_cache), SVDD-MC (with scheduled M, and with a step-indexed value
-function), SVDD-PM (Tweedie), TDS, DPS and classifier-guidance
-samplers, the CD-Q trajectory sampler of value-net training, and the
-CNN denoiser's training loss.
+"""The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT,
+DiMamba or the AR transformer) + schedule + the SUBS parameterization
+(or, for ``parameterization='ar'``, the backbone's next-token log-probs
+as they are) + the unguided (ddpm, ddpm_cache), SVDD-MC (with scheduled
+M, and with a step-indexed value function), SVDD-PM (Tweedie), TDS, DPS
+and classifier-guidance samplers, the CD-Q trajectory sampler of
+value-net training, and the training loss of every backbone: the SUBS
+NELBO, or the AR baseline's shifted next-token NLL.
 
 The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
 the gradient-guided ones); ``loss`` runs under autograd, and with
@@ -17,6 +19,7 @@ import torch
 
 from svdd_tpu_torch import mdlm, schedules
 from svdd_tpu_torch.config import Config
+from svdd_tpu_torch.models.autoregressive import ARModel
 from svdd_tpu_torch.models.cnn import CNNModel
 from svdd_tpu_torch.models.dimamba import DiMamba
 from svdd_tpu_torch.models.dit import DIT
@@ -39,7 +42,7 @@ def cnn_compute_dtype() -> torch.dtype:
 
 def build_backbone(config: Config, generator: torch.Generator):
   """Backbone factory. The CNN denoiser computes in
-  ``cnn_compute_dtype()``, the DiT and DiMamba in
+  ``cnn_compute_dtype()``, the DiT, DiMamba and AR in
   ``compute_dtype(config)``."""
   if config.backbone == 'cnn':
     return CNNModel(config, alphabet_size=config.vocab_size,
@@ -49,8 +52,10 @@ def build_backbone(config: Config, generator: torch.Generator):
   if config.backbone == 'dimamba':
     return DiMamba(config, config.vocab_size, compute_dtype(config),
                    generator)
-  raise NotImplementedError(f'backbone {config.backbone!r} is not ported '
-                            'yet')
+  if config.backbone == 'ar':
+    return ARModel(config, config.vocab_size, compute_dtype(config),
+                   generator)
+  raise ValueError(f'unknown backbone {config.backbone}')
 
 
 class Diffusion:
@@ -65,11 +70,10 @@ class Diffusion:
     self.mask_index = config.mask_index
     self.parameterization = config.parameterization
     self.time_conditioning = config.time_conditioning
-    if self.parameterization != 'subs':
-      item = 'A14' if self.parameterization == 'ar' else 'A1'
+    if self.parameterization not in ('subs', 'ar'):
       raise NotImplementedError(f'parameterization '
                                 f'{self.parameterization!r} is not ported '
-                                f'yet (ROADMAP {item})')
+                                'yet (ROADMAP A1)')
     self.schedule = schedules.get_schedule(
         config.noise.type, sigma_min=config.noise.sigma_min,
         sigma_max=config.noise.sigma_max, eps=config.noise.eps)
@@ -87,6 +91,8 @@ class Diffusion:
     return sigma
 
   def _parameterize(self, logits, xt):
+    if self.parameterization == 'ar':
+      return logits
     return mdlm.subs_parameterization(logits, xt, self.mask_index)
 
   def forward(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -103,20 +109,33 @@ class Diffusion:
 
   def loss(self, x0: torch.Tensor, attention_mask=None, *,
            train: bool = False, generator: torch.Generator | None = None,
-           noise=None) -> mdlm.LossOutput:
+           noise=None, masks=None) -> mdlm.LossOutput:
     """The continuous-time SUBS NELBO of the clean tokens x0 (B, L):
     times from ``training.sampling_eps`` (antithetic, optionally through
     the schedule's importance transform), x0 masked to x_t, the denoiser
     on x_t. ``noise`` = (t_uniforms (B,), mask_uniforms (B, L)) in place
     of the draws from ``generator``, which also draws the dropout masks
-    when ``train``. Differentiable in the backbone's parameters."""
+    when ``train``; ``masks`` (DiT, AR) the list of dropout masks in call
+    order in place of those draws. Under ``parameterization='ar'``, the
+    shifted next-token NLL of x0 (``svdd_tpu/diffusion.py:152-172``),
+    which draws no noise. Differentiable in the backbone's parameters."""
     cfg = self.config
+    drop = {} if masks is None else {'masks': masks}
+    if self.parameterization == 'ar':
+      if x0.shape[1] > cfg.model.length:
+        raise NotImplementedError('sub-sampling not implemented '
+                                  '(reference parity)')
+      if attention_mask is None:
+        attention_mask = torch.ones(x0.shape, device=x0.device)
+      mask = attention_mask[:, 1:]
+      logprobs = self.backbone(x0[:, :-1], None, train=train,
+                               generator=generator, **drop)
+      nll = -logprobs.gather(-1, x0[:, 1:, None].long())[..., 0]
+      nlls = nll * mask
+      return mdlm.LossOutput(nlls.sum() / mask.sum(), nlls, mask)
     if cfg.T > 0:
       raise NotImplementedError(f'T={cfg.T}: discrete-time training is '
                                 'not ported yet (ROADMAP A1)')
-    if cfg.backbone != 'cnn':
-      raise NotImplementedError(f'training the {cfg.backbone!r} backbone '
-                                'is not ported yet (ROADMAP A14)')
     if noise is None:
       noise = (mdlm.uniforms(x0.shape[:1], generator, self.device),
                mdlm.uniforms(tuple(x0.shape), generator, self.device))
@@ -129,7 +148,7 @@ class Diffusion:
     move_chance = (1 - torch.exp(-sigma))[:, None]
     xt = mdlm.q_xt(x0, move_chance, self.mask_index, q_u)
     logits = self.backbone(xt, self._process_sigma(sigma), train=train,
-                           generator=generator)
+                           generator=generator, **drop)
     return mdlm.nelbo_subs(self._parameterize(logits, xt), x0, sigma, dsigma,
                            attention_mask)
 

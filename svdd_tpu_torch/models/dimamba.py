@@ -14,6 +14,11 @@ bf16 embedding and a bf16 scale and returns bf16; ``modulate`` with the
 f32 adaLN shift and scale makes f32, so the mixers, the later blocks'
 norms and the final norm run in f32. Random init follows flax, with the
 ``adaLN`` layers zero (a random block is then the identity).
+
+``x_onehot`` (N, L, V) replaces the token lookup by ``x_onehot @
+vocab_embed``, differentiable in it. The model has no dropout, so a
+training forward is the eval one; autograd runs through the scan loop,
+and B13's backward is the gradient of its plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from torch import nn
 
 from svdd_tpu_torch.config import Config
 from svdd_tpu_torch.models.blocks import lecun_normal
-from svdd_tpu_torch.models.dit import FlaxDense, TimestepEmbedder, modulate
+from svdd_tpu_torch.models.dit import (FlaxDense, TimestepEmbedder,
+                                       embed_tokens, modulate)
 from svdd_tpu_torch.ops.norms import fused_add_rmsnorm
 
 
@@ -148,10 +154,13 @@ class DiMamba(nn.Module):
     self.final_norm_scale = nn.Parameter(torch.ones(d, device=dev))
     self.lm_head = FlaxDense(d, vocab_size, generator)
 
-  def forward(self, indices: torch.Tensor,
-              sigma: torch.Tensor) -> torch.Tensor:
+  def forward(self, indices: torch.Tensor, sigma: torch.Tensor, *,
+              x_onehot: torch.Tensor | None = None, train: bool = False,
+              generator: torch.Generator | None = None,
+              masks=None) -> torch.Tensor:
+    del train, generator, masks     # no dropout, as flax's DiMamba
     cdt = self.compute_dtype
-    x = self.vocab_embed[indices].to(cdt)
+    x = embed_tokens(self.vocab_embed, indices, x_onehot, cdt)
     c = F.silu(self.sigma_map(sigma)).to(cdt)
     for block in self.blocks:
       x = block(x, c)

@@ -14,7 +14,14 @@ gets f32 q, k and v.
 Random init follows flax: lecun-normal Dense kernels, zero biases, unit
 LayerNorm scales, kaiming-uniform token embedding, and zeros for the
 ``adaLN`` layers and the final ``linear`` (so a random DiT's logits are
-0 until those are drawn otherwise). Dropout is not applied (eval only).
+0 until those are drawn otherwise).
+
+``x_onehot`` (N, L, V) replaces the token lookup by ``x_onehot @
+vocab_embed``, differentiable in it (the gradient-guided decoders).
+Training (``train=True``) applies flax's dropout at ``model.dropout``
+after the attention output and the MLP of each block, its masks from a
+``blocks.DropoutMasks`` (drawn from ``generator``, or ``masks``, a list
+in call order).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from svdd_tpu_torch.config import Config
+from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.models.blocks import Dense
 from svdd_tpu_torch.ops import attention as attn_ops
 
@@ -134,14 +142,36 @@ def attention(qkv_proj: nn.Module, out_proj: nn.Module, xm: torch.Tensor,
   return out_proj(o.reshape(b, l, dim))
 
 
+def embed_tokens(embed: torch.Tensor, indices, x_onehot, dtype):
+  """The token embedding, or ``x_onehot @ embed`` given a one-hot input,
+  in ``dtype``."""
+  x = embed[indices] if x_onehot is None else x_onehot.to(embed.dtype) @ embed
+  return x.to(dtype)
+
+
+def training_masks(train: bool, rate: float, generator, masks):
+  """The ``DropoutMasks`` of a forward: None in eval or at rate 0, the
+  given list of masks, else drawn from ``generator``."""
+  if not train or rate == 0.0:
+    return None
+  if masks is not None:
+    return blocks.DropoutMasks(masks=masks)
+  if generator is None:
+    raise ValueError('a training forward with dropout needs a generator '
+                     'or the masks')
+  return blocks.DropoutMasks(generator=generator)
+
+
 class DDiTBlock(nn.Module):
   """adaLN-zero transformer block."""
 
   def __init__(self, dim: int, n_heads: int, cond_dim: int,
-               generator: torch.Generator, mlp_ratio: int = 4):
+               generator: torch.Generator, mlp_ratio: int = 4,
+               dropout: float = 0.0):
     super().__init__()
     dev = generator.device
     self.n_heads = n_heads
+    self.dropout = dropout
     self.adaLN = FlaxDense(cond_dim, 6 * dim, generator, zero=True)
     self.norm_0 = FlaxLayerNorm(dim, 1e-5, dev)
     self.attn_qkv = FlaxDense(dim, 3 * dim, generator, bias=False)
@@ -150,16 +180,16 @@ class DDiTBlock(nn.Module):
     self.mlp_0 = FlaxDense(dim, mlp_ratio * dim, generator)
     self.mlp_1 = FlaxDense(mlp_ratio * dim, dim, generator)
 
-  def forward(self, x, cos, sin, c):
+  def forward(self, x, cos, sin, c, masks=None):
     (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
      gate_mlp) = self.adaLN(c).chunk(6, dim=-1)
     xm = modulate(self.norm_0(x), shift_msa, scale_msa)
     o = attention(self.attn_qkv, self.attn_out, xm, cos, sin,
                   self.n_heads, causal=False)
-    x = x + gate_msa[:, None] * o
+    x = x + gate_msa[:, None] * blocks.dropout(o, self.dropout, masks)
     xm = modulate(self.norm_1(x), shift_mlp, scale_mlp)
     y = self.mlp_1(F.gelu(self.mlp_0(xm), approximate='tanh'))
-    return x + gate_mlp[:, None] * y
+    return x + gate_mlp[:, None] * blocks.dropout(y, self.dropout, masks)
 
 
 class DDitFinalLayer(nn.Module):
@@ -192,6 +222,7 @@ class DIT(nn.Module):
     dim = mcfg.hidden_size
     self.n_heads = mcfg.n_heads
     self.compute_dtype = compute_dtype
+    self.dropout = mcfg.dropout
     # flax kaiming_uniform over (V, dim): fan_in V, variance 2 / V
     bound = math.sqrt(6.0 / vocab_size)
     self.vocab_embed = nn.Parameter(
@@ -199,19 +230,23 @@ class DIT(nn.Module):
             -bound, bound, generator=generator))
     self.sigma_map = TimestepEmbedder(mcfg.cond_dim, generator)
     self.blocks = nn.ModuleList(
-        DDiTBlock(dim, mcfg.n_heads, mcfg.cond_dim, generator)
+        DDiTBlock(dim, mcfg.n_heads, mcfg.cond_dim, generator,
+                  dropout=mcfg.dropout)
         for _ in range(mcfg.n_blocks))
     self.output_layer = DDitFinalLayer(dim, vocab_size, mcfg.cond_dim,
                                        generator)
 
-  def forward(self, indices: torch.Tensor,
-              sigma: torch.Tensor) -> torch.Tensor:
+  def forward(self, indices: torch.Tensor, sigma: torch.Tensor, *,
+              x_onehot: torch.Tensor | None = None, train: bool = False,
+              generator: torch.Generator | None = None,
+              masks=None) -> torch.Tensor:
     cdt = self.compute_dtype
-    x = self.vocab_embed[indices].to(cdt)
+    x = embed_tokens(self.vocab_embed, indices, x_onehot, cdt)
     c = F.silu(self.sigma_map(sigma)).to(cdt)
     cos, sin = rotary_cos_sin(x.shape[1], x.shape[2] // self.n_heads,
                               device=x.device)
     cos, sin = cos.to(cdt), sin.to(cdt)
+    drop = training_masks(train, self.dropout, generator, masks)
     for block in self.blocks:
-      x = block(x, cos, sin, c)
+      x = block(x, cos, sin, c, drop)
     return self.output_layer(x, c).float()

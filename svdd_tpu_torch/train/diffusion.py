@@ -1,4 +1,6 @@
-"""MDLM diffusion pretraining of the denoiser (``svdd_tpu/train/diffusion.py``).
+"""MDLM diffusion pretraining of the denoiser (``svdd_tpu/train/diffusion.py``):
+any backbone of ``Diffusion`` (the CNN, DiT, DiMamba, or the AR baseline
+under ``parameterization='ar'``).
 
 One optimizer step: the batch split into ``training.accum_steps``
 microbatches, each with its own times, masks and dropout; their losses
@@ -141,11 +143,12 @@ def _batch_to(batch, device) -> dict:
   return out
 
 
-def train_step(state: TrainState, batch, config: Config, noise=None
-               ) -> torch.Tensor:
+def train_step(state: TrainState, batch, config: Config, noise=None,
+               masks=None) -> torch.Tensor:
   """One optimizer step on ``batch`` (numpy arrays or device tensors);
   returns the mean loss (a 0-dim device tensor). ``noise``: one
-  (t_uniforms, mask_uniforms) pair per microbatch, in place of the
+  (t_uniforms, mask_uniforms) pair per microbatch, and ``masks`` one list
+  of dropout masks per microbatch (the DiT's and AR's), in place of the
   generator's draws (tests)."""
   accum = max(1, config.training.accum_steps)
   model = state.model
@@ -163,7 +166,8 @@ def train_step(state: TrainState, batch, config: Config, noise=None
     mask = b.get('attention_mask')
     out = model.loss(b['seqs'][rows], None if mask is None else mask[rows],
                      train=True, generator=state.generator,
-                     noise=None if noise is None else noise[i])
+                     noise=None if noise is None else noise[i],
+                     masks=None if masks is None else masks[i])
     out.loss.backward()
     loss = out.loss.detach() if loss is None else loss + out.loss.detach()
   if accum > 1:

@@ -12,7 +12,8 @@ constructor arguments (``config()``) and its state dict (parameters and
 BatchNorm running statistics). ``load_checkpoint`` reads it back; it
 raises ``NotImplementedError`` naming ROADMAP A17 for any other file
 (an orbax directory; the CLIs' checkpoint flags import a reference
-``.pt`` through ``importers/`` before they get here), and ``ValueError``
+``.pt`` through ``importers/``, and read an export of the JAX package's
+checkpoints, before they get here), and ``ValueError``
 naming both tasks for a file of the other task.
 
 The value-net factory builds the Enformer and its timed variant
@@ -259,7 +260,8 @@ def load_checkpoint(path: str, mmap: bool = False,
     raise NotImplementedError(
         f'{path}: not a value-net or oracle checkpoint of this package '
         f'({FORMAT}) nor a reference torch pickle the checkpoint flags '
-        'import; reading orbax checkpoints is not ported yet (ROADMAP A17)')
+        "import; the JAX package's orbax checkpoints are read as exports "
+        '(ROADMAP A17: scripts/export_jax_checkpoint.py writes one)')
   if task is not None:
     want, held = checkpoint_task(task), ckpt.get('task', 'dna')
     if held != want:

@@ -416,11 +416,13 @@ def dit_from_jax(variables, config: Config,
 
 
 def ar_from_jax(variables, config: Config,
-                compute_dtype: torch.dtype = torch.bfloat16) -> ARModel:
-  """An AR model (on CPU) holding the flax ARModel's variables."""
+                compute_dtype: torch.dtype = torch.bfloat16,
+                device='cpu') -> ARModel:
+  """An AR model (on ``device``) holding the flax ARModel's variables."""
   p = variables['params']
   vocab = np.asarray(p['vocab_embed']).shape[0]
-  model = ARModel(config, vocab, compute_dtype, generator=_generator())
+  model = ARModel(config, vocab, compute_dtype,
+                  generator=_generator(device))
   _copy(model.vocab_embed, p['vocab_embed'])
   for i, block in enumerate(model.blocks):
     _transformer_body(block, p[f'block_{i}'])
@@ -430,11 +432,13 @@ def ar_from_jax(variables, config: Config,
 
 
 def dimamba_from_jax(variables, config: Config,
-                     compute_dtype: torch.dtype = torch.bfloat16) -> DiMamba:
-  """A DiMamba (on CPU) holding the flax DiMamba's variables."""
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     device='cpu') -> DiMamba:
+  """A DiMamba (on ``device``) holding the flax DiMamba's variables."""
   p = variables['params']
   vocab = np.asarray(p['vocab_embed']).shape[0]
-  model = DiMamba(config, vocab, compute_dtype, generator=_generator())
+  model = DiMamba(config, vocab, compute_dtype,
+                  generator=_generator(device))
   _copy(model.vocab_embed, p['vocab_embed'])
   _timestep_embedder(model.sigma_map, p['TimestepEmbedder_0'])
   for i, block in enumerate(model.blocks):

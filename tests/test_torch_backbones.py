@@ -318,3 +318,74 @@ def test_text_mdlm_preset_matches_the_jax_yaml():
       assert want[section] == fields, section
   assert Config.from_yaml(REPO_CONFIGS[1]).to_dict() == got
   assert math.isclose(got['noise']['eps'], 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# B12's rounding gate: where JAX's dispatch takes the Pallas body
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize('d', [16, 64, 96, 128])
+def test_body_rounds_gate_against_jax_dispatch(d, monkeypatch):
+  """``flash_attention.body_rounds(L, D)`` holds exactly where
+  svdd_tpu's ``flash_mha``, on a TPU, takes the Pallas kernel rather
+  than XLA's ``mha``, over L in 1..520 (traced, no values: the TPU
+  check patched true, the kernel replaced by a recorder)."""
+  taken = []
+
+  def kernel(q, k, v, causal=False):
+    taken.append(q.shape[1])
+    return q
+
+  monkeypatch.setattr(jattn, '_is_tpu', lambda: True)
+  monkeypatch.setattr(jfap, 'flash_attention', kernel)
+  lengths = list(range(1, 257)) + [384, 400, 512, 520]
+  jattn.flash_mha._clear_cache()
+  try:
+    for l in lengths:
+      spec = jax.ShapeDtypeStruct((1, l, 2, d), jnp.float32)
+      jax.eval_shape(jattn.flash_mha, spec, spec, spec)
+  finally:
+    jattn.flash_mha._clear_cache()
+  assert taken == [l for l in lengths if tfa.body_rounds(l, d)]
+  assert taken == ([128, 256, 384, 512] if d % 64 == 0 else [])
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('l', [200, 256])
+def test_attention_roundings_match_jax_in_bf16(l, causal):
+  """bf16 q, k, v at (2, L, 2, 64): off the gate (L = 200) the port's
+  ``mha`` against svdd_tpu's ``mha`` run op by op, on it (L = 256) the
+  port's ``attention_body_plain`` against the Pallas body in interpret
+  mode; each within one bf16 ulp of the output's scale (2^-8: the f32
+  sums in another order may round an output apart). The dispatcher on
+  CPU tensors takes that form bit for bit, and the other rounding lies
+  farther from JAX's at the same shape."""
+  rs = np.random.default_rng(l + int(causal))
+  q, k, v = (rs.normal(size=(2, l, 2, 64)).astype(np.float32)
+             for _ in range(3))
+  jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+  tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+  if l % 128:
+    with jax.disable_jit():
+      want = jattn.mha(jq, jk, jv, causal=causal)
+    mine, other = tattn.mha, tattn.attention_body_plain
+  else:
+    jfap.flash_attention._clear_cache()
+    try:
+      want = _interpret(lambda: jfap.flash_attention(jq, jk, jv,
+                                                     causal=causal))
+    finally:
+      jfap.flash_attention._clear_cache()
+    mine, other = tattn.attention_body_plain, tattn.mha
+  want = np.asarray(want, np.float32)
+  scale = np.abs(want).max()
+  got = mine(tq, tk, tv, causal)
+  assert got.dtype == torch.bfloat16
+  err = np.abs(got.float().numpy() - want).max()
+  assert err <= 2 ** -8 * scale, err
+  np.testing.assert_array_equal(
+      tattn.flash_mha(tq, tk, tv, causal).float().numpy(),
+      got.float().numpy())
+  err_other = np.abs(other(tq, tk, tv, causal).float().numpy() - want)
+  assert err_other.mean() > np.abs(got.float().numpy() - want).mean()

@@ -229,7 +229,9 @@ def test_port_imports_no_jax():
           'svdd_tpu_torch.eval.validation, svdd_tpu_torch.eval.metrics, '
           'svdd_tpu_torch.observability, svdd_tpu_torch.utils, '
           'svdd_tpu_torch.checkpoint, svdd_tpu_torch.importers, '
-          'svdd_tpu_torch.models.multisep, svdd_tpu_torch.cli.train; '
+          'svdd_tpu_torch.models.multisep, svdd_tpu_torch.cli.train, '
+          'svdd_tpu_torch.sampling.semi_ar, svdd_tpu_torch.data.text, '
+          'svdd_tpu_torch.diffusion; '
           "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'svdd_tpu') "
           'if m in sys.modules]; '
           'assert not bad, bad')
