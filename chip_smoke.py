@@ -123,8 +123,25 @@ exits non-zero and prints no result:
      RuntimeError, as JAX's CLI does); phase 5's denoiser and value net
      written as exports of the JAX package's checkpoints and read back
      through the flags bit for bit;
+ 10. the rest of A1: ``main_gosai --mode train --task dna`` at full width
+     (batch 512, accum 2, 4 steps, f32) under ``parameterization=d3pm
+     T=128``, ``sedd``, ``T=128`` (SUBS), ``noise.type`` cosine,
+     cosinesqr, linear (importance sampling) and geometric, and
+     ``model.cls_free_guidance=true``, each with exact B1 and B6 counts
+     (D3PM with T > 0: 40 a microbatch, its reconstruction forward);
+     ppl_eval and sample_eval from the D3PM and class-conditioned
+     checkpoints; one 8-row step of D3PM, SEDD and the class-conditioned
+     CNN card vs CPU, f32 and bf16, as phase 5's; traced steps of those
+     three; the classifier-head CNN card vs CPU; B2 against its plain
+     version on a log q with +inf lanes (SEDD's zero-sigma log score);
+     the saluki task: the six-channel ConvGRU oracle on (4, 12288, 6)
+     card vs CPU, ``cli.decode`` (SVDD-MC) and ``cli.decode_tweedie``
+     (SVDD-PM) at --task rna_saluki (B=32, M=5, 16 steps, a body written
+     from a seed) with exact B1 and B2 counts and one oracle call's ms
+     and peak memory, ``cli.train`` (MC) and ``cli.train_oracle`` at
+     --task rna_saluki;
 then the kernels line (launches summed over the runs of phases 3-5 and
-7-9; B1's, B6's and B2's RNA points under ``rna``),
+7-10; B1's, B6's and B2's RNA points under ``rna``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -2839,15 +2856,16 @@ def check_resume() -> dict:
   return r
 
 
-def run_ckpt_readers(ckpt_dir: str) -> dict:
+def run_ckpt_readers(ckpt_dir: str, sets=TRAIN_SET) -> dict:
   """``--mode ppl_eval`` and ``--mode sample_eval`` (one batch of 512,
-  128 steps) from the f32 training run's checkpoint directory."""
+  128 steps) from a training run's checkpoint directory (the f32 run's,
+  or, with ``sets``, a phase 10 run's, under its --set)."""
   import numpy as np
   import torch
   from svdd_tpu_torch import _build
   from svdd_tpu_torch.cli import main_gosai
   common = ['--device', 'cuda', '--ckpt_dir', ckpt_dir,
-            '--data_dir', _no_data_dir(), '--set', *TRAIN_SET,
+            '--data_dir', _no_data_dir(), '--set', *sets,
             'sampling.num_sample_batches=1']
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(common))
   _build.reset_launches()
@@ -2884,7 +2902,10 @@ def _train_once(model, cfg, noise, dev, taps=None):
   state = train_diff.init_state(den, cfg)
   hooks = [] if taps is None else [
       layer.register_forward_pre_hook(
-          lambda mod, args: taps.append([a.detach() for a in args[:2]]))
+          lambda mod, args: taps.append(
+              [None if a is None else a.detach()
+               for a in (args[0], args[1], args[4] if len(args) > 4
+                         else None)]))
       for layer in den.backbone.layers] + [
           den.backbone.layers[-1].register_forward_hook(
               lambda mod, args, out: taps.append([out.detach()]))]
@@ -2901,10 +2922,10 @@ def _train_once(model, cfg, noise, dev, taps=None):
 
 def _relu_masks(model, taps, dev) -> list:
   """For each forward of a training step, from the inputs its layers were
-  given (``taps``: each layer's (input, time embedding), then the last
-  layer's output): the relu masks of the stem, of each layer and of the
-  first 1x1 conv as that forward computed them on ``dev`` with
-  ``model``'s weights before the update. The stem's is where layer 0's
+  given (``taps``: each layer's (input, time embedding, class embedding
+  or None), then the last layer's output): the relu masks of the stem,
+  of each layer and of the first 1x1 conv as that forward computed them
+  on ``dev`` with ``model``'s weights before the update. The stem's is where layer 0's
   input is positive; a layer's is the one its backward kernel reports
   (the forward kernel's, bit for bit; on the CPU the plain version's);
   the 1x1 conv's is its forward again, on the same inputs. As CPU bool
@@ -2920,9 +2941,9 @@ def _relu_masks(model, taps, dev) -> list:
     for c in range(len(taps) // per_call):
       call = taps[c * per_call:(c + 1) * per_call]
       layers = []
-      for layer, (x, emb) in zip(m.layers, call):
+      for layer, (x, emb, cls_emb) in zip(m.layers, call):
         *_, mask = K.cnn_layer_bwd(
-            x, layer.time(emb), layer.ln_scale, layer.ln_bias,
+            x, layer.bias_row(emb, cls_emb), layer.ln_scale, layer.ln_bias,
             layer.kernel.to(x.dtype), layer.conv_bias, torch.zeros_like(x),
             dilation=layer.dilation, return_mask=True)
         layers.append(mask.cpu())
@@ -2946,8 +2967,9 @@ def _forward_f64(self, seq, sigma, x_onehot=None, train=False,
                  generator=None):
   """The CNN denoiser's forward in float64 by plain autograd ops: the
   time embedding, the stem, each layer's relu(conv(LN(x + bias_row))) +
-  x and the two 1x1 convs, through no kernel and no plain version of the
-  port. Where ``self.relu_masks`` holds the masks of another run (one
+  x (the bias row holding the null class's projection in a
+  class-conditioned net) and the two 1x1 convs, through no kernel and no
+  plain version of the port. Where ``self.relu_masks`` holds the masks of another run (one
   entry a forward, ``_relu_masks``), each relu takes that run's side of
   0; ``self.flips`` then gets, a relu, how many inputs that mask puts on
   the other side from this forward's and the largest |input| among
@@ -2970,8 +2992,13 @@ def _forward_f64(self, seq, sigma, x_onehot=None, train=False,
                             self.time_linear.bias))
   feat = relu(_conv_f64(F.one_hot(seq.long(), self.alphabet_size).to(f64),
                         self.stem_kernel, self.stem_bias, 1), 'stem')
+  # a class-conditioned net at the null class
+  cls_emb = (None if self.cls_embedder is None
+             else self.cls_embedder[self.num_cls].expand(seq.shape[0], -1))
   for i, layer in enumerate(self.layers):
     h = feat + F.linear(emb, layer.time.weight, layer.time.bias)[:, None]
+    if cls_emb is not None:
+      h = h + F.linear(cls_emb, layer.cls.weight, layer.cls.bias)[:, None]
     mu = h.mean(-1, keepdim=True)
     var = ((h - mu) ** 2).mean(-1, keepdim=True)
     h = (h - mu) * torch.rsqrt(var + 1e-6) * layer.ln_scale + layer.ln_bias
@@ -3022,12 +3049,15 @@ def _replay_update(model, cfg, grads):
     return {k: p - before[k] for k, p in named.items()}
 
 
-def check_train_step(f32_cpu=None):
+def check_train_step(f32_cpu=None, variant: str | None = None):
   """One training step of the full-width denoiser on TRAIN_CPU_ROWS rows
   (accum 2, rate lr from the first update, random weights with every
   parameter perturbed) with the same injected noise on the card and on
-  the CPU. f32: the loss within TRAIN_TOL relative; a third witness, the
-  same step in float64 on the CPU through plain autograd
+  the CPU; ``variant`` (a key of A1_STEP_VARIANTS) sets the config's
+  parameterization, T, sampling_eps or class conditioning. B1 and B6 run
+  exactly 20 x 2 times, 20 x 4 under D3PM with T > 0 (its
+  reconstruction forward). f32: the loss within TRAIN_TOL relative; a
+  third witness, the same step in float64 on the CPU through plain autograd
   (``_f64_denoiser``) on the relu masks the card's step took
   (``_relu_masks``): the card's loss and every parameter's clipped
   gradient within TRAIN_TOL of it, relative by norm, and each gradient
@@ -3055,6 +3085,8 @@ def check_train_step(f32_cpu=None):
   cfg = dna_config()
   cfg.training.accum_steps = 2
   cfg.optim.warmup_steps = 0
+  if variant is not None:
+    cfg = cfg.override(**A1_STEP_VARIANTS[variant])
   g = torch.Generator().manual_seed(3)
   model = CNNModel(cfg, compute_dtype=torch.bfloat16 if bf16 else
                    torch.float32, generator=torch.Generator().manual_seed(1))
@@ -3070,8 +3102,10 @@ def check_train_step(f32_cpu=None):
   got = _train_once(model, cfg, noise, 'cuda', card_taps)
   torch.cuda.synchronize()
   launches = _build.launches()
-  if any(launches[k] == 0 for k in TRAIN_KERNELS):
-    raise AssertionError(f'train step launches {launches}')
+  per = CNN_LAYERS * 2 * _forwards_a_microbatch(cfg)
+  _check_launches(f'train step {variant}', {k: launches[k] for k in
+                                            TRAIN_KERNELS},
+                  {k: per for k in TRAIN_KERNELS})
   want = _train_once(model, cfg, noise, 'cpu', cpu_taps)
   norm = torch.linalg.vector_norm
   rel = lambda a, b: float(norm(a - b) / max(float(norm(b)), 1e-30))
@@ -3084,7 +3118,8 @@ def check_train_step(f32_cpu=None):
   flips = sum(int((torch.sign(got[1][k]) != torch.sign(w)).sum())
               for k, w in want[1].items())
   n_params = sum(u.numel() for u in replay.values())
-  r = {'compute_dtype': 'bfloat16' if bf16 else 'float32', 'rows': n,
+  r = {'variant': variant or 'subs',
+       'compute_dtype': 'bfloat16' if bf16 else 'float32', 'rows': n,
        'loss_card': got[0], 'loss_cpu': want[0], 'loss_rel_err': loss_err,
        'max_grad_rel_norm_err': max(grad_rel.values()),
        'worst_grad': max(grad_rel, key=grad_rel.get),
@@ -3144,18 +3179,26 @@ def check_train_step(f32_cpu=None):
   return r, want
 
 
-def profile_train_step(bf16: bool) -> dict:
+def _forwards_a_microbatch(cfg) -> int:
+  """Denoiser forwards (and backwards) of one training microbatch: two
+  under D3PM with T > 0 (the reconstruction term), else one."""
+  return 2 if cfg.parameterization == 'd3pm' and cfg.T > 0 else 1
+
+
+def profile_train_step(bf16: bool, name: str | None = None,
+                       sets=()) -> dict:
   """One optimizer step of the training phase's configuration (batch 512
-  of the synthetic train split as two microbatches of 256, full width)
-  traced as ``trace_step`` traces a decode step, after a warm-up step;
-  tokens_per_s = 512 x 200 / host_step_ms."""
+  of the synthetic train split as two microbatches of 256, full width;
+  ``sets``, a phase 10 run's --set, appended) traced as ``trace_step``
+  traces a decode step, after a warm-up step; tokens_per_s = 512 x 200 /
+  host_step_ms."""
   import torch
   from svdd_tpu_torch.cli import main_gosai
   from svdd_tpu_torch.data import gosai
   from svdd_tpu_torch.diffusion import Diffusion
   from svdd_tpu_torch.train import diffusion as train_diff
   cfg = main_gosai.build_config(main_gosai.parser().parse_args(
-      ['--set', *TRAIN_SET]))
+      ['--set', *TRAIN_SET, *sets]))
   train_it, _, _ = gosai.get_dataloaders(cfg, skip_valid=True,
                                          data_dir=_no_data_dir())
   with bf16_switches(bf16):
@@ -3169,7 +3212,8 @@ def profile_train_step(bf16: bool) -> dict:
 
   r = trace_step(once)
   rows, length = cfg.loader.global_batch_size, cfg.model.length
-  return {'algo': 'train_bf16' if bf16 else 'train', 'batch_size': rows,
+  algo = name or ('train_bf16' if bf16 else 'train')
+  return {'algo': algo, 'set': list(sets), 'batch_size': rows,
           'length': length, 'accum_steps': cfg.training.accum_steps,
           'tokens_per_s': rows * length / (r['host_step_ms'] / 1e3), **r}
 
@@ -5720,6 +5764,408 @@ def backbones_phase(diffusion_ckpt: str) -> dict:
   return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of A1: the MDLM variants in training, the
+# class-conditioned CNN and its classifier head, and the RNA saluki task
+# ---------------------------------------------------------------------------
+
+A1_TRAIN_STEPS = 4        # main_gosai --mode train steps of each variant
+# every run's --set after TRAIN_SET: no validation and no cadence
+# checkpoint inside the run (main_gosai writes the final one), so each
+# run's launches are its training steps' alone
+A1_SET = ['eval.val_check_interval=1000', 'checkpointing.every_n_steps=1000']
+# With T > 0 every t below 1/T snaps to 1/T, where the discrete-time VLB
+# is 0 x inf = NaN at that row's masked positions, in JAX as in the port
+# (tests/test_torch_mdlm_variants.py holds the NaN to JAX's). At the
+# default sampling_eps (1e-3) the antithetic draw puts a row there in
+# most microbatches and the run's weights turn NaN; from this eps every
+# snapped t is at least 3/128, so the T = 128 runs train on finite losses
+A1_EPS = 0.02
+A1_TRAIN = (
+    ('d3pm_T128', ['parameterization=d3pm', 'T=128',
+                   f'training.sampling_eps={A1_EPS}']),
+    ('sedd', ['parameterization=sedd']),
+    ('subs_T128', ['T=128', f'training.sampling_eps={A1_EPS}']),
+    ('cosine', ['noise.type=cosine']),
+    ('cosinesqr', ['noise.type=cosinesqr']),
+    ('linear_importance', ['noise.type=linear',
+                           'training.importance_sampling=true']),
+    ('geometric', ['noise.type=geometric']),
+    ('cls_free_guidance', ['model.cls_free_guidance=true']))
+# the runs whose checkpoints ppl_eval and sample_eval read, and whose
+# steps are traced
+A1_READ = ('d3pm_T128', 'cls_free_guidance')
+A1_PROFILED = ('d3pm_T128', 'sedd', 'cls_free_guidance')
+# check_train_step's variants (config overrides)
+A1_STEP_VARIANTS = {
+    'd3pm_T128': {'parameterization': 'd3pm', 'T': 128,
+                  'training': {'sampling_eps': A1_EPS}},
+    'sedd': {'parameterization': 'sedd'},
+    'cls_free_guidance': {'model': {'cls_free_guidance': True}}}
+CLASSIFIER_ROWS = 8
+# the saluki task: decodes of SALUKI_BATCH rows, M=SALUKI_M, 16 steps, the
+# oracle's input padded to SALUKI_FINAL rows behind a body of
+# SALUKI_BODY_ROWS written from a seed
+SALUKI_FINAL = 12288
+SALUKI_BODY_ROWS = 2000
+SALUKI_BATCH, SALUKI_M, SALUKI_STEPS = 32, 5, 16
+SALUKI_CPU_ROWS = 4
+SALUKI_VALUE_BATCH, SALUKI_VALUE_ITERS = 8, 2
+SALUKI_ORACLE_ITERS = 20
+
+
+def run_a1_train(name: str, sets) -> dict:
+  """``main_gosai --mode train --task dna`` through its ``run`` at full
+  width (hidden 128, 20 layers, L=200) under ``sets``: global batch 512
+  in two microbatches, A1_TRAIN_STEPS steps, f32, the final checkpoint;
+  the launch counts set to 0 just before and read just after: B1 and B6
+  exactly 20 x 2 x steps, twice that under D3PM with T > 0. Every
+  parameter and the EMA shadow must stay finite."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  root = _train_dir(f'a1_{name}')
+  argv = ['--mode', 'train', '--task', 'dna', '--device', 'cuda',
+          '--max_steps', str(A1_TRAIN_STEPS), '--data_dir', _no_data_dir(),
+          '--ckpt_dir', os.path.join(root, 'ckpt'),
+          '--log_dir', os.path.join(root, 'log'), '--no_sample_eval',
+          '--set', *TRAIN_SET, *A1_SET, *sets]
+  args = main_gosai.parser().parse_args(argv)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = main_gosai.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  state = out['state']
+  cfg = state.model.config
+  per = (CNN_LAYERS * _forwards_a_microbatch(cfg) * cfg.training.accum_steps
+         * A1_TRAIN_STEPS)
+  _check_launches(f'a1_train_{name}', launches,
+                  {'cnn_layer': per, 'cnn_layer_bwd': per})
+  finite = all(bool(torch.isfinite(p).all()) for p in
+               list(state.model.backbone.parameters())
+               + list(state.ema.shadow.values()))
+  if not finite or state.step != A1_TRAIN_STEPS:
+    raise AssertionError(f'a1_train_{name}: step {state.step}, finite '
+                         f'weights {finite}')
+  return {'run': f'a1_train_{name}', 'set': list(sets),
+          'parameterization': cfg.parameterization, 'T': cfg.T,
+          'noise': cfg.noise.type,
+          'cls_free_guidance': cfg.model.cls_free_guidance,
+          'batch_size': cfg.loader.global_batch_size,
+          'accum_steps': cfg.training.accum_steps, 'steps': state.step,
+          'wall_s': wall,
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'launches': {k: v for k, v in launches.items() if v},
+          'ckpt_dir': os.path.join(root, 'ckpt')}
+
+
+def check_classifier_head() -> dict:
+  """The classifier-head CNN (``classifier=True``: final_1 to hidden, the
+  mean over L, cls_0, relu, cls_1) at full width on CLASSIFIER_ROWS rows
+  of L=200: (N, 3) logits on the card against the CPU within
+  MODEL_TOL, B1 launched once a layer."""
+  import copy
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.config import dna_config
+  from svdd_tpu_torch.models.cnn import CNNModel
+  model = CNNModel(dna_config(), classifier=True,
+                   generator=torch.Generator().manual_seed(5)).eval()
+  g = torch.Generator().manual_seed(6)
+  with torch.no_grad():
+    for p in model.parameters():
+      p.add_(0.05 * torch.randn(p.shape, generator=g))
+  seq = torch.randint(0, 4, (CLASSIFIER_ROWS, 200), generator=g)
+  sigma = torch.zeros(CLASSIFIER_ROWS)
+  with torch.no_grad():
+    want = model(seq, sigma)
+    card = copy.deepcopy(model).cuda()
+    _build.reset_launches()
+    got = card(seq.cuda(), sigma.cuda())
+    torch.cuda.synchronize()
+    launches = _build.launches()
+  _check_launches('classifier_head', launches, {'cnn_layer': CNN_LAYERS})
+  if got.shape != (CLASSIFIER_ROWS, 3):
+    raise AssertionError(f'classifier head: logits {tuple(got.shape)}')
+  err, scale = _card_vs_cpu('classifier_head', got.cpu(), want, MODEL_TOL)
+  return {'model': 'cnn_classifier_head', 'rows': CLASSIFIER_ROWS,
+          'logits': list(got.shape), 'max_abs_err': err, 'max_abs_cpu': scale,
+          'tol': MODEL_TOL, 'launches': {k: v for k, v in launches.items()
+                                         if v}}
+
+
+def check_gumbel_inf(gen) -> dict:
+  """B2 on a log q with +inf lanes, as SEDD's log score gives them under
+  time_conditioning=False (every lane but the current token's): at
+  (64, 200, 5), M=10, every position MASK, a third of the positions
+  with lanes 0-3 all +inf, a third with lanes 1 and 3 +inf; every draw
+  equal to the plain version's (``torch.argmax``, first maximum) on the
+  kernel's noise, so the all-+inf positions draw 0 and the others 1."""
+  import torch
+  from svdd_tpu_torch.ops import fused_sample as K
+  b, l, v, m, mask = 64, 200, 5, 10, 4
+  log_q = torch.log_softmax(torch.randn(b, l, v, device='cuda',
+                                        generator=gen), -1)
+  u = torch.rand(b, l, device='cuda', generator=gen)
+  all_inf, two_inf = u < 1 / 3, (u >= 1 / 3) & (u < 2 / 3)
+  lane = torch.arange(v, device='cuda')
+  inf = float('inf')
+  log_q = torch.where(all_inf[..., None] & (lane < 4), inf, log_q)
+  log_q = torch.where(two_inf[..., None] & ((lane == 1) | (lane == 3)), inf,
+                      log_q)
+  x = torch.full((b, l), mask, device='cuda')
+  out, noise = K.gumbel_candidates(log_q, x, m, mask, gen, return_noise=True)
+  plain = K.gumbel_candidates_plain(log_q, x, noise, mask)
+  if not torch.equal(out, plain):
+    raise AssertionError('gumbel_candidates: +inf lanes, draws differ from '
+                         'the plain version on the same noise')
+  draws = out.permute(1, 0, 2)
+  if not (bool((draws[:, all_inf] == 0).all())
+          and bool((draws[:, two_inf] == 1).all())):
+    raise AssertionError('gumbel_candidates: +inf lanes do not draw the '
+                         'first maximum')
+  return {'kernel': 'gumbel_candidates', 'shape': [b, m, l, v],
+          'all_inf_positions': int(all_inf.sum()),
+          'two_inf_positions': int(two_inf.sum()), 'max_abs_err': 0}
+
+
+def write_saluki_body(root: str) -> str:
+  """A saluki body of SALUKI_BODY_ROWS rows written from seed 0: a random
+  coding sequence one-hot, its frame track (1 on every third row) and a
+  sparse splice track, (Lb, 6) float32, as ``--saluki_body_path``
+  reads it."""
+  import numpy as np
+  rs = np.random.default_rng(0)
+  body = np.zeros((SALUKI_BODY_ROWS, 6), np.float32)
+  body[np.arange(SALUKI_BODY_ROWS), rs.integers(0, 4, SALUKI_BODY_ROWS)] = 1
+  body[::3, 4] = 1
+  body[rs.random(SALUKI_BODY_ROWS) < 0.01, 5] = 1
+  os.makedirs(root, exist_ok=True)
+  path = os.path.join(root, 'saluki_body.npy')
+  np.save(path, body)
+  return path
+
+
+def _saluki_input(rows: int, body, seed: int, device):
+  import torch
+  from svdd_tpu_torch import mdlm
+  g = torch.Generator().manual_seed(seed)
+  toks = torch.randint(0, 5, (rows, 50), generator=g)
+  return mdlm.transform_samples_saluki(toks, body,
+                                       final_length=SALUKI_FINAL).to(device)
+
+
+def check_saluki_oracle(body_path: str) -> dict:
+  """The saluki oracle (``RewardOracle.create_saluki``, the six-channel
+  ConvGRU) on SALUKI_CPU_ROWS rows of (12288, 6) saluki input (RNA
+  tokens, MASK rows among them, the body behind) on the card against
+  the CPU within RNA_MODEL_TOL; no port kernel (its 64-channel convs are
+  off B7's gate, its GRU a loop of library products)."""
+  import copy
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build, rewards
+  body = torch.from_numpy(np.load(body_path))
+  oracle = rewards.RewardOracle.create_saluki(
+      torch.Generator().manual_seed(0))
+  x = _saluki_input(SALUKI_CPU_ROWS, body, 1, 'cpu')
+  with torch.no_grad():
+    want = oracle(x)
+    card = rewards.RewardOracle(copy.deepcopy(oracle.module).cuda())
+    _build.reset_launches()
+    got = card(x.cuda())
+    torch.cuda.synchronize()
+  launches = _build.launches()
+  if any(launches.values()):
+    raise AssertionError(f'saluki oracle launched {launches}')
+  err, scale = _card_vs_cpu('saluki_oracle', got.cpu(), want,
+                            RNA_MODEL_TOL)
+  return {'model': 'saluki_oracle', 'rows': SALUKI_CPU_ROWS,
+          'input': [SALUKI_CPU_ROWS, SALUKI_FINAL, 6],
+          'max_abs_err': err, 'max_abs_cpu': scale, 'tol': RNA_MODEL_TOL}
+
+
+def _saluki_oracle_call(oracle, rows: int, body) -> dict:
+  """One call of ``oracle`` on ``rows`` rows of saluki input at 12,288
+  (warm: the decode before it ran the same shapes): ms by CUDA events,
+  peak GiB allocated during it."""
+  import torch
+  x = _saluki_input(rows, body, 2, 'cuda')
+  with torch.inference_mode():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    oracle(x)
+    end.record()
+    torch.cuda.synchronize()
+  return {'rows': rows, 'ms': start.elapsed_time(end),
+          'peak_mem_gb': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def run_saluki_decode(algo: str, body_path: str) -> dict:
+  """``cli.decode`` (SVDD-MC, the four-channel ConvGRU value net) or
+  ``cli.decode_tweedie`` (SVDD-PM, the saluki oracle scoring each step's
+  B*M candidates) at --task rna_saluki, B=SALUKI_BATCH, M=SALUKI_M,
+  SALUKI_STEPS steps, --skip_best_of_n, the oracle random (as JAX's CLI
+  without --reward_checkpoint_path) over the body of ``body_path``;
+  exact B1 and B2 counts (``rna_decode_launches``), the npz, then one
+  oracle call at the run's per-step rows (B*M for SVDD-PM, B for the
+  final scoring of SVDD-MC) timed with its peak memory."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.cli import decode as cli_decode
+  from svdd_tpu_torch.cli import decode_tweedie
+  run, parser, suffix = {
+      'svdd_mc': (cli_decode.run, cli_decode.parser(), ''),
+      'svdd_pm': (decode_tweedie.run, decode_tweedie.parser(),
+                  decode_tweedie.NPZ_SUFFIX)}[algo]
+  name = f'saluki_{algo}'
+  out_dir = os.path.join(REPO, 'build', 'chip_smoke', name)
+  args = parser.parse_args(
+      ['--task', 'rna_saluki', '--batch_size', str(SALUKI_BATCH),
+       '--sample_M', str(SALUKI_M), '--num_steps', str(SALUKI_STEPS),
+       '--skip_best_of_n', '--device', 'cuda', '--saluki_body_path',
+       body_path, '--saluki_final_length', str(SALUKI_FINAL),
+       '--out_dir', out_dir, '--run_name', f'chip_smoke_{name}'])
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  report = run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  peak = torch.cuda.max_memory_allocated() / 2 ** 30
+  _check_launches(name, launches, rna_decode_launches(algo, SALUKI_STEPS))
+  npz_keys = _check_npz(common.npz_path(args, suffix), rows=SALUKI_BATCH)
+  rows = SALUKI_BATCH * (SALUKI_M if algo == 'svdd_pm' else 1)
+  oracle = common.load_reward_fn(args, None)
+  call = _saluki_oracle_call(oracle, rows, torch.from_numpy(
+      np.load(body_path)))
+  return {'algo': algo, 'run': name, 'task': 'rna_saluki',
+          'batch_size': SALUKI_BATCH, 'sample_M': SALUKI_M, 'length': 50,
+          'steps': SALUKI_STEPS, 'final_length': SALUKI_FINAL,
+          'body_rows': SALUKI_BODY_ROWS, 'wall_s': wall, 'peak_mem_gb': peak,
+          'oracle_call': call,
+          'npz': os.path.basename(common.npz_path(args, suffix)),
+          'guided_reward_mean': report['decoding']['mean'],
+          'baseline_reward_mean': report['baseline']['mean'],
+          'launches': launches, 'npz_keys': npz_keys}
+
+
+def run_saluki_train(body_path: str) -> dict:
+  """``cli.train --task rna_saluki`` (MC, batch SALUKI_VALUE_BATCH,
+  SALUKI_VALUE_ITERS iterations, one evaluation; 128-step trajectories)
+  with the random saluki oracle's targets over the body, then
+  ``cli.train_oracle --task rna_saluki`` (the four-channel ConvGRU at
+  L=50, as JAX's CLI builds it; batch 64, SALUKI_ORACLE_ITERS
+  iterations)."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import train as cli_train
+  from svdd_tpu_torch.cli import train_oracle
+  root = _train_dir('saluki_train')
+  args = cli_train.parser().parse_args(
+      ['--task', 'rna_saluki', '--device', 'cuda', '--batch_size',
+       str(SALUKI_VALUE_BATCH), '--max_iters', str(SALUKI_VALUE_ITERS),
+       '--eval_every', str(SALUKI_VALUE_ITERS), '--val_batch_num', '1',
+       '--saluki_body_path', body_path, '--saluki_final_length',
+       str(SALUKI_FINAL), '--out_dir', root,
+       '--save_path', os.path.join(root, 'value.pt')])
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = cli_train.run(args)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _build.launches()
+  if launches['cnn_layer'] == 0 or out['state'].step != SALUKI_VALUE_ITERS:
+    raise AssertionError(f'saluki value training: {launches}, step '
+                         f'{out["state"].step}')
+  rows = [json.loads(line) for line in open(out['metrics_path'])]
+  mse = [r['eval/mse_tail'] for r in rows if 'eval/mse_tail' in r]
+  if len(mse) != 1 or not np.isfinite(mse).all():
+    raise AssertionError(f'saluki value training: metrics {rows}')
+  t0 = time.perf_counter()
+  oracle = train_oracle.run(train_oracle.parser().parse_args(
+      ['--task', 'rna_saluki', '--device', 'cuda', '--max_iters',
+       str(SALUKI_ORACLE_ITERS), '--log_every', str(SALUKI_ORACLE_ITERS),
+       '--data_dir', _no_data_dir(),
+       '--save_path', os.path.join(root, 'oracle.pt')]))
+  torch.cuda.synchronize()
+  oracle_s = time.perf_counter() - t0
+  if (oracle['module'].in_channels != 4
+      or not np.isfinite(list(oracle['losses'].values())).all()):
+    raise AssertionError(f'saluki oracle training: {oracle}')
+  return {'run': 'saluki_value_train', 'batch_size': SALUKI_VALUE_BATCH,
+          'iters': SALUKI_VALUE_ITERS, 'wall_s': wall,
+          'eval_mse_tail': mse[0],
+          'value_net': type(out['state'].module).__name__,
+          'value_in_channels': out['state'].module.in_channels,
+          'oracle_train': {'iters': SALUKI_ORACLE_ITERS, 'wall_s': oracle_s,
+                           'in_channels': oracle['module'].in_channels,
+                           'losses': oracle['losses'],
+                           'val_pearson': oracle['val_pearson']},
+          'launches': {k: v for k, v in launches.items() if v}}
+
+
+def a1_phase() -> dict:
+  """Phase 10, each part emitting its line: the eight variant training
+  runs, ppl_eval and sample_eval from the D3PM and class-conditioned
+  checkpoints, one 8-row step of D3PM (T = 128), SEDD and the
+  class-conditioned CNN card vs CPU in f32 and bf16, traced steps, the
+  classifier head, B2 on +inf lanes, and the saluki task: the oracle
+  card vs CPU, SVDD-MC and SVDD-PM through their CLIs, value and oracle
+  training. Returns the launch counts of its runs of the main path."""
+  import torch
+  runs, ckpts = {}, {}
+
+  def done(r, phase, key='run'):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': phase, **r})
+    if 'launches' in r and key in r:
+      runs[r[key]] = {'launches': r['launches']}
+    return r
+
+  t0 = time.perf_counter()
+  for name, sets in A1_TRAIN:
+    ckpts[name] = done(run_a1_train(name, sets), 'a1_train')['ckpt_dir']
+  for name in A1_READ:
+    sets = [*TRAIN_SET, *A1_SET, *dict(A1_TRAIN)[name]]
+    r = done(run_ckpt_readers(ckpts[name], sets), 'a1_ckpt_readers')
+    runs[f'a1_ckpt_readers_{name}'] = {'launches': r['launches']}
+  for variant in A1_STEP_VARIANTS:
+    ref = None
+    for _ in range(2):
+      r, ref = check_train_step(ref, variant)
+      done(r, 'train_step_vs_cpu')
+      runs[f'a1_step_{variant}_{r["compute_dtype"]}'] = {
+          'launches': r['launches']}
+  for name in A1_PROFILED:
+    done(profile_train_step(False, f'train_{name}', dict(A1_TRAIN)[name]),
+         'profile')
+  r = done(check_classifier_head(), 'models')
+  runs['classifier_head'] = {'launches': r['launches']}
+  done(check_gumbel_inf(torch.Generator('cuda').manual_seed(3)),
+       'kernel_inf_lanes')
+  body = write_saluki_body(os.path.join(REPO, 'build', 'chip_smoke',
+                                        'saluki'))
+  done(check_saluki_oracle(body), 'models')
+  for algo in ('svdd_mc', 'svdd_pm'):
+    done(run_saluki_decode(algo, body), 'decode')
+  done(run_saluki_train(body), 'saluki_train')
+  emit({'phase': 'a1', 'wall_s': time.perf_counter() - t0})
+  return runs
+
+
 def kernel_checks() -> list:
   """(name, check(dtype, generator)) of the kernel phase, in order; each
   runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
@@ -5904,6 +6350,7 @@ def main() -> None:
   runs.update(rna_phase())
   runs.update(a17_a11_phase(diffusion_ckpt))
   runs.update(backbones_phase(diffusion_ckpt))
+  runs.update(a1_phase())
 
   kernels = []
   for name in _build.KERNELS:

@@ -36,8 +36,14 @@ and seed 1 (value net), and the reward is the synthetic motif oracle,
 as the JAX CLI does without checkpoint flags.
 
 ``--task rna`` is the RNA 5'UTR task: L=50 (``rna_config``), the
-ConvGRU value net and MRL oracle. ``--task rna_saluki`` and the saluki
-flags raise naming ROADMAP A1.
+ConvGRU value net and MRL oracle. ``--task rna_saluki`` is the saluki
+stability task at the same length: the four-channel ConvGRU value net,
+and the six-channel ConvGRU oracle over the padded (N,
+``--saluki_final_length``, 6) input (``mdlm.transform_samples_saluki``)
+with the constant body of ``load_saluki_body`` behind each sequence.
+Without ``--reward_checkpoint_path`` that oracle is randomly initialised
+(with JAX's warning), not the motif oracle. DPS, DG, TDS and classifier
+guidance refuse the task with JAX's ``SystemExit`` (``reject_saluki``).
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ LOGGER = logging.getLogger(__name__)
 
 VALUE_CHECKPOINT_FLAGS = ('load_checkpoint_path', 'pre_model_path',
                           'reward_checkpoint_path')
-SALUKI_FLAGS = ('saluki_body_path', 'saluki_body')
+TASKS = ('dna', 'rna', 'rna_saluki')
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -72,10 +78,16 @@ def make_parser(description: str) -> argparse.ArgumentParser:
   p.add_argument('--run_name', type=str, required=False)
   p.add_argument('--debug', action='store_true', default=False)
   p.add_argument('--task', type=str, default='dna',
-                 help='dna or rna (rna_saluki is not ported yet)')
-  p.add_argument('--saluki_body', type=int, default=0)
-  p.add_argument('--saluki_body_path', type=str, default=None)
-  p.add_argument('--saluki_final_length', type=int, default=12288)
+                 help='dna / rna / rna_saluki')
+  p.add_argument('--saluki_body', type=int, default=0,
+                 help='selects saluki_body_{N}.npy inside $SVDD_DATA_DIR '
+                      '(the current directory without it)')
+  p.add_argument('--saluki_body_path', type=str, default=None,
+                 help=".npy file of the saluki constant 'body' (Lb, 6) "
+                      'appended behind each sequence (rna_saluki task); '
+                      'wins over --saluki_body')
+  p.add_argument('--saluki_final_length', type=int, default=12288,
+                 help='padded saluki oracle input length')
   p.add_argument('--n_task', type=int, default=1)
   p.add_argument('--model', type=str, default='enformer',
                  help="enformer; cli.train also takes multienformer (the "
@@ -208,14 +220,9 @@ def reject_unported(args) -> None:
   """Raise for flags whose machinery is not ported yet, and for
   checkpoint files this package did not write (before any model is
   built)."""
-  for name in SALUKI_FLAGS:
-    if getattr(args, name, None):
-      raise NotImplementedError(f'--{name}: the RNA saluki task is not '
-                                'ported yet (ROADMAP A1)')
-  value_lib.reject_saluki(args.task)
-  if args.task not in ('dna', 'rna'):
-    raise NotImplementedError(f'--task {args.task}: only dna and rna are '
-                              'ported')
+  if args.task not in TASKS:
+    raise NotImplementedError(f'--task {args.task}: the tasks are '
+                              f'{", ".join(TASKS)}')
   for name in VALUE_CHECKPOINT_FLAGS:
     path = getattr(args, name, None)
     if ckpt_lib.is_export_file(path):
@@ -232,9 +239,10 @@ def reject_unported(args) -> None:
 
 
 def task_config(args) -> Config:
-  """The task's preset (``rna_config`` for rna, L=50) with the length,
-  step and batch flags."""
-  cfg = rna_config() if args.task == 'rna' else dna_config()
+  """The task's preset (``rna_config`` for rna and rna_saluki, L=50) with
+  the task, length, step and batch flags."""
+  cfg = rna_config() if args.task in value_lib.RNA_TASKS else dna_config()
+  cfg.task = args.task
   if args.length:
     cfg.model.length = args.length
   if args.num_steps:
@@ -304,7 +312,8 @@ def load_diffusion(args, cfg: Config) -> Diffusion:
 def load_oracle(path: str, task: str, device) -> rewards.RewardOracle:
   """The reward oracle a ``cli.train_oracle --save_path`` file (or an
   export of the JAX package's oracle) holds: the Enformer (DNA, float32,
-  task 0 read) or the ConvGRU (RNA)."""
+  task 0 read) or the ConvGRU (the RNA tasks; the saluki oracle's stem
+  takes six channels)."""
   if ckpt_lib.is_export_file(path):
     return rewards.RewardOracle(export_value_net(path, task, device),
                                 task_index=0)
@@ -318,9 +327,64 @@ def load_oracle(path: str, task: str, device) -> rewards.RewardOracle:
   return oracle
 
 
+def load_saluki_body(args, device='cpu') -> Optional[torch.Tensor]:
+  """The constant saluki 'body' (coding region and tracks, (Lb, 6)) that
+  goes behind each 5'UTR (``svdd_tpu/cli/common.py:150-163``):
+  ``--saluki_body_path`` wins; else ``--saluki_body N`` reads
+  ``saluki_body_{N}.npy`` under ``$SVDD_DATA_DIR`` (the current
+  directory without it); else None (zero padding alone). A float32
+  tensor on ``device``."""
+  path = args.saluki_body_path
+  if not path and args.saluki_body:
+    data_dir = os.environ.get('SVDD_DATA_DIR', '.')
+    path = os.path.join(data_dir, f'saluki_body_{args.saluki_body}.npy')
+  if not path:
+    return None
+  body = np.load(path)
+  LOGGER.info('loaded saluki body %s %s', path, body.shape)
+  return torch.as_tensor(body, dtype=torch.float32, device=device)
+
+
+def saluki_kwargs(args) -> dict:
+  """The saluki input's arguments of ``decode.run_decode`` and the
+  trainers: the body (read for ``--task rna_saluki`` alone, as
+  ``svdd_tpu/cli/train.py:77-78`` reads it) and the padded length."""
+  body = (load_saluki_body(args, args.device) if args.task == 'rna_saluki'
+          else None)
+  return {'saluki_body': body,
+          'saluki_final_length': args.saluki_final_length}
+
+
+def _saluki_oracle(args) -> rewards.RewardOracle:
+  """The saluki stability oracle (``svdd_tpu/cli/common.py:169-182``):
+  the six-channel ConvGRU of ``--reward_checkpoint_path`` (an export of
+  the JAX package's, this package's file, or a reference pickle), or a
+  random one drawn from seed 0, with JAX's warning."""
+  path = args.reward_checkpoint_path
+  if not path:
+    LOGGER.warning('no --reward_checkpoint_path: saluki oracle is randomly '
+                   'initialized')
+    return rewards.RewardOracle.create_saluki(
+        torch.Generator(torch.device(args.device)).manual_seed(0))
+  if ckpt_lib.is_reference_file(path):
+    oracle = rewards.RewardOracle(import_value_net(
+        path, args.task, ('model.', 'module.', ''), args.device))
+  else:
+    oracle = load_oracle(path, args.task, args.device)
+  if oracle.module.in_channels != 6:
+    raise ValueError(f'--reward_checkpoint_path {path}: a ConvGRU of '
+                     f'{oracle.module.in_channels} input channels; the '
+                     'saluki oracle takes 6')
+  LOGGER.info('loaded reward oracle %s', path)
+  return oracle
+
+
 def load_reward_fn(args, cfg: Config):
   """The oracle of ``--reward_checkpoint_path`` (``load_oracle``), or the
-  synthetic motif oracle at the task's length."""
+  synthetic motif oracle at the task's length; for ``rna_saluki`` the
+  saluki oracle (``_saluki_oracle``)."""
+  if args.task == 'rna_saluki':
+    return _saluki_oracle(args)
   path = getattr(args, 'reward_checkpoint_path', None)
   if ckpt_lib.is_reference_file(path):
     # grelu LightningModel oracles carry the value nets' layouts under

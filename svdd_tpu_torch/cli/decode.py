@@ -10,7 +10,10 @@ the value net under SVDD_VALUE_BF16=1, as in svdd_tpu; otherwise in
 f32, with TF32 off for both matmuls and cuDNN convolutions.
 ``--m_schedule "64:4,64:10"`` decodes with scheduled M: 4 candidates a
 step for the first 64 steps, 10 for the last 64 (the phase lengths must
-sum to the step count); the row records the parsed phases.
+sum to the step count); the row records the parsed phases. ``--task
+rna_saluki`` scores the guided and baseline samples by the saluki
+oracle (``common.load_reward_fn``) on the saluki input, with
+``--saluki_body_path`` or ``--saluki_body`` behind each sequence.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
       diffusion, reward_fn, algo='svdd_mc', value_fn=vf.score_tokens,
       gen_batch_num=args.val_batch_num, batch_size=args.batch_size,
       sample_M=args.sample_M, seed=args.seed,
-      skip_best_of_n=args.skip_best_of_n, m_schedule=m_schedule)
+      skip_best_of_n=args.skip_best_of_n, m_schedule=m_schedule,
+      task=cfg.task, **common.saluki_kwargs(args))
   return common.finish_run(args, result, extra_metrics={
       'algo': 'svdd_mc', 'm_schedule': m_schedule, 'device': args.device,
       'wall_s': time.perf_counter() - t0,

@@ -7,7 +7,9 @@ mean (``--tweedie True``, the default) or with their masked positions
 zeroed (any other value). ``--m_schedule "96:10,32:4"`` decodes with
 scheduled M. Writes ``{out_dir}/{task}-{reward}_tw.npz`` with the keys
 'decoding' and 'baseline' plus a metrics JSONL row with the compute
-dtypes and the parsed schedule.
+dtypes and the parsed schedule. ``--task rna_saluki`` scores every
+step's candidates by the saluki oracle on the saluki input
+(``guidance.svdd_pm_step``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def run(args, cfg=None) -> dict:
       gen_batch_num=args.val_batch_num, batch_size=args.batch_size,
       sample_M=args.sample_M, tweedie=str(args.tweedie) == 'True',
       seed=args.seed, skip_best_of_n=args.skip_best_of_n,
-      m_schedule=m_schedule)
+      m_schedule=m_schedule, task=cfg.task, **common.saluki_kwargs(args))
   return common.finish_run(args, result, NPZ_SUFFIX, extra_metrics={
       'algo': 'svdd_pm', 'tweedie': str(args.tweedie),
       'm_schedule': m_schedule,

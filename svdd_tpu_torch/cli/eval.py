@@ -37,7 +37,11 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   diffusion = common.load_diffusion(args, cfg)
   reward_fn = common.load_reward_fn(args, cfg)
   vf = common.load_value_function(args, cfg, **(value_kwargs or {}))
-  transform = value_lib.make_reward_transform(args.task)
+  # the saluki oracle reads the padded six-channel input, the value net
+  # the one-hot
+  saluki = common.saluki_kwargs(args)
+  transform = value_lib.make_reward_transform(
+      args.task, saluki['saluki_body'], saluki['saluki_final_length'])
 
   sampler = diffusion.sampler(args.batch_size)
   gen = torch.Generator(diffusion.device).manual_seed(args.seed)

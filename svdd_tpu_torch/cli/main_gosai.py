@@ -11,7 +11,16 @@ defaults, plus ``--device``.
   python -m svdd_tpu_torch.cli.main_gosai --mode sample_eval \
       --config svdd_tpu_torch/configs/text_mdlm.yaml --gen_ppl_model ar
 
-``--task rna`` takes the RNA preset (L=50, ``rna_config``).
+``--task rna`` takes the RNA preset (L=50, ``rna_config``). ``--set``
+reaches every MDLM variant of the config: ``parameterization=d3pm`` (with
+``subs_masking=true`` to zero the MASK lane) or ``sedd``, ``T=128`` for
+discrete-time training (D3PM adds its reconstruction term, a second
+denoiser forward a microbatch), ``noise.type=cosine``, ``cosinesqr``,
+``linear`` (with ``training.importance_sampling=true``) or
+``geometric``, and ``model.cls_free_guidance=true`` for the
+class-conditioned CNN (sampled at the null class). Under D3PM a reverse
+step may draw MASK (4) again, so a state before the final noise removal
+(which argmaxes over the other tokens) may hold it, as JAX's does.
 ``train`` trains the config's backbone (``--set backbone=dit``,
 ``dimamba``, or ``backbone=ar parameterization=ar`` for the AR
 baseline) on the Gosai splits (the synthetic

@@ -5,7 +5,9 @@
       --reward_checkpoint_path oracle.pt --save_path value.pt
 
 Trains the value net (the Enformer, ``--model enformer``, for ``--task
-dna``; the ConvGRU for ``--task rna``, in f32 always) against the frozen
+dna``; the ConvGRU for ``--task rna`` and ``rna_saluki``, in f32
+always; the saluki task's targets are the saluki oracle's rewards on
+the saluki input) against the frozen
 denoiser of ``--diffusion_checkpoint_path`` (the EMA weights of a
 ``main_gosai --mode train`` checkpoint) with the targets of
 ``--reward_checkpoint_path``'s oracle (``cli.train_oracle --save_path``;
@@ -65,8 +67,11 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
   tcfg = train_val.ValueTrainerConfig(
       learning_rate=args.learning_rate, grad_norm_clip=args.grad_norm_clip,
       max_iter=args.max_iters, cdq=args.cdq, batch_size=args.batch_size,
-      lr_decay=args.lr_decay, task=args.task)
-  trainer = train_val.ValueTrainer(diffusion, vf, reward_fn, tcfg)
+      lr_decay=args.lr_decay, task=args.task,
+      saluki_final_length=args.saluki_final_length)
+  saluki = common.saluki_kwargs(args)
+  trainer = train_val.ValueTrainer(diffusion, vf, reward_fn, tcfg,
+                                   saluki['saluki_body'])
   if args.resume_state_path:
     state = trainer.restore_state(args.resume_state_path, args.seed)
     LOGGER.info('resumed trainer state at step %d (tokens %.3g)',
@@ -79,7 +84,7 @@ def run(args, cfg=None, value_kwargs=None) -> dict:
     gen = torch.Generator(diffusion.device).manual_seed(args.seed + 1)
     eval_batches, eval_targets = train_val.build_eval_timestep_batches(
         diffusion, reward_fn, args.batch_size, args.val_batch_num, gen,
-        task=args.task)
+        task=args.task, **saluki)
 
   logger = MetricsLogger(log_dir=args.out_dir, run_name=args.run_name or
                          f'{args.task}-{args.reward_name}-valuetrain')
@@ -129,8 +134,11 @@ def _run_multisep(args, cfg, diffusion, reward_fn, value_kwargs=None) -> dict:
       n_models=MULTISEP_MODELS, num_steps=cfg.sampling.steps, generator=gen)
   tcfg = train_val.ValueTrainerConfig(
       learning_rate=args.learning_rate, batch_size=args.batch_size,
-      max_iter=args.max_iters, task=args.task)
-  trainer = train_val.MultiSepTrainer(diffusion, msm, reward_fn, tcfg)
+      max_iter=args.max_iters, task=args.task,
+      saluki_final_length=args.saluki_final_length)
+  trainer = train_val.MultiSepTrainer(
+      diffusion, msm, reward_fn, tcfg,
+      common.saluki_kwargs(args)['saluki_body'])
   state = trainer.train(trainer.init_state(args.seed), tcfg.max_iter,
                         log_every=args.eval_every)
   if args.save_path:

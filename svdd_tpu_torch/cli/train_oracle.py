@@ -8,7 +8,9 @@ Trains the reward oracle on the Gosai training split
 (``gosai_train.csv`` under ``--data_dir``, ``$SVDD_DATA_DIR`` or
 ``/data/svdd``; the synthetic planted-motif split without one): for
 ``--task rna`` (the default, as in JAX) the one-task ConvGRU MRL oracle
-at L=50 on the first label column; for ``--task dna`` the 3-task
+at L=50 on the first label column (``--task rna_saluki`` trains the same
+four-channel ConvGRU at L=50, as JAX's CLI does: not the six-channel
+saluki oracle the decoders read); for ``--task dna`` the 3-task
 Enformer (hepg2, k562, sknsh; ``--small``: 256 channels, 3 conv blocks,
 one transformer block) on all three. AdamW at a constant rate
 (optax.adamw's defaults: betas (0.9, 0.999), weight decay 1e-4; no
@@ -43,9 +45,10 @@ VAL_ROWS = 512
 
 def build_module(small: bool, generator: torch.Generator,
                  task: str = 'dna'):
-  """The task's oracle: the one-task ConvGRU (rna; ``small`` changes
-  nothing, as in JAX), or the 3-task Enformer, full width or ``SMALL``."""
-  if task == 'rna':
+  """The task's oracle: the one-task four-channel ConvGRU (rna and
+  rna_saluki; ``small`` changes nothing, as in JAX), or the 3-task
+  Enformer, full width or ``SMALL``."""
+  if task in value_lib.RNA_TASKS:
     return ConvGRUValueModel(n_tasks=1, generator=generator)
   return EnformerValueModel(n_tasks=3, generator=generator,
                             **(SMALL if small else {}))
@@ -93,10 +96,9 @@ def val_pearson(module, val: GosaiDataset, device) -> float:
 def run(args) -> dict:
   """Train; returns the module, the losses read at the log steps and the
   validation Pearson correlation."""
-  value_lib.reject_saluki(args.task)
   common.full_f32()
   device = torch.device(args.device)
-  length = args.length or (50 if args.task == 'rna' else 200)
+  length = args.length or (50 if args.task.startswith('rna') else 200)
   ds = GosaiDataset('train', length=length, data_dir=args.data_dir)
   val = GosaiDataset('val', length=length, data_dir=args.data_dir)
   if ds.synthetic:

@@ -156,6 +156,7 @@ class Config:
   parameterization: str = 'subs'
   time_conditioning: bool = False
   T: int = 0                   # 0 = continuous time
+  subs_masking: bool = False   # d3pm: zero the MASK lane's probability
   seed: int = 1
   task: str = 'dna'            # dna / rna / rna_saluki / text
   alphabet_size: int = 4
@@ -241,10 +242,12 @@ def text_mdlm_config(**overrides: Any) -> Config:
 def tiny_test_config(task: str = 'dna', **overrides: Any) -> Config:
   """Small config for CPU unit tests (``svdd_tpu.config.tiny_test_config``
   with the fields this package reads): L=16 for the RNA task, 24 for
-  DNA."""
-  if task not in ('dna', 'rna'):
+  DNA and, as in JAX, for the saluki task (the DNA preset with its
+  task)."""
+  if task not in ('dna', 'rna', 'rna_saluki'):
     raise NotImplementedError(f'task {task!r} is not ported yet')
   cfg = rna_config() if task == 'rna' else dna_config()
+  cfg.task = task
   cfg.model.length = 16 if task == 'rna' else 24
   cfg.model.hidden_dim = 32
   cfg.model.num_cnn_stacks = 1

@@ -5,7 +5,10 @@ oracle, draw the unguided baseline and best-of-N, and write
 
 Ported branches: ``svdd_mc`` (with scheduled M), ``svdd_pm``, ``tds``,
 ``dps``, ``classifier`` and ``none``. A TDS run reads its ESS trace back
-once, after the loop, into ``DecodeResult.diagnostics``.
+once, after the loop, into ``DecodeResult.diagnostics``. Under
+``task='rna_saluki'`` the oracle scores the saluki input
+(``mdlm.transform_samples_saluki``) of the guided samples, of the
+baseline's and of SVDD-PM's candidates.
 """
 
 from __future__ import annotations
@@ -45,14 +48,23 @@ class DecodeResult:
 
 
 @torch.inference_mode()
-def _score(reward_fn, samples: torch.Tensor) -> np.ndarray:
-  """Oracle score of token samples."""
-  return reward_fn(mdlm.transform_samples(samples)).float().cpu().numpy()
+def _score(reward_fn, samples: torch.Tensor, task: str = 'dna',
+           saluki_body=None, saluki_final_length: int = 12288
+           ) -> np.ndarray:
+  """Oracle score of token samples; ``rna_saluki`` through the saluki
+  input builder (``svdd_tpu/decode.py:58-66``)."""
+  if task == 'rna_saluki':
+    onehot = mdlm.transform_samples_saluki(samples, saluki_body,
+                                           final_length=saluki_final_length)
+  else:
+    onehot = mdlm.transform_samples(samples)
+  return reward_fn(onehot).float().cpu().numpy()
 
 
 def _baseline(diffusion: Diffusion, reward_fn, batch_size: int,
               gen_batch_num: int, sample_M: int,
-              generator: torch.Generator, skip_best_of_n: bool = False):
+              generator: torch.Generator, skip_best_of_n: bool = False,
+              **saluki):
   """Unguided baseline + best-of-N: draw gen_batch_num*sample_M batches
   worth of sequences in balanced folds of at most BASELINE_FOLD_CAP
   rows, keep the first gen_batch_num*batch_size as the baseline and
@@ -63,7 +75,7 @@ def _baseline(diffusion: Diffusion, reward_fn, batch_size: int,
   big = -(-total // n_calls)
   sampler = diffusion.sampler(big)
   all_preds = np.concatenate(
-      [_score(reward_fn, sampler(generator).samples)
+      [_score(reward_fn, sampler(generator).samples, **saluki)
        for _ in range(n_calls)])[:total]
   baseline = all_preds[:gen_batch_num * batch_size]
   k = max(1, len(all_preds) // sample_M)
@@ -103,13 +115,18 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
                guidance_scale: float = 1.0, tweedie: bool = True,
                seed: int = 44, skip_best_of_n: bool = False,
                ess_threshold: Optional[float] = None,
-               m_schedule=None) -> DecodeResult:
+               m_schedule=None, task: str = 'dna', saluki_body=None,
+               saluki_final_length: int = 12288) -> DecodeResult:
   """One controlled decode run. algo: svdd_mc | svdd_pm | tds | dps |
   classifier | none. ``dps`` guides by ``reward_fn``'s gradient;
   ``classifier`` needs a differentiable one-hot ``value_fn``
   (``ValueFunction.as_onehot_fn``); ``svdd_pm`` and ``tds`` score with
   ``reward_fn`` on (N, L, 4) one-hots, and their value_preds are the
-  reward's. ``m_schedule`` (svdd_mc, svdd_pm): ((n_steps, M), ...)."""
+  reward's. ``m_schedule`` (svdd_mc, svdd_pm): ((n_steps, M), ...).
+  ``task``, ``saluki_body``, ``saluki_final_length``: the saluki task's
+  oracle input (module docstring)."""
+  saluki = dict(task=task, saluki_body=saluki_body,
+                saluki_final_length=saluki_final_length)
   dev = diffusion.device
   guided_gen = torch.Generator(dev).manual_seed(seed)
   base_gen = torch.Generator(dev).manual_seed(seed + 1)
@@ -122,7 +139,7 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
   elif algo == 'svdd_pm':
     sampler = diffusion.tweedie_sampler(reward_fn, batch_size,
                                         sample_M=sample_M, tweedie=tweedie,
-                                        m_schedule=m_schedule)
+                                        m_schedule=m_schedule, **saluki)
   elif algo == 'tds':
     sampler = diffusion.tds_sampler(reward_fn, batch_size, alpha=alpha,
                                     ess_threshold=ess_threshold)
@@ -143,7 +160,7 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
   for _ in range(gen_batch_num):
     res = sampler(guided_gen)
     samples.append(res.samples.cpu().numpy())
-    reward_preds.append(_score(reward_fn, res.samples))
+    reward_preds.append(_score(reward_fn, res.samples, **saluki))
     if value_fn is not None and algo == 'svdd_mc':
       with torch.inference_mode():
         value_preds.append(value_fn(res.samples).float().cpu().numpy())
@@ -154,7 +171,7 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
 
   baseline, top_k = _baseline(diffusion, reward_fn, batch_size,
                               gen_batch_num, sample_M, base_gen,
-                              skip_best_of_n)
+                              skip_best_of_n, **saluki)
   return DecodeResult(
       samples=np.concatenate(samples),
       value_preds=np.concatenate(value_preds),

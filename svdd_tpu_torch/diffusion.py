@@ -1,11 +1,18 @@
 """The Diffusion bundle (``svdd_tpu/diffusion.py``): backbone (CNN, DiT,
-DiMamba or the AR transformer) + schedule + the SUBS parameterization
-(or, for ``parameterization='ar'``, the backbone's next-token log-probs
-as they are) + the unguided (ddpm, ddpm_cache), SVDD-MC (with scheduled
-M, and with a step-indexed value function), SVDD-PM (Tweedie), TDS, DPS
-and classifier-guidance samplers, the CD-Q trajectory sampler of
-value-net training, and the training loss of every backbone: the SUBS
-NELBO, or the AR baseline's shifted next-token NLL.
+DiMamba or the AR transformer) + schedule + parameterization (SUBS,
+D3PM, SEDD, or, for ``parameterization='ar'``, the backbone's next-token
+log-probs as they are) + the unguided (ddpm, ddpm_cache), SVDD-MC (with
+scheduled M, and with a step-indexed value function), SVDD-PM (Tweedie),
+TDS, DPS and classifier-guidance samplers, the CD-Q trajectory sampler
+of value-net training, and the training loss of every backbone: the
+continuous-time SUBS NELBO, the discrete-time (``T > 0``) D3PM VLB with
+D3PM's reconstruction term, SEDD's score entropy, or the AR baseline's
+shifted next-token NLL.
+
+As in JAX, a forward hands the parameterization the processed sigma
+(zero under ``time_conditioning=False``, the bio tasks' default), the
+training loss the raw one: SEDD's log score is then +inf off the current
+token in every sampler, and a Gumbel-max draw takes the first lane.
 
 The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
 the gradient-guided ones); ``loss`` runs under autograd, and with
@@ -70,10 +77,6 @@ class Diffusion:
     self.mask_index = config.mask_index
     self.parameterization = config.parameterization
     self.time_conditioning = config.time_conditioning
-    if self.parameterization not in ('subs', 'ar'):
-      raise NotImplementedError(f'parameterization '
-                                f'{self.parameterization!r} is not ported '
-                                'yet (ROADMAP A1)')
     self.schedule = schedules.get_schedule(
         config.noise.type, sigma_min=config.noise.sigma_min,
         sigma_max=config.noise.sigma_max, eps=config.noise.eps)
@@ -90,35 +93,49 @@ class Diffusion:
       sigma = torch.zeros_like(sigma)
     return sigma
 
-  def _parameterize(self, logits, xt):
-    if self.parameterization == 'ar':
-      return logits
-    return mdlm.subs_parameterization(logits, xt, self.mask_index)
+  def _parameterize(self, logits, xt, sigma):
+    if self.parameterization == 'subs':
+      return mdlm.subs_parameterization(logits, xt, self.mask_index)
+    if self.parameterization == 'sedd':
+      return mdlm.sedd_parameterization(logits, xt, sigma)
+    if self.parameterization == 'd3pm':
+      return mdlm.d3pm_parameterization(logits, self.mask_index,
+                                        self.config.subs_masking)
+    return logits   # 'ar'
 
   def forward(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """log p(x0 | xt)."""
-    logits = self.backbone(x, self._process_sigma(sigma))
-    return self._parameterize(logits, x)
+    """log p(x0 | xt) (SEDD: the log score), the parameterization given
+    the processed sigma."""
+    sigma = self._process_sigma(sigma)
+    return self._parameterize(self.backbone(x, sigma), x, sigma)
 
   def forward_onehot(self, x_onehot: torch.Tensor, x: torch.Tensor,
                      sigma: torch.Tensor) -> torch.Tensor:
     """'forward2': log p(x0 | xt) from a (N, L, V) one-hot input in place
     of the tokens' own, differentiable with respect to it (DPS)."""
-    logits = self.backbone(x, self._process_sigma(sigma), x_onehot=x_onehot)
-    return self._parameterize(logits, x)
+    sigma = self._process_sigma(sigma)
+    logits = self.backbone(x, sigma, x_onehot=x_onehot)
+    return self._parameterize(logits, x, sigma)
 
   def loss(self, x0: torch.Tensor, attention_mask=None, *,
            train: bool = False, generator: torch.Generator | None = None,
            noise=None, masks=None) -> mdlm.LossOutput:
-    """The continuous-time SUBS NELBO of the clean tokens x0 (B, L):
-    times from ``training.sampling_eps`` (antithetic, optionally through
-    the schedule's importance transform), x0 masked to x_t, the denoiser
-    on x_t. ``noise`` = (t_uniforms (B,), mask_uniforms (B, L)) in place
+    """The training loss of the clean tokens x0 (B, L)
+    (``svdd_tpu/diffusion.py:137-215``): times from
+    ``training.sampling_eps`` (antithetic, optionally through the
+    schedule's importance transform; with ``T > 0`` snapped to the grid,
+    (t T) truncated to an integer, over T, plus 1/T), x0 masked to x_t,
+    the denoiser on x_t, then SEDD's dsigma-weighted score entropy, the
+    D3PM VLB for ``T > 0`` (D3PM adds its reconstruction term, a second
+    denoiser forward on x0 at t = 0), else the continuous-time SUBS
+    NELBO. ``noise`` = (t_uniforms (B,), mask_uniforms (B, L)) in place
     of the draws from ``generator``, which also draws the dropout masks
     when ``train``; ``masks`` (DiT, AR) the list of dropout masks in call
-    order in place of those draws. Under ``parameterization='ar'``, the
-    shifted next-token NLL of x0 (``svdd_tpu/diffusion.py:152-172``),
-    which draws no noise. Differentiable in the backbone's parameters."""
+    order in place of those draws (D3PM's second forward takes the same
+    list, as JAX's takes the same dropout key). Under
+    ``parameterization='ar'``, the shifted next-token NLL of x0
+    (``svdd_tpu/diffusion.py:152-172``), which draws no noise.
+    Differentiable in the backbone's parameters."""
     cfg = self.config
     drop = {} if masks is None else {'masks': masks}
     if self.parameterization == 'ar':
@@ -133,9 +150,6 @@ class Diffusion:
       nll = -logprobs.gather(-1, x0[:, 1:, None].long())[..., 0]
       nlls = nll * mask
       return mdlm.LossOutput(nlls.sum() / mask.sum(), nlls, mask)
-    if cfg.T > 0:
-      raise NotImplementedError(f'T={cfg.T}: discrete-time training is '
-                                'not ported yet (ROADMAP A1)')
     if noise is None:
       noise = (mdlm.uniforms(x0.shape[:1], generator, self.device),
                mdlm.uniforms(tuple(x0.shape), generator, self.device))
@@ -144,12 +158,32 @@ class Diffusion:
                       cfg.training.antithetic_sampling)
     if cfg.training.importance_sampling:
       t = self.schedule.importance_transform(t)
+    if cfg.T > 0:
+      t = (t * cfg.T).to(torch.int32).to(torch.float32) / cfg.T + 1.0 / cfg.T
     sigma, dsigma = self.schedule(t)
     move_chance = (1 - torch.exp(-sigma))[:, None]
     xt = mdlm.q_xt(x0, move_chance, self.mask_index, q_u)
     logits = self.backbone(xt, self._process_sigma(sigma), train=train,
                            generator=generator, **drop)
-    return mdlm.nelbo_subs(self._parameterize(logits, xt), x0, sigma, dsigma,
+    model_output = self._parameterize(logits, xt, sigma)
+    if self.parameterization == 'sedd':
+      loss = dsigma[:, None] * mdlm.score_entropy(
+          model_output, sigma[:, None], xt, x0, self.mask_index)
+    elif cfg.T > 0:
+      loss = mdlm.d3pm_loss(model_output, xt, x0, t, self.mask_index, cfg.T)
+      if self.parameterization == 'd3pm':
+        sigma_t0 = self.schedule.total(torch.zeros(x0.shape[0],
+                                                   device=x0.device))
+        logits0 = self.backbone(x0, self._process_sigma(sigma_t0),
+                                train=train, generator=generator, **drop)
+        out0 = self._parameterize(logits0, x0, sigma_t0)
+        loss = loss - torch.gather(out0, -1, x0[..., None].long())[..., 0]
+    else:
+      return mdlm.nelbo_subs(model_output, x0, sigma, dsigma, attention_mask)
+    if attention_mask is None:
+      attention_mask = torch.ones_like(loss)
+    nlls = loss * attention_mask
+    return mdlm.LossOutput(nlls.sum() / attention_mask.sum(), nlls,
                            attention_mask)
 
   def denoise_fn(self) -> S.DenoiseFn:
@@ -248,17 +282,24 @@ class Diffusion:
 
   def tweedie_sampler(self, reward_fn, batch_size: int, *,
                       sample_M: int = 10, tweedie: bool = True,
+                      task: str = 'dna', saluki_body=None,
+                      saluki_final_length: int = 12288,
                       num_steps: int | None = None, eps: float = 1e-5,
                       reuse_posterior: bool = True, m_schedule=None):
     """SVDD-PM sampler (``svdd_tpu/diffusion.py:422-463``); ``reward_fn``:
-    (N, L, 4) -> (N,). ``reuse_posterior`` (tweedie only): carry the
-    winner's candidate forward across steps and into noise removal.
-    ``m_schedule`` as in ``controlled_sampler``."""
+    (N, L, 4) -> (N,), or, for ``task='rna_saluki'``, the saluki input
+    (``saluki_body``, ``saluki_final_length``) -> (N,).
+    ``reuse_posterior`` (tweedie only): carry the winner's candidate
+    forward across steps and into noise removal. ``m_schedule`` as in
+    ``controlled_sampler``."""
     reuse = reuse_posterior and tweedie
     step = self._phased(
         lambda m: G.svdd_pm_step(self.forward, reward_fn, self.schedule,
                                  self.mask_index, repeats=m,
-                                 tweedie=tweedie, carry_posterior=reuse),
+                                 tweedie=tweedie, task=task,
+                                 saluki_body=saluki_body,
+                                 saluki_final_length=saluki_final_length,
+                                 carry_posterior=reuse),
         sample_M, m_schedule)
     aux_init = (None, False) if reuse else ()   # no posterior yet
     return self._reverse(step, batch_size, num_steps, eps,

@@ -1,10 +1,11 @@
-"""Core MDLM math on tensors (``svdd_tpu/mdlm.py``): the SUBS
-parameterization, the reverse-step density, the all-MASK prior, the
+"""Core MDLM math on tensors (``svdd_tpu/mdlm.py``): the SUBS, D3PM and
+SEDD parameterizations, the reverse-step density, the all-MASK prior, the
 Gumbel-max categorical draw (from log-probabilities or probabilities),
 the analytic sampler's score, staggered score and transposed transition,
-the value nets' one-hot transform, and the training half: the forward
-masking ``q_xt``, the (antithetic) time draw ``sample_t`` and the
-continuous-time SUBS NELBO.
+the value nets' one-hot transform, and the saluki stability oracle's
+padded six-channel input, and the training half: the forward masking
+``q_xt``, the (antithetic) time draw ``sample_t``, the continuous-time
+SUBS NELBO, the discrete-time D3PM term and SEDD's score entropy.
 
 Each random function takes its uniforms as an argument, or draws them
 from a ``torch.Generator``, so a test can pin it to the JAX function on
@@ -59,6 +60,31 @@ def subs_parameterization(logits: Tensor, xt: Tensor,
   onehot_loglik = torch.where(onehot, 0.0, NEG_INFINITY)
   unmasked = (xt != mask_index)[..., None]
   return torch.where(unmasked, onehot_loglik, logits)
+
+
+def d3pm_parameterization(logits: Tensor, mask_index: int,
+                          subs_masking: bool = False) -> Tensor:
+  """D3PM: a plain log-softmax; ``subs_masking`` first adds NEG_INFINITY
+  to the MASK lane."""
+  if subs_masking:
+    logits = logits + torch.where(_lane(logits, mask_index), NEG_INFINITY,
+                                  0.0)
+  return logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+
+
+def sedd_parameterization(logits: Tensor, xt: Tensor,
+                          sigma: Tensor) -> Tensor:
+  """SEDD log score: logits - log(e^sigma - 1) - log(V - 1), 0 at the
+  current token. sigma (B,). A zero sigma (``time_conditioning=False``
+  hands the forward a zeroed one, as JAX does) gives log(0) = -inf, so
+  every other lane is +inf."""
+  esigm1_log = torch.log(torch.where(sigma < 0.5, torch.expm1(sigma),
+                                     torch.exp(sigma) - 1)).to(logits.dtype)
+  vocab = logits.shape[-1]
+  logits = (logits - esigm1_log[:, None, None]
+            - torch.log(torch.tensor(vocab - 1, dtype=logits.dtype)))
+  onehot = F.one_hot(xt.long(), vocab).bool()
+  return torch.where(onehot, 0.0, logits)
 
 
 def log_q_xs(log_p_x0: Tensor, move_chance_t, move_chance_s,
@@ -134,6 +160,28 @@ def transform_samples(samples: Tensor, num_classes: int = 4,
   return (onehot * keep[..., None]).to(dtype)
 
 
+def transform_samples_saluki(samples: Tensor,
+                             saluki_body: Optional[Tensor] = None,
+                             num_classes: int = 4,
+                             final_length: int = 12288) -> Tensor:
+  """The saluki stability oracle's input (``svdd_tpu/mdlm.py:291-315``):
+  the one-hot with MASK rows zeroed, two zero channels (the coding-frame
+  and splice tracks), the constant ``saluki_body`` (Lb, 6) behind each
+  sequence where given, then zeros to ``final_length`` rows, cut there:
+  (N, final_length, 6) float32."""
+  onehot = transform_samples(samples, num_classes)
+  n, l, _ = onehot.shape
+  six = torch.cat([onehot, onehot.new_zeros((n, l, 2))], dim=-1)
+  if saluki_body is not None:
+    body = torch.as_tensor(saluki_body, dtype=six.dtype, device=six.device)
+    six = torch.cat([six, body[None].expand((n,) + tuple(body.shape))],
+                    dim=1)
+  pad = final_length - six.shape[1]
+  if pad > 0:
+    six = torch.cat([six, six.new_zeros((n, pad, 6))], dim=1)
+  return six[:, :final_length]
+
+
 def uniforms(shape: Tuple[int, ...], generator: torch.Generator,
              device=None) -> Tensor:
   """U[0, 1) float32 noise of ``shape`` from ``generator``."""
@@ -177,3 +225,47 @@ def nelbo_subs(log_p_x0: Tensor, x0: Tensor, sigma: Tensor,
     attention_mask = torch.ones_like(loss)
   nlls = loss * attention_mask
   return LossOutput(nlls.sum() / attention_mask.sum(), nlls, attention_mask)
+
+
+def d3pm_loss(model_output: Tensor, xt: Tensor, x0: Tensor, t: Tensor,
+              mask_index: int, T: int) -> Tensor:
+  """The discrete-time D3PM VLB term, (B, L) per token, on the masked
+  positions (``svdd_tpu/mdlm.py:166-192``), 0 elsewhere; t (B,), clipped
+  to 1 - 1e-4. At t = 1/T (the grid's first point, where training puts
+  every t below 1/T) t - dt is 0 and the second term is 0 x inf: NaN at
+  that row's masked positions, in JAX as here. JAX multiplies by the
+  mask, which XLA turns into a select; so does this."""
+  dt = 1.0 / T
+  t = torch.clamp(t[:, None], 0.0, 1.0 - 1e-4)
+  alpha_t = 1 - t
+  alpha_s = 1 - (t - dt)
+  log_x_theta_at_x0 = torch.gather(model_output, -1,
+                                   x0[..., None].long())[..., 0]
+  x_theta_at_m = torch.exp(model_output[..., mask_index])
+  term_1_coef = dt / t
+  term_1_log_nr = torch.log(alpha_t * x_theta_at_m / t + 1)
+  term_1_log_dr = log_x_theta_at_x0
+  term_2_coef = 1 - dt / t
+  term_2_log_nr = term_1_log_nr
+  term_2_log_dr = torch.log(alpha_s * x_theta_at_m / (t - dt) + 1)
+  l_vb_masked = (term_1_coef * (term_1_log_nr - term_1_log_dr)
+                 + term_2_coef * (term_2_log_nr - term_2_log_dr))
+  return torch.where(xt == mask_index, T * l_vb_masked, 0.0)
+
+
+def score_entropy(log_score: Tensor, sigma: Tensor, xt: Tensor, x0: Tensor,
+                  mask_index: int) -> Tensor:
+  """SEDD's score entropy on the masked positions, (B, L)
+  (``svdd_tpu/mdlm.py:195-217``); sigma (B,) or (B, 1)."""
+  masked = xt == mask_index
+  expsig_minus_1 = torch.expm1(sigma)
+  if expsig_minus_1.ndim == 1:
+    expsig_minus_1 = expsig_minus_1[:, None]
+  q_ratio = 1.0 / expsig_minus_1
+  neg_term = q_ratio * torch.gather(log_score, -1,
+                                    x0[..., None].long())[..., 0]
+  not_mask_col = ~_lane(log_score, mask_index)
+  pos_term = torch.sum(torch.exp(log_score) * not_mask_col, dim=-1)
+  const = q_ratio * (torch.log(q_ratio) - 1)
+  entropy = pos_term - neg_term + const
+  return torch.where(masked, entropy, 0.0)

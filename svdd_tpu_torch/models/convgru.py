@@ -163,20 +163,25 @@ class ConvGRUTrunk(nn.Module):
 class ConvGRUValueModel(nn.Module):
   """Trunk + average-pool ConvHead (``convgru.py:173-192``): (N, L, 4)
   one-hot -> (N,) value (or (N, n_tasks)), in float32 always (the JAX
-  factory builds it before reading SVDD_VALUE_BF16). ``fused`` is
-  accepted for the Enformer's call signature and changes nothing: the
-  ConvGRU has no fused eval path. ``train=True`` needs ``masks``."""
+  factory builds it before reading SVDD_VALUE_BF16). ``in_channels=6``
+  is the saluki stability oracle, over (N, 12288, 6) inputs
+  (``mdlm.transform_samples_saluki``). ``fused`` is accepted for the
+  Enformer's call signature and changes nothing: the ConvGRU has no
+  fused eval path. ``train=True`` needs ``masks``."""
 
   compute_dtype = torch.float32
 
   def __init__(self, n_tasks: int = 1, dropout: float = 0.1,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None,
+               in_channels: int = 4):
     super().__init__()
     if generator is None:
       generator = torch.Generator().manual_seed(1)
     self.n_tasks = n_tasks
     self.dropout = dropout
-    self.trunk = ConvGRUTrunk(generator, dropout=dropout)
+    self.in_channels = in_channels
+    self.trunk = ConvGRUTrunk(generator, stem_in_channels=in_channels,
+                              dropout=dropout)
     self.head = blocks.ConvHead(n_tasks, 64, generator)
 
   def forward(self, x: torch.Tensor, fused: bool = True,
@@ -190,4 +195,5 @@ class ConvGRUValueModel(nn.Module):
 
   def config(self) -> dict:
     """The constructor's arguments, which a checkpoint records."""
-    return {'n_tasks': self.n_tasks, 'dropout': self.dropout}
+    return {'n_tasks': self.n_tasks, 'dropout': self.dropout,
+            'in_channels': self.in_channels}

@@ -1,6 +1,8 @@
 """Reward oracles (``svdd_tpu/rewards.py``): the frozen Enformer oracle
-(DNA), the ConvGRU MRL oracle (RNA) and the synthetic motif oracle that
-stands in without trained weights."""
+(DNA), the ConvGRU MRL oracle (RNA), the six-channel ConvGRU saluki
+stability oracle (``--task rna_saluki``, over the padded (N, 12288, 6)
+input of ``mdlm.transform_samples_saluki``) and the synthetic motif
+oracle that stands in without trained weights."""
 
 from __future__ import annotations
 
@@ -32,6 +34,16 @@ class RewardOracle:
   def create_rna(cls, generator: torch.Generator, n_tasks: int = 1,
                  **kwargs) -> 'RewardOracle':
     """The RNA MRL oracle: a one-task ConvGRU."""
+    return cls(ConvGRUValueModel(n_tasks=n_tasks, generator=generator,
+                                 **kwargs), task_index=0)
+
+  @classmethod
+  def create_saluki(cls, generator: torch.Generator, n_tasks: int = 1,
+                    **kwargs) -> 'RewardOracle':
+    """The saluki stability oracle: a one-task ConvGRU whose stem takes
+    six channels. Its input's length (``final_length``) is the caller's:
+    the ConvGRU has no pooling, so any length runs."""
+    kwargs['in_channels'] = 6
     return cls(ConvGRUValueModel(n_tasks=n_tasks, generator=generator,
                                  **kwargs), task_index=0)
 

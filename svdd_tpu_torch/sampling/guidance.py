@@ -161,19 +161,19 @@ def _cached_or_fresh(denoise_fn: DenoiseFn, schedule: Schedule, aux, x, t):
 def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
                  schedule: Schedule, mask_index: int, repeats: int = 10,
                  tweedie: bool = True, task: str = 'dna',
+                 saluki_body=None, saluki_final_length: int = 12288,
                  carry_posterior: bool = False):
   """SVDD-PM: M candidates -> reward of their posterior mean -> argmax
   select (``guidance.py:166-226``). ``tweedie=False`` scores the
   candidates with their masked positions zeroed instead
-  (``mdlm.transform_samples``). ``carry_posterior`` (tweedie only): the
+  (``mdlm.transform_samples``). ``task='rna_saluki'`` rebuilds the tokens
+  from that one-hot (a zero row is MASK) and scores the saluki input
+  (``mdlm.transform_samples_saluki`` with ``saluki_body``, padded to
+  ``saluki_final_length``). ``carry_posterior`` (tweedie only): the
   winner's candidate forward at sigma_s is carried in aux (log_p, valid)
   and replaces the next step's (B,) forward and the removal forward.
   The step takes and returns an aux; without the carry it is passed
   through."""
-  if task not in ('dna', 'rna'):
-    raise NotImplementedError(
-        f'svdd_pm_step: task {task!r} scores through the saluki input '
-        'builder, which is not ported yet (ROADMAP A1)')
   carry_posterior = carry_posterior and tweedie
 
   def step(aux, x, t, t_next, generator, gumbel=None):
@@ -193,6 +193,11 @@ def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
       onehot = _posterior_onehot(log_p_cand, flat, mask_index)
     else:
       onehot = mdlm.transform_samples(flat)
+    if task == 'rna_saluki':
+      toks = torch.where(onehot.sum(-1) > 0, torch.argmax(onehot, dim=-1),
+                         mask_index)
+      onehot = mdlm.transform_samples_saluki(
+          toks, saluki_body, final_length=saluki_final_length)
     scores = reward_fn(onehot).reshape(b, repeats)
     if not carry_posterior:
       return aux, _select_best(candidates, scores)

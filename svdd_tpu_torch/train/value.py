@@ -54,9 +54,10 @@ FORMAT = 'svdd_tpu_torch.train.value/1'
 @dataclasses.dataclass
 class ValueTrainerConfig:
   """``svdd_tpu/train/value.py:44-67``, less the settings no MC or
-  CD-Q step reads (the evaluation period is ``cli.train``'s; the saluki
-  input's length waits for the saluki task, A1). ``task`` 'dna' or 'rna'
-  (the reward's input is the one-hot of both)."""
+  CD-Q step reads (the evaluation period is ``cli.train``'s). ``task``
+  'dna', 'rna' or 'rna_saluki': the saluki task routes the reward's
+  target through the (N, saluki_final_length, 6) saluki input while the
+  value net keeps reading (N, L, 4) states (``make_reward_transform``)."""
   learning_rate: float = 3e-4
   betas: tuple = (0.9, 0.95)
   grad_norm_clip: Optional[float] = 1.0     # None: no clipping
@@ -70,6 +71,7 @@ class ValueTrainerConfig:
   mc_subsample: Optional[int] = None
   tokens_per_iter: float = 32 * 128 * 200 * 4
   task: str = 'dna'
+  saluki_final_length: int = 12288
 
 
 @dataclasses.dataclass
@@ -86,17 +88,19 @@ class ValueTrainState:
 
 class ValueTrainer:
   """Fits a value net against a frozen ``Diffusion`` (``svdd_tpu/train/
-  value.py:70-298``). ``reward_fn``: (N, L, 4) one-hots -> (N,) rewards
-  (a ``RewardOracle`` or the synthetic motif oracle); the value net an
-  Enformer (DNA) or a ConvGRU (RNA)."""
+  value.py:70-298``). ``reward_fn``: the oracle's input -> (N,) rewards
+  (a ``RewardOracle`` or the synthetic motif oracle), the input built by
+  ``make_reward_transform(tcfg.task, saluki_body, ...)``; the value net an
+  Enformer (DNA) or a ConvGRU (the RNA tasks)."""
 
   def __init__(self, diffusion: Diffusion, vf: value_lib.ValueFunction,
-               reward_fn, tcfg: ValueTrainerConfig):
-    value_lib.reject_saluki(tcfg.task)
+               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None):
     self.diffusion = diffusion
     self.vf = vf
     self.tcfg = tcfg
     self._reward_fn = reward_fn
+    self._reward_transform = value_lib.make_reward_transform(
+        tcfg.task, saluki_body, tcfg.saluki_final_length)
     if tcfg.cdq:
       self._sampler = diffusion.cdq_sampler(tcfg.batch_size, repeats=10)
     else:
@@ -140,10 +144,11 @@ class ValueTrainer:
       if self.tcfg.cdq:
         return value_lib.cdq_targets(
             samples, mid_x, cdq_candidates, self._reward_fn,
-            lambda oh: state.module(oh))
+            lambda oh: state.module(oh), self._reward_transform)
       return value_lib.mc_targets(
           samples, mid_x, self._reward_fn, generator=state.generator,
-          num_subsample=self.tcfg.mc_subsample, subsample_idx=subsample_idx)
+          num_subsample=self.tcfg.mc_subsample, subsample_idx=subsample_idx,
+          reward_transform=self._reward_transform)
 
   def grad_step(self, state: ValueTrainState, samples, mid_x,
                 cdq_candidates=None, masks: Optional[DropoutMasks] = None,
@@ -267,13 +272,13 @@ class MultiSepTrainer:
   trains ``msm`` in place."""
 
   def __init__(self, diffusion: Diffusion, msm: MultiSepValueModel,
-               reward_fn, tcfg: ValueTrainerConfig):
-    value_lib.reject_saluki(tcfg.task)
+               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None):
     self.diffusion = diffusion
     self.msm = msm
     self.tcfg = tcfg
     self._reward_fn = reward_fn
-    self._transform = value_lib.make_reward_transform(tcfg.task)
+    self._transform = value_lib.make_reward_transform(
+        tcfg.task, saluki_body, tcfg.saluki_final_length)
     self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True)
 
   def init_state(self, seed: int) -> MultiSepTrainState:
@@ -352,13 +357,16 @@ class MultiSepTrainer:
 def build_eval_timestep_batches(diffusion: Diffusion, reward_fn,
                                 batch_size: int, val_batch_num: int,
                                 generator: torch.Generator,
-                                task: str = 'dna'):
+                                task: str = 'dna', saluki_body=None,
+                                saluki_final_length: int = 12288):
   """Per-timestep eval batches from ``val_batch_num`` full trajectories
   (``svdd_tpu/train/value.py:397-425``): (eval_batches[t],
   eval_targets[t]) for t in 0..S-1, the one-hots of every trajectory's
   state after step t (the last: the final samples) and the final
-  samples' rewards (the reward's input ``make_reward_transform(task)``)."""
-  transform = value_lib.make_reward_transform(task)
+  samples' rewards (the reward's input ``make_reward_transform(task,
+  saluki_body, saluki_final_length)``)."""
+  transform = value_lib.make_reward_transform(task, saluki_body,
+                                              saluki_final_length)
   sampler = diffusion.sampler(batch_size, collect_mid=True)
   steps = diffusion.config.sampling.steps
   all_samples = [[] for _ in range(steps)]

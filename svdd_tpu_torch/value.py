@@ -43,14 +43,6 @@ def checkpoint_task(task: str) -> str:
   return 'rna' if task in RNA_TASKS else 'dna'
 
 
-def reject_saluki(task: str) -> None:
-  """The saluki stability task needs its 12,288-long six-channel input
-  builder (``svdd_tpu/mdlm.py:transform_samples_saluki``), A1's rest."""
-  if task == 'rna_saluki':
-    raise NotImplementedError('task rna_saluki: the saluki input builder '
-                              'and oracle are not ported yet (ROADMAP A1)')
-
-
 def value_compute_dtype() -> torch.dtype:
   """The Enformer value net's compute dtype where the caller gives none:
   bfloat16 under SVDD_VALUE_BF16=1, else float32."""
@@ -60,14 +52,13 @@ def value_compute_dtype() -> torch.dtype:
 
 def check_value_model(task: str, model: str, timed: bool = False) -> None:
   """Raise as ``ValueFunction.create(task, model=model, timed=timed)``
-  raises, before any module is built: the saluki task (A1), a DNA model
-  other than 'enformer' and 'timedenformer' (``NotImplementedError``, as
-  JAX's factory), and a timed model without ``timed`` (JAX's init
-  without time indices: ``ValueError``, which JAX's CLIs raise for
-  ``--model timedenformer``). The RNA task takes the ConvGRU whatever
+  raises, before any module is built: a DNA model other than 'enformer'
+  and 'timedenformer' (``NotImplementedError``, as JAX's factory), and a
+  timed model without ``timed`` (JAX's init without time indices:
+  ``ValueError``, which JAX's CLIs raise for ``--model timedenformer``).
+  The RNA tasks, 'rna' and 'rna_saluki', take the ConvGRU whatever
   ``model`` says."""
-  reject_saluki(task)
-  if task == 'rna':
+  if task in RNA_TASKS:
     return
   if task != 'dna' or model not in ('enformer', 'timedenformer'):
     raise NotImplementedError(
@@ -82,7 +73,9 @@ def build_value_module(task: str, model: str = 'enformer',
                        generator: torch.Generator | None = None,
                        timed: bool = False, **kwargs):
   """Value-net factory (``svdd_tpu/value.py:build_value_module``): the
-  RNA task takes the ConvGRU whatever ``model`` says, in float32, as JAX
+  RNA tasks take the four-channel ConvGRU whatever ``model`` says (the
+  saluki task's value net sees (N, L, 4) states; only its oracle reads
+  the six-channel input), in float32, as JAX
   returns it before reading SVDD_VALUE_BF16; DNA the Enformer
   (``model`` 'enformer', timed with ``timed``, or 'timedenformer',
   timed always), which without a ``compute_dtype`` computes in bfloat16
@@ -91,7 +84,7 @@ def build_value_module(task: str, model: str = 'enformer',
   trunks are built by ``cli.train --model multienformer``). ``kwargs``:
   the module's constructor arguments (widths)."""
   check_value_model(task, model, timed=True)
-  if task == 'rna':
+  if task in RNA_TASKS:
     return ConvGRUValueModel(n_tasks=n_tasks, generator=generator, **kwargs)
   kwargs.setdefault('compute_dtype', value_compute_dtype())
   return EnformerValueModel(n_tasks=n_tasks, generator=generator,
@@ -150,12 +143,18 @@ class ValueFunction:
 # ---------------------------------------------------------------------------
 
 
-def make_reward_transform(task: str = 'dna'):
-  """Tokens -> the reward oracle's input: the 4-channel one-hot for DNA
-  and RNA. The port's oracles hold their weights, so a reward function
-  is one callable of that input (JAX's (apply_fn, variables) pair has no
-  counterpart); the saluki input raises (``reject_saluki``)."""
-  reject_saluki(task)
+def make_reward_transform(task: str = 'dna', saluki_body=None,
+                          saluki_final_length: int = 12288):
+  """Tokens -> the reward oracle's input (``svdd_tpu/value.py:146-157``):
+  for ``rna_saluki`` the padded (N, saluki_final_length, 6) saluki input
+  (``mdlm.transform_samples_saluki`` with ``saluki_body``), else the
+  4-channel one-hot. Only the reward reads the saluki input; the value
+  net's states stay (N, L, 4). The port's oracles hold their weights, so
+  a reward function is one callable of that input (JAX's (apply_fn,
+  variables) pair has no counterpart)."""
+  if task == 'rna_saluki':
+    return lambda samples: mdlm.transform_samples_saluki(
+        samples, saluki_body, final_length=saluki_final_length)
   return mdlm.transform_samples
 
 
@@ -173,16 +172,18 @@ class ValueBatch(NamedTuple):
 def mc_targets(samples, mid_x, reward_fn,
                generator: Optional[torch.Generator] = None,
                num_subsample: Optional[int] = None,
-               subsample_idx: Optional[torch.Tensor] = None) -> ValueBatch:
+               subsample_idx: Optional[torch.Tensor] = None,
+               reward_transform=mdlm.transform_samples) -> ValueBatch:
   """Monte-Carlo targets (``svdd_tpu/value.py:166-202``): every state of
   the trajectory regresses onto the final sample's reward. samples (B,
   L), mid_x (S-1, B, L): S*B pairs, the mid states step by step, then
   the final ones. ``num_subsample`` keeps that many distinct random mid
   steps (``subsample_idx`` given, or drawn uniformly without
   replacement from ``generator``, as ``jax.random.choice`` draws them
-  from its key in another stream)."""
+  from its key in another stream). ``reward_transform`` builds the
+  oracle's input from the final tokens (``make_reward_transform``)."""
   s_minus_1, b, l = mid_x.shape
-  target = reward_fn(mdlm.transform_samples(samples))          # (B,)
+  target = reward_fn(reward_transform(samples))                # (B,)
   if num_subsample is not None and num_subsample < s_minus_1:
     if subsample_idx is None:
       if generator is None:
@@ -203,13 +204,15 @@ def mc_targets(samples, mid_x, reward_fn,
 
 
 def cdq_targets(samples, mid_x, all_candidates, reward_fn,
-                value_fn) -> ValueBatch:
+                value_fn, reward_transform=mdlm.transform_samples
+                ) -> ValueBatch:
   """CD-Q bootstrapped targets (``svdd_tpu/value.py:205-228``): the state
   after step j regresses onto the mean value (no gradient) of the
-  candidates drawn at step j + 1, the final state onto its reward.
+  candidates drawn at step j + 1, the final state onto its reward (of
+  ``reward_transform``'s input; the bootstrap value net reads one-hots).
   all_candidates (S, B, M, L) from ``Diffusion.cdq_sampler``."""
   s, b, m, l = all_candidates.shape
-  target = reward_fn(mdlm.transform_samples(samples))          # (B,)
+  target = reward_fn(reward_transform(samples))                # (B,)
   cand = all_candidates[1:].reshape((s - 1) * b * m, l)
   with torch.no_grad():
     cand_vals = value_fn(mdlm.transform_samples(cand))

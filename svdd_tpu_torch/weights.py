@@ -60,16 +60,30 @@ def _generator(device='cpu'):
 def cnn_from_jax(variables, compute_dtype: torch.dtype = torch.float32,
                  device='cpu') -> CNNModel:
   """A CNN denoiser (on ``device``, computing in ``compute_dtype``)
-  holding the flax CNNModel's variables."""
+  holding the flax CNNModel's variables; a tree with ``cls_embedder``
+  builds the class-conditioned net, one with a ``cls_0``/``cls_1`` head
+  and no embedding the classifier (its classes from ``cls_1``'s
+  width)."""
   p = variables['params']
   hidden = np.asarray(p['time_linear']['kernel']).shape[0]
   n_layers = sum(1 for k in p if k.startswith('norm_'))
-  alphabet = np.asarray(p['final_1']['kernel']).shape[-1]
+  # a classifier's head is cls_0, cls_1; a class-conditioned net's layer
+  # projections cls_i sit beside its cls_embedder
+  classifier = 'cls_1' in p and 'cls_embedder' not in p
+  if classifier:
+    num_cls = np.asarray(p['cls_1']['kernel']).shape[-1]
+  elif 'cls_embedder' in p:
+    num_cls = np.asarray(p['cls_embedder']['embedding']).shape[0] - 1
+  else:
+    num_cls = 3
+  alphabet = np.asarray(p['stem']['kernel']).shape[1]
   cfg = dna_config()
   cfg.model.hidden_dim = hidden
   cfg.model.num_cnn_stacks = n_layers // 5
+  cfg.model.cls_free_guidance = 'cls_embedder' in p
   model = CNNModel(cfg, alphabet_size=alphabet, compute_dtype=compute_dtype,
-                   generator=_generator(device))
+                   generator=_generator(device), num_cls=int(num_cls),
+                   classifier=classifier)
   _copy(model.gfp.W, variables['buffers']['GaussianFourierProjection_0']['W'])
   _dense(model.time_linear, p['time_linear'])
   _copy(model.stem_kernel, p['stem']['kernel'])
@@ -80,9 +94,16 @@ def cnn_from_jax(variables, compute_dtype: torch.dtype = torch.float32,
     _copy(layer.kernel, p[f'conv_{i}']['kernel'])
     _copy(layer.conv_bias, p[f'conv_{i}']['bias'])
     _dense(layer.time, p[f'time_{i}'])
+    if layer.cls is not None:
+      _dense(layer.cls, p[f'cls_{i}'])
   for j in (0, 1):
     _copy(getattr(model, f'final_{j}_kernel'), p[f'final_{j}']['kernel'])
     _copy(getattr(model, f'final_{j}_bias'), p[f'final_{j}']['bias'])
+  if model.cls_embedder is not None:
+    _copy(model.cls_embedder, p['cls_embedder']['embedding'])
+  if classifier:
+    _dense(model.cls_0, p['cls_0'])
+    _dense(model.cls_1, p['cls_1'])
   return model.eval()
 
 
@@ -94,22 +115,29 @@ def cnn_params_to_jax(tensors) -> dict:
   """The flax CNNModel ``params`` tree (numpy arrays) of a mapping from
   the port's CNN parameter names (``named_parameters()``) to tensors of
   their shapes: the parameters themselves, or per-parameter state such
-  as an EMA shadow or Adam's moments."""
+  as an EMA shadow or Adam's moments. The class embedding, the layers'
+  class projections and the classifier head map where present."""
   t = {k: _np(v) for k, v in tensors.items()}
   n_layers = sum(1 for k in t if k.endswith('.ln_scale'))
-  p = {'time_linear': {'kernel': t['time_linear.weight'].T,
-                       'bias': t['time_linear.bias']},
+  dense = lambda pre: {'kernel': t[pre + 'weight'].T, 'bias': t[pre + 'bias']}
+  p = {'time_linear': dense('time_linear.'),
        'stem': {'kernel': t['stem_kernel'], 'bias': t['stem_bias']}}
   for i in range(n_layers):
     pre = f'layers.{i}.'
     p[f'norm_{i}'] = {'scale': t[pre + 'ln_scale'], 'bias': t[pre + 'ln_bias']}
     p[f'conv_{i}'] = {'kernel': t[pre + 'kernel'],
                       'bias': t[pre + 'conv_bias']}
-    p[f'time_{i}'] = {'kernel': t[pre + 'time.weight'].T,
-                      'bias': t[pre + 'time.bias']}
+    p[f'time_{i}'] = dense(pre + 'time.')
+    if pre + 'cls.weight' in t:
+      p[f'cls_{i}'] = dense(pre + 'cls.')
   for j in (0, 1):
     p[f'final_{j}'] = {'kernel': t[f'final_{j}_kernel'],
                        'bias': t[f'final_{j}_bias']}
+  if 'cls_embedder' in t:
+    p['cls_embedder'] = {'embedding': t['cls_embedder']}
+  for name in ('cls_0', 'cls_1'):
+    if f'{name}.weight' in t:
+      p[name] = dense(f'{name}.')
   return p
 
 
@@ -339,10 +367,13 @@ def convgru_from_jax(variables, n_tasks: int = 1, dropout: float = 0.1,
                      device='cpu') -> ConvGRUValueModel:
   """A ConvGRU value model (on ``device``, float32) holding the flax
   ConvGRUValueModel's variables (params and ``batch_stats``); the
-  tower maps as Basenji's does."""
+  tower maps as Basenji's does. The stem's input channels come from its
+  kernel: 4, or 6 for the saluki oracle."""
   p, stats = variables['params'], variables['batch_stats']
   tp, ts = p['ConvGRUTrunk_0'], stats['ConvGRUTrunk_0']
+  stem = tp['ConvTower_0']['Stem_0']['Conv1D_0']['kernel']
   model = ConvGRUValueModel(n_tasks=n_tasks, dropout=dropout,
+                            in_channels=int(np.asarray(stem).shape[1]),
                             generator=_generator(device))
   _conv_tower(model.trunk.tower, tp['ConvTower_0'], ts['ConvTower_0'])
   gp = tp['GRUBlock_0']

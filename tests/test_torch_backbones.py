@@ -34,7 +34,8 @@ from svdd_tpu_torch.ops import attention as tattn
 from svdd_tpu_torch.ops import flash_attention as tfa
 from svdd_tpu_torch.ops import norms as tnorms
 from svdd_tpu_torch.weights import ar_from_jax, dimamba_from_jax, dit_from_jax
-from torch_port_helpers import random_variables
+from torch_port_helpers import (few_torch_threads,  # noqa: F401
+                                random_variables)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

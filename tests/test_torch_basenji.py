@@ -33,7 +33,8 @@ from svdd_tpu_torch.models.basenji import Basenji
 from svdd_tpu_torch.ops import conv1d as tconv
 from svdd_tpu_torch.ops import fused_conv as tfc
 from svdd_tpu_torch.ops import im2col as tic
-from torch_port_helpers import random_variables
+from torch_port_helpers import (few_torch_threads,  # noqa: F401
+                                random_variables)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

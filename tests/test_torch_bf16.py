@@ -44,7 +44,8 @@ from svdd_tpu_torch.ops import fused_sample as tfs
 from svdd_tpu_torch.ops.kernel_utils import live_offsets
 from svdd_tpu_torch.value import build_value_module
 from svdd_tpu_torch.weights import cnn_from_jax, enformer_value_from_jax
-from torch_port_helpers import random_variables
+from torch_port_helpers import (few_torch_threads,  # noqa: F401
+                                random_variables)
 
 BF16_SWITCHES = ('SVDD_CNN_BF16', 'SVDD_VALUE_BF16')
 TINY_VALUE = dict(channels=256, n_conv=3, n_transformers=1, n_heads=2)

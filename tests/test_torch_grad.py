@@ -45,7 +45,8 @@ from svdd_tpu_torch.ops import conv1d as tconv
 from svdd_tpu_torch.ops.kernel_utils import live_offsets
 from svdd_tpu_torch.sampling import guidance, sampler
 from svdd_tpu_torch.weights import cnn_from_jax, enformer_value_from_jax
-from torch_port_helpers import random_cnn_variables, random_variables
+from torch_port_helpers import (few_torch_threads,  # noqa: F401
+                                random_cnn_variables, random_variables)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -25,7 +25,6 @@ import jax
 
 import torch_mirrors as tm
 from svdd_tpu import checkpoint as jcheckpoint
-from svdd_tpu.cli import common as jcommon
 from svdd_tpu.config import tiny_test_config as jax_tiny_config
 from svdd_tpu.importers import cnn as jcnn_imp
 from svdd_tpu.importers import convgru as jconvgru_imp
@@ -39,7 +38,9 @@ from svdd_tpu_torch.config import tiny_test_config
 from svdd_tpu_torch.weights import (cnn_from_jax, convgru_from_jax,
                                     dit_from_jax, enformer_value_from_jax)
 from torch_port_helpers import (few_torch_threads,  # noqa: F401
-                                random_cnn_variables)
+                                jax_cli_common, random_cnn_variables)
+
+jcommon = jax_cli_common()
 
 L = 16
 ENFORMER = dict(n_conv=3, channels=384, n_transformers=2, n_heads=2,

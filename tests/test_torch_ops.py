@@ -28,6 +28,7 @@ from svdd_tpu_torch.ops import attn_pool as tap
 from svdd_tpu_torch.ops import cnn_layer as tcnn
 from svdd_tpu_torch.ops import fused_sample as tfs
 from svdd_tpu_torch.ops.kernel_utils import live_offsets
+from torch_port_helpers import few_torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

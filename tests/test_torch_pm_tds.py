@@ -161,11 +161,43 @@ def test_svdd_pm_step_pinned_to_svdd_tpu(pair, case):
     assert taux_next == ()
 
 
-def test_svdd_pm_step_refuses_other_tasks(pair):
-  _, tdiff, w = pair
-  with pytest.raises(NotImplementedError, match=r'ROADMAP A1\)'):
-    guidance.svdd_pm_step(tdiff.forward, _torch_reward(w), tdiff.schedule,
-                          4, task='rna_saluki')
+def test_svdd_pm_step_takes_the_saluki_task(pair):
+  """``task='rna_saluki'`` with the posterior carry (the decode's
+  default): the winners' tokens rebuilt from the Tweedie one-hot score
+  through the saluki input (a 4-row body, padded to 32 rows) under a
+  linear reward; the same winners and carried forward as JAX's step on
+  JAX's Gumbel noise (``tests/test_torch_saluki.py`` holds both scoring
+  modes without the carry)."""
+  jdiff, tdiff, _ = pair
+  rs = np.random.default_rng(4)
+  w6 = rs.normal(size=(32, 6)).astype(np.float32)
+  body = rs.normal(size=(4, 6)).astype(np.float32)
+  x = _partly_masked(1)
+  t, t_next = np.float32(0.6), np.float32(0.55)
+  key = jax.random.key(8)
+  wj, wt = jnp.asarray(w6), torch.from_numpy(w6)
+  jstep = jguidance.svdd_pm_step(
+      jdiff.denoise_fn(), lambda oh: (oh * wj).sum(axis=(-1, -2)),
+      jdiff.schedule, 4, repeats=M, task='rna_saluki',
+      saluki_body=jnp.asarray(body), saluki_final_length=32,
+      carry_posterior=True)
+  cache = np.asarray(jdiff.denoise_fn()(jnp.asarray(x),
+                                        jnp.zeros((STEP_B,))))
+  jaux, want = jax.jit(jstep)((jnp.asarray(cache), jnp.asarray(False)),
+                              jnp.asarray(x), jnp.asarray(t),
+                              jnp.asarray(t_next), key)
+  noise = np.array(jax.random.gumbel(key, (STEP_B, M, L, 5), jnp.float32))
+  tstep = guidance.svdd_pm_step(
+      tdiff.forward, lambda oh: (oh * wt).sum(dim=(-1, -2)), tdiff.schedule,
+      4, repeats=M, task='rna_saluki', saluki_body=_t(body),
+      saluki_final_length=32, carry_posterior=True)
+  with torch.no_grad():
+    taux, got = tstep((None, False), _t(x).long(), torch.tensor(t),
+                      torch.tensor(t_next), None, gumbel=_t(noise))
+  np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+  assert taux[1] is True
+  np.testing.assert_allclose(taux[0].numpy(), np.asarray(jaux[0]),
+                             rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from svdd_tpu.ops import attn_pool_pallas as jap
 
 from svdd_tpu_torch.ops import attn_pool as tap
 from svdd_tpu_torch.ops.kernel_utils import live_offsets
+from torch_port_helpers import few_torch_threads  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -268,7 +268,9 @@ def test_value_factory_and_oracle_build_the_convgru(monkeypatch):
   """``build_value_module('rna')`` is the ConvGRU in f32 under
   SVDD_VALUE_BF16=1 (JAX returns it before reading the switch);
   ``RewardOracle.create_rna`` a one-task ConvGRU taking ``fused``; the
-  RNA reward input is the one-hot; saluki raises naming A1."""
+  RNA reward input is the one-hot. The saluki task's value net is the
+  same four-channel ConvGRU, its oracle (``create_saluki``) takes six
+  channels, and its reward input is the padded saluki tensor."""
   monkeypatch.setenv('SVDD_VALUE_BF16', '1')
   gen = torch.Generator().manual_seed(0)
   module = value_lib.build_value_module('rna', generator=gen)
@@ -281,8 +283,13 @@ def test_value_factory_and_oracle_build_the_convgru(monkeypatch):
   with torch.inference_mode():
     assert torch.equal(oracle(x, fused=False), oracle(x))
   assert value_lib.make_reward_transform('rna') is mdlm.transform_samples
-  with pytest.raises(NotImplementedError, match='A1'):
-    value_lib.build_value_module('rna_saluki')
+  saluki = value_lib.build_value_module('rna_saluki', generator=gen)
+  assert isinstance(saluki, convgru.ConvGRUValueModel)
+  assert saluki.in_channels == 4 and saluki.compute_dtype == torch.float32
+  assert rewards.RewardOracle.create_saluki(gen).module.in_channels == 6
+  tokens = torch.full((3, 7), 4)
+  assert value_lib.make_reward_transform('rna_saluki', None, 16)(
+      tokens).shape == (3, 16, 6)
 
 
 # ---------------------------------------------------------------------------

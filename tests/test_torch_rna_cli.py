@@ -25,7 +25,6 @@ import jax
 import jax.numpy as jnp
 from scipy import stats as sps
 
-from svdd_tpu.cli import common as jcommon
 from svdd_tpu.config import tiny_test_config as jax_tiny_config
 from svdd_tpu.diffusion import Diffusion as JaxDiffusion
 from svdd_tpu.models import convgru as jconvgru
@@ -43,7 +42,10 @@ from svdd_tpu_torch.config import tiny_test_config
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.weights import cnn_from_jax, convgru_from_jax
 from torch_port_helpers import (few_torch_threads,  # noqa: F401
-                                random_cnn_variables, random_variables)
+                                jax_cli_common, random_cnn_variables,
+                                random_variables)
+
+jcommon = jax_cli_common()
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

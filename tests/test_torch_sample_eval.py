@@ -206,11 +206,22 @@ def test_batch_dna_detokenize_matches_svdd_tpu():
     (['--eval_oracle_checkpoint_path', 'oracle.ckpt'], 'A17'),
     (['--set', 'parallel.pipeline_stages=2'], 'A16'),
     (['--gen_ppl_ar_checkpoint', 'ar.ckpt'], 'A17'),
-    (['--set', 'parameterization=d3pm'], 'A1'),
 ])
 def test_sample_eval_rejects_what_is_not_ported(extra, match):
   with pytest.raises(NotImplementedError, match=match):
     main_gosai.run(_args(*extra))
+
+
+def test_sample_eval_runs_d3pm():
+  """``--set parameterization=d3pm`` (tiny widths through ``--set``):
+  sample_eval draws from the D3PM denoiser's random weights, its
+  noise removal leaving (8, 24) tokens over A, C, G, T."""
+  out = main_gosai.run(_args(
+      '--set', 'parameterization=d3pm', 'model.hidden_dim=32',
+      'model.num_cnn_stacks=1', 'model.length=24', 'sampling.steps=8',
+      'loader.eval_batch_size=8', 'sampling.num_sample_batches=1'))
+  assert out['tokens'].shape == (8, 24)
+  assert set(np.unique(out['tokens'])) <= {0, 1, 2, 3}
 
 
 def test_sample_eval_rejects_an_existing_checkpoint(tmp_path):

@@ -54,7 +54,8 @@ from svdd_tpu_torch.ops import cnn_layer as tcnn
 from svdd_tpu_torch.train import diffusion as train_diff
 from svdd_tpu_torch.weights import (cnn_from_jax, cnn_params_to_jax,
                                     cnn_to_jax)
-from torch_port_helpers import perturb, random_cnn_variables
+from torch_port_helpers import (few_torch_threads,  # noqa: F401
+                                perturb, random_cnn_variables)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

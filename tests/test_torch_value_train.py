@@ -53,7 +53,8 @@ from svdd_tpu_torch.sampling import guidance
 from svdd_tpu_torch.train import value as train_value
 from svdd_tpu_torch.weights import (cnn_from_jax, enformer_params_to_jax,
                                     enformer_to_jax, enformer_value_from_jax)
-from torch_port_helpers import (FlaxMasks, dropout_masks, random_cnn_variables,
+from torch_port_helpers import (FlaxMasks, dropout_masks,  # noqa: F401
+                                few_torch_threads, random_cnn_variables,
                                 random_variables)
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -343,14 +344,19 @@ def test_cdq_targets_match_svdd_tpu(value_vars):
 def test_value_loss_and_reward_transform():
   """``value_loss`` is the MSE; the DNA oracle's input is the one-hot of
   ``mdlm.transform_samples``, and the RNA (MRL) oracle's too; the saluki
-  transform raises naming A1."""
+  oracle's is the padded six-channel input of
+  ``mdlm.transform_samples_saluki``."""
   batch = value_lib.ValueBatch(torch.zeros(3, L, 4), torch.tensor([1., 2, 3]))
   assert float(value_lib.value_loss(lambda oh: torch.ones(3), batch)) == (
       pytest.approx(5 / 3))
   assert value_lib.make_reward_transform('dna') is mdlm.transform_samples
   assert value_lib.make_reward_transform('rna') is mdlm.transform_samples
-  with pytest.raises(NotImplementedError, match=r'A1\)'):
-    value_lib.make_reward_transform('rna_saluki')
+  tokens = torch.tensor([[0, 4, 3]])
+  six = value_lib.make_reward_transform('rna_saluki', torch.ones(2, 6),
+                                        8)(tokens)
+  assert six.shape == (1, 8, 6)
+  torch.testing.assert_close(six, mdlm.transform_samples_saluki(
+      tokens, torch.ones(2, 6), final_length=8))
 
 
 # ---------------------------------------------------------------------------
@@ -700,8 +706,8 @@ def test_token_cosine_lr_mult_matches_svdd_tpu():
 def test_multisep_trainer_waits_for_a11(denoisers):
   """A11 is ported: ``MultiSepTrainer`` builds on a diffusion model, a
   multisep model and a reward (its steps are held to JAX's in
-  ``tests/test_torch_timed_multisep.py``), and refuses the saluki task,
-  which waits for A1."""
+  ``tests/test_torch_timed_multisep.py``); at the saluki task its
+  targets' input is the padded saluki tensor with the given body."""
   from svdd_tpu_torch.models import multisep
   _, diff = denoisers
   gen = torch.Generator().manual_seed(0)
@@ -712,6 +718,9 @@ def test_multisep_trainer_waits_for_a11(denoisers):
   trainer = train_value.MultiSepTrainer(
       diff, msm, rewards.synthetic_motif_oracle(L), tcfg)
   assert trainer.init_state(0).msm is msm
-  with pytest.raises(NotImplementedError, match=r'A1\)'):
-    train_value.MultiSepTrainer(
-        diff, msm, None, train_value.ValueTrainerConfig(task='rna_saluki'))
+  saluki = train_value.MultiSepTrainer(
+      diff, msm, None, train_value.ValueTrainerConfig(
+          task='rna_saluki', saluki_final_length=L + 3),
+      saluki_body=torch.ones(2, 6))
+  assert saluki._transform(torch.zeros(1, L, dtype=torch.long)).shape == (
+      1, L + 3, 6)

@@ -124,3 +124,15 @@ def few_torch_threads():
   torch.set_num_threads(2)
   yield
   torch.set_num_threads(n)
+
+
+def jax_cli_common():
+  """``svdd_tpu.cli.common`` imported with ``jax.config.update`` stubbed
+  out: that module turns on JAX's persistent compilation cache when it is
+  imported, and a later test in the same process (``tests/test_aot.py``'s
+  executable round trip) fails under that cache. Where another file of
+  the process imported it first, the module is returned as it is."""
+  from unittest import mock
+  with mock.patch.object(jax.config, 'update'):
+    from svdd_tpu.cli import common
+  return common
