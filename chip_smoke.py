@@ -24,7 +24,9 @@ exits non-zero and prints no result:
      and B8 also at short points, N = 6 and 8, B4 at the classifier's
      seven N = 512 pools, B5 at its N = 512, B1 also at SVDD-PM's
      5120 candidate rows, B7 and B8 also at the value-net trainers'
-     1,024 and 64 rows, dx and dW), with the times of both, the
+     1,024 and 64 rows, dx and dW, and B3, B4, B5 and B8 at the
+     analysis path's 1, 20, 32 and 288 rows, the
+     ``kernel_analysis_rows`` lines), with the times of both, the
      time of one PyTorch call computing the same function where there is
      one, and the least time the card could take for the work; times are
      the card's own for a call (the profiler), CUDA-event medians beside
@@ -44,9 +46,10 @@ exits non-zero and prints no result:
   4. the decodes, each through its CLI's ``run`` with every kernel's
      launch count read around it: SVDD-MC (M=10), DPS, classifier
      guidance, SVDD-PM (decode_tweedie, M=10) and TDS (decode_TDS, alpha
-     0.5, its ESS trace) at --task dna, B=512, L=200, 128 steps, in
-     float32 and again under the bf16 switches (the ``*_bf16`` runs),
-     and SVDD-MC with --m_schedule 64:4,64:10 in bf16; SVDD-PM and TDS
+     0.5, its ESS trace) at --task dna, B=512, L=200, 64 steps (the
+     CLIs' 128 cut in depth), in float32 and again under the bf16
+     switches (the ``*_bf16`` runs), and SVDD-MC with --m_schedule
+     32:4,32:10 in bf16; SVDD-PM and TDS
      through ``decode.run_decode`` scored by the full-width Enformer
      reward oracle (f32, 16 steps); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
@@ -85,7 +88,7 @@ exits non-zero and prints no result:
      L=50, the ``kernel_rna`` lines; in bf16 B6 rounds as JAX's
      reference VJP below L=100): the ConvGRU value net and oracle on 512
      rows on the card against the CPU, eval and training forwards with
-     their gradients; the six decoders at --task rna, B=512, 128 steps,
+     their gradients; the six decoders at --task rna, B=512, 64 steps,
      f32 and under the bf16 switches (the ConvGRU stays f32), with exact
      launch counts; sample_eval with the analytic predictor;
      ``cli.train_oracle --task rna``, ``main_gosai --mode train --task
@@ -140,8 +143,25 @@ exits non-zero and prints no result:
      from a seed) with exact B1 and B2 counts and one oracle call's ms
      and peak memory, ``cli.train`` (MC) and ``cli.train_oracle`` at
      --task rna_saluki;
+ 11. the supporting modules (A15) on the full-width 3-task DNA oracle
+     (Enformer, 1536 channels, random weights from a seed), in f32 and
+     again in bf16 (the value net's SVDD_VALUE_BF16 compute) for the first
+     three: ISM of one sequence through ``get_attributions`` (800 mutants
+     in batches of 512 and 288, then the sequence; 8 mutants and the
+     sequence card vs CPU), input x gradient, integrated gradients (4
+     points) and expected gradients (4 references) card vs CPU, then at
+     their defaults (32, 20) on the card, and the attention maps (11, 8,
+     2, 2) card vs CPU, each with exact launch counts (B3, B4, B5 a
+     forward, B8 a backward; in bf16 the pools below JAX's gate take
+     their references); in f32: ``evolve`` (4 rounds) and ``ledidi`` (50
+     steps, its first 3 losses card vs CPU), motif discovery over the IG
+     attributions of 64 sequences, the reward report over phase 4's npz
+     files, the validation hook's embedding branch (the oracle trunk's
+     mean over length), StepTimer around SVDD-MC steps with the oracle
+     as value (B=64, M=10), ``profile_trace`` and ``nan_guard``;
 then the kernels line (launches summed over the runs of phases 3-5 and
-7-10; B1's, B6's and B2's RNA points under ``rna``),
+7-11; B1's, B6's and B2's RNA points under ``rna``, B3's, B4's, B5's and
+B8's analysis rows under ``analysis_rows``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
 
@@ -221,7 +241,7 @@ ORACLE_RUNS = {
         'attn_pool_prologue_im2col', 'attn_pool', 'attn_l2'),
 }
 # one SVDD-MC decode with scheduled M (bench.py's example), in bf16
-M_SCHEDULE = '64:4,64:10'
+M_SCHEDULE = '32:4,32:10'
 # the JAX package's bf16 compute switches, which its bench sets: the CNN
 # denoiser and the Enformer value net compute in bf16 (the reward oracle
 # stays f32); the guided decodes run once in f32 and once under them
@@ -1476,6 +1496,93 @@ def check_attn_pool_bwd(dtype, gen):
   return r
 
 
+# the rows the analysis path (phase 11) gives the value net's kernels: one
+# sequence (input x gradient, Ledidi, ISM's reference row), expected
+# gradients' 20 references, integrated gradients' 32 path points and ISM's
+# tail batch (800 mutants = 512 + 288). B3 at the six fused pools, B4 and
+# B8 at the last pool and B5 at the value net's heads are held against
+# their plain versions and timed there in both dtypes (``analysis_rows``).
+# In bf16 the eval tower sends 1 and 20 rows (off JAX's gate, N % 8) and
+# the attributions' vmapped rows to the pools' reference forms, so phase 11
+# launches B3, B4 and B8 at those rows in f32 alone; the kernels are held
+# there in bf16 all the same
+ANALYSIS_ROWS = (1, 20, 32, 288)
+
+
+def _analysis_point(name, n, calls, plains, flops, nbytes, dtype_name,
+                    counter):
+  """Each call once against its plain version (one launch each), then
+  the calls' summed device time and the plain versions' (the profiler)
+  with the bound of ``flops`` and ``nbytes``."""
+  from svdd_tpu_torch import _build
+  errs = []
+  for call, plain in zip(calls, plains):
+    before = _build.LAUNCHES[counter]
+    got = call()
+    if _build.LAUNCHES[counter] != before + 1:
+      raise AssertionError(f'{name} N={n}: no launch')
+    want = plain()
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for i, (g, w) in enumerate(pairs):       # B8's dW is a sum over rows
+      check = compare_sum if name == 'attn_pool_bwd' and i == 1 else compare
+      errs.append(check(f'{name} N={n}', g, w, dtype_name)[0])
+  ms = device_ms(lambda: [c() for c in calls])
+  plain_ms = device_ms(lambda: [p() for p in plains])
+  bound_ms, bound_by = bound(flops, nbytes, dtype_name)
+  return {'rows': n, 'max_abs_err': max(errs), 'ms': ms,
+          'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound_ms,
+          'bound_by': bound_by, 'bound_share': bound_ms / ms,
+          'kernel_vs_plain': ms / plain_ms}
+
+
+def check_analysis_rows(dtype, gen) -> dict:
+  """B3, B4, B5 and B8 at ANALYSIS_ROWS: {kernel: {rows: point}}."""
+  import torch
+  from svdd_tpu_torch.ops import attn_l2 as L2
+  from svdd_tpu_torch.ops import attn_pool as K
+  from svdd_tpu_torch.ops.kernel_utils import live_offsets
+  name = str(dtype).split('.')[-1]
+  out = {k: {} for k in ('attn_pool_prologue_im2col', 'attn_pool',
+                         'attn_l2', 'attn_pool_bwd')}
+  for n in ANALYSIS_ROWS:
+    pools = [_pool_args(l, c, dtype, gen, n=n) for l, c in POOL_SHAPES]
+    es = pools[0][0].element_size()
+    flops = sum(2 * n * ((l + 1) // 2) * c * c for l, c in POOL_SHAPES)
+    nbytes = sum(_pool_bytes(n, l, c, es, len(live_offsets(5, (l + 1) // 2)))
+                 for l, c in POOL_SHAPES)
+    out['attn_pool_prologue_im2col'][str(n)] = _analysis_point(
+        'attn_pool_prologue_im2col', n,
+        [lambda a=a: K._pool_prologue_im2col_kernel(*a) for a in pools],
+        [lambda a=a: K.pool_prologue_im2col_wlogits_plain(*a) for a in pools],
+        flops, nbytes, name, 'attn_pool_prologue_im2col')
+    del pools
+    l, c = LAST_POOL
+    lh = (l + 1) // 2
+    x, res, w = _pool_inputs(l, c, dtype, gen, n)
+    out['attn_pool'][str(n)] = _analysis_point(
+        'attn_pool', n, [lambda: K._attn_pool(x, w, res)],
+        [lambda: K.attn_pool_plain(x, w, res)], 2 * n * lh * c * c,
+        _pool_bytes(n, l, c, es), name, 'attn_pool')
+    ct = torch.randn(n, lh, c, device='cuda', generator=gen).to(dtype)
+    out['attn_pool_bwd'][str(n)] = _analysis_point(
+        'attn_pool_bwd', n, [lambda: K.attn_pool_bwd(x, w, ct, res)],
+        [lambda: K.attn_pool_bwd_plain(x, w, ct, res)],
+        3 * 2 * n * lh * c * c,
+        (3 * n * l * c + n * lh * c + c * c) * es + c * c * 4, name,
+        'attn_pool_bwd')
+    del x, res, w, ct
+    h, dk, dv = ATTN_L2_HEADS
+    args = _attn_l2_args(n, h, dk, dv, dtype, gen)
+    out['attn_l2'][str(n)] = _analysis_point(
+        'attn_l2', n, [lambda: L2.attn_l2(*args)],
+        [lambda: _attn_l2_plain(args)], n * 2 * h * (6 * dk + 3 * dv),
+        (n * 2 * h * (2 * dk + 2 * dv) + 5 * h * dk) * es + n * 2 * h * 4,
+        name, 'attn_l2')
+    del args
+    torch.cuda.empty_cache()
+  return out
+
+
 # B12 at the text preset's DiT and AR shapes: the 64-row decode batch,
 # L=1024, 12 heads of 64; B13 at DiMamba's 512 x 200 rows of 256
 ATTN_SHAPE = (64, 1024, 12, 64)
@@ -2232,7 +2339,9 @@ def check_offgrid_enformer():
 # ---------------------------------------------------------------------------
 
 
-DECODE_STEPS = 128
+# the guided decodes' steps: the CLIs' 128 cut in depth, for the smoke's
+# time limit
+DECODE_STEPS = 64
 # the SVDD-MC decode with the off-grid value net: B11b inside the loop at
 # N = B*M = 5120
 OFFGRID_DECODE_STEPS = 8
@@ -2263,7 +2372,7 @@ def _check_ess(trace, steps: int, batch: int = 512) -> None:
 def run_decode(algo: str, run_name: str | None = None,
                steps: int = DECODE_STEPS, value_kwargs=None,
                bf16: bool = False, extra_argv=(), task: str = 'dna'):
-  """One decode through its CLI's ``run``: B=512, 128 steps (or
+  """One decode through its CLI's ``run``: B=512, DECODE_STEPS (or
   ``steps``), --task dna (L=200) or rna (L=50, the ConvGRU value net),
   float32 (or, ``bf16``, under the bf16 switches), --skip_best_of_n,
   M=10 for SVDD-MC and SVDD-PM, TDS at the CLI's alpha 0.5, DG through
@@ -4339,6 +4448,7 @@ def rna_train_phase() -> dict:
   from svdd_tpu_torch.cli import eval as cli_eval
   from svdd_tpu_torch.cli import main_gosai, train_oracle
   from svdd_tpu_torch.cli import train as cli_train
+  from svdd_tpu_torch.config import rna_config
   root = _value_dir('rna')
   runs = {}
 
@@ -4395,7 +4505,7 @@ def rna_train_phase() -> dict:
   emit({'phase': 'rna_train', **r})
   ckpt = os.path.join(root, 'ckpt')
 
-  steps = DECODE_STEPS
+  steps = rna_config().sampling.steps       # a trajectory's steps
   trained = []
   for name in ('rna_value_mc', 'rna_value_mc_again'):
     args = cli_train.parser().parse_args(_rna_value_argv(
@@ -6166,6 +6276,383 @@ def a1_phase() -> dict:
   return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the supporting modules (A15) on the full-width DNA oracle
+# ---------------------------------------------------------------------------
+
+A15_SEED = 21
+A15_L = 200
+A15_ISM_CPU_ROWS = 8       # ISM mutants held card vs CPU, with the sequence
+A15_FEW = {'integratedgradients': {'steps': 4}, 'deepshap': {'n_refs': 4}}
+A15_DEFAULT_ROWS = {'integratedgradients': 32, 'deepshap': 20}
+A15_EVOLVE_ROUNDS = 4
+A15_LEDIDI_STEPS = 50
+A15_LEDIDI_CPU_STEPS = 3
+A15_LEDIDI_TARGET = 1.0
+A15_MODISCO_ROWS = 64      # sequences whose IG attributions motif discovery reads
+A15_VALIDATION_STEPS = 32  # the validation hook's unguided sampler
+A15_VALIDATION_ROWS = 64
+A15_TIMER_STEPS = 3        # SVDD-MC steps through StepTimer, B=64, M=10
+A15_TOL = 1e-3             # f32 card vs CPU, of the largest value
+
+
+def _a15_dir(name: str) -> str:
+  return _train_dir(os.path.join('a15', name))
+
+
+def _a15_oracle(bf16: bool):
+  """The full-width 3-task DNA oracle (Enformer, 1536 channels, 11
+  transformer blocks, random weights from A15_SEED) on the card, in f32
+  or as SVDD_VALUE_BF16=1 builds a value net (bf16 compute)."""
+  import torch
+  from svdd_tpu_torch import rewards, value
+  from svdd_tpu_torch.models.enformer import EnformerValueModel
+  with bf16_switches(bf16):
+    dtype = value.value_compute_dtype()
+  return rewards.RewardOracle(EnformerValueModel(
+      n_tasks=3, compute_dtype=dtype,
+      generator=torch.Generator('cuda').manual_seed(A15_SEED)).eval())
+
+
+def _on_cpu(oracle):
+  """A copy of ``oracle`` on the CPU."""
+  import copy
+  from svdd_tpu_torch import rewards
+  return rewards.RewardOracle(copy.deepcopy(oracle.module).cpu())
+
+
+def _a15_launches(rows: int, bf16: bool, backward: bool = False,
+                  vmapped: bool = False) -> dict:
+  """The launches of one oracle forward at ``rows`` rows (and its
+  backward): B5 11; B3 6 and B4 1 where the pools take the kernels (f32;
+  bf16 on JAX's gate, a multiple of 8 rows that are not vmapped
+  examples, ``ops.attn_pool.wlogits_body_takes``), and then B8 1 a
+  backward."""
+  pools = int(not bf16 or (rows % 8 == 0 and not vmapped))
+  return {'attn_pool_prologue_im2col': 6 * pools, 'attn_pool': pools,
+          'attn_l2': 11, 'attn_pool_bwd': pools * backward}
+
+
+def _exactly(name: str, fn, want: dict):
+  """(fn's result, wall s, launches), the launch counts set to 0 just
+  before and read just after; they must equal ``want``."""
+  import torch
+  from svdd_tpu_torch import _build
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  return out, wall, _check_launches(name, _build.launches(), want)
+
+
+def _a15_close(name: str, got, want, f32_cpu=None) -> dict:
+  """Card vs CPU: f32 within A15_TOL of the largest CPU value; bf16
+  (given the f32 CPU result) by ``bf16_close``."""
+  import torch
+  got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+  if f32_cpu is None:
+    err, scale = _card_vs_cpu(name, got, want, tol=A15_TOL)
+    return {f'{name}_max_abs_err': err, f'{name}_max_abs': scale}
+  scale = float(want.abs().max())
+  err = float((got - want).abs().max())
+  noise = float((want - torch.as_tensor(f32_cpu).float()).abs().max())
+  if not torch.isfinite(got).all() or not bf16_close(err, noise, scale):
+    raise AssertionError(f'{name} bf16 card vs cpu: max abs err {err}, '
+                         f'cpu bf16-to-f32 {noise}, max |cpu| {scale}')
+  return {f'{name}_max_abs_err': err, f'{name}_max_abs': scale,
+          f'{name}_cpu_bf16_vs_f32': noise}
+
+
+def _mutants(onehot, flat_idx):
+  """The one-hots of ``onehot`` (L, 4) with base b at position l, for
+  each flat index 4 l + b."""
+  import torch
+  out = onehot[None].repeat(len(flat_idx), 1, 1)
+  for i, f in enumerate(flat_idx):
+    out[i, f // 4] = torch.eye(4)[f % 4]
+  return out
+
+
+def a15_attributions(f32_cpu=None) -> tuple:
+  """ISM, the attributions and the attention maps of one sequence on the
+  full-width oracle, card vs CPU, with exact launch counts; in bf16 when
+  given the f32 run's CPU results. Returns (report, CPU results,
+  {run: launches})."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch.analysis import interpret
+  bf16 = f32_cpu is not None
+  tag = 'bf16' if bf16 else 'f32'
+  card = _a15_oracle(bf16)
+  cpu = _on_cpu(card)
+  onehot = _onehot_rows(1, A15_L, A15_SEED)[0]
+  x = onehot.cuda()
+  ref = f32_cpu or {}
+  r, cpu_out, runs = {'compute_dtype': 'bfloat16' if bf16 else 'float32'}, {}, {}
+  torch.cuda.reset_peak_memory_stats()
+
+  # 1. ISM: 800 mutants in batches of 512 and 288, then the sequence
+  want = _add(_add(_a15_launches(512, bf16), _a15_launches(288, bf16)),
+              _a15_launches(1, bf16))
+  attr, wall, runs[f'a15_ism_{tag}'] = _exactly(
+      'ism', lambda: interpret.get_attributions(card, x, 'ism'), want)
+  if attr.shape != (A15_L, 4) or not np.isfinite(attr).all():
+    raise AssertionError(f'ism attributions: {attr.shape}')
+  ism = interpret.ism_predict(card, x)
+  idx = np.linspace(0, 4 * A15_L - 1, A15_ISM_CPU_ROWS).astype(int)
+  with torch.no_grad():
+    card_ref = card(x[None]).cpu()
+    rows_cpu = torch.cat([cpu(_mutants(onehot, idx)), cpu(onehot[None])])
+  cpu_out['ism'] = rows_cpu
+  r.update(_a15_close('ism', torch.cat([torch.from_numpy(
+      ism.reshape(-1)[idx]), card_ref]), rows_cpu, ref.get('ism')))
+  r['ism_wall_s'] = wall
+  r['ism_trace'] = trace_step(
+      lambda: interpret.get_attributions(card, x, 'ism'))
+
+  # 2. the gradient attributions: input x gradient, IG and EG at few
+  # points card vs CPU (EG on one set of CPU draws), then at their
+  # defaults on the card alone
+  g = torch.Generator().manual_seed(A15_SEED)
+  perms = torch.stack([torch.randperm(A15_L, generator=g) for _ in range(
+      A15_FEW['deepshap']['n_refs'])])
+  alphas = torch.rand(len(perms), generator=g)
+  few = {'inputxgradient': {}, 'integratedgradients': A15_FEW[
+      'integratedgradients'], 'deepshap': dict(perms=perms, alphas=alphas)}
+  for method, kw in few.items():
+    rows = {'inputxgradient': 1, 'integratedgradients': kw.get('steps'),
+            'deepshap': len(perms)}[method]
+    got, wall, runs[f'a15_{method}_few_{tag}'] = _exactly(
+        method, lambda: interpret.get_attributions(card, x, method, **kw),
+        _a15_launches(rows, bf16, True, method != 'inputxgradient'))
+    cpu_out[method] = interpret.get_attributions(cpu, onehot, method, **kw)
+    r.update(_a15_close(method, got, cpu_out[method], ref.get(method)))
+  for method, rows in A15_DEFAULT_ROWS.items():
+    call = lambda: interpret.get_attributions(
+        card, x, method, generator=torch.Generator('cuda').manual_seed(0))
+    got, wall, runs[f'a15_{method}_{tag}'] = _exactly(
+        method, call, _a15_launches(rows, bf16, True, True))
+    if not np.isfinite(got).all() or not np.abs(got).max() > 0:
+      raise AssertionError(f'{method}: non-finite or zero attributions')
+    r[f'{method}_rows'], r[f'{method}_wall_s'] = rows, wall
+  r['integratedgradients_trace'] = trace_step(
+      lambda: interpret.get_attributions(card, x, 'integratedgradients'))
+
+  # 3. the attention maps of the 11 blocks at L' = 2
+  maps, _, runs[f'a15_attention_{tag}'] = _exactly(
+      'attention', lambda: interpret.get_attention_scores(card.module, x),
+      _a15_launches(1, bf16))
+  cpu_out['attention'] = interpret.get_attention_scores(cpu.module, onehot)
+  if maps.shape != (11, 8, 2, 2) or not np.allclose(maps.sum(-1), 1.0,
+                                                    atol=1e-6):
+    raise AssertionError(f'attention maps {maps.shape}, row sums '
+                         f'{maps.sum(-1).min()}..{maps.sum(-1).max()}')
+  r.update(_a15_close('attention', maps, cpu_out['attention'],
+                      ref.get('attention')))
+  r['attention_shape'] = list(maps.shape)
+  r['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 2 ** 30
+  r['launches'] = runs
+  return r, cpu_out, runs
+
+
+def a15_design() -> tuple:
+  """evolve (A15_EVOLVE_ROUNDS rounds) and ledidi (A15_LEDIDI_STEPS steps,
+  its first losses card vs CPU) on the f32 oracle, and motif discovery
+  over the IG attributions of A15_MODISCO_ROWS sequences."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import mdlm
+  from svdd_tpu_torch.analysis import design, interpret
+  card = _a15_oracle(False)
+  cpu = _on_cpu(card)
+  onehot = _onehot_rows(1, A15_L, A15_SEED + 1)[0]
+  x = onehot.cuda()
+  r, runs = {}, {}
+  from svdd_tpu_torch import _build
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  best, hist = design.evolve(card, x, rounds=A15_EVOLVE_ROUNDS)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  ism_calls = A15_EVOLVE_ROUNDS if len(hist) > A15_EVOLVE_ROUNDS else len(
+      hist)
+  want = _add(_add(_add({}, _a15_launches(1, False)),
+                   _a15_launches(512, False), ism_calls),
+              _a15_launches(288, False), ism_calls)
+  runs['a15_evolve'] = _check_launches('evolve', _build.launches(), want)
+  with torch.no_grad():
+    fresh = float(card(best[None])[0])
+  # the last score came from a row of an ISM batch, the fresh one from a
+  # one-row forward: the products sum in other orders
+  if any(b < a for a, b in zip(hist, hist[1:])) or abs(
+      fresh - hist[-1]) > A15_TOL * max(abs(h) for h in hist):
+    raise AssertionError(f'evolve: history {hist}, fresh score {fresh}')
+  r['evolve'] = {'rounds': A15_EVOLVE_ROUNDS, 'history': hist,
+                 'fresh_score': fresh, 'substitutions': int(
+                     (best.cpu() != onehot).any(-1).sum()),
+                 'wall_s': wall}
+
+  gumbel = mdlm.gumbel_noise((A15_LEDIDI_STEPS, A15_L, 4),
+                             torch.Generator().manual_seed(A15_SEED))
+  (final, hist), wall, runs['a15_ledidi'] = _exactly(
+      'ledidi', lambda: design.ledidi(card, x, A15_LEDIDI_TARGET,
+                                      steps=A15_LEDIDI_STEPS, gumbel=gumbel),
+      _add({}, _a15_launches(1, False, True), A15_LEDIDI_STEPS))
+  _, hist_cpu = design.ledidi(cpu, onehot, A15_LEDIDI_TARGET,
+                              steps=A15_LEDIDI_CPU_STEPS, gumbel=gumbel)
+  err = max(abs(a - b) for a, b in zip(hist, hist_cpu))
+  scale = max(abs(b) for b in hist_cpu)
+  if not np.isfinite(hist).all() or err > A15_TOL * scale:
+    raise AssertionError(f'ledidi card vs cpu: {hist[:3]} vs {hist_cpu}')
+  r['ledidi'] = {'steps': A15_LEDIDI_STEPS, 'target': A15_LEDIDI_TARGET,
+                 'first_losses': hist[:A15_LEDIDI_CPU_STEPS],
+                 'first_losses_cpu': hist_cpu, 'max_abs_err': err,
+                 'last_loss': hist[-1], 'edits': int(
+                     (final.cpu() != onehot).any(-1).sum()),
+                 'wall_s': wall, 'ms_per_step': wall / A15_LEDIDI_STEPS * 1e3}
+
+  onehots = _onehot_rows(A15_MODISCO_ROWS, A15_L, A15_SEED + 2)
+  out_dir = _a15_dir('modisco')
+
+  def attributions():
+    return np.stack([interpret.get_attributions(
+        card, oh.cuda(), 'integratedgradients') for oh in onehots])
+
+  attr, wall, runs['a15_modisco_ig'] = _exactly(
+      'modisco_ig', attributions, _add({}, _a15_launches(32, False, True),
+                                       A15_MODISCO_ROWS))
+  t0 = time.perf_counter()
+  motifs = interpret.run_modisco(attr, onehots.numpy(), out_dir=out_dir)
+  files = sorted(os.listdir(out_dir))
+  if not {'report.json', 'motifs.meme'} <= set(files):
+    raise AssertionError(f'run_modisco wrote {files}')
+  r['motifs'] = {'rows': A15_MODISCO_ROWS, 'ig_wall_s': wall,
+                 'discovery_s': time.perf_counter() - t0,
+                 'motifs': len(motifs), 'top': json.load(open(os.path.join(
+                     out_dir, 'report.json')))[:3],
+                 'logos_written': sum(f.endswith('.png') for f in files)}
+  r['launches'] = runs
+  return r, runs
+
+
+def a15_support(npz_paths) -> tuple:
+  """The report over the decodes' npz files, the validation hook's
+  embedding branch, StepTimer around SVDD-MC steps, profile_trace and
+  nan_guard, on the f32 oracle and a random full-width denoiser."""
+  import numpy as np
+  import torch
+  from svdd_tpu_torch import mdlm, observability
+  from svdd_tpu_torch.config import dna_config
+  from svdd_tpu_torch.data import gosai
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.eval import report, validation
+  from svdd_tpu_torch.sampling import guidance
+  card = _a15_oracle(False)
+  r, runs = {}, {}
+  r['report'] = [report.report_file(p) for p in npz_paths]
+  if not npz_paths:
+    raise AssertionError('report: no npz files')
+
+  cfg = dna_config()
+  cfg.sampling.steps = A15_VALIDATION_STEPS
+  diffusion = Diffusion(cfg, device='cuda')
+  module = card.module
+  embed = lambda oh: module.trunk(oh.to(module.compute_dtype)).float().mean(1)
+  datasets = {'train': gosai.GosaiDataset('train', length=A15_L,
+                                          data_dir=_no_data_dir())}
+  from svdd_tpu_torch import _build
+  torch.cuda.synchronize()
+  _build.reset_launches()
+  t0 = time.perf_counter()
+  metrics = validation.distribution_eval(
+      diffusion, datasets, torch.Generator('cuda').manual_seed(0),
+      embed_fn=embed, n_batches=1, batch_size=A15_VALIDATION_ROWS,
+      subset_size=4 * A15_VALIDATION_ROWS)
+  torch.cuda.synchronize()
+  if not np.isfinite(metrics.get('emb_pca_ws', np.nan)):
+    raise AssertionError(f'validation: {metrics}')
+  # the sampler's steps and its noise removal, then the embeddings of the
+  # samples and of as many train rows
+  runs['a15_validation'] = _check_launches(
+      'validation', _build.launches(),
+      _add({'cnn_layer': 20 * (cfg.sampling.steps + 1)},
+           _a15_launches(A15_VALIDATION_ROWS, False), 2))
+  r['validation'] = {**metrics, 'wall_s': time.perf_counter() - t0,
+                     'samples': A15_VALIDATION_ROWS,
+                     'steps': cfg.sampling.steps}
+
+  step = guidance.svdd_mc_step(
+      diffusion.forward, lambda toks: card(mdlm.transform_samples(toks)),
+      diffusion.schedule, cfg.mask_index, repeats=10)
+  xt = mdlm.sample_prior((A15_VALIDATION_ROWS, A15_L), cfg.mask_index,
+                         'cuda')
+  gen = torch.Generator('cuda').manual_seed(1)
+  timer = observability.StepTimer()
+
+  def steps():
+    for _ in range(A15_TIMER_STEPS):
+      timer.start()
+      with torch.inference_mode():
+        out = step(xt, torch.tensor(0.5), torch.tensor(0.49), gen)
+      timer.stop(out)
+
+  per_step = {'cnn_layer': 20, 'gumbel_candidates': 1,
+              **_a15_launches(10 * A15_VALIDATION_ROWS, False)}
+  _, _, runs['a15_step_timer'] = _exactly(
+      'step_timer', steps, _add({}, per_step, A15_TIMER_STEPS))
+  r['step_timer'] = {'batch_size': A15_VALIDATION_ROWS, 'sample_M': 10,
+                     **timer.summary()}
+
+  x = _onehot_rows(1, A15_L, A15_SEED)[0].cuda()
+  trace_dir = _a15_dir('profile')
+  with observability.profile_trace(trace_dir), torch.no_grad():
+    out = card(x[None])
+  traces = [f for f in os.listdir(trace_dir) if f.endswith('.pt.trace.json')]
+  if len(traces) != 1:
+    raise AssertionError(f'profile_trace wrote {os.listdir(trace_dir)}')
+  r['profile_trace'] = {'file': traces[0], 'bytes': os.path.getsize(
+      os.path.join(trace_dir, traces[0]))}
+  planted = out.clone()
+  planted[0] = float('nan')
+  clean, bad = (observability.nan_guard({'out': o}, 'oracle output')
+                for o in (out, planted))
+  if bool(clean) or not bool(bad) or clean.device != out.device:
+    raise AssertionError(f'nan_guard: {clean}, {bad}')
+  r['nan_guard'] = {'clean': bool(clean), 'planted_nan': bool(bad)}
+  r['launches'] = runs
+  return r, runs
+
+
+def a15_phase(npz_paths) -> dict:
+  """Phase 11, each part emitting its line: the attributions in f32, then
+  in bf16 against the f32 CPU results, design and motif discovery, the
+  report, validation and observability tools. Returns the launch counts
+  of its runs."""
+  import torch
+  runs = {}
+
+  def done(r, phase):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({'phase': phase, **r})
+
+  t0 = time.perf_counter()
+  ref = None
+  for _ in range(2):
+    r, ref, more = a15_attributions(ref)
+    runs.update(more)
+    done(r, 'a15_attributions')
+  for fn in (a15_design, lambda: a15_support(npz_paths)):
+    r, more = fn()
+    runs.update(more)
+    done(r, 'a15_design' if 'evolve' in r else 'a15_support')
+  emit({'phase': 'a15', 'wall_s': time.perf_counter() - t0})
+  return {k: {'launches': v} for k, v in runs.items()}
+
+
 def kernel_checks() -> list:
   """(name, check(dtype, generator)) of the kernel phase, in order; each
   runs in float32 and bfloat16. B2 (gumbel_candidates, float32 only) is
@@ -6259,6 +6746,17 @@ def main() -> None:
   emit({'phase': 'kernel_rna', 'kernel': 'gumbel_candidates',
         'dtype': 'float32', **r})
 
+  # B3, B4, B5 and B8 at the analysis path's rows (phase 11)
+  analysis_rows = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    dname = str(dtype).split('.')[-1]
+    for key, points in check_analysis_rows(dtype, gen).items():
+      analysis_rows[(key, dname)] = points
+      emit({'phase': 'kernel_analysis_rows', 'kernel': key, 'dtype': dname,
+            'points': points})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
   # float32, then bf16 held against the f32 run's CPU results
   model_ref = grad_ref = None
   for _ in range(2):
@@ -6351,6 +6849,9 @@ def main() -> None:
   runs.update(a17_a11_phase(diffusion_ckpt))
   runs.update(backbones_phase(diffusion_ckpt))
   runs.update(a1_phase())
+  runs.update(a15_phase([
+      os.path.join(REPO, 'build', 'chip_smoke', run, decodes[run]['npz'])
+      for run in GUIDED]))
 
   kernels = []
   for name in _build.KERNELS:
@@ -6408,6 +6909,10 @@ def main() -> None:
                                      'rounds_as_reference')
                    if f in r} for dt, r in by_dt.items()}
           for k, by_dt in rna.items()}
+    for dt, key in (('float32', 'analysis_rows'),
+                    ('bfloat16', 'analysis_rows_bf16')):
+      if (name, dt) in analysis_rows:
+        entry[key] = analysis_rows[(name, dt)]
     for suffix, key in (('d128', 'head_dim_128'), ('l200', 'length_200')):
       more = {dt: results.get((f'{name}_{suffix}', dt))
               for dt in ('float32', 'bfloat16')}

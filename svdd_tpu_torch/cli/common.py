@@ -64,6 +64,7 @@ from svdd_tpu_torch import importers, rewards, weights
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.config import Config, dna_config, rna_config
 from svdd_tpu_torch.diffusion import Diffusion
+from svdd_tpu_torch.eval.metrics import quantile_report
 from svdd_tpu_torch.train import diffusion as train_diff
 
 LOGGER = logging.getLogger(__name__)
@@ -455,18 +456,6 @@ def npz_path(args, suffix: str = '') -> str:
   """'./log/{task}-{reward}{suffix}.npz'."""
   return os.path.join(args.out_dir,
                       f'{args.task}-{args.reward_name}{suffix}.npz')
-
-
-def quantile_report(rewards_by_algo, quantiles=(0.5, 0.8, 0.9)) -> dict:
-  """q50/q80/q90, mean and n of each reward array."""
-  report = {}
-  for name, r in rewards_by_algo.items():
-    r = np.asarray(r).reshape(-1)
-    report[name] = {f'q{int(q * 100)}': float(np.quantile(r, q))
-                    for q in quantiles}
-    report[name]['mean'] = float(r.mean())
-    report[name]['n'] = int(r.size)
-  return report
 
 
 def finish_run(args, result, suffix: str = '',

@@ -43,6 +43,12 @@ _FLOAT_PREFIX = re.compile(
     re.IGNORECASE)
 
 
+def dna_detokenize(seq) -> str:
+  """(L,) int tokens -> one string: ids 0-3 are 'A', 'C', 'G', 'T', any
+  other id 'N' (one row of ``batch_dna_detokenize``)."""
+  return batch_dna_detokenize(np.asarray(seq)[None])[0]
+
+
 def batch_dna_detokenize(batch_seq) -> list[str]:
   """(N, L) int tokens -> N strings."""
   tokens = np.asarray(batch_seq)

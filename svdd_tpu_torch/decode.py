@@ -9,6 +9,12 @@ once, after the loop, into ``DecodeResult.diagnostics``. Under
 ``task='rna_saluki'`` the oracle scores the saluki input
 (``mdlm.transform_samples_saluki``) of the guided samples, of the
 baseline's and of SVDD-PM's candidates.
+
+``SVDD_AOT_CACHE``, which makes the JAX decode serve its sampler from a
+compiled XLA executable on disk, has no counterpart: the port's sampler
+runs eagerly and its one compile step, the kernels' nvcc build, is cached
+under ``build/svdd_tpu_torch/`` already. Where the variable is set, the
+first decode of the process logs that it is ignored.
 """
 
 from __future__ import annotations
@@ -25,6 +31,18 @@ from svdd_tpu_torch import mdlm
 from svdd_tpu_torch.diffusion import Diffusion
 
 LOGGER = logging.getLogger(__name__)
+_AOT_NOTICE = ('SVDD_AOT_CACHE is set, and ignored: the port compiles no '
+               'sampler ahead of time (it runs eagerly; its CUDA kernels '
+               'are built once by nvcc and cached under build/)')
+_aot_noticed = False
+
+
+def _notice_aot_cache() -> None:
+  """Log ``_AOT_NOTICE`` once a process where SVDD_AOT_CACHE is set."""
+  global _aot_noticed
+  if os.environ.get('SVDD_AOT_CACHE') and not _aot_noticed:
+    _aot_noticed = True
+    LOGGER.warning(_AOT_NOTICE)
 
 # the baseline folds its unguided batches into calls of at most this
 # many rows (the JAX package's SVDD_BASELINE_MAX_BATCH default)
@@ -125,6 +143,7 @@ def run_decode(diffusion: Diffusion, reward_fn: Callable, *,
   reward's. ``m_schedule`` (svdd_mc, svdd_pm): ((n_steps, M), ...).
   ``task``, ``saluki_body``, ``saluki_final_length``: the saluki task's
   oracle input (module docstring)."""
+  _notice_aot_cache()
   saluki = dict(task=task, saluki_body=saluki_body,
                 saluki_final_length=saluki_final_length)
   dev = diffusion.device

@@ -3,9 +3,9 @@
 passes one holding the EMA weights) through the port's unguided sampler,
 then compare the samples with held-out data: the 1-D Wasserstein
 distances of the oracle's predictions against each split's labels and
-its predictions on the split, and the 3-mer Pearson correlation with the
-train split. The embedding-PCA distance needs an embedding network,
-which no caller passes; it is not ported."""
+its predictions on the split, and, against the train split, the 3-mer
+Pearson correlation and (with an ``embed_fn``) the embedding-PCA
+Wasserstein distance."""
 
 from __future__ import annotations
 
@@ -31,23 +31,31 @@ def sample_sequences(diffusion, n_batches: int, batch_size: int,
                          for _ in range(n_batches)])
 
 
-def _predict(oracle_fn, tokens: np.ndarray, device) -> np.ndarray:
-  """The oracle's (N, T) predictions on the one-hots of ``tokens``."""
+def _apply(fn, tokens: np.ndarray, device) -> np.ndarray:
+  """``fn``'s output on the one-hots of ``tokens``, as float32 numpy."""
   onehot = mdlm.transform_samples(torch.as_tensor(tokens, device=device))
   with torch.inference_mode():
-    preds = oracle_fn(onehot).float().cpu().numpy()
+    return fn(onehot).float().cpu().numpy()
+
+
+def _predict(oracle_fn, tokens: np.ndarray, device) -> np.ndarray:
+  """The oracle's (N, T) predictions on the one-hots of ``tokens``."""
+  preds = _apply(oracle_fn, tokens, device)
   return preds[:, None] if preds.ndim == 1 else preds
 
 
 def distribution_eval(diffusion, datasets: Dict[str, gosai.GosaiDataset],
                       generator: torch.Generator, *, oracle_fn=None,
-                      n_batches: int = 2, batch_size: int = 64,
+                      embed_fn=None, n_batches: int = 2,
+                      batch_size: int = 64,
                       subset_size: int = 2048) -> Dict[str, float]:
   """The reference's validation metrics, flattened: 'ws/<split>_truth_<task>',
   'ws/<split>_pred_<task>' (with ``oracle_fn``: (N, L, 4) -> (N,) or
-  (N, T)) and 'kmer_pearson' (with a 'train' split). Each split's rows
-  are a subset drawn with numpy from seed 0 (the k-mer subset of the
-  train split from seed 1), as in the JAX function."""
+  (N, T)), 'kmer_pearson' and, with ``embed_fn`` ((N, L, 4) -> (N, D)),
+  'emb_pca_ws' (both with a 'train' split). Each split's rows are a
+  subset drawn with numpy from seed 0 (the train split's for the k-mers
+  and embeddings from seed 1, its first as many as there are samples
+  embedded), as in the JAX function."""
   samples = sample_sequences(diffusion, n_batches, batch_size, generator)
   gen_seqs = gosai.batch_dna_detokenize(samples)
   results: Dict[str, float] = {}
@@ -73,4 +81,10 @@ def distribution_eval(diffusion, datasets: Dict[str, gosai.GosaiDataset],
         len(train_ds), min(subset_size, len(train_ds)), replace=False)
     results['kmer_pearson'] = metrics.kmer_pearson(
         gen_seqs, gosai.batch_dna_detokenize(train_ds.seqs[sub]))
+    if embed_fn is not None:
+      dev = diffusion.device
+      gen_emb = _apply(embed_fn, samples, dev)
+      data_emb = _apply(embed_fn, train_ds.seqs[sub[:len(samples)]], dev)
+      results['emb_pca_ws'] = metrics.embedding_pca_wasserstein(
+          data_emb, gen_emb)
   return results

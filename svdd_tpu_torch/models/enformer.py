@@ -11,7 +11,11 @@ kernels (``ops/conv1d.py``, ``ops/attn_pool.py``). At L=200 the
 tower pools 200 -> 100 -> 50 -> 25 -> 13 -> 7 -> 4 -> 2, so the
 transformer stack runs at length 2, where the attention goes through
 the L=2 kernel (``ops/attn_l2.py``); other lengths take the general
-relative-position attention in plain torch.
+relative-position attention in plain torch. Under ``capture_attention()``
+each attention block also appends its (N, H, L', L') map to the list the
+context yields (``analysis.interpret.get_attention_scores``): at L' = 2
+built from B5's key-0 weights ``w`` as [w, 1 - w], else the softmax.
+Outside the context no map is kept.
 
 ``train=True`` is the JAX module's ``apply(train=True,
 mutable=['batch_stats'])``: the tower's blocks in their plain form (the
@@ -29,6 +33,7 @@ dropout is ``ff_dropout // 8`` = 0.0, as in JAX, so inert.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -118,6 +123,24 @@ def relative_shift(x: torch.Tensor) -> torch.Tensor:
   return x.reshape(b, h, l, 2 * l - 1)[..., :l]
 
 
+# the list the attention blocks append their maps to, under
+# capture_attention() alone
+_ATTENTION_MAPS: list | None = None
+
+
+@contextlib.contextmanager
+def capture_attention():
+  """Collect the attention maps of every EnformerAttention that runs in
+  the block, in call order: yields the list they are appended to, each
+  (N, H, L', L') with rows summing to 1."""
+  global _ATTENTION_MAPS
+  saved, _ATTENTION_MAPS = _ATTENTION_MAPS, []
+  try:
+    yield _ATTENTION_MAPS
+  finally:
+    _ATTENTION_MAPS = saved
+
+
 class EnformerAttention(nn.Module):
   """MHA with Enformer's relative positional bias."""
 
@@ -162,7 +185,9 @@ class EnformerAttention(nn.Module):
     bc = self.rel_content_bias.to(x.dtype)
     bp = self.rel_pos_bias.to(x.dtype)
     if n == 2:
-      out, _ = attn_l2(q, k, v, bc, bp, rel_k, heads=h)
+      out, w = attn_l2(q, k, v, bc, bp, rel_k, heads=h)
+      if _ATTENTION_MAPS is not None:       # (N, 2, H) -> (N, H, 2, 2)
+        _ATTENTION_MAPS.append(torch.stack([w, 1.0 - w], -1).transpose(1, 2))
       return self.to_out(out)
     q = q.reshape(b, n, h, dk).transpose(1, 2)
     k = k.reshape(b, n, h, dk).transpose(1, 2)
@@ -172,6 +197,8 @@ class EnformerAttention(nn.Module):
     rel = relative_shift(torch.einsum(
         'bhid,hjd->bhij', q + bp.reshape(h, 1, dk), rel_k))
     attn = torch.softmax((content + rel).float(), dim=-1).to(x.dtype)
+    if _ATTENTION_MAPS is not None:
+      _ATTENTION_MAPS.append(attn)
     out = torch.einsum('bhij,bhjd->bhid', attn, v)
     return self.to_out(out.transpose(1, 2).reshape(b, n, h * dv))
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from svdd_tpu_torch import _build
+from svdd_tpu_torch.ops.kernel_utils import gate_rows
 
 
 def _relk_rows(relk):
@@ -77,7 +78,7 @@ def _attn_l2(q, k, v, bc, bp, relk, heads: int):
       or hdk % heads or hdv % heads:
     raise ValueError(f'attn_l2: bad shapes q {tuple(q.shape)} '
                      f'k {tuple(k.shape)} v {tuple(v.shape)}')
-  round_relk = attn_l2_body_rounds(n, hdk, hdv)
+  round_relk = attn_l2_body_rounds(gate_rows(n), hdk, hdv)
   if q.device.type == 'cpu':
     return attn_l2_plain(q, k, v, bc, bp, relk, heads, round_relk)
   dt = v.dtype

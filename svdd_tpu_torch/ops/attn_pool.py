@@ -76,8 +76,8 @@ import torch.nn.functional as F
 
 from svdd_tpu_torch import _build
 from svdd_tpu_torch.ops.im2col import im2col, nacdr_im2col_reference
-from svdd_tpu_torch.ops.kernel_utils import (ACT_CODES, act, live_offsets,
-                                             with_plain_grad)
+from svdd_tpu_torch.ops.kernel_utils import (ACT_CODES, act, gate_rows,
+                                             live_offsets, with_plain_grad)
 
 
 def _pooled_f32(x, w, residual=None):
@@ -195,7 +195,7 @@ def pool_rounds_as_reference(x, *, lnc: bool, k_live: int = 0,
   rounding. float32 keeps the blend."""
   n, l, c = x.shape
   return x.dtype == torch.bfloat16 and not wlogits_body_takes(
-      n, l, c, lnc=lnc, k_live=k_live, has_res=has_res)
+      gate_rows(n), l, c, lnc=lnc, k_live=k_live, has_res=has_res)
 
 
 def attn_pool_kernel_takes(c: int) -> bool:

@@ -2,13 +2,41 @@
 (``svdd_tpu/ops/kernel_utils.py``): the NACDR activations and the
 dead-tap rule, the contract between the im2col producers
 (``ops/attn_pool.py``, ``ops/im2col.py``) and the stacked conv weight
-that consumes them."""
+that consumes them; and the row count the bf16 rounding gates read
+(``rows_as_vmapped``)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+
+# the rows the bf16 rounding gates count inside rows_as_vmapped()
+_GATE_ROWS: int | None = None
+
+
+@contextlib.contextmanager
+def rows_as_vmapped():
+  """Inside, the bf16 rounding gates that count rows (the w-logits
+  pools' ``attn_pool.pool_rounds_as_reference``, B5's
+  ``attn_l2.attn_l2_body_rounds``) count one: the rows of a batched
+  forward stand for the examples of a JAX ``vmap`` over a one-row
+  function (the attributions' path points and references), whose
+  dispatchers see one row each and so take their references. Launches,
+  and every float32 result, are as outside."""
+  global _GATE_ROWS
+  saved, _GATE_ROWS = _GATE_ROWS, 1
+  try:
+    yield
+  finally:
+    _GATE_ROWS = saved
+
+
+def gate_rows(n: int) -> int:
+  """The row count a bf16 rounding gate reads for n rows."""
+  return n if _GATE_ROWS is None else _GATE_ROWS
+
 
 # activation codes the CUDA kernels take (csrc/common.cuh activate)
 ACT_CODES = {None: 0, 'gelu_enformer': 1, 'relu': 2, 'gelu': 3}

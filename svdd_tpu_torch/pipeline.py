@@ -32,13 +32,13 @@ import torch
 from svdd_tpu_torch import rewards
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.cli import train_oracle
-from svdd_tpu_torch.cli.common import full_f32, quantile_report
+from svdd_tpu_torch.cli.common import full_f32
 from svdd_tpu_torch.config import Config
 from svdd_tpu_torch.data.gosai import (FaultTolerantIterator, GosaiDataset,
                                        batch_dna_detokenize)
 from svdd_tpu_torch.decode import DecodeResult, run_decode
 from svdd_tpu_torch.diffusion import Diffusion
-from svdd_tpu_torch.eval.metrics import kmer_pearson
+from svdd_tpu_torch.eval.metrics import kmer_pearson, quantile_report
 from svdd_tpu_torch.models.blocks import DropoutMasks
 from svdd_tpu_torch.models.convgru import ConvGRUValueModel
 from svdd_tpu_torch.models.enformer import EnformerValueModel

@@ -10,6 +10,7 @@ from typing import Callable
 
 import torch
 
+from svdd_tpu_torch.eval.metrics import kmer_counts
 from svdd_tpu_torch.models.convgru import ConvGRUValueModel
 from svdd_tpu_torch.models.enformer import EnformerValueModel
 
@@ -77,3 +78,7 @@ def synthetic_motif_oracle(length: int, motif: str = 'GCGC',
     return torch.relu(scores).sum(dim=-1) / length
 
   return reward
+
+
+# the reference oracle module's k-mer counter (``svdd_tpu/rewards.py:108-115``)
+count_kmers = kmer_counts

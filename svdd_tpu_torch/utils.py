@@ -1,10 +1,20 @@
 """Small helpers (``svdd_tpu/utils.py``): the scheduled-M parser of the
-decode CLIs, the pretraining learning-rate schedules and the value-net
-trainer's token schedule."""
+decode CLIs, the pretraining learning-rate schedules, the value-net
+trainer's token schedule, the NaN reporter and the reference's
+straight-through and relaxed samplers.
+
+Where the JAX samplers take a PRNG key, these take the noise itself
+(``gumbel``, ``gamma``, ``noise``) or a ``torch.Generator`` to draw it
+from; JAX's ``stop_gradient`` is ``detach()``."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
+
+import torch
+
+from svdd_tpu_torch.mdlm import gumbel_noise
 
 
 def parse_m_schedule(spec):
@@ -103,3 +113,104 @@ def token_cosine_lr_mult(tokens: float, warmup_tokens: float,
   progress = (tokens - warmup_tokens) / max(final_tokens - warmup_tokens,
                                             1.0)
   return max(0.1, 0.5 * (1.0 + math.cos(math.pi * progress)))
+
+
+def print_nans(x: torch.Tensor, name: str) -> torch.Tensor:
+  """Prints '<name> contains NaNs' when ``x`` holds a NaN (a host read of
+  the flag); returns ``x``."""
+  if bool(torch.isnan(x).any()):
+    print(f'{name} contains NaNs')
+  return x
+
+
+# --- straight-through / relaxed samplers (``svdd_tpu/utils.py:131-190``) ---
+
+
+def _noise(noise, shape, generator, device, draw):
+  if noise is not None:
+    return noise
+  if generator is None:
+    raise ValueError('pass the noise or a torch.Generator to draw it from')
+  return draw(shape, generator, device)
+
+
+def _normal(shape, generator, device):
+  return torch.randn(shape, generator=generator, device=device)
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float = 1.0,
+                   hard: bool = True, gumbel: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+  """Gumbel-softmax: softmax((logits + g) / temperature); with ``hard``
+  the one-hot of its argmax forward and the soft sample's gradient."""
+  g = _noise(gumbel, logits.shape, generator, logits.device, gumbel_noise)
+  y_soft = torch.softmax((logits + g) / temperature, dim=-1)
+  if not hard:
+    return y_soft
+  y_hard = torch.nn.functional.one_hot(
+      y_soft.argmax(-1), logits.shape[-1]).to(y_soft.dtype)
+  return y_soft + (y_hard - y_soft).detach()
+
+
+def topk_mask_st(logits: torch.Tensor, k: int) -> torch.Tensor:
+  """Straight-through top-k mask: 1 where a logit is at least the k-th
+  largest of its row, with sigmoid(logits)'s gradient."""
+  kth = torch.sort(logits, dim=-1).values[..., -k][..., None]
+  hard = (logits >= kth).to(logits.dtype)
+  soft = torch.sigmoid(logits)
+  return soft + (hard - soft).detach()
+
+
+def binary_discretization_st(z: torch.Tensor) -> torch.Tensor:
+  """sign(z) forward, the gradient of z / ||z|| over the last axis."""
+  z_soft = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+  return z_soft + (torch.sign(z) - z_soft).detach()
+
+
+def topk_gamma_noise(shape, k: int, gamma_tau: float = 1.0,
+                     num_betas: int = 10,
+                     gamma: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+  """Sum-of-scaled-Gammas perturbation of relaxed top-k sampling, for a
+  2-D ``shape``: ``gamma`` (num_betas, *shape) draws of Gamma(1/k, 1),
+  divided by k / i for i = 1..num_betas, summed, less log 10, times
+  gamma_tau / k."""
+  def draw(full, gen, dev):
+    return torch._standard_gamma(torch.full(full, 1.0 / k, device=dev),
+                                 generator=gen)
+  g = _noise(gamma, (num_betas,) + tuple(shape), generator, device, draw)
+  beta = k / torch.arange(1, num_betas + 1, dtype=torch.float32,
+                          device=g.device)
+  s = (g / beta[:, None, None]).sum(0) - math.log(10.0)
+  return gamma_tau * (s / k)
+
+
+def binary_sample_st(probs: torch.Tensor,
+                     gumbels: Optional[tuple] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+  """Relaxed Bernoulli: ``gumbels`` = (pos, neg), two Gumbel draws of
+  ``probs``'s shape; the hard sample forward, the relaxed one's
+  gradient."""
+  if gumbels is None:
+    gumbels = tuple(_noise(None, probs.shape, generator, probs.device,
+                           gumbel_noise) for _ in range(2))
+  pos, neg = gumbels
+  del_noise_exp = torch.exp(neg - pos)
+  hard = (probs * (1 + del_noise_exp) > 1).to(probs.dtype)
+  soft = probs / (probs + (1 - probs) * del_noise_exp)
+  return soft + (hard - soft).detach()
+
+
+def gaussian_sample(x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+  """Reparameterised Gaussian from the last axis's halves (mu, v):
+  mu + sqrt(softplus(v)) * noise, ``noise`` standard normal of mu's
+  shape."""
+  n = x.shape[-1] // 2
+  mu = x[..., :n]
+  sigma = torch.sqrt(torch.nn.functional.softplus(x[..., n:]))
+  return mu + sigma * _noise(noise, mu.shape, generator, x.device, _normal)
