@@ -46,10 +46,10 @@ exits non-zero and prints no result:
   4. the decodes, each through its CLI's ``run`` with every kernel's
      launch count read around it: SVDD-MC (M=10), DPS, classifier
      guidance, SVDD-PM (decode_tweedie, M=10) and TDS (decode_TDS, alpha
-     0.5, its ESS trace) at --task dna, B=512, L=200, 64 steps (the
+     0.5, its ESS trace) at --task dna, B=512, L=200, 32 steps (the
      CLIs' 128 cut in depth), in float32 and again under the bf16
      switches (the ``*_bf16`` runs), and SVDD-MC with --m_schedule
-     32:4,32:10 in bf16; SVDD-PM and TDS
+     16:4,16:10 in bf16; SVDD-PM and TDS
      through ``decode.run_decode`` scored by the full-width Enformer
      reward oracle (f32, 16 steps); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
@@ -88,7 +88,7 @@ exits non-zero and prints no result:
      L=50, the ``kernel_rna`` lines; in bf16 B6 rounds as JAX's
      reference VJP below L=100): the ConvGRU value net and oracle on 512
      rows on the card against the CPU, eval and training forwards with
-     their gradients; the six decoders at --task rna, B=512, 64 steps,
+     their gradients; the six decoders at --task rna, B=512, 32 steps,
      f32 and under the bf16 switches (the ConvGRU stays f32), with exact
      launch counts; sample_eval with the analytic predictor;
      ``cli.train_oracle --task rna``, ``main_gosai --mode train --task
@@ -139,7 +139,7 @@ exits non-zero and prints no result:
      version on a log q with +inf lanes (SEDD's zero-sigma log score);
      the saluki task: the six-channel ConvGRU oracle on (4, 12288, 6)
      card vs CPU, ``cli.decode`` (SVDD-MC) and ``cli.decode_tweedie``
-     (SVDD-PM) at --task rna_saluki (B=32, M=5, 16 steps, a body written
+     (SVDD-PM) at --task rna_saluki (B=32, M=5, 4 steps, a body written
      from a seed) with exact B1 and B2 counts and one oracle call's ms
      and peak memory, ``cli.train`` (MC) and ``cli.train_oracle`` at
      --task rna_saluki;
@@ -159,8 +159,24 @@ exits non-zero and prints no result:
      files, the validation hook's embedding branch (the oracle trunk's
      mean over length), StepTimer around SVDD-MC steps with the oracle
      as value (B=64, M=10), ``profile_trace`` and ``nan_guard``;
+ 12. the parallel paths (A16.1, A16.2) on ``torch.distributed``: B2's
+     row0 (two launches on the row halves of (512, 10, 200, 5) equal to
+     the full launch bit for bit, the row0 form timed at rows 512-1023,
+     the ``kernel_row0`` line); then a worker under ``torchrun
+     --nproc_per_node=1`` (NCCL, a world of one: ``parallel_worker``)
+     runs ``main_gosai --mode train`` DP and with ``parallel.fsdp=true``
+     (full width, batch 512, accum 2, 4 steps), ``cli.train --dist`` (MC)
+     and ``--dist --fsdp`` (CD-Q) from phase 6's checkpoint and phase 5's
+     oracle (batch 8, 16 steps, one iteration), and SVDD-MC on a 1 x 1
+     grid with and without the tensor-parallel value net (B=512, M=10, 4
+     steps), each with its collectives counted; this process runs the
+     same without a process group, and each pair must agree bit for bit
+     (losses, checkpoints and trainer states by ``fingerprint``,
+     samples), each grid run having issued collectives and launched its
+     kernels; the DP and FSDP steps traced beside their twin's, each
+     decode's host ms a step (the ``parallel`` line);
 then the kernels line (launches summed over the runs of phases 3-5 and
-7-11; B1's, B6's and B2's RNA points under ``rna``, B3's, B4's, B5's and
+7-12; B1's, B6's and B2's RNA points under ``rna``, B3's, B4's, B5's and
 B8's analysis rows under ``analysis_rows``),
 the card's ``nvidia-smi`` name and power limit, and a last line
 {"ok": true, "device": {...}}.
@@ -241,7 +257,7 @@ ORACLE_RUNS = {
         'attn_pool_prologue_im2col', 'attn_pool', 'attn_l2'),
 }
 # one SVDD-MC decode with scheduled M (bench.py's example), in bf16
-M_SCHEDULE = '32:4,32:10'
+M_SCHEDULE = '16:4,16:10'
 # the JAX package's bf16 compute switches, which its bench sets: the CNN
 # denoiser and the Enformer value net compute in bf16 (the reward oracle
 # stays f32); the guided decodes run once in f32 and once under them
@@ -863,7 +879,8 @@ def check_gumbel_candidates(gen):
           'points': [list(pt) for pt in GUMBEL_POINTS],
           'max_abs_err': err, 'chi2_min_p': worst_p,
           'max_freq_dev': max_dev, 'masked_draws': n_drawn,
-          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen), plain),
+          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen),
+                  plain),
           'bound_ms': bound_ms, 'bound_by': bound_by, 'work': work}
 
 
@@ -2340,8 +2357,8 @@ def check_offgrid_enformer():
 
 
 # the guided decodes' steps: the CLIs' 128 cut in depth, for the smoke's
-# time limit
-DECODE_STEPS = 64
+# time limit (64 until phase 12 needed the time)
+DECODE_STEPS = 32
 # the SVDD-MC decode with the off-grid value net: B11b inside the loop at
 # N = B*M = 5120
 OFFGRID_DECODE_STEPS = 8
@@ -4295,7 +4312,8 @@ def check_rna_gumbel(gen) -> dict:
   bound_ms, bound_by, work = gumbel_bound(
       n_drawn, v, b * l * v * 4 + b * l * es + b * m * l * es)
   return {'shape': [b, m, l, v], 'max_abs_err': err, 'masked_draws': n_drawn,
-          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen), plain),
+          **timed(lambda: K.gumbel_candidates(log_q, x, m, mask, gen),
+                  plain),
           'bound_ms': bound_ms, 'bound_by': bound_by, 'work': work}
 
 
@@ -5913,12 +5931,13 @@ A1_STEP_VARIANTS = {
     'sedd': {'parameterization': 'sedd'},
     'cls_free_guidance': {'model': {'cls_free_guidance': True}}}
 CLASSIFIER_ROWS = 8
-# the saluki task: decodes of SALUKI_BATCH rows, M=SALUKI_M, 16 steps, the
+# the saluki task: decodes of SALUKI_BATCH rows, M=SALUKI_M, SALUKI_STEPS
+# steps (16 until phase 12 needed the time; every check kept), the
 # oracle's input padded to SALUKI_FINAL rows behind a body of
 # SALUKI_BODY_ROWS written from a seed
 SALUKI_FINAL = 12288
 SALUKI_BODY_ROWS = 2000
-SALUKI_BATCH, SALUKI_M, SALUKI_STEPS = 32, 5, 16
+SALUKI_BATCH, SALUKI_M, SALUKI_STEPS = 32, 5, 4
 SALUKI_CPU_ROWS = 4
 SALUKI_VALUE_BATCH, SALUKI_VALUE_ITERS = 8, 2
 SALUKI_ORACLE_ITERS = 20
@@ -6028,7 +6047,8 @@ def check_gumbel_inf(gen) -> dict:
   log_q = torch.where(two_inf[..., None] & ((lane == 1) | (lane == 3)), inf,
                       log_q)
   x = torch.full((b, l), mask, device='cuda')
-  out, noise = K.gumbel_candidates(log_q, x, m, mask, gen, return_noise=True)
+  out, noise = K.gumbel_candidates(log_q, x, m, mask, gen,
+                                   return_noise=True)
   plain = K.gumbel_candidates_plain(log_q, x, noise, mask)
   if not torch.equal(out, plain):
     raise AssertionError('gumbel_candidates: +inf lanes, draws differ from '
@@ -6682,6 +6702,351 @@ def kernel_checks() -> list:
           ('attn_pool_logits_im2col', check_attn_pool_logits_im2col)]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the parallel paths (A16.1, A16.2) at world 1 under NCCL
+# ---------------------------------------------------------------------------
+
+# pretraining at phase 6's configuration, cut to PAR_TRAIN_STEPS steps
+# without validation; value training at phase 5's, cut to one iteration
+# of PAR_VALUE_STEPS sampling steps; SVDD-MC at phase 4's, PAR_DECODE_STEPS
+PAR_TRAIN_STEPS = 4
+PAR_TRAIN_SET = ['training.accum_steps=2', 'optim.warmup_steps=2',
+                 'eval.val_check_interval=1000',
+                 'checkpointing.every_n_steps=1000']
+PAR_VALUE_STEPS = 16
+PAR_DECODE_STEPS = 4
+PAR_RUNS = ('dp_train', 'fsdp_train', 'value_dist', 'value_dist_fsdp',
+            'svdd_mc_grid', 'svdd_mc_grid_tp')
+PAR_KERNELS = {'dp_train': ('cnn_layer', 'cnn_layer_bwd'),
+               'fsdp_train': ('cnn_layer', 'cnn_layer_bwd'),
+               'value_dist': ('cnn_layer', 'attn_pool_prologue_im2col',
+                              'attn_pool', 'attn_l2', 'conv1d_bwd',
+                              'attn_pool_bwd'),
+               'value_dist_fsdp': ('cnn_layer', 'gumbel_candidates',
+                                   'attn_pool_prologue_im2col', 'attn_pool',
+                                   'attn_l2', 'conv1d_bwd', 'attn_pool_bwd'),
+               'svdd_mc_grid': ('cnn_layer', 'gumbel_candidates',
+                                'attn_pool_prologue_im2col', 'attn_pool',
+                                'attn_l2'),
+               'svdd_mc_grid_tp': ('cnn_layer', 'gumbel_candidates',
+                                   'attn_pool_prologue_im2col', 'attn_pool',
+                                   'attn_l2')}
+
+
+def check_gumbel_row0(gen) -> dict:
+  """B2's row0 at the decode's (512, 10, 200, 5): two launches on the
+  row halves (row0 0 and 256), each from the generator's state before the
+  full launch, equal the full launch bit for bit, candidates and noise,
+  and the second half's draws are the plain version's on its noise. The
+  row0 form's time: a full-size launch at row0 512 (rows 512-1023 of a
+  batch of 1024), beside the plain version's and its bound."""
+  import torch
+  from svdd_tpu_torch.mdlm import gumbel_noise
+  from svdd_tpu_torch.ops import fused_sample as K
+  from svdd_tpu_torch.parallel import rows
+  b, l, v, m, mask = 512, 200, 5, 10, 4
+  log_q = torch.log_softmax(torch.randn(b, l, v, device='cuda',
+                                        generator=gen), -1)
+  x = torch.randint(0, 4, (b, l), device='cuda', generator=gen)
+  x = torch.where(torch.rand(b, l, device='cuda', generator=gen) < 0.5,
+                  mask, x)
+  state = gen.get_state()
+  full, noise = K.gumbel_candidates(log_q, x, m, mask, gen,
+                                    return_noise=True)
+  after = gen.get_state()
+  halves = []
+  for row0 in (0, b // 2):
+    gen.set_state(state)
+    with rows.global_rows(row0, b):
+      halves.append(K.gumbel_candidates(
+          log_q[row0:row0 + b // 2], x[row0:row0 + b // 2], m, mask, gen,
+          return_noise=True))
+    if not torch.equal(gen.get_state(), after):
+      raise AssertionError('gumbel_candidates row0: the generator moved '
+                           'otherwise than the full launch')
+  out = torch.cat([h[0] for h in halves])
+  if not (torch.equal(out, full)
+          and torch.equal(torch.cat([h[1] for h in halves]), noise)):
+    raise AssertionError('gumbel_candidates row0: the halves differ from '
+                         'the full launch')
+  if not torch.equal(halves[1][0], K.gumbel_candidates_plain(
+      log_q[b // 2:], x[b // 2:], halves[1][1], mask)):
+    raise AssertionError('gumbel_candidates row0: draws differ from the '
+                         'plain version on their noise')
+
+  def plain():
+    return K.gumbel_candidates_plain(log_q, x, gumbel_noise(
+        (b, m, l, v), gen, 'cuda'), mask)
+
+  def second_block():             # rows 512-1023 of a batch of 1024
+    with rows.global_rows(b, 2 * b):
+      return K.gumbel_candidates(log_q, x, m, mask, gen)
+  es = x.element_size()
+  nbytes = b * l * v * 4 + b * l * es + b * m * l * es
+  n_drawn = int((x == mask).sum()) * m
+  bound_ms, bound_by, work = gumbel_bound(n_drawn, v, nbytes)
+  return {'shape': [b, m, l, v], 'row0_timed': b, 'halves_bitwise': True,
+          'max_abs_err': 0,
+          **timed(second_block, plain),
+          'bound_ms': bound_ms, 'bound_by': bound_by, 'work': work}
+
+
+# phase 6's empty data directory (the synthetic split)
+PAR_DATA_DIR = os.path.join(REPO, 'build', 'chip_smoke', 'no_data')
+
+
+def _par_train_argv(root: str, fsdp: bool) -> list:
+  sets = PAR_TRAIN_SET + (['parallel.fsdp=true'] if fsdp else [])
+  return ['--mode', 'train', '--task', 'dna', '--device', 'cuda',
+          '--max_steps', str(PAR_TRAIN_STEPS), '--data_dir', PAR_DATA_DIR,
+          '--ckpt_dir', os.path.join(root, 'ckpt'), '--log_dir',
+          os.path.join(root, 'log'), '--no_sample_eval', '--set', *sets]
+
+
+def _par_value_argv(root: str, name: str, diffusion_ckpt: str,
+                    oracle: str) -> list:
+  return ['--task', 'dna', '--device', 'cuda', '--batch_size',
+          str(VALUE_BATCH), '--max_iters', '1', '--eval_every', '1',
+          '--val_batch_num', '1', '--num_steps', str(PAR_VALUE_STEPS),
+          '--learning_rate', str(VALUE_LR), '--diffusion_checkpoint_path',
+          diffusion_ckpt, '--reward_checkpoint_path', oracle, '--out_dir',
+          root, '--run_name', name]
+
+
+def fingerprint(tree) -> list:
+  """[(path, dtype, shape, bits sum, position-weighted bits sum)] of the
+  tensors of a nested dict, on the card: two states with the same
+  fingerprint agree bit for bit but for a collision of both sums (the
+  phase compares multi-GB trainer states across processes this way)."""
+  import torch
+  out = []
+
+  def walk(x, path):
+    if isinstance(x, dict):
+      for k in sorted(x, key=str):
+        walk(x[k], f'{path}/{k}')
+    elif torch.is_tensor(x):
+      t = x.detach().contiguous().reshape(-1)
+      bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[t.element_size()]
+      b = t.view(bits).to(torch.int64)
+      idx = torch.arange(1, b.numel() + 1, device=b.device)
+      out.append([path, str(x.dtype), list(x.shape), int(b.sum()),
+                  int((b * idx).sum())])
+    else:
+      out.append([path, repr(x)])
+  walk(tree, '')
+  return out
+
+
+def _losses_of(module, attr: str, out: list):
+  """Wrap ``module.attr`` (a step returning its loss) to keep each loss;
+  returns the restore function."""
+  orig = getattr(module, attr)
+
+  def wrapped(*a, **kw):
+    loss = orig(*a, **kw)
+    out.append(float(loss))
+    return loss
+  setattr(module, attr, wrapped)
+  return lambda: setattr(module, attr, orig)
+
+
+def _par_decode(mesh=None, tp: bool = False):
+  """SVDD-MC at phase 4's models (random full-width, from the CLIs'
+  seeds), B=512, M=10, PAR_DECODE_STEPS steps, seed 0: the samples and
+  the host ms a step (the kernels warm from phase 4)."""
+  import torch
+  from svdd_tpu_torch.cli import common
+  from svdd_tpu_torch.models.enformer import tp_shard_value_params
+  from svdd_tpu_torch.value import ValueFunction
+  args = common.make_parser('chip smoke').parse_args(
+      ['--task', 'dna', '--batch_size', '512', '--sample_M', '10',
+       '--device', 'cuda'])
+  cfg = common.task_config(args)
+  diffusion = common.load_diffusion(args, cfg)
+  vf = common.load_value_function(args, cfg)
+  if tp:
+    vf = ValueFunction(tp_shard_value_params(vf.module, mesh), vf.length)
+  sample = diffusion.controlled_sampler(
+      vf.score_tokens, 512, sample_M=10, num_steps=PAR_DECODE_STEPS,
+      mesh=mesh, tp=tp)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = sample(torch.Generator('cuda').manual_seed(0)).samples
+  torch.cuda.synchronize()
+  return out, (time.perf_counter() - t0) / PAR_DECODE_STEPS * 1e3
+
+
+def _par_runs(root: str, diffusion_ckpt: str, oracle: str,
+              grid: bool) -> dict:
+  """The runs of phase 12, on the process grid (``grid``, in the torchrun
+  worker) or without a process group (the twins, in this process). Each
+  run's launch counts and collectives are set to 0 just before it and
+  read just after."""
+  import torch
+  from svdd_tpu_torch import _build
+  from svdd_tpu_torch.cli import main_gosai
+  from svdd_tpu_torch.cli import train as cli_train
+  from svdd_tpu_torch.data import gosai
+  from svdd_tpu_torch.parallel import mesh as M
+  from svdd_tpu_torch.train import diffusion as train_diff
+  from svdd_tpu_torch.train import value as train_val
+  res = {}
+
+  def counted(name, fn):
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    M.reset_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    res[name] = {'wall_s': time.perf_counter() - t0,
+                 'launches': _build.launches(),
+                 'collectives': M.collectives(),
+                 'peak_mib': torch.cuda.max_memory_allocated() / 2 ** 20}
+    return out
+
+  for name, fsdp in (('dp_train', False), ('fsdp_train', True)):
+    if not grid and fsdp:
+      continue                      # one twin serves both
+    run_root = os.path.join(root, name)
+    losses = []
+    restore = _losses_of(train_diff, 'train_step', losses)
+    try:
+      args = main_gosai.parser().parse_args(_par_train_argv(run_root, fsdp))
+      out = counted(name, lambda: main_gosai.run(args))
+    finally:
+      restore()
+    state = out['state']
+    res[name].update(losses=losses, state=fingerprint(torch.load(
+        train_diff.latest_checkpoint(os.path.join(run_root, 'ckpt')),
+        map_location='cuda', weights_only=True)))
+    # the card's time a step: the run's steps under the profiler
+    it = iter(gosai.get_dataloaders(
+        state.model.config, num_shards=1 if state.mesh is None
+        else state.mesh.data, skip_valid=True, data_dir=PAR_DATA_DIR)[0])
+    batch = next(it)
+    res[name]['trace'] = trace_step(lambda: (train_diff.train_step(
+        state, batch, state.model.config), torch.cuda.synchronize()))
+    del out, state
+    torch.cuda.empty_cache()
+  for name, extra in (('value_dist', []), ('value_dist_fsdp', ['--cdq'])):
+    if grid:
+      extra = extra + ['--dist'] + (['--fsdp'] if 'fsdp' in name else [])
+    losses = []
+    restore = _losses_of(train_val.ValueTrainer, 'train_step', losses)
+    try:
+      args = cli_train.parser().parse_args(
+          _par_value_argv(root, name, diffusion_ckpt, oracle) + extra)
+      out = counted(name, lambda: cli_train.run(args))
+    finally:
+      restore()
+    state = out['state']
+    res[name].update(losses=losses,
+                     state=fingerprint(out['trainer'].state_dict(state)))
+    del out, state
+    torch.cuda.empty_cache()
+  mesh = M.make_mesh(1, 1) if grid else None
+  for name, tp in (('svdd_mc_grid', False), ('svdd_mc_grid_tp', True)):
+    if not grid and tp:
+      continue
+    samples, step_ms = counted(name, lambda: _par_decode(mesh, tp))
+    path = os.path.join(root, f'{name}_samples.pt')
+    torch.save(samples.cpu(), path)
+    res[name].update(samples=path, step_ms=step_ms)
+  return res
+
+
+def parallel_worker(out_json: str, diffusion_ckpt: str, oracle: str) -> None:
+  """Phase 12's process on the grid, started under torchrun by
+  ``parallel_phase``: its runs, then their results into ``out_json``."""
+  import torch
+  sys.path.insert(0, REPO)
+  from svdd_tpu_torch.parallel import mesh as M
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  if not M.initialize_multihost(device='cuda'):
+    raise SystemExit('parallel worker: no torchrun environment')
+  if torch.distributed.get_backend() != 'nccl':
+    raise SystemExit('parallel worker: the group is not NCCL')
+  root = os.path.dirname(out_json)
+  res = _par_runs(root, diffusion_ckpt, oracle, grid=True)
+  res['world_size'] = torch.distributed.get_world_size()
+  with open(out_json, 'w') as f:
+    json.dump(res, f)
+  torch.distributed.destroy_process_group()
+
+
+def parallel_phase(diffusion_ckpt: str) -> dict:
+  """Phase 12: ``torchrun --nproc_per_node=1`` runs ``parallel_worker``
+  (NCCL, a world of one) through the entry points: ``main_gosai --mode
+  train`` DP and with ``parallel.fsdp=true`` (full-width denoiser, batch
+  512, accum 2, PAR_TRAIN_STEPS steps), ``cli.train --dist`` (MC) and
+  ``--dist --fsdp`` (CD-Q) on the full-width value net from phase 6's
+  checkpoint and phase 5's oracle, and SVDD-MC on a 1 x 1 grid, with and
+  without the tensor-parallel value net. This process runs the same
+  without a process group; each pair must agree bit for bit (losses,
+  checkpoints or trainer states, samples), each grid run must have issued
+  collectives and launched its kernels. Times: each training step on
+  the card under the profiler (host ms, busy ms, idle share) and each
+  decode's host ms a step, the grid's beside its twin's."""
+  import torch
+  root = _value_dir('parallel')
+  oracle = os.path.join(REPO, 'build', 'chip_smoke', 'value',
+                        'train_oracle.pt')
+  out_json = os.path.join(root, 'grid.json')
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+       '--nproc_per_node=1', os.path.abspath(__file__), '--parallel-worker',
+       out_json, diffusion_ckpt, oracle], cwd=REPO, capture_output=True,
+      text=True, timeout=600)
+  worker_s = time.perf_counter() - t0
+  if proc.returncode != 0:
+    raise AssertionError(f'parallel worker exited {proc.returncode}:\n'
+                         f'{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}')
+  with open(out_json) as f:
+    grid = json.load(f)
+  twin = _par_runs(os.path.join(root, 'twin'), diffusion_ckpt, oracle,
+                   grid=False)
+  runs, lines = {}, []
+  for name in PAR_RUNS:
+    g = grid[name]
+    t = twin[name.replace('fsdp_train', 'dp_train').replace(
+        'svdd_mc_grid_tp', 'svdd_mc_grid')]
+    missing = [k for k in PAR_KERNELS[name] if not g['launches'].get(k)]
+    if missing or not sum(g['collectives'].values()):
+      raise AssertionError(f'{name}: launches {g["launches"]}, collectives '
+                           f'{g["collectives"]}')
+    if 'state' in g:          # a checkpoint's or a trainer state's tensors
+      same = g['losses'] == t['losses'] and g['state'] == t['state']
+    else:
+      same = torch.equal(torch.load(g['samples']), torch.load(t['samples']))
+    if not same:
+      raise AssertionError(f'{name}: the grid run differs from its twin '
+                           f'(losses {g.get("losses")} vs {t.get("losses")})')
+    line = {'run': name, 'bitwise_twin': True, 'world_size':
+            grid['world_size'], 'backend': 'nccl',
+            'collectives': g['collectives'], 'launches': g['launches'],
+            'wall_s': g['wall_s'], 'twin_wall_s': t['wall_s'],
+            'peak_mib': g['peak_mib'], 'twin_peak_mib': t['peak_mib']}
+    for k in ('losses', 'step_ms'):
+      if k in g:
+        line[k], line[f'twin_{k}'] = g[k], t[k]
+    if 'trace' in g:
+      line['step'] = {k: g['trace'][k] for k in
+                      ('host_step_ms', 'device_busy_ms', 'idle_share')}
+      line['twin_step'] = {k: t['trace'][k] for k in
+                           ('host_step_ms', 'device_busy_ms', 'idle_share')}
+    lines.append(line)
+    runs[name] = {'launches': g['launches']}
+  emit({'phase': 'parallel', 'worker_s': worker_s,
+        'wall_s': time.perf_counter() - t0, 'runs': lines})
+  return runs
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -6852,6 +7217,14 @@ def main() -> None:
   runs.update(a15_phase([
       os.path.join(REPO, 'build', 'chip_smoke', run, decodes[run]['npz'])
       for run in GUIDED]))
+  r = check_gumbel_row0(gen)
+  torch.cuda.synchronize()
+  emit({'phase': 'kernel_row0', 'kernel': 'gumbel_candidates', **r})
+  results[('gumbel_candidates', 'float32')]['row0'] = {
+      k: r[k] for k in ('shape', 'row0_timed', 'halves_bitwise', 'ms',
+                        'plain_ms', 'median_ms', 'bound_ms', 'bound_by')
+      if k in r}
+  runs.update(parallel_phase(diffusion_ckpt))
 
   kernels = []
   for name in _build.KERNELS:
@@ -6872,7 +7245,7 @@ def main() -> None:
       entry['sass'] = sass[lib]
     entry['launches_by_run'] = {a: d['launches'].get(name, 0)
                                 for a, d in runs.items()}
-    entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev',
+    entry.update({k: f32[k] for k in ('chi2_min_p', 'max_freq_dev', 'row0',
                                       'mask_flips', 'mask_bitwise',
                                       'library', 'max_abs_err_by_length',
                                       'median_ms',
@@ -6936,4 +7309,7 @@ def main() -> None:
 
 
 if __name__ == '__main__':
-  main()
+  if sys.argv[1:2] == ['--parallel-worker']:
+    parallel_worker(*sys.argv[2:5])
+  else:
+    main()

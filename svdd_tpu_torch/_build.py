@@ -38,7 +38,7 @@ _LL, _ULL = ctypes.c_longlong, ctypes.c_ulonglong
 SIGNATURES = {
     'svdd_cnn_layer': ('cnn_layer', [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
     'svdd_gumbel_candidates': ('gumbel_candidates',
-                               [_P] * 4 + [_I] * 6 + [_ULL, _ULL, _P]),
+                               [_P] * 4 + [_I] * 7 + [_ULL, _ULL, _P]),
     'svdd_attn_pool': ('attn_pool', [_P] * 4 + [_I] * 4 + [_P]),
     'svdd_attn_pool_im2col': ('attn_pool',
                               [_P] * 7 + [_I] * 6 + [_P]),

@@ -101,7 +101,10 @@ def make_parser(description: str) -> argparse.ArgumentParser:
   p.add_argument('--load_checkpoint_path', type=str, default=None)
   p.add_argument('--pre_model_path', type=str, default=None)
   p.add_argument('--cdq', action='store_true', default=False)
-  p.add_argument('--dist', action='store_true', default=False)
+  p.add_argument('--dist', action='store_true', default=False,
+                 help="value training: shard the self-generated batch over "
+                      "a 'data' grid of every process (cli.train; the "
+                      'decoders take no grid, as in svdd_tpu)')
   p.add_argument('--diffusion_checkpoint_path', type=str, default=None)
   p.add_argument('--reward_checkpoint_path', type=str, default=None)
   p.add_argument('--num_steps', type=int, default=None,
@@ -235,8 +238,6 @@ def reject_unported(args) -> None:
     ckpt_lib.export_header(path, DENOISER_EXPORTS)
   elif path and not ckpt_lib.is_reference_file(path):
     diffusion_checkpoint(path)
-  if args.dist:
-    raise NotImplementedError('--dist: the parallel paths are not ported')
 
 
 def task_config(args) -> Config:

@@ -54,6 +54,21 @@ trainer state). A ``--ckpt_dir`` holding other files and no checkpoint
 of the port nor an export (an orbax directory, a reference ``.pt``)
 raises, as do an oracle file that is neither this package's nor an
 export, and such an AR-scorer file (ROADMAP A17).
+
+Under ``torchrun`` ``train`` runs on the process grid of every process
+(one a card, NCCL; ``svdd_tpu/cli/main_gosai.py:106-140``), at any world
+size, one included: ``parallel.model_axis`` processes a model group, the
+data axis what is left, cut down to a divisor of
+``loader.global_batch_size`` (the processes past the grid idle, with a
+warning); each data shard reads its rows of the splits (``--shard_data``:
+its contiguous rows of the CSVs) and ``parallel.fsdp=true`` shards the
+state (``train/diffusion.py``):
+
+  torchrun --nproc_per_node=1 -m svdd_tpu_torch.cli.main_gosai \
+      --mode train --set training.accum_steps=2 parallel.fsdp=true
+
+Pipeline parallelism (``parallel.pipeline_stages`` or
+``pipeline_virtual`` past 1) raises (ROADMAP A16.3).
 """
 
 from __future__ import annotations
@@ -76,6 +91,7 @@ from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.eval import gen_ppl, validation
 from svdd_tpu_torch.observability import MetricsLogger
+from svdd_tpu_torch.parallel import mesh as mesh_lib
 from svdd_tpu_torch.sampling.semi_ar import semi_ar_sample
 from svdd_tpu_torch.train import diffusion as train_diff
 
@@ -164,23 +180,53 @@ def _sample_eval_hook(cfg: Config, args):
   return hook
 
 
+def train_mesh(cfg: Config, device: str):
+  """The training grid under torchrun (module docstring), or None
+  without a process group. A process past the grid gets None too."""
+  if not mesh_lib.initialize_multihost(device=device):
+    return None
+  world = torch.distributed.get_world_size()
+  model_axis = max(1, cfg.parallel.model_axis)
+  if world % model_axis:
+    raise ValueError(f'{world} processes not divisible by '
+                     f'parallel.model_axis={model_axis}')
+  data_axis = world // model_axis
+  while data_axis > 1 and cfg.loader.global_batch_size % data_axis:
+    data_axis -= 1
+  used = data_axis * model_axis
+  if used < world:
+    LOGGER.warning('global batch %d not divisible by %d processes; using a '
+                   '%dx%d grid on %d of them', cfg.loader.global_batch_size,
+                   world, data_axis, model_axis, used)
+  mesh = mesh_lib.make_mesh(data_axis, model_axis, list(range(used)))
+  LOGGER.info('grid: %s', None if mesh is None else mesh.shape)
+  return mesh
+
+
 def _train(cfg: Config, args, backbone) -> dict:
+  mesh = train_mesh(cfg, args.device)
+  if mesh is None and torch.distributed.is_initialized():
+    return {'state': None, 'metrics_path': None}    # past the grid
+  num_shards, shard_index = mesh_lib.local_shard_info(mesh)
   train_it, valid_it, _ = gosai.get_dataloaders(
-      cfg, data_dir=args.data_dir, shard_data=args.shard_data)
+      cfg, num_shards=num_shards, shard_index=shard_index,
+      data_dir=args.data_dir, shard_data=args.shard_data)
   model = Diffusion(cfg, device=args.device, backbone=backbone)
+  lead = mesh is None or mesh.rank == 0
   logger = MetricsLogger(log_dir=args.log_dir,
-                         run_name=f'{cfg.task}-pretrain')
+                         run_name=f'{cfg.task}-pretrain') if lead else None
   hook = None if args.no_sample_eval else _sample_eval_hook(cfg, args)
   trainer = train_diff.Trainer(model, cfg, ckpt_dir=args.ckpt_dir,
-                               logger=logger, sample_eval_fn=hook)
+                               logger=logger, sample_eval_fn=hook, mesh=mesh)
   try:
     state = trainer.init_or_restore(train_it)
     state = trainer.fit(state, train_it, valid_it, num_steps=args.max_steps)
     if args.ckpt_dir:
       train_diff.save_checkpoint(args.ckpt_dir, state, train_it.state_dict())
   finally:
-    logger.finish()
-  return {'state': state, 'metrics_path': logger.path}
+    if lead:
+      logger.finish()
+  return {'state': state, 'metrics_path': logger.path if lead else None}
 
 
 def _exported(cfg: Config, args, backbone, export):
@@ -317,7 +363,8 @@ def parser() -> argparse.ArgumentParser:
   p.add_argument('--max_steps', type=int, default=None,
                  help='training steps of this run (optim.max_steps)')
   p.add_argument('--shard_data', action='store_true', default=False,
-                 help='no effect on one process')
+                 help='on a grid of several data shards: each reads its '
+                      'contiguous rows of the CSVs (no effect on one)')
   p.add_argument('--log_dir', default='./log',
                  help='metrics JSONL output directory')
   p.add_argument('--no_sample_eval', action='store_true', default=False,

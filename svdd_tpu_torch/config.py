@@ -2,8 +2,9 @@
 ported paths read, with the same field names and defaults.
 
 The ``parallel`` fields other than ``precision`` belong to the parallel
-paths (ROADMAP A16), which are not ported: ``check_single_device``
-raises for any value but the single-device one.
+paths (``parallel/``): the data and model axes and FSDP run on
+``torch.distributed``; pipeline parallelism is not ported (ROADMAP
+A16.3), and ``check_single_device`` raises for it.
 
 The JAX module cannot be imported here (``svdd_tpu/__init__.py`` pulls
 in JAX), so the dataclasses are restated. ``Config.from_yaml`` needs
@@ -130,23 +131,22 @@ class ParallelConfig:
   pipeline_virtual: int = 1
 
 
-# the parallel fields' single-device values: one device, no sharding
-_SINGLE_DEVICE = {'model_axis': 1, 'fsdp': False, 'pipeline_stages': 1,
-                  'pipeline_virtual': 1}
+# the pipeline settings' unpipelined values: the one part of the
+# parallel paths still to port (GPipe, ROADMAP A16.3)
+_UNPIPELINED = {'pipeline_stages': 1, 'pipeline_virtual': 1}
 
 
 def check_single_device(config: 'Config') -> None:
-  """Raise for a ``parallel`` setting that needs more than one device
-  (``data_axis`` is -1, all devices, or 1; the rest as
-  ``_SINGLE_DEVICE``): the parallel paths are not ported (A16)."""
+  """Raise for a ``parallel`` setting the port does not run: pipeline
+  parallelism (``pipeline_stages`` or ``pipeline_virtual`` past 1, ROADMAP
+  A16.3). The data and model axes and FSDP run on ``torch.distributed``
+  (``parallel/``)."""
   par = config.parallel
-  bad = {k: getattr(par, k) for k, v in _SINGLE_DEVICE.items()
+  bad = {k: getattr(par, k) for k, v in _UNPIPELINED.items()
          if getattr(par, k) != v}
-  if par.data_axis not in (-1, 1):
-    bad['data_axis'] = par.data_axis
   if bad:
-    raise NotImplementedError(f'parallel {bad}: the parallel paths are '
-                              'not ported yet (ROADMAP A16)')
+    raise NotImplementedError(f'parallel {bad}: pipeline parallelism is not '
+                              'ported yet (ROADMAP A16.3)')
 
 
 @dataclass

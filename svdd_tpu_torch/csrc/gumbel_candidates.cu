@@ -9,11 +9,14 @@
 //
 // The noise comes from a counter-based Philox4x32-10 generator written
 // into the kernel: key = the seed of the caller's torch.Generator,
-// counter = (l, m | group << 16, b, the call's Philox offset / 4), where
-// group = v / 5: one call's 128 bits hold five 24-bit uniforms (the top
-// 24 bits of each word, then the low bytes of words 0-2), so V <= 5
-// takes one Philox call a draw. A draw therefore depends on (seed,
-// offset, b, m, l, v) only, never on the launch geometry.
+// counter = (l, m | group << 16, row0 + b, the call's Philox offset / 4),
+// where group = v / 5: one call's 128 bits hold five 24-bit uniforms (the
+// top 24 bits of each word, then the low bytes of words 0-2), so V <= 5
+// takes one Philox call a draw. row0 is the global index of the call's
+// first row: a process that holds rows [row0, row0 + B) of a batch split
+// over processes draws what one call on the whole batch draws for them.
+// A draw therefore depends on (seed, offset, row0 + b, m, l, v) only,
+// never on the launch geometry.
 //
 // What bounds it on an H100: at (B, M, L, V) = (512, 10, 200, 5) the
 // bytes (log_q read once, x read once, the candidates written once in
@@ -82,8 +85,8 @@ template <typename TI>
 __global__ void __launch_bounds__(kThreads)
     gumbel_candidates_kernel(const float* __restrict__ log_q, const TI* __restrict__ x,
                              TI* __restrict__ out, float* __restrict__ noise, int L,
-                             int M, int V, int tile_l, int mask_index, uint32_t k0,
-                             uint32_t k1, uint32_t call) {
+                             int M, int V, int tile_l, int mask_index, uint32_t row0,
+                             uint32_t k0, uint32_t k1, uint32_t call) {
   extern __shared__ float smem[];
   float* lq_tile = smem;                                      // tile_l * V
   int* x_tile = reinterpret_cast<int*>(smem + tile_l * V);  // tile_l
@@ -131,7 +134,7 @@ __global__ void __launch_bounds__(kThreads)
       const int jv = v % kPerCall;
       if (jv == 0)
         r = philox4x32_10(l0 + l, static_cast<uint32_t>(m) | (static_cast<uint32_t>(v / kPerCall) << 16),
-                          b, call, k0, k1);
+                          row0 + b, call, k0, k1);
       const float u = uniform24(r, jv);
       // the inner logarithm near u = 1 needs logf's accuracy (-log u is
       // then about 6e-8); the outer one's argument is at least that
@@ -159,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TI>
 int launch(const void* log_q, const void* x, void* out, void* noise, int b, int m,
-           int l, int v, int mask_index, unsigned long long seed,
+           int l, int v, int mask_index, int row0, unsigned long long seed,
            unsigned long long offset, cudaStream_t stream) {
   const int per_position = (v + 2) * 4;  // its log_q row, token, list entry
   int tile_l = kTileBytes / per_position;
@@ -171,8 +174,8 @@ int launch(const void* log_q, const void* x, void* out, void* noise, int b, int 
                                  stream>>>(
       static_cast<const float*>(log_q), static_cast<const TI*>(x),
       static_cast<TI*>(out), static_cast<float*>(noise), l, m, v, tile_l, mask_index,
-      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-      static_cast<uint32_t>(offset >> 2));
+      static_cast<uint32_t>(row0), static_cast<uint32_t>(seed),
+      static_cast<uint32_t>(seed >> 32), static_cast<uint32_t>(offset >> 2));
   return cudaGetLastError();
 }
 
@@ -180,20 +183,23 @@ int launch(const void* log_q, const void* x, void* out, void* noise, int b, int 
 
 // log_q (B, L, V) f32, x (B, L) int32 or int64 (index_bits 32 or 64);
 // out (B, M, L) of x's type; noise (B, M, L, V) f32 or null: the Gumbel
-// noise of each draw (0 where x is not MASK). seed and offset: the
-// Philox seed and offset of the caller's generator (offset a multiple of
-// 4, advanced by the caller past this call).
+// noise of each draw (0 where x is not MASK). row0: the global index of
+// row 0 (0 for a whole batch). seed and offset: the Philox seed and
+// offset of the caller's generator (offset a multiple of 4, advanced by
+// the caller past this call).
 extern "C" int svdd_gumbel_candidates(const void* log_q, const void* x, void* out,
                                       void* noise, int b, int m, int l, int v,
-                                      int mask_index, int index_bits,
+                                      int mask_index, int index_bits, int row0,
                                       unsigned long long seed,
                                       unsigned long long offset, void* stream) {
-  if (b < 1 || m < 1 || l < 1 || v < 1 || b > 65535 || m > 65535 || v > kPerCall * 65535)
+  if (b < 1 || m < 1 || l < 1 || v < 1 || b > 65535 || m > 65535 || v > kPerCall * 65535 ||
+      row0 < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (index_bits == 64)
-    return launch<long long>(log_q, x, out, noise, b, m, l, v, mask_index, seed, offset, s);
+    return launch<long long>(log_q, x, out, noise, b, m, l, v, mask_index, row0, seed, offset,
+                             s);
   if (index_bits == 32)
-    return launch<int>(log_q, x, out, noise, b, m, l, v, mask_index, seed, offset, s);
+    return launch<int>(log_q, x, out, noise, b, m, l, v, mask_index, row0, seed, offset, s);
   return cudaErrorInvalidValue;
 }

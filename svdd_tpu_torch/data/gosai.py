@@ -16,9 +16,16 @@ through it.
 The CSVs are ``gosai_{split}.csv`` under ``data_dir``, or under
 ``DATA_DIR``: the ``SVDD_DATA_DIR`` environment variable, else
 ``/data/svdd``, as the JAX package's module constant; with no file there
-the split is synthetic. One process reads the whole split: the row-sharded
-reads of the JAX package's multi-host jobs belong to the parallel paths
-(ROADMAP A16).
+the split is synthetic.
+
+On a process grid each data shard reads its own rows, as the JAX
+package's multi-host jobs do (``svdd_tpu/data/gosai.py:181-185,
+232-248``): by default every process holds the whole split and the
+iterator takes the strided indices ``order[shard_index::num_shards]`` of
+each epoch's permutation; with ``shard_data`` and a CSV present, each
+process reads only its contiguous range of the file's raw lines
+(``csv_count_rows`` // num_shards of them) and iterates it unsharded,
+shuffled from ``seed + shard_index``.
 """
 
 from __future__ import annotations
@@ -71,13 +78,41 @@ def _strtof(field: str) -> float:
   return float(m.group(0)) if m else 0.0
 
 
-def read_gosai_csv(path: str, length: int):
+def csv_count_rows(path: str) -> int:
+  """The data lines of a CSV (its raw lines, an unterminated last one
+  included, less the header), as the JAX package's native reader counts
+  them to plan row shards."""
+  lines, last = 0, b'\n'
+  with open(path, 'rb') as f:
+    while chunk := f.read(1 << 16):
+      lines += chunk.count(b'\n')
+      last = chunk[-1:]
+  if last != b'\n':
+    lines += 1
+  return max(lines - 1, 0)
+
+
+def _raw_lines(f, row_offset: int, row_limit: Optional[int]):
+  """The header line, then raw lines [row_offset, row_offset +
+  row_limit) after it."""
+  yield f.readline()
+  for i, line in enumerate(f):
+    if i < row_offset:
+      continue
+    if row_limit is not None and i >= row_offset + row_limit:
+      return
+    yield line
+
+
+def read_gosai_csv(path: str, length: int, row_offset: int = 0,
+                   row_limit: Optional[int] = None):
   """(tokens (R, L) int32, clss (R, 3) float32) of the rows of ``path``
   with a ``seq`` field of ``length`` characters and the header's field
-  count."""
+  count, among its raw data lines [row_offset, row_offset + row_limit)
+  (all of them by default), as the native reader bounds a shard."""
   seqs, clss = [], []
   with open(path, newline='') as f:
-    rows = csv.reader(f)
+    rows = csv.reader(_raw_lines(f, row_offset, row_limit))
     header = next(rows)
     seq_idx = header.index('seq')
     cls_idx = [header.index(c) for c in CLASS_COLUMNS]
@@ -120,10 +155,12 @@ class GosaiDataset:
 
   def __init__(self, split: str = 'train', length: int = 200,
                data_dir: Optional[str] = None,
-               synthetic_size: Optional[int] = None):
+               synthetic_size: Optional[int] = None,
+               row_offset: int = 0, row_limit: Optional[int] = None):
     path = os.path.join(data_dir or DATA_DIR, f'gosai_{split}.csv')
     if os.path.exists(path):
-      self.seqs, self.clss = read_gosai_csv(path, length)
+      self.seqs, self.clss = read_gosai_csv(path, length, row_offset,
+                                            row_limit)
       self.synthetic = False
     else:
       n = synthetic_size or SYNTHETIC_SIZES.get(split, 512)
@@ -142,18 +179,22 @@ class GosaiDataset:
 
 class FaultTolerantIterator:
   """Resumable shuffling batch iterator: the epoch's order is a
-  permutation drawn from ``seed + epoch``; (epoch, counter, seed)
-  round-trip through ``state_dict`` / ``load_state_dict``, so training
-  resumes mid-epoch exactly. Iterating is endless, epoch after epoch;
-  ``drop_last`` drops an epoch's short last batch."""
+  permutation drawn from ``seed + epoch``, of which shard ``shard_index``
+  of ``num_shards`` takes every ``num_shards``-th index; (epoch, counter,
+  seed) round-trip through ``state_dict`` / ``load_state_dict``, so
+  training resumes mid-epoch exactly. Iterating is endless, epoch after
+  epoch; ``drop_last`` drops an epoch's short last batch."""
 
   def __init__(self, dataset: GosaiDataset, batch_size: int,
                shuffle: bool = True, seed: int = 0,
+               num_shards: int = 1, shard_index: int = 0,
                drop_last: bool = True):
     self.dataset = dataset
     self.batch_size = batch_size
     self.shuffle = shuffle
     self.seed = seed
+    self.num_shards = num_shards
+    self.shard_index = shard_index
     self.drop_last = drop_last
     self.epoch = 0
     self.counter = 0
@@ -173,7 +214,7 @@ class FaultTolerantIterator:
     order = np.arange(len(self.dataset))
     if self.shuffle:
       np.random.default_rng(self.seed + self.epoch).shuffle(order)
-    return order
+    return order[self.shard_index::self.num_shards]
 
   def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
     while True:
@@ -199,24 +240,40 @@ def get_dataloaders(config, *, num_shards: int = 1, shard_index: int = 0,
                     skip_train: bool = False, skip_valid: bool = False,
                     data_dir: Optional[str] = None,
                     shard_data: bool = False):
-  """(train, valid, test) iterators of ``loader.global_batch_size`` and
-  ``loader.eval_global_batch_size`` rows; train shuffled from
-  ``config.seed``. One shard only: ``shard_data`` changes nothing on one
-  process, as in the JAX package; more shards raise (A16)."""
-  del shard_index, shard_data
-  if num_shards != 1:
-    raise NotImplementedError(f'num_shards={num_shards}: sharded data '
-                              'loading is not ported yet (ROADMAP A16)')
+  """(train, valid, test) iterators of shard ``shard_index`` of
+  ``num_shards``, each of the shard's share of ``loader.global_batch_size``
+  and ``loader.eval_global_batch_size`` rows (which must divide); train
+  shuffled from ``config.seed``. ``shard_data``: the module docstring's
+  contiguous row ranges, where a CSV is present and there is more than
+  one shard."""
+  if config.loader.global_batch_size % num_shards != 0:
+    raise ValueError(
+        f'Train batch size {config.loader.global_batch_size} not '
+        f'divisible by {num_shards} shards.')
+  if config.loader.eval_global_batch_size % num_shards != 0:
+    raise ValueError(
+        f'Eval batch size {config.loader.eval_global_batch_size} not '
+        f'divisible by {num_shards} shards.')
   length = config.model.length
 
   def make(split, bs, shuffle):
+    path = os.path.join(data_dir or DATA_DIR, f'gosai_{split}.csv')
+    if shard_data and num_shards > 1 and os.path.exists(path):
+      share = csv_count_rows(path) // num_shards
+      if share > 0:
+        ds = GosaiDataset(split, length=length, data_dir=data_dir,
+                          row_offset=share * shard_index, row_limit=share)
+        return FaultTolerantIterator(ds, bs, shuffle=shuffle,
+                                     seed=config.seed + shard_index)
     ds = GosaiDataset(split, length=length, data_dir=data_dir)
-    return FaultTolerantIterator(ds, bs, shuffle=shuffle, seed=config.seed)
+    return FaultTolerantIterator(ds, bs, shuffle=shuffle, seed=config.seed,
+                                 num_shards=num_shards,
+                                 shard_index=shard_index)
 
   train = None if skip_train else make(
-      'train', config.loader.global_batch_size, True)
+      'train', config.loader.global_batch_size // num_shards, True)
   valid = None if skip_valid else make(
-      'val', config.loader.eval_global_batch_size, False)
+      'val', config.loader.eval_global_batch_size // num_shards, False)
   test = None if skip_valid else make(
-      'test', config.loader.eval_global_batch_size, False)
+      'test', config.loader.eval_global_batch_size // num_shards, False)
   return train, valid, test

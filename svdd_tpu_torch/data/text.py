@@ -98,18 +98,19 @@ class TextDataset:
 
 def get_text_dataloaders(config, *, path: Optional[str] = None,
                          num_shards: int = 1, shard_index: int = 0):
-  """(train, val, tokenizer): the char-level corpus in batches of
-  ``loader.global_batch_size``. Sharded reads raise (ROADMAP A16)."""
-  if num_shards != 1 or shard_index != 0:
-    raise NotImplementedError('sharded text loaders: the parallel paths '
-                              'are not ported yet (ROADMAP A16)')
+  """(train, val, tokenizer): the char-level corpus in batches of shard
+  ``shard_index``'s share of ``loader.global_batch_size``, the strided
+  indices of each epoch's permutation (``svdd_tpu/data/text.py:102-
+  127``)."""
   tok = get_tokenizer('text8')
-  per_shard = config.loader.global_batch_size
+  per_shard = config.loader.global_batch_size // num_shards
 
   def make(split, bs, shuffle):
     ds = TextDataset(split, length=config.model.length, path=path,
                      tokenizer=tok)
-    return FaultTolerantIterator(ds, bs, shuffle=shuffle, seed=config.seed)
+    return FaultTolerantIterator(ds, bs, shuffle=shuffle, seed=config.seed,
+                                 num_shards=num_shards,
+                                 shard_index=shard_index)
 
   return (make('train', per_shard, True),
           make('val', per_shard, False), tok)

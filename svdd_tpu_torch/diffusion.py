@@ -16,7 +16,15 @@ token in every sampler, and a Gumbel-max draw takes the first lane.
 
 The samplers run under ``torch.inference_mode`` (``torch.no_grad`` for
 the gradient-guided ones); ``loss`` runs under autograd, and with
-``train=True`` it is the training mode (the denoiser's dropout)."""
+``train=True`` it is the training mode (the denoiser's dropout).
+
+Every sampler takes ``mesh`` (a ``parallel.mesh.Mesh``;
+``svdd_tpu/diffusion.py:252-290``): ``batch_size`` is then the global
+batch, each process runs its rows of it (``sampling/sampler.py``) and
+returns the global result; SVDD-MC's and SVDD-PM's candidate rows split
+over every process, or, for SVDD-MC with ``tp=True``, stay whole on each
+model rank while the value net (``models.enformer.
+tp_shard_value_params``) splits over ``model``."""
 
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from svdd_tpu_torch.models.autoregressive import ARModel
 from svdd_tpu_torch.models.cnn import CNNModel
 from svdd_tpu_torch.models.dimamba import DiMamba
 from svdd_tpu_torch.models.dit import DIT
+from svdd_tpu_torch.parallel.mesh import RowShard
 from svdd_tpu_torch.sampling import guidance as G
 from svdd_tpu_torch.sampling import sampler as S
 
@@ -195,7 +204,7 @@ class Diffusion:
   def _reverse(self, step_fn, batch_size: int, num_steps, eps: float,
                grad_steps: bool = False, aux_init=None,
                removal_from_aux: bool = False, collect_mid: bool = False,
-               collect_aux: bool = False):
+               collect_aux: bool = False, shard=None):
     cfg = self.config
     return S.reverse_process(
         step_fn, self.forward, self.schedule, batch_size=batch_size,
@@ -206,7 +215,12 @@ class Diffusion:
         removal_from_aux=removal_from_aux, collect_mid=collect_mid,
         collect_aux=collect_aux,
         analytic_removal=cfg.sampling.predictor == 'analytic',
-        vocab_size=self.vocab_size)
+        vocab_size=self.vocab_size, shard=shard)
+
+  @staticmethod
+  def _shard(mesh, batch_size: int, tp: bool = False):
+    """The batch's rows over ``mesh`` (None without one)."""
+    return None if mesh is None else RowShard(mesh, batch_size, tp)
 
   @staticmethod
   def _phased(make_step, sample_M: int, m_schedule):
@@ -217,57 +231,65 @@ class Diffusion:
     return [(make_step(int(m)), int(n)) for n, m in m_schedule]
 
   def sampler(self, batch_size: int, *, num_steps: int | None = None,
-              eps: float = 1e-5, collect_mid: bool = False):
+              eps: float = 1e-5, collect_mid: bool = False, mesh=None):
     """Uncontrolled sampler, ``sampling.predictor`` 'ddpm', 'ddpm_cache'
     or 'analytic': generator -> SampleResult; ``collect_mid`` fills its
     ``mid_x`` (the value-net trainer's states). Under 'analytic' every
     sampler's noise removal is ``denoiser_final``
     (``svdd_tpu/diffusion.py:249``)."""
     pred = self.config.sampling.predictor
+    shard = self._shard(mesh, batch_size)
     if pred == 'ddpm':
       step = S.ddpm_step(self.forward, self.schedule, self.mask_index)
       return self._reverse(step, batch_size, num_steps, eps,
-                           collect_mid=collect_mid)
+                           collect_mid=collect_mid, shard=shard)
     if pred == 'ddpm_cache':
       step = S.ddpm_cache_step(self.forward, self.schedule, self.mask_index)
       return self._reverse(step, batch_size, num_steps, eps,
-                           aux_init=(None, False), collect_mid=collect_mid)
+                           aux_init=(None, False), collect_mid=collect_mid,
+                           shard=shard)
     if pred == 'analytic':
       step = S.analytic_step(self.forward, self.schedule, self.mask_index,
                              self.vocab_size)
       return self._reverse(step, batch_size, num_steps, eps,
-                           collect_mid=collect_mid)
+                           collect_mid=collect_mid, shard=shard)
     raise NotImplementedError(f'predictor {pred!r} is not ported yet')
 
   def cdq_sampler(self, batch_size: int, *, repeats: int = 10,
-                  num_steps: int | None = None, eps: float = 1e-5):
+                  num_steps: int | None = None, eps: float = 1e-5,
+                  mesh=None):
     """CD-Q trajectory collection (``svdd_tpu/diffusion.py:335-353``):
     generator -> SampleResult whose ``extra`` stacks every step's
     candidates (steps, B, repeats, L) and whose ``mid_x`` the
     trajectory's states."""
     step = G.cdq_step(self.forward, self.schedule, self.mask_index, repeats)
-    aux_init = torch.zeros((batch_size, repeats, self.config.model.length),
+    shard = self._shard(mesh, batch_size)
+    local = batch_size if shard is None else shard.local
+    aux_init = torch.zeros((local, repeats, self.config.model.length),
                            dtype=torch.long, device=self.device)
     return self._reverse(step, batch_size, num_steps, eps, aux_init=aux_init,
-                         collect_mid=True, collect_aux=True)
+                         collect_mid=True, collect_aux=True, shard=shard)
 
   def controlled_sampler(self, value_fn, batch_size: int, *,
                          sample_M: int = 10,
                          num_steps: int | None = None,
-                         eps: float = 1e-5, m_schedule=None):
+                         eps: float = 1e-5, m_schedule=None, mesh=None,
+                         tp: bool = False):
     """SVDD-MC sampler; ``value_fn``: (N, L) tokens -> (N,) scores.
     ``m_schedule``: scheduled-M phases ((n_steps, M), ...) covering the
-    trajectory, in place of ``sample_M``."""
+    trajectory, in place of ``sample_M``. ``mesh``, ``tp``: the module
+    docstring (with ``tp``, ``value_fn`` is the tensor-parallel net's)."""
+    shard = self._shard(mesh, batch_size, tp)
     step = self._phased(
         lambda m: G.svdd_mc_step(self.forward, value_fn, self.schedule,
-                                 self.mask_index, repeats=m),
+                                 self.mask_index, repeats=m, shard=shard),
         sample_M, m_schedule)
-    return self._reverse(step, batch_size, num_steps, eps)
+    return self._reverse(step, batch_size, num_steps, eps, shard=shard)
 
   def controlled_sampler_timed(self, value_fn_timed, batch_size: int, *,
                                sample_M: int = 10,
                                num_steps: int | None = None,
-                               eps: float = 1e-5):
+                               eps: float = 1e-5, mesh=None):
     """SVDD-MC with a step-indexed value function, the timed and
     multisep value models (``svdd_tpu/diffusion.py:392-410``):
     ``value_fn_timed(tokens (N, L), step)`` -> (N,): a timed
@@ -275,17 +297,19 @@ class Diffusion:
     (the reference's timed loop feeds ``torch.full((B, L), i)``), or a
     multisep model's ``apply_at_step`` on the one-hots."""
     steps = num_steps or self.config.sampling.steps
+    shard = self._shard(mesh, batch_size)
     step = G.svdd_mc_step_timed(self.forward, value_fn_timed, self.schedule,
                                 self.mask_index, steps, eps,
-                                repeats=sample_M)
-    return self._reverse(step, batch_size, num_steps, eps)
+                                repeats=sample_M, shard=shard)
+    return self._reverse(step, batch_size, num_steps, eps, shard=shard)
 
   def tweedie_sampler(self, reward_fn, batch_size: int, *,
                       sample_M: int = 10, tweedie: bool = True,
                       task: str = 'dna', saluki_body=None,
                       saluki_final_length: int = 12288,
                       num_steps: int | None = None, eps: float = 1e-5,
-                      reuse_posterior: bool = True, m_schedule=None):
+                      reuse_posterior: bool = True, m_schedule=None,
+                      mesh=None):
     """SVDD-PM sampler (``svdd_tpu/diffusion.py:422-463``); ``reward_fn``:
     (N, L, 4) -> (N,), or, for ``task='rna_saluki'``, the saluki input
     (``saluki_body``, ``saluki_final_length``) -> (N,).
@@ -293,22 +317,24 @@ class Diffusion:
     forward across steps and into noise removal. ``m_schedule`` as in
     ``controlled_sampler``."""
     reuse = reuse_posterior and tweedie
+    shard = self._shard(mesh, batch_size)
     step = self._phased(
         lambda m: G.svdd_pm_step(self.forward, reward_fn, self.schedule,
                                  self.mask_index, repeats=m,
                                  tweedie=tweedie, task=task,
                                  saluki_body=saluki_body,
                                  saluki_final_length=saluki_final_length,
-                                 carry_posterior=reuse),
+                                 carry_posterior=reuse, shard=shard),
         sample_M, m_schedule)
     aux_init = (None, False) if reuse else ()   # no posterior yet
     return self._reverse(step, batch_size, num_steps, eps,
-                         aux_init=aux_init, removal_from_aux=reuse)
+                         aux_init=aux_init, removal_from_aux=reuse,
+                         shard=shard)
 
   def tds_sampler(self, reward_fn, batch_size: int, *, alpha: float = 1.0,
                   num_steps: int | None = None, eps: float = 1e-5,
                   reuse_posterior: bool = True, track_ess: bool = True,
-                  ess_threshold: float | None = None):
+                  ess_threshold: float | None = None, mesh=None):
     """TDS sampler (``svdd_tpu/diffusion.py:465-503``); ``reward_fn``:
     (N, L, 4) -> (N,). ``reuse_posterior``: carry the resampled
     particles' forward, which drops one of the three forwards a step and
@@ -316,6 +342,7 @@ class Diffusion:
     holds each step's effective sample size. ``ess_threshold``: adaptive
     resampling (``guidance.tds_step``)."""
     steps = num_steps or self.config.sampling.steps
+    shard = self._shard(mesh, batch_size)
     post_init = (None, False) if reuse_posterior else ()
     aux_init = G.tds_aux_init(batch_size, post_init, track_ess=track_ess,
                               num_steps=steps, ess_threshold=ess_threshold,
@@ -323,24 +350,33 @@ class Diffusion:
     step = G.tds_step(self.forward, reward_fn, self.schedule,
                       self.mask_index, alpha=alpha,
                       carry_posterior=reuse_posterior, track_ess=track_ess,
-                      num_steps=steps, ess_threshold=ess_threshold)
+                      num_steps=steps, ess_threshold=ess_threshold,
+                      shard=shard)
     return self._reverse(step, batch_size, num_steps, eps,
                          aux_init=aux_init,
-                         removal_from_aux=reuse_posterior)
+                         removal_from_aux=reuse_posterior, shard=shard)
 
   def dps_sampler(self, reward_fn, batch_size: int, *,
                   guidance_scale: float = 1.0,
-                  num_steps: int | None = None, eps: float = 1e-5):
+                  num_steps: int | None = None, eps: float = 1e-5,
+                  mesh=None):
     """DPS sampler; ``reward_fn``: (N, L, 4) -> (N,), differentiable."""
+    shard = self._shard(mesh, batch_size)
     step = G.dps_step(self.forward_onehot, reward_fn, self.schedule,
-                      self.mask_index, guidance_scale=guidance_scale)
-    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True)
+                      self.mask_index, guidance_scale=guidance_scale,
+                      shard=shard)
+    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True,
+                         shard=shard)
 
   def classifier_sampler(self, value_fn_onehot, batch_size: int, *,
                          guidance_scale: float = 1.0,
-                         num_steps: int | None = None, eps: float = 1e-5):
+                         num_steps: int | None = None, eps: float = 1e-5,
+                         mesh=None):
     """Classifier-guidance sampler; ``value_fn_onehot``: (N, L, 4) ->
     (N,), differentiable (``ValueFunction.as_onehot_fn``)."""
+    shard = self._shard(mesh, batch_size)
     step = G.classifier_step(self.forward, value_fn_onehot, self.schedule,
-                             self.mask_index, guidance_scale=guidance_scale)
-    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True)
+                             self.mask_index, guidance_scale=guidance_scale,
+                             shard=shard)
+    return self._reverse(step, batch_size, num_steps, eps, grad_steps=True,
+                         shard=shard)

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from svdd_tpu_torch.parallel import rows
+
 Tensor = torch.Tensor
 
 NEG_INFINITY = -1_000_000.0
@@ -27,8 +29,7 @@ def gumbel_noise(shape: Tuple[int, ...], generator: torch.Generator,
                  device=None) -> Tensor:
   """Gumbel(0, 1) noise as ``fused_sample.py:46-48`` makes it:
   -log(-log(u + 1e-20) + 1e-20) with u ~ U[0, 1)."""
-  u = torch.rand(shape, generator=generator, device=device,
-                 dtype=torch.float32)
+  u = rows.rand(shape, generator, device)
   return -torch.log(-torch.log(u + 1e-20) + 1e-20)
 
 
@@ -184,9 +185,9 @@ def transform_samples_saluki(samples: Tensor,
 
 def uniforms(shape: Tuple[int, ...], generator: torch.Generator,
              device=None) -> Tensor:
-  """U[0, 1) float32 noise of ``shape`` from ``generator``."""
-  return torch.rand(shape, generator=generator, device=device,
-                    dtype=torch.float32)
+  """U[0, 1) float32 noise of ``shape`` from ``generator`` (the local
+  rows of the global batch's inside ``parallel.rows.global_rows``)."""
+  return rows.rand(shape, generator, device)
 
 
 def q_xt(x0: Tensor, move_chance: Tensor, mask_index: int,
@@ -200,10 +201,13 @@ def q_xt(x0: Tensor, move_chance: Tensor, mask_index: int,
 def sample_t(u: Tensor, sampling_eps: float,
              antithetic: bool = True) -> Tensor:
   """Training times from the (n,) uniforms ``u``; antithetic: row i's
-  time lies in [i/n, (i+1)/n), (u/n + i/n) mod 1."""
+  time lies in [i/n, (i+1)/n), (u/n + i/n) mod 1. Inside
+  ``parallel.rows.global_rows`` the rows are rows [row0, row0 + n) of the
+  global batch, and i and n are global."""
   if antithetic:
-    n = u.shape[0]
-    offset = torch.arange(n, dtype=torch.float32, device=u.device) / n
+    row0, n = rows.current() or (0, u.shape[0])
+    offset = (torch.arange(u.shape[0], dtype=torch.float32, device=u.device)
+              + row0) / n
     u = (u / n + offset) % 1
   return (1 - sampling_eps) * u + sampling_eps
 

@@ -39,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from svdd_tpu_torch.ops import attn_pool as ap
+from svdd_tpu_torch.parallel import mesh as mesh_lib
+from svdd_tpu_torch.parallel import rows
 from svdd_tpu_torch.ops.conv1d import conv1d_prologue, conv1d_shifted
 from svdd_tpu_torch.ops.kernel_utils import act as activation
 from svdd_tpu_torch.ops.kernel_utils import live_taps
@@ -136,7 +138,7 @@ class DropoutMasks:
         raise ValueError(f'dropout mask {self.calls}: {tuple(mask.shape)} '
                          f'for activations {tuple(shape)}')
     else:
-      mask = torch.rand(shape, generator=self.generator, device=device) < keep
+      mask = rows.rand(shape, self.generator, device) < keep
     self.calls += 1
     return mask
 
@@ -166,9 +168,17 @@ class BatchNorm(nn.Module):
   (``_normalize``) rounded once to x's dtype, and the running averages
   moved in place as ra <- 0.9 ra + 0.1 stat (not
   ``F.batch_norm(training=True)``, which moves the variance by the
-  unbiased estimate with the opposite momentum)."""
+  unbiased estimate with the opposite momentum).
+
+  ``data_group`` (set by ``sync_batchnorm``; not saved): a process group
+  of more than one process whose rows make the batch, as JAX's mesh
+  makes its statistics global. Training then all-reduces the sum, the
+  sum of squares and the count, with their gradients, so every process
+  normalises by the global batch and moves its running averages alike.
+  Without one, the statistics are the local batch's."""
 
   momentum = 0.9
+  data_group = None
 
   def __init__(self, dim: int, device=None, eps: float = 1e-5):
     super().__init__()
@@ -216,14 +226,32 @@ class BatchNorm(nn.Module):
   def _train(self, x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     dims = tuple(range(x.ndim - 1))
-    mean = x32.mean(dims)
-    var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+    if self.data_group is None:
+      mean = x32.mean(dims)
+      var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+    else:
+      c = x.shape[-1]
+      count = torch.full((1,), x32.numel() // c, dtype=torch.float32,
+                         device=x.device)
+      stats = mesh_lib.all_reduce_grad(torch.cat(
+          [x32.sum(dims), x32.square().sum(dims), count]), self.data_group)
+      mean = stats[:c] / stats[-1]
+      var = torch.clamp(stats[c:2 * c] / stats[-1] - mean.square(), min=0.0)
     with torch.no_grad():
       m = self.momentum
       self.mean.copy_(m * self.mean + (1 - m) * mean)
       self.var.copy_(m * self.var + (1 - m) * var)
     mul = torch.rsqrt(var + self.eps) * self.scale.float()
     return ((x32 - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+  """Give every BatchNorm of ``module`` the data ``group`` of its
+  training statistics (None: the local batch's); returns ``module``."""
+  for m in module.modules():
+    if isinstance(m, BatchNorm):
+      m.data_group = group
+  return module
 
 
 def defers_bias(dtype: torch.dtype) -> bool:
@@ -532,7 +560,12 @@ class ConvBlock(nn.Module):
 
 class FeedForwardBlock(nn.Module):
   """LN -> Dense(2C) -> dropout -> relu -> Dense(C) -> dropout (two flax
-  ``LinearBlock``s); the dropouts live only given ``masks`` (training)."""
+  ``LinearBlock``s); the dropouts live only given ``masks`` (training).
+  ``tp_group``: the model group of a tensor-parallel copy
+  (``models.enformer.tp_shard_value_params``), whose partial outputs the
+  block sums after the second Dense."""
+
+  tp_group = None
 
   def __init__(self, dim: int, generator: torch.Generator,
                dropout: float = 0.0):
@@ -544,11 +577,17 @@ class FeedForwardBlock(nn.Module):
 
   def forward(self, x, masks: Optional[DropoutMasks] = None):
     h = torch.relu(dropout(self.up(self.norm(x)), self.dropout, masks))
-    return dropout(self.down(h), self.dropout, masks)
+    y = self.down(h)
+    if self.tp_group is not None:
+      y = mesh_lib.all_reduce_(y, self.tp_group)
+    return dropout(y, self.dropout, masks)
 
 
 class ConvHead(nn.Module):
-  """1x1 conv to n_tasks, then the mean over L (no norm, no act)."""
+  """1x1 conv to n_tasks, then the mean over L (no norm, no act).
+  ``tp_group``: as ``FeedForwardBlock``'s, summed before the mean."""
+
+  tp_group = None
 
   def __init__(self, n_tasks: int, in_channels: int,
                generator: torch.Generator):
@@ -559,4 +598,6 @@ class ConvHead(nn.Module):
 
   def forward(self, x):
     y = torch.matmul(x, self.kernel[0].to(x.dtype)) + self.bias.to(x.dtype)
+    if self.tp_group is not None:
+      y = mesh_lib.all_reduce_(y, self.tp_group)
     return y.mean(dim=1)

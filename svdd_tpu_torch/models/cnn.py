@@ -44,6 +44,7 @@ from svdd_tpu_torch.config import Config
 from svdd_tpu_torch.models.blocks import Dense, conv_param, lecun_normal
 from svdd_tpu_torch.ops.cnn_layer import cnn_layer, cnn_layer_plain
 from svdd_tpu_torch.ops.conv1d import conv1d_deterministic, conv1d_shifted
+from svdd_tpu_torch.parallel import rows
 
 
 class GaussianFourierProjection(nn.Module):
@@ -171,7 +172,7 @@ class CNNModel(nn.Module):
     for layer in self.layers:
       keep = None
       if rate > 0:
-        u = torch.rand(feat.shape, generator=generator, device=feat.device)
+        u = rows.rand(feat.shape, generator, feat.device)
         keep = u < 1 - rate
       feat = layer(feat, time_emb, keep, 1 - rate, cls_emb)
     feat = torch.relu(conv(feat, self.final_0_kernel, self.final_0_bias))

@@ -29,11 +29,22 @@ atomics; and the three dropouts of each transformer block live at
 ``ff_dropout`` (after the attention and in the FFN's two linear blocks),
 their masks from a ``blocks.DropoutMasks``. The pointwise block's
 dropout is ``ff_dropout // 8`` = 0.0, as in JAX, so inert.
+
+``tp_shard_value_params`` splits a value net over the ``model`` axis of a
+process grid, Megatron-style, as JAX's ``tp_value_spec`` shards it
+(``svdd_tpu/parallel/mesh.py:135``): each process keeps H/m heads of
+every attention (to_q, to_k, to_v, to_rel_k and the relative biases) and
+the matching rows of to_out, a column block of the FFN's first Dense and
+the rows of its second, a column block of the pointwise conv and the
+rows of the head's 1x1 conv; an all-reduce over ``model`` follows each
+attention, each FFN and the head, whose biases process 0 alone adds. The
+conv tower stays whole. Forward only: JAX splits the net at decode.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 
 import numpy as np
@@ -44,6 +55,7 @@ from svdd_tpu_torch.models import blocks
 from svdd_tpu_torch.ops.attn_l2 import attn_l2
 from svdd_tpu_torch.ops.conv1d import conv1d_shifted
 from svdd_tpu_torch.ops.kernel_utils import gelu_enformer
+from svdd_tpu_torch.parallel import mesh as mesh_lib
 
 
 def exponential_linspace_int(start: int, end: int, num: int,
@@ -142,7 +154,11 @@ def capture_attention():
 
 
 class EnformerAttention(nn.Module):
-  """MHA with Enformer's relative positional bias."""
+  """MHA with Enformer's relative positional bias. ``tp_group``: the
+  model group of a tensor-parallel copy (``tp_shard_value_params``),
+  whose partial outputs this block sums."""
+
+  tp_group = None
 
   def __init__(self, dim: int, generator: torch.Generator, heads: int = 8,
                dim_key: int = 64, dim_value: int = 192,
@@ -188,7 +204,7 @@ class EnformerAttention(nn.Module):
       out, w = attn_l2(q, k, v, bc, bp, rel_k, heads=h)
       if _ATTENTION_MAPS is not None:       # (N, 2, H) -> (N, H, 2, 2)
         _ATTENTION_MAPS.append(torch.stack([w, 1.0 - w], -1).transpose(1, 2))
-      return self.to_out(out)
+      return self._reduce(self.to_out(out))
     q = q.reshape(b, n, h, dk).transpose(1, 2)
     k = k.reshape(b, n, h, dk).transpose(1, 2)
     v = v.reshape(b, n, h, dv).transpose(1, 2)
@@ -200,7 +216,12 @@ class EnformerAttention(nn.Module):
     if _ATTENTION_MAPS is not None:
       _ATTENTION_MAPS.append(attn)
     out = torch.einsum('bhij,bhjd->bhid', attn, v)
-    return self.to_out(out.transpose(1, 2).reshape(b, n, h * dv))
+    return self._reduce(self.to_out(out.transpose(1, 2).reshape(b, n, h * dv)))
+
+  def _reduce(self, y: torch.Tensor) -> torch.Tensor:
+    if self.tp_group is None:
+      return y
+    return mesh_lib.all_reduce_(y, self.tp_group)
 
 
 class EnformerTransformerBlock(nn.Module):
@@ -375,3 +396,38 @@ class EnformerValueModel(nn.Module):
             'n_heads': attn.heads if attn else 8,
             'key_len': attn.dim_key if attn else 64,
             **({'timed': True} if self.timed else {})}
+
+
+def tp_shard_value_params(module: EnformerValueModel,
+                          mesh: mesh_lib.Mesh) -> EnformerValueModel:
+  """A copy of ``module`` holding this process's tensor-parallel share
+  over ``mesh``'s model axis (module docstring), ``mesh_lib.
+  tp_value_spec``'s split of each parameter; with one model rank, the
+  module's own weights. The head count and every split axis must divide
+  by the model axis."""
+  m, j = mesh.model, mesh.model_index
+  out = copy.deepcopy(module)
+  heads = [blk.attn.heads for blk in out.trunk.transformers]
+  h = heads[0] if heads else None
+  if h is not None and h % m:
+    raise ValueError(f'tensor parallelism over {m} processes needs a head '
+                     f'count it divides, not {h}')
+  with torch.no_grad():
+    for name, p in list(out.named_parameters()):
+      axis = mesh_lib.tp_value_spec(name, p.shape, m, heads=h)
+      if axis is None:
+        if m > 1 and any(name.endswith(s) for s, _, _ in mesh_lib._TP_TABLE):
+          raise ValueError(f'{name} {tuple(p.shape)} does not split over '
+                           f'{m} processes')
+        continue
+      p.data = p.data.chunk(m, dim=axis)[j].clone()
+    for blk in out.trunk.transformers:
+      blk.attn.heads //= m
+      blk.attn.tp_group = blk.ffn.tp_group = mesh.model_group
+      if j:       # the row-split layers' biases, added once
+        blk.attn.to_out.bias.zero_()
+        blk.ffn.down.bias.zero_()
+    out.head.tp_group = mesh.model_group
+    if j:
+      out.head.bias.zero_()
+  return out

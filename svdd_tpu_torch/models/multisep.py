@@ -22,7 +22,7 @@ MultiSepTrainer``).
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -78,22 +78,27 @@ def bin_slices(s: int, n_models: int):
 
 
 def bin_loss(trunk: nn.Module, states_by_step: torch.Tensor,
-             targets: torch.Tensor, start: int, size: int) -> torch.Tensor:
+             targets: torch.Tensor, start: int, size: int,
+             batch: Optional[int] = None) -> torch.Tensor:
   """The MSE of ``trunk`` on its bin's states, every state of a
-  trajectory regressing onto its final reward (``multisep.py:61-67``)."""
+  trajectory regressing onto its final reward (``multisep.py:61-67``):
+  the squared errors' sum over size x ``batch`` (the trajectories held
+  by default; a process's share of a batch split over processes takes
+  the global batch)."""
   sl = states_by_step[start:start + size]
   preds = trunk(sl.reshape((-1,) + tuple(sl.shape[2:])))
   t = targets.repeat(size)
-  return ((preds.reshape(-1) - t) ** 2).mean()
+  sq = (preds.reshape(-1) - t) ** 2
+  return sq.sum() / (sq.numel() if batch is None else size * batch)
 
 
 def bin_losses(msm: MultiSepValueModel, states_by_step: torch.Tensor,
-               targets: torch.Tensor):
+               targets: torch.Tensor, batch: Optional[int] = None):
   """Each bin's MSE in bin order, computed as it is drawn: the trainer
   differentiates one before the next is built."""
   for trunk, (start, size) in zip(
       msm.trunks, bin_slices(states_by_step.shape[0], msm.n_models)):
-    yield bin_loss(trunk, states_by_step, targets, start, size)
+    yield bin_loss(trunk, states_by_step, targets, start, size, batch)
 
 
 def multisep_losses(msm: MultiSepValueModel, states_by_step: torch.Tensor,

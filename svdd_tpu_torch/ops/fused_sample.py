@@ -10,10 +10,16 @@ plain version takes injected Gumbel noise, so a step can be pinned
 exactly against the JAX formula (``fused_sample.py:91-95``). Each draw
 of the kernel equals the plain version's on the noise the kernel
 reports (``return_noise``); the noise itself is held to the Gumbel law
-by the frequencies of the draws. The kernel reads log_q in float32 (JAX
-casts it so, ``fused_sample.py:77``) and x in its own integer type, and
-writes the candidates in x's type. A failed launch raises; there is no
-fallback.
+by the frequencies of the draws. For a batch split over processes
+(``parallel/rows.py``) the wrapper hands the kernel ``row0``, the global
+index of the call's first row, from the enclosing ``rows.global_rows``
+block (0 outside one): the kernel keys each row's draws by it, and the
+plain version draws the noise of the global batch and keeps the call's
+rows, so calls on the blocks of a batch, each from the same generator
+state, draw what one call on the whole batch draws. The kernel reads
+log_q in float32 (JAX casts it so, ``fused_sample.py:77``) and x in its
+own integer type, and writes the candidates in x's type. A failed launch
+raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from svdd_tpu_torch import _build
 from svdd_tpu_torch.mdlm import gumbel_noise
+from svdd_tpu_torch.parallel import rows as rows_lib
 
 # Philox offsets one kernel call takes from its generator (a multiple of
 # 4, as the CUDA generator's offsets are)
@@ -56,13 +63,15 @@ def gumbel_candidates(log_q, x, repeats: int, mask_index: int,
                       generator: torch.Generator,
                       gumbel: Optional[torch.Tensor] = None, *,
                       return_noise: bool = False):
-  """(B, M, L) candidates in x's dtype. CPU tensors take the plain
-  version, with ``gumbel`` noise injected or drawn from ``generator``;
-  CUDA tensors the kernel, seeded from ``generator`` (a generator on the
-  tensors' device; x int32 or int64, mask_index in [0, V]).
-  ``return_noise`` also returns the (B, M, L, V) Gumbel noise of the
-  draws (the kernel's zeroes it where x is not MASK), so a kernel draw
-  can be held against the plain version."""
+  """(B, M, L) candidates in x's dtype, for rows [row0, row0 + B) of a
+  batch, row0 that of the enclosing ``rows.global_rows`` block (0
+  outside one; module docstring). CPU tensors take the plain version, with
+  ``gumbel`` noise injected or drawn from ``generator``; CUDA tensors the
+  kernel, seeded from ``generator`` (a generator on the tensors' device;
+  x int32 or int64, mask_index in [0, V]). ``return_noise`` also returns
+  the (B, M, L, V) Gumbel noise of the draws (the kernel's zeroes it
+  where x is not MASK), so a kernel draw can be held against the plain
+  version."""
   b, l, v = log_q.shape
   if log_q.device.type == 'cpu':
     if gumbel is None:
@@ -84,7 +93,7 @@ def gumbel_candidates(log_q, x, repeats: int, mask_index: int,
   rc = _build.entry('svdd_gumbel_candidates')(
       lq.data_ptr(), xc.data_ptr(), out.data_ptr(),
       None if noise is None else noise.data_ptr(),
-      b, repeats, l, v, mask_index, 8 * x.element_size(),
+      b, repeats, l, v, mask_index, 8 * x.element_size(), rows_lib.row0(),
       generator.initial_seed(), offset, _build.stream_ptr(lq))
   _build.check(rc, 'svdd_gumbel_candidates')
   _build.LAUNCHES['gumbel_candidates'] += 1

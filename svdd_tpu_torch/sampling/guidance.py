@@ -19,6 +19,17 @@ DPS and classifier guidance tilt the step posterior by a gradient with
 respect to the one-hot input, ``torch.autograd.grad`` in place of
 ``jax.grad``; the models' parameters take no gradient. Every step
 accepts injected Gumbel noise, so it can be pinned against the JAX step.
+
+``shard`` (a ``parallel.mesh.RowShard``): the step runs on this
+process's rows of a batch split over the grid's ``data`` axis
+(``svdd_tpu/sampling/sampler.py:187``), its noise the global batch's
+rows (``parallel/rows.py``). The folded candidate rows of SVDD-MC and
+SVDD-PM split further over ``model`` and their scores are gathered
+before the argmax (JAX's ``shard_flat``, ``guidance.py:86-87``); under
+``shard.tp`` the value net is split instead and every model rank scores
+every candidate. TDS gathers the log-weights, the particles and their
+carry over ``data`` and draws the same ancestors in every process; DPS
+and classifier guidance take the gradient of the global batch's mean.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 
 from svdd_tpu_torch import mdlm
 from svdd_tpu_torch.ops.fused_sample import gumbel_candidates
+from svdd_tpu_torch.parallel import rows
 from svdd_tpu_torch.rewards import RewardOracle
 from svdd_tpu_torch.sampling.sampler import (DenoiseFn, move_chances,
                                              sigma_batch)
@@ -42,7 +54,8 @@ RewardFn = Callable[[torch.Tensor], torch.Tensor]    # (N, L, 4) -> (N,)
 
 def _draw_candidates(log_q, x, mask_index: int, repeats: int,
                      generator: torch.Generator, gumbel=None):
-  """(B, M, L) candidates: Gumbel-max draws, unmasked tokens kept."""
+  """(B, M, L) candidates: Gumbel-max draws, unmasked tokens kept; the
+  rows of a split batch draw as the global batch's rows."""
   return gumbel_candidates(log_q, x, repeats, mask_index, generator,
                            gumbel)
 
@@ -56,8 +69,17 @@ def _select_best(candidates: torch.Tensor, scores: torch.Tensor
       idx[:, None, None].expand(-1, 1, candidates.shape[-1]))[:, 0]
 
 
+def _scores(value_fn, flat, shard):
+  """The value of every folded candidate row: one forward, or, on a
+  grid, this process's share and a gather (module docstring)."""
+  if shard is None:
+    return value_fn(flat)
+  return shard.score_rows(value_fn, flat)
+
+
 def svdd_mc_step(denoise_fn: DenoiseFn, value_fn: ValueFn,
-                 schedule: Schedule, mask_index: int, repeats: int = 10):
+                 schedule: Schedule, mask_index: int, repeats: int = 10,
+                 shard=None):
   """SVDD-MC: M candidates -> value net -> argmax select."""
 
   def step(x, t, t_next, generator, gumbel=None):
@@ -67,8 +89,8 @@ def svdd_mc_step(denoise_fn: DenoiseFn, value_fn: ValueFn,
     log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
     candidates = _draw_candidates(log_q, x, mask_index, repeats,
                                   generator, gumbel)
-    scores = value_fn(candidates.reshape(b * repeats, l)).reshape(
-        b, repeats)
+    scores = _scores(value_fn, candidates.reshape(b * repeats, l),
+                     shard).reshape(b, repeats)
     return _select_best(candidates, scores)
 
   return step
@@ -85,7 +107,7 @@ def timed_step_index(t, num_steps: int, eps: float = 1e-5) -> int:
 
 def svdd_mc_step_timed(denoise_fn: DenoiseFn, value_fn_timed,
                        schedule: Schedule, mask_index: int, num_steps: int,
-                       eps: float = 1e-5, repeats: int = 10):
+                       eps: float = 1e-5, repeats: int = 10, shard=None):
   """SVDD-MC with a step-indexed value function (``guidance.py:105-132``),
   for the timed and multisep value models: ``value_fn_timed(tokens (N,
   L), step)`` -> (N,), ``step`` the ``timed_step_index`` of the step's
@@ -99,8 +121,9 @@ def svdd_mc_step_timed(denoise_fn: DenoiseFn, value_fn_timed,
     candidates = _draw_candidates(log_q, x, mask_index, repeats,
                                   generator, gumbel)
     step_idx = timed_step_index(t, num_steps, eps)
-    scores = value_fn_timed(candidates.reshape(b * repeats, l),
-                            step_idx).reshape(b, repeats)
+    scores = _scores(lambda c: value_fn_timed(c, step_idx),
+                     candidates.reshape(b * repeats, l),
+                     shard).reshape(b, repeats)
     return _select_best(candidates, scores)
 
   return step
@@ -162,7 +185,7 @@ def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
                  schedule: Schedule, mask_index: int, repeats: int = 10,
                  tweedie: bool = True, task: str = 'dna',
                  saluki_body=None, saluki_final_length: int = 12288,
-                 carry_posterior: bool = False):
+                 carry_posterior: bool = False, shard=None):
   """SVDD-PM: M candidates -> reward of their posterior mean -> argmax
   select (``guidance.py:166-226``). ``tweedie=False`` scores the
   candidates with their masked positions zeroed instead
@@ -187,9 +210,11 @@ def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
     candidates = _draw_candidates(log_q, x, mask_index, repeats,
                                   generator, gumbel)
     flat = candidates.reshape(b * repeats, l)
+    if shard is not None:
+      flat = flat[shard.candidates(flat.shape[0])]
     if tweedie:
       log_p_cand = denoise_fn(flat, sigma_batch(schedule, t_next,
-                                                b * repeats, x.device))
+                                                flat.shape[0], x.device))
       onehot = _posterior_onehot(log_p_cand, flat, mask_index)
     else:
       onehot = mdlm.transform_samples(flat)
@@ -198,13 +223,18 @@ def svdd_pm_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
                          mask_index)
       onehot = mdlm.transform_samples_saluki(
           toks, saluki_body, final_length=saluki_final_length)
-    scores = reward_fn(onehot).reshape(b, repeats)
+    scores = reward_fn(onehot)
+    if shard is not None:
+      scores = shard.scores(scores)
+    scores = scores.reshape(b, repeats)
     if not carry_posterior:
       return aux, _select_best(candidates, scores)
+    if shard is not None:
+      log_p_cand = shard.scores(log_p_cand)
     idx = torch.argmax(scores, dim=1)
-    rows = torch.arange(b, device=x.device)
-    picked = log_p_cand.reshape(b, repeats, l, -1)[rows, idx]
-    return (picked, True), candidates[rows, idx]
+    ar = torch.arange(b, device=x.device)
+    picked = log_p_cand.reshape(b, repeats, l, -1)[ar, idx]
+    return (picked, True), candidates[ar, idx]
 
   return step
 
@@ -223,7 +253,7 @@ def tds_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
              schedule: Schedule, mask_index: int, alpha: float = 1.0,
              carry_posterior: bool = False, track_ess: bool = False,
              num_steps: int | None = None,
-             ess_threshold: float | None = None):
+             ess_threshold: float | None = None, shard=None):
   """TDS (``guidance.py:229-340``): one draw per particle, importance
   weights softmax((r(E[x0|x_s]) - r(E[x0|x_t])) / alpha), both posterior
   means at sigma_s as in the reference, and a resample of the batch from
@@ -256,8 +286,9 @@ def tds_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
     log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
     sample = torch.where(x != mask_index, x,
                          _draw(log_q, generator, gumbel))
-    if uniform is None:
-      uniform = torch.rand((b,), generator=generator, device=x.device)
+    n = b if shard is None else shard.total      # the particles, globally
+    if uniform is None:                 # the global batch's, whole
+      uniform = torch.rand((n,), generator=generator, device=x.device)
 
     log_p_sample = denoise_fn(sample, sigma_s)
     reward_num = reward_fn(_posterior_onehot(log_p_sample, sample,
@@ -265,23 +296,29 @@ def tds_step(denoise_fn: DenoiseFn, reward_fn: RewardFn,
     reward_den = reward_fn(_tweedie_posterior_onehot(denoise_fn, x,
                                                      sigma_s, mask_index))
     log_ratio = (reward_num - reward_den) / alpha
+    if shard is not None:
+      log_ratio = shard.gather(log_ratio)
+      sample = shard.gather(sample)
+      if carry_posterior:
+        log_p_sample = shard.gather(log_p_sample)
     log_w = log_ratio if ess_threshold is None else aux['log_w'] + log_ratio
     w = torch.softmax(log_w, dim=0)
     ess = 1.0 / torch.sum(w * w)
     take = resample_indices(w, uniform)
     if ess_threshold is not None:
-      fire = ess <= ess_threshold * b
+      fire = ess <= ess_threshold * n
       if aux['i'] >= num_steps - 1:     # the weights must be realised
         fire = torch.ones_like(fire)
-      take = torch.where(fire, take, torch.arange(b, device=x.device))
-    x_next = sample[take]
-    post_next = (log_p_sample[take], True) if carry_posterior else post
+      take = torch.where(fire, take, torch.arange(n, device=x.device))
+    mine = take if shard is None else take[shard.row0:shard.row0 + b]
+    x_next = sample[mine]
+    post_next = (log_p_sample[mine], True) if carry_posterior else post
     if not use_dict:
       return post_next, x_next
     aux_next = dict(aux, post=post_next, i=aux['i'] + 1)
     if track_ess:                       # the buffer is carried, not copied
       aux['ess'][aux['i']] = ess
-    if ess_threshold is not None:
+    if ess_threshold is not None:       # every process keeps all of them
       aux_next['log_w'] = torch.where(fire, torch.zeros_like(log_w),
                                       log_w)[take]
     return aux_next, x_next
@@ -313,14 +350,22 @@ def _draw(log_probs, generator, gumbel=None):
   return mdlm.sample_categorical(log_probs, gumbel)
 
 
+def _mean(values: torch.Tensor, rows_total) -> torch.Tensor:
+  """The mean over a batch of ``rows_total`` rows (this process's
+  share of it on a grid; the batch itself by default)."""
+  return values.sum() / (values.shape[0] if rows_total is None
+                         else rows_total)
+
+
 def dps_gradient(denoise_onehot_fn, reward_fn, x, sigma,
-                 mask_index: int) -> torch.Tensor:
+                 mask_index: int, rows_total=None) -> torch.Tensor:
   """d mean(reward(softmax(E[x0|xt])[..., :4])) / d onehot(x), with
   respect to the full 5-channel one-hot: through the copy/merge of the
   unmasked positions and a softmax over all 5 channels
   (``guidance.py:375-387``). A ``RewardOracle`` is differentiated through
   its unfused tower (``fused=False``), as JAX traces this gradient under
-  ``unfused_guard``."""
+  ``unfused_guard``. ``rows_total``: the global batch's rows, where x
+  is a process's share of it."""
   if isinstance(reward_fn, RewardOracle):
     reward_fn = functools.partial(reward_fn, fused=False)
   copy = (x != mask_index).float()[..., None]
@@ -329,12 +374,13 @@ def dps_gradient(denoise_onehot_fn, reward_fn, x, sigma,
     expected = denoise_onehot_fn(onehot, x, sigma)
     expected = copy * onehot + (1 - copy) * expected
     probs = torch.softmax(expected, dim=-1)
-    (grad,) = torch.autograd.grad(reward_fn(probs[..., :4]).mean(), onehot)
+    (grad,) = torch.autograd.grad(_mean(reward_fn(probs[..., :4]),
+                                        rows_total), onehot)
   return grad
 
 
 def dps_step(denoise_onehot_fn, reward_fn, schedule: Schedule,
-             mask_index: int, guidance_scale: float = 1.0):
+             mask_index: int, guidance_scale: float = 1.0, shard=None):
   """DPS: ``dps_gradient`` at sigma(t_next), recentred by the mask
   column, scaled and added to log q_xs (``guidance.py:359-396``).
   ``denoise_onehot_fn(onehot, x, sigma)`` is the denoiser's one-hot
@@ -345,7 +391,7 @@ def dps_step(denoise_onehot_fn, reward_fn, schedule: Schedule,
     _, mct, mcs = move_chances(schedule, t, t_next)
     x_grad = dps_gradient(denoise_onehot_fn, reward_fn, x,
                           sigma_batch(schedule, t_next, b, x.device),
-                          mask_index)
+                          mask_index, None if shard is None else shard.total)
     log_p0 = denoise_onehot_fn(F.one_hot(x.long(), mask_index + 1).float(),
                                x, sigma_batch(schedule, t, b, x.device))
     log_q = mdlm.log_q_xs(log_p0, mct, mcs, mask_index)
@@ -357,18 +403,20 @@ def dps_step(denoise_onehot_fn, reward_fn, schedule: Schedule,
   return step
 
 
-def classifier_gradient(value_fn_onehot, x) -> torch.Tensor:
+def classifier_gradient(value_fn_onehot, x, rows_total=None) -> torch.Tensor:
   """d mean(value(onehot4(x))) / d onehot4(x), padded with a zero MASK
-  channel to (N, L, 5) (``guidance.py:415-421``)."""
+  channel to (N, L, 5) (``guidance.py:415-421``); ``rows_total`` as in
+  ``dps_gradient``."""
   with torch.enable_grad():
     onehot = mdlm.transform_samples(x).requires_grad_(True)
-    (grad,) = torch.autograd.grad(value_fn_onehot(onehot).mean(), onehot)
+    (grad,) = torch.autograd.grad(_mean(value_fn_onehot(onehot), rows_total),
+                                  onehot)
   return F.pad(grad, (0, 1))
 
 
 def classifier_step(denoise_fn: DenoiseFn, value_fn_onehot,
                     schedule: Schedule, mask_index: int,
-                    guidance_scale: float = 1.0):
+                    guidance_scale: float = 1.0, shard=None):
   """Classifier guidance: ``classifier_gradient``, the gradient of the
   value net with respect to the one-hot of x_t, added to q_xs in
   probability space and clamped at 1e-35 before the log
@@ -381,7 +429,7 @@ def classifier_step(denoise_fn: DenoiseFn, value_fn_onehot,
     log_p = denoise_fn(x, sigma_batch(schedule, t, b, x.device))
     log_q = mdlm.log_q_xs(log_p, mct, mcs, mask_index)
     q_tilted = torch.exp(log_q) + guidance_scale * classifier_gradient(
-        value_fn_onehot, x)
+        value_fn_onehot, x, None if shard is None else shard.total)
     draw = _draw(torch.log(torch.clamp(q_tilted, min=1e-35)), generator,
                  gumbel)
     return torch.where(x != mask_index, x, draw)

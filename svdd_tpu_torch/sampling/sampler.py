@@ -25,6 +25,13 @@ after every step stacked (the CD-Q candidates), as the value-net
 trainer's targets read them (``svdd_tpu/sampling/sampler.py:199,
 236-238``).
 
+``shard`` (a ``parallel.mesh.RowShard``) runs the loop on this
+process's rows of the batch (``svdd_tpu/sampling/sampler.py:187``,
+JAX's ``shard_constraint``): the prior, the steps and the noise removal
+on the local rows, every draw the global batch's rows
+(``parallel/rows.py``), and the result gathered over the ``data`` axis,
+so every process returns the global samples, states and aux.
+
 The loop runs under ``torch.inference_mode()``; a loop of gradient
 steps (DPS, classifier guidance) runs under ``torch.no_grad()`` instead,
 since tensors made in inference mode cannot enter autograd, and each
@@ -38,6 +45,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from svdd_tpu_torch import mdlm
+from svdd_tpu_torch.parallel import rows
 from svdd_tpu_torch.schedules import Schedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -183,7 +191,8 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
                     grad_steps: bool = False, aux_init=None,
                     removal_from_aux: bool = False,
                     collect_mid: bool = False, collect_aux: bool = False,
-                    analytic_removal: bool = False, vocab_size: int = 0):
+                    analytic_removal: bool = False, vocab_size: int = 0,
+                    shard=None):
   """prior -> num_steps steps -> final noise removal: the argmax, or,
   with ``analytic_removal`` (the analytic predictor; it takes precedence
   over ``removal_from_aux``, as in JAX), ``denoiser_final`` over
@@ -197,13 +206,25 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
   denoiser's forward of the final x at sigma(t_last) (the guided steps'
   carry_posterior; TDS's dict nests it under 'post'), so noise removal
   argmaxes it over the non-mask vocabulary instead of running that
-  forward. ``collect_mid``, ``collect_aux``: the module docstring."""
+  forward. ``collect_mid``, ``collect_aux``, ``shard``: the module
+  docstring (``batch_size`` is then the global batch)."""
   timesteps = timestep_grid(num_steps, eps)
   phases = _phases(step_fn, num_steps)
+  local = batch_size if shard is None else shard.local
 
   def sample(generator: torch.Generator) -> SampleResult:
+    if shard is None:
+      return run(generator)
+    with rows.global_rows(shard.row0, shard.total):
+      res = run(generator)
+    return SampleResult(
+        samples=shard.gather(res.samples),
+        extra=_gather_extra(shard, res.extra, collect_aux),
+        mid_x=None if res.mid_x is None else shard.gather(res.mid_x, 1))
+
+  def run(generator: torch.Generator) -> SampleResult:
     with torch.no_grad() if grad_steps else torch.inference_mode():
-      x = mdlm.sample_prior((batch_size, length), mask_index, device)
+      x = mdlm.sample_prior((local, length), mask_index, device)
       aux = aux_init
       mids, auxs = [], []
       start = 0
@@ -231,3 +252,18 @@ def reverse_process(step_fn, denoise_fn: DenoiseFn, schedule: Schedule,
     return SampleResult(samples=x, extra=extra, mid_x=mid_x)
 
   return sample
+
+
+def _gather_extra(shard, extra, collect_aux: bool):
+  """The global aux of a sharded loop: the stacked aux's rows (axis 1),
+  or the row-wise tensor of a carry ((log_p, valid), TDS's dict under
+  'post'); TDS's ESS trace and log-weights are global already."""
+  if extra is None or (isinstance(extra, tuple) and not extra):
+    return extra
+  if collect_aux:
+    return shard.gather(extra, 1)
+  if isinstance(extra, dict):
+    return dict(extra, post=_gather_extra(shard, extra['post'], False))
+  if isinstance(extra, tuple) and torch.is_tensor(extra[0]):
+    return (shard.gather(extra[0]),) + tuple(extra[1:])
+  return extra

@@ -24,10 +24,27 @@ Checkpoints are ``<ckpt_dir>/step_<n>.pt``, written to a temporary file
 and renamed, the newest three kept; the best by validation NLL is kept
 under ``<ckpt_dir>/best/``. They are read with ``torch.load(...,
 weights_only=True)``.
+
+On a process grid (``mesh``, ``svdd_tpu/train/diffusion.py:100-150``)
+each process holds its rows of the global batch, every process of a
+model group the same ones. A microbatch is ``accum_steps``' share of the
+global batch's contiguous rows, as JAX reshapes it, so it may straddle
+processes: each process runs its rows of it, the noise its rows of the
+global microbatch's draws (``parallel/rows.py``, every generator seeded
+alike), the loss its rows' NLL over the microbatch's global token count
+(all-reduced), and the gradients are summed over ``data`` in one
+all-reduce with the loss. Under ``parallel.fsdp`` the parameters,
+AdamW's moments and the EMA shadow are shards (``parallel/fsdp.py``):
+the parameters gathered for a step's forward and backward and freed
+after it, the gradients reduce-scattered, the clip's norm the whole
+gradient's. Process 0 writes the
+checkpoints, gathered whole and in the single-process format, so a
+checkpoint resumes at any grid size; every process reads them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -42,6 +59,10 @@ from svdd_tpu_torch import utils
 from svdd_tpu_torch.config import Config
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.models import ema as ema_lib
+from svdd_tpu_torch.parallel import mesh as mesh_lib
+from svdd_tpu_torch.parallel import fsdp as fsdp_lib
+from svdd_tpu_torch.parallel import rows as rows_lib
+from svdd_tpu_torch.parallel.fsdp import ShardedParams
 
 LOGGER = logging.getLogger(__name__)
 FORMAT = 'svdd_tpu_torch.train.diffusion/1'
@@ -59,14 +80,17 @@ def make_schedule(config: Config):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
   """optax.clip_by_global_norm in place: every gradient becomes
   (g / ||g||) * max_norm where the global norm ||g|| is at least
   max_norm, and stays as it is below. Returns the norm, on the
   gradients' device (nothing is read back); a few multi-tensor ops, not
-  a handful per tensor."""
+  a handful per tensor. ``norm``: the global norm where the gradients
+  are shards of it (FSDP)."""
   grads = list(grads)
-  norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+  if norm is None:
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
   keep = norm < max_norm
   torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
   torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
@@ -76,14 +100,17 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 class Optimizer:
   """optax.chain(clip_by_global_norm(max_norm), adamw(schedule)) over
   ``params`` (no clipping where ``max_norm`` is None); ``schedule``:
-  count -> learning rate; ``count`` is the number of updates made."""
+  count -> learning rate; ``count`` is the number of updates made.
+  ``sharded``: the ``ShardedParams`` whose parts ``params`` are (FSDP),
+  which gives the clip the whole gradient's norm."""
 
   def __init__(self, params, schedule, max_norm: Optional[float],
                betas=(0.9, 0.999), eps: float = 1e-8,
-               weight_decay: float = 1e-4):
+               weight_decay: float = 1e-4, sharded=None):
     self.params = list(params)
     self.schedule = schedule
     self.max_norm = max_norm
+    self.sharded = sharded
     self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=tuple(betas),
                                    eps=eps, weight_decay=weight_decay)
     self.count = 0
@@ -91,47 +118,75 @@ class Optimizer:
   def step(self) -> None:
     """One update from the parameters' ``.grad``."""
     if self.max_norm is not None:
-      clip_by_global_norm_([p.grad for p in self.params], self.max_norm)
+      norm = None if self.sharded is None else self.sharded.global_norm()
+      clip_by_global_norm_([p.grad for p in self.params], self.max_norm,
+                           norm)
     for group in self.adamw.param_groups:
       group['lr'] = self.schedule(self.count)
     self.adamw.step()
     self.count += 1
 
   def state_dict(self) -> dict:
-    return {'adamw': self.adamw.state_dict(), 'count': self.count}
+    """The single-process state (FSDP: gathered, a collective)."""
+    state = {'adamw': self.adamw.state_dict(), 'count': self.count}
+    if self.sharded is None:
+      return state
+    return self.sharded.full_optimizer_state(state)
 
   def load_state_dict(self, state: dict) -> None:
+    """A single-process state (FSDP: this process's shards of it)."""
+    if self.sharded is not None:
+      state = self.sharded.shard_optimizer_state(state)
     self.adamw.load_state_dict(state['adamw'])
     self.count = int(state['count'])
 
 
-def make_optimizer(config: Config, params) -> Optimizer:
+def make_optimizer(config: Config, params, sharded=None) -> Optimizer:
   o = config.optim
   return Optimizer(params, make_schedule(config), o.grad_clip,
-                   (o.beta1, o.beta2), o.eps, o.weight_decay)
+                   (o.beta1, o.beta2), o.eps, o.weight_decay, sharded)
 
 
 @dataclasses.dataclass
 class TrainState:
   """The trained model (its backbone's parameters and buffers), the
   optimizer, the EMA of the parameters and the generator of the noise;
-  ``step`` counts the optimizer updates."""
+  ``step`` counts the optimizer updates. On a grid, ``mesh``, and under
+  FSDP ``sharded``, whose parts the optimizer and the EMA hold."""
   step: int
   model: Diffusion
   optimizer: Optimizer
   ema: ema_lib.EMAState
   generator: torch.Generator
+  mesh: Optional[mesh_lib.Mesh] = None
+  sharded: Optional[ShardedParams] = None
+
+  def trained(self) -> dict:
+    """name -> the tensors the optimizer and the EMA update: the
+    backbone's parameters, or under FSDP this process's parts."""
+    if self.sharded is not None:
+      return self.sharded.local
+    return dict(self.model.backbone.named_parameters())
 
 
 def init_state(model: Diffusion, config: Config,
-               generator: Optional[torch.Generator] = None) -> TrainState:
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
   """A fresh state on ``model``'s backbone (trained in place); the
-  generator is seeded from ``config.seed`` unless given."""
+  generator is seeded from ``config.seed`` unless given. ``mesh``: the
+  process grid (``parallel.fsdp`` shards the state over it)."""
   if generator is None:
     generator = torch.Generator(model.device).manual_seed(config.seed)
-  params = dict(model.backbone.named_parameters())
-  return TrainState(0, model, make_optimizer(config, params.values()),
-                    ema_lib.init(params, config.training.ema), generator)
+  sharded = None
+  if mesh is not None and config.parallel.fsdp:
+    sharded = ShardedParams(model.backbone, mesh,
+                            config.parallel.fsdp_min_size)
+  params = (sharded.local if sharded is not None
+            else dict(model.backbone.named_parameters()))
+  return TrainState(0, model, make_optimizer(config, params.values(),
+                                             sharded),
+                    ema_lib.init(params, config.training.ema), generator,
+                    mesh, sharded)
 
 
 def _batch_to(batch, device) -> dict:
@@ -143,39 +198,75 @@ def _batch_to(batch, device) -> dict:
   return out
 
 
+def _data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+  """x summed over the data axis (in float32); x itself without a
+  grid."""
+  return x if mesh is None else mesh_lib.all_reduce_(x.float(),
+                                                     mesh.data_group)
+
+
 def train_step(state: TrainState, batch, config: Config, noise=None,
                masks=None) -> torch.Tensor:
-  """One optimizer step on ``batch`` (numpy arrays or device tensors);
-  returns the mean loss (a 0-dim device tensor). ``noise``: one
-  (t_uniforms, mask_uniforms) pair per microbatch, and ``masks`` one list
-  of dropout masks per microbatch (the DiT's and AR's), in place of the
-  generator's draws (tests)."""
+  """One optimizer step on ``batch`` (numpy arrays or device tensors;
+  on a grid, this process's rows of the global batch); returns the mean
+  loss (a 0-dim device tensor). ``noise``: one (t_uniforms,
+  mask_uniforms) pair per microbatch, and ``masks`` one list of dropout
+  masks per microbatch (the DiT's and AR's), in place of the generator's
+  draws (tests; on a grid, the global microbatch's). The local rows of
+  microbatch i are its global rows [lo, hi) that this process holds
+  (module docstring); with none, the process still draws the
+  microbatch's noise (a forward on no rows), so every generator stays in
+  step. Without a grid the process holds every row and no collective
+  runs."""
+  mesh = state.mesh
   accum = max(1, config.training.accum_steps)
   model = state.model
   b = _batch_to(batch, model.device)
   n = b['seqs'].shape[0]
-  if n % accum:
-    raise ValueError(f'batch {n} does not split into {accum} microbatches')
-  mb = n // accum
-  params = state.optimizer.params
-  for p in params:
-    p.grad = None
+  row0, total = ((0, n) if mesh is None
+                 else (mesh.data_index * n, n * mesh.data))
+  if total % accum:
+    raise ValueError(f'batch {total} does not split into {accum} '
+                     'microbatches')
+  mb = total // accum
+  backbone = model.backbone
+  mask = b.get('attention_mask')
   loss = None
-  for i in range(accum):
-    rows = slice(i * mb, (i + 1) * mb)
-    mask = b.get('attention_mask')
-    out = model.loss(b['seqs'][rows], None if mask is None else mask[rows],
-                     train=True, generator=state.generator,
-                     noise=None if noise is None else noise[i],
-                     masks=None if masks is None else masks[i])
-    out.loss.backward()
-    loss = out.loss.detach() if loss is None else loss + out.loss.detach()
+  with fsdp_lib.gathered(state.sharded):
+    for p in backbone.parameters():
+      p.grad = None
+    for i in range(accum):
+      lo, hi = max(i * mb, row0), min((i + 1) * mb, row0 + n)
+      hi = max(hi, lo)
+      start = lo - i * mb if hi > lo else 0
+      nz = None if noise is None else tuple(t[start:start + hi - lo]
+                                            for t in noise[i])
+      mk = None if masks is None else [m[start:start + hi - lo]
+                                       for m in masks[i]]
+      with (contextlib.nullcontext() if mesh is None
+            else rows_lib.global_rows(start, mb)):
+        out = model.loss(b['seqs'][lo - row0:hi - row0],
+                         None if mask is None else mask[lo - row0:hi - row0],
+                         train=True, generator=state.generator, noise=nz,
+                         masks=mk)
+      part = out.nlls.sum() / _data_sum(out.token_mask.sum(), mesh)
+      if hi > lo:
+        part.backward()
+      part = part.detach()
+      loss = part if loss is None else loss + part
+    grads = [p.grad for p in backbone.parameters() if p.grad is not None]
+    if accum > 1:
+      with torch.no_grad():
+        torch._foreach_div_(grads, accum)
+    if state.sharded is not None:
+      loss = state.sharded.reduce_grads(loss)
+    elif mesh is not None:
+      loss = mesh_lib.sum_gradients_(backbone.parameters(), mesh.data_group,
+                                     loss)
   if accum > 1:
     loss = loss / accum
-    with torch.no_grad():
-      torch._foreach_div_([p.grad for p in params], accum)
   state.optimizer.step()
-  ema_lib.update(state.ema, dict(model.backbone.named_parameters()))
+  ema_lib.update(state.ema, state.trained())
   state.step += 1
   return loss
 
@@ -201,28 +292,37 @@ class Trainer:
   ckpt_dir: Optional[str] = None
   logger: Any = None
   sample_eval_fn: Any = None
+  mesh: Optional[mesh_lib.Mesh] = None
 
   def __post_init__(self):
     self._ema_model = None
     self._best_nll = None
 
+  @property
+  def lead(self) -> bool:
+    """Whether this process logs and writes (process 0 of a grid)."""
+    return self.mesh is None or self.mesh.rank == 0
+
   def eval_model(self, state: TrainState) -> Diffusion:
     """A Diffusion holding the EMA weights (the live model when
-    ``eval.disable_ema``); one copy of the backbone, refreshed each
-    call."""
-    if self.config.eval.disable_ema:
+    ``eval.disable_ema``, under FSDP a copy of it); one copy of the
+    backbone, refreshed each call (under FSDP a collective)."""
+    if self.config.eval.disable_ema and state.sharded is None:
       return state.model
     if self._ema_model is None:
+      with fsdp_lib.gathered(state.sharded):
+        backbone = copy.deepcopy(state.model.backbone)
       self._ema_model = Diffusion(self.config, device=state.model.device,
-                                  backbone=copy.deepcopy(state.model.backbone))
-    shadow = ema_lib.params(state.ema)
+                                  backbone=backbone)
+    weights = (model_params(state) if self.config.eval.disable_ema
+               else ema_shadow(state))
     with torch.no_grad():
       for name, p in self._ema_model.backbone.named_parameters():
-        p.copy_(shadow[name])
+        p.copy_(weights[name])
     return self._ema_model
 
   def init_or_restore(self, train_iter=None) -> TrainState:
-    state = init_state(self.model, self.config)
+    state = init_state(self.model, self.config, mesh=self.mesh)
     if self.ckpt_dir and self.config.checkpointing.resume_from_ckpt:
       restore_checkpoint(self.ckpt_dir, state, train_iter)
     return state
@@ -251,24 +351,26 @@ class Trainer:
         steps_per_s = log_every / max(time.time() - t0, 1e-9)
         LOGGER.info('step %d loss %.4f (%.2f steps/s)', step, loss,
                     steps_per_s)
-        if self.logger is not None:
+        if self.logger is not None and self.lead:
           self.logger.log({'train/loss': loss,
                            'train/steps_per_s': steps_per_s}, step=step)
         t0 = time.time()
       if valid_iter is not None and step % eval_every == 0:
         nll = self.evaluate(state, valid_iter)
         LOGGER.info('step %d val/nll %.4f', step, nll)
-        if self.logger is not None:
+        if self.logger is not None and self.lead:
           self.logger.log({'val/nll': nll}, step=step)
         if self.ckpt_dir:
           self.save_best(state, nll, iter_state())
         if self.sample_eval_fn is not None:
-          gen = torch.Generator(state.model.device).manual_seed(17 + step)
-          qmetrics = self.sample_eval_fn(self.eval_model(state), gen)
-          LOGGER.info('step %d sample-quality: %s', step,
-                      {k: round(float(v), 4) for k, v in qmetrics.items()})
-          if self.logger is not None:
-            self.logger.log(qmetrics, step=step)
+          ema_model = self.eval_model(state)    # a collective under FSDP
+          if self.lead:
+            gen = torch.Generator(state.model.device).manual_seed(17 + step)
+            qmetrics = self.sample_eval_fn(ema_model, gen)
+            LOGGER.info('step %d sample-quality: %s', step,
+                        {k: round(float(v), 4) for k, v in qmetrics.items()})
+            if self.logger is not None:
+              self.logger.log(qmetrics, step=step)
       if self.ckpt_dir and step % ckpt_every == 0:
         save_checkpoint(self.ckpt_dir, state, iter_state())
       crash_at = os.environ.get('SVDD_CRASH_AT_STEP')
@@ -281,13 +383,22 @@ class Trainer:
                noise=None) -> float:
     """Token-mean NLL over ``max_batches`` validation batches on the EMA
     weights, the noise from a generator seeded 0 (or ``noise``, a pair a
-    batch)."""
+    batch). On a grid each process holds its rows of the global batches,
+    draws their noise and sums with the others."""
     model = self.eval_model(state)
     gen = torch.Generator(model.device).manual_seed(0)
     total, count = 0.0, 0.0
     for i, batch in zip(range(max_batches), iter(valid_iter)):
-      nll, n = eval_step(model, batch, gen,
-                         None if noise is None else noise[i])
+      nz = None if noise is None else noise[i]
+      if self.mesh is None:
+        nll, n = eval_step(model, batch, gen, nz)
+      else:
+        rows = len(batch['seqs'])
+        with rows_lib.global_rows(self.mesh.data_index * rows,
+                                  self.mesh.data * rows):
+          nll, n = eval_step(model, batch, gen, nz)
+        nll, n = mesh_lib.all_reduce_(torch.stack([nll.float(), n.float()]),
+                                      self.mesh.data_group)
       total += float(nll)
       count += float(n)
     return total / max(count, 1.0)
@@ -301,7 +412,12 @@ class Trainer:
       kept = latest_checkpoint(best_dir)
       self._best_nll = (float('inf') if kept is None
                         else _load(kept).get('val_nll', float('inf')))
-    if val_nll < self._best_nll:
+    better = val_nll < self._best_nll
+    if self.mesh is not None:       # process 0's reading decides for all
+      better = bool(mesh_lib.all_reduce_(torch.tensor(
+          [float(better and self.lead)], device=state.model.device),
+          self.mesh.group))
+    if better:
       self._best_nll = val_nll
       save_checkpoint(best_dir, state, iterator_state, keep=1,
                       val_nll=val_nll)
@@ -333,16 +449,36 @@ def has_checkpoint(ckpt_dir: str) -> bool:
               or checkpoint_paths(os.path.join(ckpt_dir, 'best')))
 
 
+def model_params(state: TrainState) -> dict:
+  """name -> each trained parameter, whole (FSDP: gathered, a
+  collective)."""
+  if state.sharded is None:
+    return dict(state.model.backbone.named_parameters())
+  with torch.no_grad():
+    return state.sharded.full(state.sharded.local)
+
+
+def ema_shadow(state: TrainState) -> dict:
+  """name -> the EMA of each parameter, whole (FSDP: gathered, a
+  collective)."""
+  shadow = ema_lib.params(state.ema)
+  return shadow if state.sharded is None else state.sharded.full(shadow)
+
+
 def state_dict(state: TrainState, iterator_state: Optional[dict] = None,
                **extra) -> dict:
+  """The checkpoint's dict, in the single-process format whatever the
+  grid (FSDP: gathered; every process calls it)."""
   it = {'epoch': 0, 'counter': 0, 'seed': 0}
   it.update(iterator_state or {})
   return {'format': FORMAT, 'step': state.step,
-          'model': state.model.backbone.state_dict(),
+          'model': (state.model.backbone.state_dict()
+                    if state.sharded is None
+                    else state.sharded.state_dict()),
           'optimizer': state.optimizer.state_dict(),
           'ema': {'decay': state.ema.decay,
                   'num_updates': state.ema.num_updates,
-                  'shadow': state.ema.shadow},
+                  'shadow': ema_shadow(state)},
           'generator': state.generator.get_state(),
           'iterator': it, **extra}
 
@@ -359,12 +495,17 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
                     iterator_state: Optional[dict] = None, keep: int = KEEP,
                     **extra) -> str:
   """Write ``step_<n>.pt`` through a temporary file and a rename, then
-  delete all but the newest ``keep``. Returns its path."""
-  os.makedirs(ckpt_dir, exist_ok=True)
+  delete all but the newest ``keep``. Returns its path. On a grid every
+  process calls it, process 0 writes, and all wait for the file."""
   path = os.path.join(ckpt_dir, f'step_{state.step}.pt')
-  write_atomic(path, state_dict(state, iterator_state, **extra))
-  for old in checkpoint_paths(ckpt_dir)[:-keep]:
-    os.remove(old)
+  obj = state_dict(state, iterator_state, **extra)
+  if state.mesh is None or state.mesh.rank == 0:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    write_atomic(path, obj)
+    for old in checkpoint_paths(ckpt_dir)[:-keep]:
+      os.remove(old)
+  if state.mesh is not None:
+    torch.distributed.barrier(state.mesh.group)
   return path
 
 
@@ -379,12 +520,17 @@ def load_state(state: TrainState, ckpt: dict, train_iter=None) -> TrainState:
   """Load a checkpoint's dict into ``state`` in place (and the iterator's
   position into ``train_iter``)."""
   state.step = int(ckpt['step'])
-  state.model.backbone.load_state_dict(ckpt['model'])
+  shadow = ckpt['ema']['shadow']
+  if state.sharded is None:
+    state.model.backbone.load_state_dict(ckpt['model'])
+  else:                                 # this process's shards
+    state.sharded.load_state_dict(ckpt['model'])
+    shadow = state.sharded.shard(shadow)
   state.optimizer.load_state_dict(ckpt['optimizer'])
   state.ema.num_updates = int(ckpt['ema']['num_updates'])
   with torch.no_grad():
     for k, s in state.ema.shadow.items():
-      s.copy_(ckpt['ema']['shadow'][k])
+      s.copy_(shadow[k])
   state.generator.set_state(ckpt['generator'])
   if train_iter is not None:
     train_iter.load_state_dict(ckpt['iterator'])

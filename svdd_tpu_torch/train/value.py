@@ -27,10 +27,26 @@ state, agree bit for bit.
 The trainer state is one ``torch.save`` dict (``save_state``): the
 value net's parameters and running statistics, AdamW's state and update
 count, the generator, the step and the token counter.
+
+On a process grid (``mesh``; ``svdd_tpu/train/value.py:85-150, 310-322``)
+the trajectory batch is sampled over the ``data`` axis and gathered
+(``Diffusion.sampler(mesh=)``); the oracle's targets and CD-Q's
+bootstrap values are computed on each process's block of their rows and
+gathered; each process regresses its contiguous block of the
+regression rows, its dropout masks the global batch's rows
+(``parallel/rows.py``) and BatchNorm on the global batch's statistics
+(``blocks.sync_batchnorm``), and the gradients and the loss are summed
+over ``data`` in one all-reduce. ``fsdp`` shards the value net's
+parameters and AdamW's moments (``parallel/fsdp.py``): the parameters
+are gathered for a step's bootstrap, forward and backward, and for an
+evaluation or a save, and freed after. Process 0 writes
+the trainer state, whole. ``MultiSepTrainer(mesh=)`` splits each
+trajectory's batch the same way and keeps its trunks replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -43,8 +59,12 @@ import torch
 from svdd_tpu_torch import mdlm, utils
 from svdd_tpu_torch import value as value_lib
 from svdd_tpu_torch.diffusion import Diffusion
-from svdd_tpu_torch.models.blocks import DropoutMasks
+from svdd_tpu_torch.models.blocks import DropoutMasks, sync_batchnorm
 from svdd_tpu_torch.models.multisep import MultiSepValueModel, bin_losses
+from svdd_tpu_torch.parallel import fsdp as fsdp_lib
+from svdd_tpu_torch.parallel import mesh as mesh_lib
+from svdd_tpu_torch.parallel import rows as rows_lib
+from svdd_tpu_torch.parallel.fsdp import ShardedParams
 from svdd_tpu_torch.train.diffusion import Optimizer, write_atomic
 
 LOGGER = logging.getLogger(__name__)
@@ -84,6 +104,24 @@ class ValueTrainState:
   optimizer: Optimizer
   generator: torch.Generator
   tokens: float = 0.0
+  sharded: Optional[ShardedParams] = None
+
+
+def _by_rows(fn, x: torch.Tensor, mesh) -> torch.Tensor:
+  """``fn`` on x's rows: at once, or on a grid each process's
+  contiguous block of them, gathered over ``data``."""
+  if mesh is None:
+    return fn(x)
+  row0, n = mesh.rows(x.shape[0])
+  return mesh_lib.all_gather(fn(x[row0:row0 + n]), mesh.data_group)
+
+
+def _write(path: str, obj: dict, mesh) -> None:
+  """Process 0 writes; on a grid every process waits for the file."""
+  if mesh is None or mesh.rank == 0:
+    write_atomic(path, obj)
+  if mesh is not None:
+    torch.distributed.barrier(mesh.group)
 
 
 class ValueTrainer:
@@ -94,17 +132,26 @@ class ValueTrainer:
   Enformer (DNA) or a ConvGRU (the RNA tasks)."""
 
   def __init__(self, diffusion: Diffusion, vf: value_lib.ValueFunction,
-               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None):
+               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None,
+               mesh: Optional[mesh_lib.Mesh] = None, fsdp: bool = False,
+               fsdp_min_size: int = 2 ** 14):
+    if fsdp and mesh is None:
+      raise ValueError('fsdp shards over a process grid: pass mesh')
     self.diffusion = diffusion
     self.vf = vf
     self.tcfg = tcfg
-    self._reward_fn = reward_fn
+    self.mesh = mesh
+    self.fsdp = fsdp
+    self.fsdp_min_size = fsdp_min_size
+    self._reward_fn = lambda x: _by_rows(reward_fn, x, mesh)
     self._reward_transform = value_lib.make_reward_transform(
         tcfg.task, saluki_body, tcfg.saluki_final_length)
     if tcfg.cdq:
-      self._sampler = diffusion.cdq_sampler(tcfg.batch_size, repeats=10)
+      self._sampler = diffusion.cdq_sampler(tcfg.batch_size, repeats=10,
+                                            mesh=mesh)
     else:
-      self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True)
+      self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True,
+                                        mesh=mesh)
     # the trajectories' generator: seeded 0 in every trainer, not saved
     # with the state (JAX's _sample_key, module docstring)
     self._sample_gen = torch.Generator(diffusion.device).manual_seed(0)
@@ -122,10 +169,17 @@ class ValueTrainer:
     function itself stays as it is); its generator seeded ``seed``."""
     module = copy.deepcopy(self.vf.module)
     t = self.tcfg
-    opt = Optimizer(module.parameters(), self.learning_rate,
-                    t.grad_norm_clip, t.betas, weight_decay=t.weight_decay)
+    sharded = None
+    if self.mesh is not None and self.mesh.data > 1:
+      sync_batchnorm(module, self.mesh.data_group)
+    if self.fsdp:
+      sharded = ShardedParams(module, self.mesh, self.fsdp_min_size)
+    params = (module.parameters() if sharded is None
+              else sharded.local.values())
+    opt = Optimizer(params, self.learning_rate, t.grad_norm_clip, t.betas,
+                    weight_decay=t.weight_decay, sharded=sharded)
     gen = torch.Generator(self.diffusion.device).manual_seed(seed)
-    return ValueTrainState(0, module, opt, gen, 0.0)
+    return ValueTrainState(0, module, opt, gen, 0.0, sharded)
 
   def trajectory(self):
     """One trajectory of the frozen model: (samples (B, L), mid_x (S-1,
@@ -142,9 +196,11 @@ class ValueTrainer:
     value net in eval mode (its running statistics, no gradient)."""
     with torch.no_grad():
       if self.tcfg.cdq:
-        return value_lib.cdq_targets(
-            samples, mid_x, cdq_candidates, self._reward_fn,
-            lambda oh: state.module(oh), self._reward_transform)
+        with fsdp_lib.gathered(state.sharded):
+          return value_lib.cdq_targets(
+              samples, mid_x, cdq_candidates, self._reward_fn,
+              lambda oh: _by_rows(state.module, oh, self.mesh),
+              self._reward_transform)
       return value_lib.mc_targets(
           samples, mid_x, self._reward_fn, generator=state.generator,
           num_subsample=self.tcfg.mc_subsample, subsample_idx=subsample_idx,
@@ -158,22 +214,36 @@ class ValueTrainer:
     changes in place. ``masks``, ``subsample_idx``: injected in place of
     the state generator's draws (tests). Returns the loss (a 0-dim device
     tensor; nothing is read back)."""
-    batch = self.targets(state, samples, mid_x, cdq_candidates,
-                         subsample_idx)
-    if masks is None:
-      masks = DropoutMasks(generator=state.generator)
-    # a timed net takes each state's step (``train/value.py:196-215``)
-    extra = ({'time_indices': batch.time_indices}
-             if self.vf.timed and batch.time_indices is not None else {})
-    for p in state.optimizer.params:
-      p.grad = None
-    loss = value_lib.value_loss(
-        lambda oh: state.module(oh, train=True, masks=masks, **extra), batch)
-    loss.backward()
+    with fsdp_lib.gathered(state.sharded):
+      batch = self.targets(state, samples, mid_x, cdq_candidates,
+                           subsample_idx)
+      if masks is None:
+        masks = DropoutMasks(generator=state.generator)
+      total = batch.targets.shape[0]
+      row0, n = (0, total) if self.mesh is None else self.mesh.rows(total)
+      batch = value_lib.ValueBatch(*(None if t is None
+                                     else t[row0:row0 + n] for t in batch))
+      # a timed net takes each state's step (``train/value.py:196-215``)
+      extra = ({'time_indices': batch.time_indices}
+               if self.vf.timed and batch.time_indices is not None else {})
+      for p in state.module.parameters():
+        p.grad = None
+      with (contextlib.nullcontext() if self.mesh is None
+            else rows_lib.global_rows(row0, total)):
+        loss = value_lib.value_loss(
+            lambda oh: state.module(oh, train=True, masks=masks, **extra),
+            batch, total)
+      loss.backward()
+      loss = loss.detach()
+      if state.sharded is not None:
+        loss = state.sharded.reduce_grads(loss)
+      elif self.mesh is not None:
+        loss = mesh_lib.sum_gradients_(state.module.parameters(),
+                                       self.mesh.data_group, loss)
     state.optimizer.step()
     state.step += 1
     state.tokens += self.tcfg.tokens_per_iter
-    return loss.detach()
+    return loss
 
   def train_step(self, state: ValueTrainState) -> torch.Tensor:
     """One iteration: a trajectory, then the grad step on it."""
@@ -192,17 +262,28 @@ class ValueTrainer:
 
   def updated_value_function(self, state: ValueTrainState
                              ) -> value_lib.ValueFunction:
-    return value_lib.ValueFunction(state.module, self.vf.length,
-                                   self.vf.timed)
+    """The trained value net (under FSDP a whole copy, a collective)."""
+    module = state.module
+    if state.sharded is not None:
+      with state.sharded.gathered():
+        module = copy.deepcopy(module)
+    return value_lib.ValueFunction(module, self.vf.length, self.vf.timed)
 
   # -- the full trainer state ----------------------------------------------
 
+  def state_dict(self, state: ValueTrainState) -> dict:
+    """The whole state, as ``save_state`` writes it (under FSDP
+    gathered; every process calls it)."""
+    return {'format': FORMAT, 'step': state.step,
+            'model': (state.module.state_dict() if state.sharded is None
+                      else state.sharded.state_dict()),
+            'optimizer': state.optimizer.state_dict(),
+            'generator': state.generator.get_state(),
+            'tokens': state.tokens}
+
   def save_state(self, path: str, state: ValueTrainState) -> None:
-    write_atomic(path, {
-        'format': FORMAT, 'step': state.step,
-        'model': state.module.state_dict(),
-        'optimizer': state.optimizer.state_dict(),
-        'generator': state.generator.get_state(), 'tokens': state.tokens})
+    """Write the whole state (on a grid every process calls it)."""
+    _write(path, self.state_dict(state), self.mesh)
 
   def restore_state(self, path: str, seed: int) -> ValueTrainState:
     """Resume: parameters, running statistics, AdamW's moments and count
@@ -211,7 +292,10 @@ class ValueTrainer:
     if ckpt.get('format') != FORMAT:
       raise ValueError(f'{path} is not a {FORMAT} trainer state')
     state = self.init_state(seed)
-    state.module.load_state_dict(ckpt['model'])
+    if state.sharded is None:
+      state.module.load_state_dict(ckpt['model'])
+    else:
+      state.sharded.load_state_dict(ckpt['model'])
     state.optimizer.load_state_dict(ckpt['optimizer'])
     state.generator.set_state(ckpt['generator'])
     state.step = int(ckpt['step'])
@@ -226,7 +310,7 @@ class ValueTrainer:
     mode) over the pre-generated batches, in float32 numpy as the JAX
     trainer computes them."""
     losses, pearsons = [], []
-    with torch.inference_mode():
+    with fsdp_lib.gathered(state.sharded), torch.inference_mode():
       for onehots, target in zip(eval_batches, eval_targets):
         p = state.module(onehots).float().cpu().numpy().reshape(-1)
         y = target.float().cpu().numpy().reshape(-1)
@@ -272,14 +356,17 @@ class MultiSepTrainer:
   trains ``msm`` in place."""
 
   def __init__(self, diffusion: Diffusion, msm: MultiSepValueModel,
-               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None):
+               reward_fn, tcfg: ValueTrainerConfig, saluki_body=None,
+               mesh: Optional[mesh_lib.Mesh] = None):
     self.diffusion = diffusion
     self.msm = msm
     self.tcfg = tcfg
+    self.mesh = mesh
     self._reward_fn = reward_fn
     self._transform = value_lib.make_reward_transform(
         tcfg.task, saluki_body, tcfg.saluki_final_length)
-    self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True)
+    self._sampler = diffusion.sampler(tcfg.batch_size, collect_mid=True,
+                                      mesh=mesh)
 
   def init_state(self, seed: int) -> MultiSepTrainState:
     """A fresh state training ``msm`` in place, its generator seeded
@@ -302,20 +389,25 @@ class MultiSepTrainer:
     per-bin losses and one update; the state changes in place. Returns
     (mean loss, per-bin losses), device tensors (nothing is read
     back)."""
+    total = samples.shape[0]
+    row0, n = (0, total) if self.mesh is None else self.mesh.rows(total)
     with torch.no_grad():
       states = torch.cat([mid_x, samples[None]], dim=0)           # (S, B, L)
-      onehots = mdlm.transform_samples(states)                    # (S, B, L, 4)
-      targets = self._reward_fn(self._transform(samples))
+      onehots = mdlm.transform_samples(states[:, row0:row0 + n])  # (S, b, L, 4)
+      targets = self._reward_fn(self._transform(samples[row0:row0 + n]))
     msm = state.msm
     for t in state.optimizer.params:
       t.grad = None
     losses = []
-    for loss in bin_losses(msm, onehots, targets):
+    for loss in bin_losses(msm, onehots, targets, total):
       (loss / msm.n_models).backward()
       losses.append(loss.detach())
+    losses = torch.stack(losses)
+    if self.mesh is not None:
+      losses = mesh_lib.sum_gradients_(state.optimizer.params,
+                                       self.mesh.data_group, losses)
     state.optimizer.step()
     state.step += 1
-    losses = torch.stack(losses)
     return losses.mean(), losses
 
   def train_step(self, state: MultiSepTrainState):
@@ -333,11 +425,11 @@ class MultiSepTrainer:
     return state
 
   def save_state(self, path: str, state: MultiSepTrainState) -> None:
-    write_atomic(path, {
+    _write(path, {
         'format': MULTISEP_FORMAT, 'step': state.step,
         'model': state.msm.state_dict(),
         'optimizer': state.optimizer.state_dict(),
-        'generator': state.generator.get_state()})
+        'generator': state.generator.get_state()}, self.mesh)
 
   def restore_state(self, path: str, seed: int) -> MultiSepTrainState:
     """Resume: every leaf, AdamW's moments and count, and the generator

@@ -223,10 +223,14 @@ def cdq_targets(samples, mid_x, all_candidates, reward_fn,
   return ValueBatch(onehots, targets)
 
 
-def value_loss(value_fn_onehot, batch: ValueBatch) -> torch.Tensor:
-  """MSE objective (``svdd_tpu/value.py:231-234``)."""
+def value_loss(value_fn_onehot, batch: ValueBatch,
+               rows: Optional[int] = None) -> torch.Tensor:
+  """MSE objective (``svdd_tpu/value.py:231-234``): the squared errors'
+  sum over ``rows`` (the batch's own row count by default; a process's
+  share of a batch split over processes takes the global count)."""
   preds = value_fn_onehot(batch.onehots)
-  return ((preds.reshape(-1) - batch.targets.reshape(-1)) ** 2).mean()
+  sq = (preds.reshape(-1) - batch.targets.reshape(-1)) ** 2
+  return sq.sum() / (sq.numel() if rows is None else rows)
 
 
 # ---------------------------------------------------------------------------

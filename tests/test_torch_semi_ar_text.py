@@ -187,7 +187,7 @@ def test_char_tokenizer_and_synthetic_corpus_match_svdd_tpu():
 
 def test_text_dataloaders_match_svdd_tpu(tmp_path):
   """The loaders over a text file: the first batches of train and val
-  equal; a sharded read raises (A16)."""
+  equal, whole and as shard 1 of 2."""
   path = tmp_path / 'corpus.txt'
   path.write_text(' '.join(['alpha beta gamma delta'] * 200))
   cfg, jcfg = tiny_test_config('dna'), jax_tiny_config('dna')
@@ -198,8 +198,12 @@ def test_text_dataloaders_match_svdd_tpu(tmp_path):
   for ti, ji in ((t_train, j_train), (t_val, j_val)):
     for _, a, b in zip(range(2), iter(ti), iter(ji)):
       np.testing.assert_array_equal(a['seqs'], b['seqs'])
-  with pytest.raises(NotImplementedError, match='A16'):
-    ttext.get_text_dataloaders(cfg, num_shards=2)
+  t_train, _, _ = ttext.get_text_dataloaders(cfg, path=str(path),
+                                             num_shards=2, shard_index=1)
+  j_train, _, _ = jtext.get_text_dataloaders(jcfg, path=str(path),
+                                             num_shards=2, shard_index=1)
+  for _, a, b in zip(range(2), iter(t_train), iter(j_train)):
+    np.testing.assert_array_equal(a['seqs'], b['seqs'])
 
 
 def test_detokenizers_and_group_and_wrap_match_svdd_tpu():

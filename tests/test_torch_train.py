@@ -145,10 +145,16 @@ def test_dna_config_sections_match_svdd_tpu(section):
     ('pipeline_stages', 2), ('fsdp', True), ('model_axis', 2),
     ('data_axis', 4), ('pipeline_virtual', 2)])
 def test_parallel_settings_past_one_device_raise_a16(field, value):
+  """Pipeline parallelism raises, naming A16.3, the one parallel part
+  not ported; the data and model axes and FSDP pass (they run on
+  torch.distributed, tests/test_torch_parallel.py)."""
   cfg = dna_config()
   check_single_device(cfg)
   setattr(cfg.parallel, field, value)
-  with pytest.raises(NotImplementedError, match='A16'):
+  if field.startswith('pipeline'):
+    with pytest.raises(NotImplementedError, match='A16.3'):
+      check_single_device(cfg)
+  else:
     check_single_device(cfg)
 
 
@@ -510,8 +516,16 @@ def test_csv_reader_matches_svdd_tpu(tmp_path):
 
 
 def test_get_dataloaders_rejects_shards():
-  with pytest.raises(NotImplementedError, match='A16'):
-    gosai.get_dataloaders(tiny_test_config('dna'), num_shards=2)
+  """A shard count that does not divide the global batches raises JAX's
+  ValueError; one that does gives each shard its share of the batch."""
+  cfg = tiny_test_config('dna')
+  cfg.loader.global_batch_size = cfg.loader.eval_global_batch_size = 8
+  with pytest.raises(ValueError, match='not divisible by 3 shards'):
+    gosai.get_dataloaders(cfg, num_shards=3)
+  with pytest.raises(ValueError, match='not divisible by 3 shards'):
+    jgosai.get_dataloaders(cfg, num_shards=3)
+  train, _, _ = gosai.get_dataloaders(cfg, num_shards=2, shard_index=1)
+  assert next(iter(train))['seqs'].shape[0] == 4
 
 
 # ---------------------------------------------------------------------------

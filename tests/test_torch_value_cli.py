@@ -551,11 +551,15 @@ def test_cli_eval_runs_on_cpu(trained, port_files):
 
 
 @pytest.mark.parametrize('extra,item', [
-    (['--model', 'multienformer', '--dist'], 'A16'), (['--dist'], 'A16'),
-    (['--fsdp'], 'A16')])
+    (['--model', 'multienformer', '--dist', '--fsdp'], 'multienformer'),
+    (['--fsdp', '--batch_size', '3'], 'requires --dist'),
+    (['--fsdp'], 'requires --dist')])
 def test_cli_train_refuses_unported(extra, item):
+  """The flag combinations JAX's CLI exits on exit here too, before
+  any process group or model is made (``--dist`` itself runs:
+  tests/test_torch_parallel_value.py)."""
   args = cli_train.parser().parse_args(['--device', 'cpu', *extra])
-  with pytest.raises(NotImplementedError, match=item):
+  with pytest.raises(SystemExit, match=item):
     cli_train.run(args, cfg=_tiny_cfg())
 
 
