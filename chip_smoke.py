@@ -53,8 +53,8 @@ exits non-zero and prints no result:
      through ``decode.run_decode`` scored by the full-width Enformer
      reward oracle (f32, 16 steps); ``main_gosai
      --mode sample_eval`` for the text preset's DiT (64 rows, L=1024,
-     ddpm_cache, 64 steps, scored by the AR backbone) and DiMamba
-     (--task dna, 512 rows, 64 steps); all full-width random-weight
+     ddpm_cache, 32 steps, scored by the AR backbone) and DiMamba
+     (--task dna, 512 rows, 32 steps); all full-width random-weight
      models; and SVDD-MC for 8 steps with the channels=1152 value net;
   5. diffusion pretraining of the full-width denoiser: ``main_gosai
      --mode train --task dna`` at global batch 512 in two microbatches,
@@ -159,7 +159,7 @@ exits non-zero and prints no result:
      files, the validation hook's embedding branch (the oracle trunk's
      mean over length), StepTimer around SVDD-MC steps with the oracle
      as value (B=64, M=10), ``profile_trace`` and ``nan_guard``;
- 12. the parallel paths (A16.1, A16.2) on ``torch.distributed``: B2's
+ 12. the parallel paths (A16.1-A16.3) on ``torch.distributed``: B2's
      row0 (two launches on the row halves of (512, 10, 200, 5) equal to
      the full launch bit for bit, the row0 form timed at rows 512-1023,
      the ``kernel_row0`` line); then a worker under ``torchrun
@@ -174,7 +174,15 @@ exits non-zero and prints no result:
      (losses, checkpoints and trainer states by ``fingerprint``,
      samples), each grid run having issued collectives and launched its
      kernels; the DP and FSDP steps traced beside their twin's, each
-     decode's host ms a step (the ``parallel`` line);
+     decode's host ms a step (the ``parallel`` line); then in the worker
+     the pipelined DiT (phase 9's DNA DiT, 64 rows, dropout 0, f32) on a
+     one-stage pipe grid, 4 steps through ``train_step`` at M = 4
+     (within JAX's tolerances of the plain step) and V = 2 (bit for bit
+     the plain step), B12 exactly once a block a microbatch forward, the
+     permutes, broadcast and all-reduce counted, each step traced beside
+     the plain one's (the ``parallel_pipe`` lines); ``sp_mha`` on a 1 x 1
+     grid at (64, 1024, 12, 64), causal and not, bit for bit ``mha`` with
+     its input gradients (the ``parallel_sp`` lines);
 then the kernels line (launches summed over the runs of phases 3-5 and
 7-12; B1's, B6's and B2's RNA points under ``rna``, B3's, B4's, B5's and
 B8's analysis rows under ``analysis_rows``),
@@ -1673,7 +1681,11 @@ def check_rmsnorm(dtype, gen):
   """B13 at DiMamba's rows, without a residual (the path's call) and
   with one, against the plain version; timed without the residual beside
   F.rms_norm (which rounds only once, so it is a yardstick of time); and
-  at the rows of phase 9's DiMamba training batch (``train_rows``)."""
+  at the rows of phase 9's DiMamba training batch (``train_rows``), whose
+  26 MB in and out fit the 50 MB L2: there also the kernel alone with
+  L2 flushed before each call (``ms_l2_flushed``, a 128 MB write between
+  calls, the profiler counting the kernel only), which the HBM bound
+  holds."""
   import torch
   import torch.nn.functional as F
   from svdd_tpu_torch.ops import norms as K
@@ -1694,6 +1706,11 @@ def check_rmsnorm(dtype, gen):
             lambda: F.rms_norm(xt, (d,), s, 1e-5), reps=20, iters=20)
   n_t = xt.shape[0]
   t_bound = bound(4 * n_t * d, 2 * n_t * d * es + d * es, name)
+  flush = torch.empty(2 ** 25, device='cuda')
+  flushed = device_ms(lambda: (flush.zero_(),
+                               K.fused_add_rmsnorm(xt, None, s)),
+                      reps=20, fragment='rmsnorm_kernel')
+  del flush
   return {'shape': list(RMS_SHAPE), 'max_abs_err': max(e[0] for e in errs),
           'max_rel_err': max(e[1] for e in errs),
           **timed(lambda: K.fused_add_rmsnorm(x, None, s),
@@ -1701,7 +1718,8 @@ def check_rmsnorm(dtype, gen):
                   lambda: F.rms_norm(x, (d,), s, 1e-5), reps=20, iters=20),
           'library': 'torch.nn.functional.rms_norm',
           'train_rows': {'rows': n_t, 'max_abs_err': err_t[0],
-                         'ms': t['ms'], 'plain_ms': t['plain_ms'],
+                         'ms': t['ms'], 'ms_l2_flushed': flushed,
+                         'plain_ms': t['plain_ms'],
                          'library_ms': t['library_ms'],
                          'bound_ms': t_bound[0], 'bound_by': t_bound[1]},
           # square-add, the root, two products per element; x in, out
@@ -1731,16 +1749,21 @@ def _affine(c, gen):
           0.2 * torch.randn(c, device='cuda', generator=gen))
 
 
+IM2COL_SPREAD_CALLS = 7
+
+
 def check_nacdr_im2col(dtype, gen):
   """B11c at the four widths, against the plain version; ms is one call
-  at each width."""
+  at each width. ``spread``: IM2COL_SPREAD_CALLS timings of that call
+  (each the card's time, the profiler, of one call at each width), their
+  median, lowest and highest."""
   import torch
   from svdd_tpu_torch.ops import im2col as K
   from svdd_tpu_torch.ops.kernel_utils import live_offsets
   name = str(dtype).split('.')[-1]
   n, l = IM2COL_ROWS, IM2COL_L
   k_live = len(live_offsets(5, l))
-  errs, per_width, flops, nbytes = [], {}, 0, 0
+  errs, per_width, flops, nbytes, calls = [], {}, 0, 0, []
   for c in IM2COL_WIDTHS:
     x = torch.randn(n, l, c, device='cuda', generator=gen).to(dtype)
     scale, shift = _affine(c, gen)
@@ -1753,8 +1776,11 @@ def check_nacdr_im2col(dtype, gen):
     # the affine's product and sum per element (the activation besides)
     flops += 2 * n * l * c
     nbytes += n * l * c * es * (1 + k_live) + 2 * c * 4
-    del x
-    torch.cuda.empty_cache()
+    calls.append(args)
+  times = sorted(sum(device_ms(lambda a=a: K.nacdr_im2col(*a), reps=1)
+                     for a in calls) for _ in range(IM2COL_SPREAD_CALLS))
+  del calls
+  torch.cuda.empty_cache()
   total = lambda k: sum(p[k] for p in per_width.values())
   return {'shapes': [[n, l, c] for c in IM2COL_WIDTHS], 'k': 5,
           'act': 'gelu', 'max_abs_err': max(e[0] for e in errs),
@@ -1762,7 +1788,9 @@ def check_nacdr_im2col(dtype, gen):
           **{k: total(k) for k in ('ms', 'median_ms', 'plain_ms',
                                    'plain_median_ms')},
           'per_width': per_width, 'library_ms': None, 'flops': flops,
-          'bytes': nbytes}
+          'bytes': nbytes,
+          'spread': {'calls': len(times), 'median_ms': times[len(times) // 2],
+                     'min_ms': times[0], 'max_ms': times[-1]}}
 
 
 def _fused_conv_inputs(n, l, cin, cout, dtype, gen):
@@ -2533,16 +2561,17 @@ def run_oracle_decode(run_name: str):
 
 
 SAMPLE_EVAL = {
-    # which: (rows, steps, --gen_ppl_model); 64 steps since the RNA phase
-    # came (128 before), to keep the smoke near half its time limit
-    'text_mdlm': (64, 64, 'ar'),
-    'dimamba': (512, 64, None),
+    # which: (rows, steps, --gen_ppl_model); 32 steps since phase 12's
+    # pipelined runs came (64 since the RNA phase, 128 before), to keep
+    # the smoke inside its time limit
+    'text_mdlm': (64, 32, 'ar'),
+    'dimamba': (512, 32, None),
 }
 
 
 def run_sample_eval(which: str):
   """One ``main_gosai --mode sample_eval`` run through its ``run`` at
-  full width (``sample_eval_backbone``), one batch, 64 steps; the text
+  full width (``sample_eval_backbone``), one batch, 32 steps; the text
   preset with its ddpm_cache predictor at 64 rows (cut from 512 and 1000
   steps for the smoke's time) scored by the AR backbone, DiMamba at the
   DNA task's 512 rows with the ddpm predictor. The launch counts are set
@@ -2629,7 +2658,9 @@ def profile_step(algo: str, bf16: bool = False, task: str = 'dna'):
   warm-up, unprofiled. device_busy_ms: the union of the card's kernel
   and copy intervals in the profiled step; idle_share = 1 -
   device_busy_ms / profiled_step_ms (host time of the profiled step, to
-  its synchronize). by_kind_ms: summed kernel time by kind ('other' is
+  its synchronize, which the profiler lengthens most where a step
+  launches most), idle_share_host = 1 - device_busy_ms / host_step_ms.
+  by_kind_ms: summed kernel time by kind ('other' is
   PyTorch's elementwise and reduction glue, 'conv' and 'gemm' the
   library's convolutions and matrix products, cuBLAS's bf16 'nvjet'
   kernels among them). The profiled step follows one warm-up step under
@@ -2765,6 +2796,7 @@ def trace_step(once) -> dict:
           'trace_complete': traced >= launched,
           'device_busy_ms': busy_ms,
           'idle_share': 1 - busy_ms / prof_ms if dev else None,
+          'idle_share_host': 1 - busy_ms / host_ms if dev else None,
           'by_kind_ms': dict(sorted(by_kind.items(),
                                     key=lambda kv: -kv[1]))}
 
@@ -6703,7 +6735,7 @@ def kernel_checks() -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the parallel paths (A16.1, A16.2) at world 1 under NCCL
+# phase 12: the parallel paths (A16.1-A16.3) at world 1 under NCCL
 # ---------------------------------------------------------------------------
 
 # pretraining at phase 6's configuration, cut to PAR_TRAIN_STEPS steps
@@ -6731,6 +6763,138 @@ PAR_KERNELS = {'dp_train': ('cnn_layer', 'cnn_layer_bwd'),
                'svdd_mc_grid_tp': ('cnn_layer', 'gumbel_candidates',
                                    'attn_pool_prologue_im2col', 'attn_pool',
                                    'attn_l2')}
+
+
+# A16.3: phase 9's DNA DiT (hidden 768, 12 blocks, L=200, BB_TRAIN_ROWS
+# rows), dropout 0, f32 with TF32 off, PAR_PIPE_STEPS steps of
+# ``train_step`` with the pipelined apply on a one-stage pipe grid (JAX's CLI ignores the
+# pipeline at one stage), at M = 4 and at V = 2 (M = S = 1: the plain
+# ops), against the plain step, its twin (which issues no collective, and
+# runs in the worker)
+PAR_PIPE_STEPS = 4
+PAR_PIPE_RUNS = {'pipe_train_m4': dict(num_microbatches=4),
+                 'pipe_train_v2': dict(virtual=2)}
+PAR_PIPE_TWIN = 'pipe_twin'
+# JAX's tolerances for its pipelined step against the plain one
+# (tests/test_parallel.py:510-516): the loss, the parameters
+PAR_PIPE_LOSS_RTOL, PAR_PIPE_ATOL, PAR_PIPE_RTOL = 1e-5, 2e-5, 2e-4
+# sp_mha at the text DiT's attention, against mha, on a 1 x 1 grid
+PAR_SP_SHAPE = (64, 1024, 12, 64)
+
+
+def _pipe_state(apply, mesh):
+  """(losses, state, a batch) of PAR_PIPE_STEPS steps of the full-width
+  DiT (random weights, ``nonzero_init``) on seeded batches, through
+  ``train_step`` with ``pipelined_backbone_apply(**apply)`` on ``mesh``,
+  or with the plain forward (``apply`` None); the noise from the state's
+  generator, seeded alike in every run."""
+  import torch
+  from svdd_tpu_torch.diffusion import Diffusion
+  from svdd_tpu_torch.parallel.pipeline import pipelined_backbone_apply
+  from svdd_tpu_torch.train import diffusion as train_diff
+  cfg = _bb_config('dit', 'fp32')
+  cfg.model.dropout = 0.0
+  cfg.optim.warmup_steps = 1
+  model = Diffusion(cfg, device='cuda')
+  nonzero_init(model.backbone, 6)
+  state = train_diff.init_state(model, cfg)
+  if apply is not None:
+    state.apply_fn = pipelined_backbone_apply(model.backbone, mesh=mesh,
+                                              **apply)
+  g = torch.Generator('cuda').manual_seed(4)
+  batches = [{'seqs': torch.randint(0, 4, (BB_TRAIN_ROWS, cfg.model.length),
+                                    device='cuda', generator=g)}
+             for _ in range(PAR_PIPE_STEPS)]
+  losses = [float(train_diff.train_step(state, b, cfg)) for b in batches]
+  return losses, state, batches[0]
+
+
+def _pipe_tree(state) -> dict:
+  """The state's parameters, EMA shadow and Adam moments (views)."""
+  named = dict(state.model.backbone.named_parameters())
+  adam = state.optimizer.adamw.state
+  return {'params': {k: p.detach() for k, p in named.items()},
+          'ema': dict(state.ema.shadow),
+          **{m: {k: adam[p][m] for k, p in named.items()}
+             for m in ('exp_avg', 'exp_avg_sq')}}
+
+
+def _pipe_compare(got: dict, want: dict) -> dict:
+  """Bit for bit or not, the largest difference of each part, and
+  whether the parameters and EMA are within JAX's tolerances."""
+  import torch
+  bitwise = all(torch.equal(got[p][k], want[p][k]) for p in want
+                for k in want[p])
+  max_abs = {p: max(float((got[p][k] - w).abs().max())
+                    for k, w in want[p].items()) for p in want}
+  within = all(bool(((got[p][k] - w).abs()
+                     <= PAR_PIPE_ATOL + PAR_PIPE_RTOL * w.abs()).all())
+               for p in ('params', 'ema') for k, w in want[p].items())
+  return {'bitwise': bitwise, 'max_abs': max_abs, 'within_tol': within}
+
+
+def _par_pipe(counted, res: dict) -> None:
+  """The A16.3 runs of the worker, into ``res`` (where ``counted`` keeps
+  each run's launches, collectives and peak memory): the plain twin, the
+  pipelined runs of PAR_PIPE_RUNS each held to it (losses, parameters, EMA,
+  moments) and timed by ``trace_step``; then ``sp_mha`` against ``mha``
+  at PAR_SP_SHAPE, causal and not, with the input gradients."""
+  import torch
+  from svdd_tpu_torch.ops.attention import mha, sp_mha
+  from svdd_tpu_torch.parallel import mesh as M
+  from svdd_tpu_torch.train import diffusion as train_diff
+  t0 = time.perf_counter()
+  pipe = M.make_pipe_mesh(1)
+  twin_losses, twin, batch = counted(PAR_PIPE_TWIN,
+                                     lambda: _pipe_state(None, None))
+  want = _pipe_tree(twin)
+  res[PAR_PIPE_TWIN].update(losses=twin_losses, microbatches=1)
+  for name, apply in PAR_PIPE_RUNS.items():
+    losses, state, b = counted(name, lambda: _pipe_state(apply, pipe))
+    res[name].update(
+        losses=losses, twin_losses=twin_losses, apply=apply,
+        microbatches=apply.get('num_microbatches', 1),
+        loss_rel_err=max(abs(a - w) / abs(w)
+                         for a, w in zip(losses, twin_losses)),
+        **_pipe_compare(_pipe_tree(state), want))
+    res[name]['trace'] = trace_step(lambda: (train_diff.train_step(
+        state, b, state.model.config), torch.cuda.synchronize()))
+    del state
+    torch.cuda.empty_cache()
+  del want
+  res[PAR_PIPE_TWIN]['trace'] = trace_step(lambda: (train_diff.train_step(
+      twin, batch, twin.model.config), torch.cuda.synchronize()))
+  res[PAR_PIPE_TWIN]['n_blocks'] = twin.model.config.model.n_blocks
+  # what the backward's all-reduce sums at S stages: every block's gradient
+  res[PAR_PIPE_TWIN]['block_grad_bytes'] = sum(
+      p.numel() * p.element_size()
+      for p in twin.model.backbone.blocks.parameters())
+  del twin
+  torch.cuda.empty_cache()
+  grid = M.make_mesh(1, 1)
+  g = torch.Generator('cuda').manual_seed(8)
+  q, k, v, w = (torch.randn(PAR_SP_SHAPE, device='cuda', generator=g)
+                for _ in range(4))
+  for causal in (False, True):
+    def grads(fn):
+      xs = [t.clone().requires_grad_() for t in (q, k, v)]
+      out = fn(*xs)
+      (out * w).sum().backward()
+      return [out.detach()] + [x.grad for x in xs]
+    name = 'sp_mha_causal' if causal else 'sp_mha'
+    got = counted(name, lambda: grads(
+        lambda q, k, v: sp_mha(q, k, v, grid, 'model', causal)))
+    ref = grads(lambda q, k, v: mha(q, k, v, causal))
+    res[name].update(
+        shape=list(PAR_SP_SHAPE), causal=causal,
+        bitwise=all(torch.equal(a, b) for a, b in zip(got, ref)),
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(got, ref)),
+        ms=median_ms(lambda: sp_mha(q, k, v, grid, 'model', causal)),
+        mha_ms=median_ms(lambda: mha(q, k, v, causal)))
+    del got, ref
+    torch.cuda.empty_cache()
+  res['pipe_wall_s'] = time.perf_counter() - t0
 
 
 def check_gumbel_row0(gen) -> dict:
@@ -6956,6 +7120,8 @@ def _par_runs(root: str, diffusion_ckpt: str, oracle: str,
     path = os.path.join(root, f'{name}_samples.pt')
     torch.save(samples.cpu(), path)
     res[name].update(samples=path, step_ms=step_ms)
+  if grid:
+    _par_pipe(counted, res)
   return res
 
 
@@ -6991,7 +7157,11 @@ def parallel_phase(diffusion_ckpt: str) -> dict:
   checkpoints or trainer states, samples), each grid run must have issued
   collectives and launched its kernels. Times: each training step on
   the card under the profiler (host ms, busy ms, idle share) and each
-  decode's host ms a step, the grid's beside its twin's."""
+  decode's host ms a step, the grid's beside its twin's. Then the A16.3
+  runs of the worker (``_par_pipe``): the pipelined DiT step at V = 2 bit
+  for bit its plain twin, at M = 4 within JAX's tolerances, B12 launched
+  exactly once a block a microbatch forward, the permutes, broadcast and
+  all-reduce issued; ``sp_mha`` bit for bit ``mha``."""
   import torch
   root = _value_dir('parallel')
   oracle = os.path.join(REPO, 'build', 'chip_smoke', 'value',
@@ -7042,7 +7212,37 @@ def parallel_phase(diffusion_ckpt: str) -> dict:
                            ('host_step_ms', 'device_busy_ms', 'idle_share')}
     lines.append(line)
     runs[name] = {'launches': g['launches']}
+  n_blocks = grid[PAR_PIPE_TWIN]['n_blocks']
+  for name in (PAR_PIPE_TWIN, *PAR_PIPE_RUNS):
+    g = grid[name]
+    want = {k: 0 for k in g['launches']}
+    want['flash_attention'] = (PAR_PIPE_STEPS * n_blocks
+                               * g['microbatches'])
+    if g['launches'] != want:
+      raise AssertionError(f'{name}: launches {g["launches"]}, want {want}')
+    if name != PAR_PIPE_TWIN:
+      kinds = {k for k, v in g['collectives'].items() if v}
+      if kinds != {'permute', 'broadcast', 'all_reduce'}:
+        raise AssertionError(f'{name}: collectives {g["collectives"]}')
+      if name == 'pipe_train_v2' and not (g['bitwise'] and
+                                          g['losses'] == g['twin_losses']):
+        raise AssertionError(f'{name}: not bit for bit its twin: {g}')
+      if not (g['within_tol'] and g['loss_rel_err'] <= PAR_PIPE_LOSS_RTOL):
+        raise AssertionError(f'{name}: outside the tolerances: {g}')
+    line = {'run': name, **{k: g[k] for k in g if k != 'trace'},
+            'forward_b12_launches': n_blocks * g['microbatches'],
+            'step': {k: g['trace'][k] for k in
+                     ('host_step_ms', 'profiled_step_ms', 'device_busy_ms',
+                      'idle_share', 'idle_share_host', 'by_kind_ms')}}
+    emit({'phase': 'parallel_pipe', **line})
+    runs[name] = {'launches': g['launches']}
+  for name in ('sp_mha', 'sp_mha_causal'):
+    g = grid[name]
+    if not g['bitwise'] or not sum(g['collectives'].values()):
+      raise AssertionError(f'{name}: {g}')
+    emit({'phase': 'parallel_sp', 'run': name, **g})
   emit({'phase': 'parallel', 'worker_s': worker_s,
+        'pipe_s': grid['pipe_wall_s'],
         'wall_s': time.perf_counter() - t0, 'runs': lines})
   return runs
 
@@ -7253,7 +7453,8 @@ def main() -> None:
                                       'achieved_tb_s', 'classifier_pools',
                                       'classifier_n512', 'plain_median_ms',
                                       'library_median_ms', 'n5120',
-                                      'train_rows', 'multisep_rows')
+                                      'train_rows', 'multisep_rows',
+                                      'spread')
                   if k in f32})
     bf = results.get((name, 'bfloat16'))
     if bf is not None:
@@ -7264,7 +7465,7 @@ def main() -> None:
         entry['library_ms_bf16'] = bf['library_ms']
       for k in ('median_ms', 'achieved_tb_s', 'classifier_pools',
                 'classifier_n512', 'max_abs_err_points', 'n5120',
-                'train_rows', 'multisep_rows'):
+                'train_rows', 'multisep_rows', 'spread'):
         if k in bf:
           entry[f'{k}_bf16'] = bf[k]
     if 'tflops' in f32:

@@ -12,8 +12,11 @@ empty data directory), then runs ``chip_smoke.parallel_phase``: the
 torchrun worker's DP and FSDP pretraining, ``cli.train --dist`` and
 ``--dist --fsdp``, SVDD-MC on a 1 x 1 grid with and without the
 tensor-parallel value net, each against its twin without a process
-group bit for bit. One JSON line a part, then the card's nvidia-smi
-name and power limit. Needs a CUDA card and nvcc; any failed check
+group bit for bit, then the A16.3 runs (the pipelined DiT step at M = 4
+and V = 2 against the plain step, ``sp_mha`` against ``mha``). Before
+phase 12 it runs the smoke's B13 and B11c checks in f32 and bf16 (B13's
+L2-flushed time at the training rows, B11c's spread). One JSON line a
+part, then the card's nvidia-smi name and power limit. Needs a CUDA card and nvcc; any failed check
 raises.
 """
 
@@ -44,6 +47,14 @@ def main() -> None:
   gen = torch.Generator('cuda').manual_seed(0)
   smoke.emit({'phase': 'kernel_row0', 'kernel': 'gumbel_candidates',
               **smoke.check_gumbel_row0(gen)})
+  for name, check in (('rmsnorm', smoke.check_rmsnorm),
+                      ('nacdr_im2col', smoke.check_nacdr_im2col)):
+    for dtype in (torch.float32, torch.bfloat16):
+      r = check(dtype, gen)
+      dname = str(dtype).split('.')[-1]
+      r['bound_ms'], r['bound_by'] = smoke.bound(r['flops'], r['bytes'],
+                                                 dname)
+      smoke.emit({'phase': 'kernel', 'kernel': name, 'dtype': dname, **r})
   smoke._no_data_dir()
   cfg = dna_config()
   ckpt = os.path.join(smoke._train_dir('probe_denoiser'), 'ckpt')

@@ -67,8 +67,24 @@ state (``train/diffusion.py``):
   torchrun --nproc_per_node=1 -m svdd_tpu_torch.cli.main_gosai \
       --mode train --set training.accum_steps=2 parallel.fsdp=true
 
-Pipeline parallelism (``parallel.pipeline_stages`` or
-``pipeline_virtual`` past 1) raises (ROADMAP A16.3).
+With ``parallel.pipeline_stages=S`` > 1 ``train`` pipelines the DiT's
+blocks over the first S processes instead (a pipe grid, JAX's
+``svdd_tpu/cli/main_gosai.py:109-118``; ``parallel/pipeline.py``): each
+process a stage, each reading the whole batch (the data is not sharded
+over the stages), ``model.dropout=0``; ``pipeline_microbatches`` (4 S at
+0) and ``pipeline_virtual`` (the interleaved schedule) as JAX's. The
+pipelined DiT runs in f32: at the default bf16 precision its blocks
+return f32 where the schedule hands on bf16, and the first step raises
+JAX's TypeError, as JAX's does. One H100 holds one stage (NCCL puts one
+process on a card):
+
+  torchrun --nproc_per_node=S -m svdd_tpu_torch.cli.main_gosai \
+      --mode train --set backbone=dit parallel.pipeline_stages=S \
+      model.dropout=0 parallel.precision=fp32
+
+``sample_eval`` ignores the pipeline settings, as JAX's; ``ppl_eval``
+raises JAX's ValueError for them (no pipe grid: JAX's builds its
+trainer's pipelined step, which needs one).
 """
 
 from __future__ import annotations
@@ -85,8 +101,7 @@ from svdd_tpu_torch import checkpoint as ckpt_lib
 from svdd_tpu_torch import rewards
 from svdd_tpu_torch.cli import common
 from svdd_tpu_torch import value as value_lib
-from svdd_tpu_torch.config import (Config, check_single_device, dna_config,
-                                   rna_config)
+from svdd_tpu_torch.config import Config, dna_config, rna_config
 from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.eval import gen_ppl, validation
@@ -129,7 +144,6 @@ def _reject_unported(args, cfg: Config):
   """Raise for what this package cannot read (before any model is built);
   returns the export of a denoiser that ``--ckpt_dir`` holds in place of
   the port's checkpoints, or None."""
-  check_single_device(cfg)
   oracle = args.eval_oracle_checkpoint_path
   if ckpt_lib.is_export_file(oracle):
     common.check_value_export(oracle, cfg.task, leaves=False)
@@ -182,10 +196,21 @@ def _sample_eval_hook(cfg: Config, args):
 
 def train_mesh(cfg: Config, device: str):
   """The training grid under torchrun (module docstring), or None
-  without a process group. A process past the grid gets None too."""
+  without a process group. A process past the grid gets None too. With
+  ``parallel.pipeline_stages`` > 1, the pipe grid of the first S
+  processes."""
+  stages = cfg.parallel.pipeline_stages
   if not mesh_lib.initialize_multihost(device=device):
+    if stages > 1:
+      raise ValueError(f'pipeline_stages={stages} but only 1 devices')
     return None
   world = torch.distributed.get_world_size()
+  if stages > 1:
+    if world < stages:
+      raise ValueError(f'pipeline_stages={stages} but only {world} devices')
+    mesh = mesh_lib.make_pipe_mesh(stages)
+    LOGGER.info('pipeline grid: %s', None if mesh is None else mesh.shape)
+    return mesh
   model_axis = max(1, cfg.parallel.model_axis)
   if world % model_axis:
     raise ValueError(f'{world} processes not divisible by '

@@ -2,9 +2,9 @@
 ported paths read, with the same field names and defaults.
 
 The ``parallel`` fields other than ``precision`` belong to the parallel
-paths (``parallel/``): the data and model axes and FSDP run on
-``torch.distributed``; pipeline parallelism is not ported (ROADMAP
-A16.3), and ``check_single_device`` raises for it.
+paths (``parallel/``), which run on ``torch.distributed``: the data and
+model axes, FSDP, and the DiT's pipeline (``pipeline_*``, read by the
+trainer alone, as JAX's).
 
 The JAX module cannot be imported here (``svdd_tpu/__init__.py`` pulls
 in JAX), so the dataclasses are restated. ``Config.from_yaml`` needs
@@ -130,23 +130,6 @@ class ParallelConfig:
   pipeline_microbatches: int = 0
   pipeline_virtual: int = 1
 
-
-# the pipeline settings' unpipelined values: the one part of the
-# parallel paths still to port (GPipe, ROADMAP A16.3)
-_UNPIPELINED = {'pipeline_stages': 1, 'pipeline_virtual': 1}
-
-
-def check_single_device(config: 'Config') -> None:
-  """Raise for a ``parallel`` setting the port does not run: pipeline
-  parallelism (``pipeline_stages`` or ``pipeline_virtual`` past 1, ROADMAP
-  A16.3). The data and model axes and FSDP run on ``torch.distributed``
-  (``parallel/``)."""
-  par = config.parallel
-  bad = {k: getattr(par, k) for k, v in _UNPIPELINED.items()
-         if getattr(par, k) != v}
-  if bad:
-    raise NotImplementedError(f'parallel {bad}: pipeline parallelism is not '
-                              'ported yet (ROADMAP A16.3)')
 
 
 @dataclass

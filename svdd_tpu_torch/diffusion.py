@@ -128,7 +128,7 @@ class Diffusion:
 
   def loss(self, x0: torch.Tensor, attention_mask=None, *,
            train: bool = False, generator: torch.Generator | None = None,
-           noise=None, masks=None) -> mdlm.LossOutput:
+           noise=None, masks=None, apply_fn=None) -> mdlm.LossOutput:
     """The training loss of the clean tokens x0 (B, L)
     (``svdd_tpu/diffusion.py:137-215``): times from
     ``training.sampling_eps`` (antithetic, optionally through the
@@ -144,8 +144,12 @@ class Diffusion:
     list, as JAX's takes the same dropout key). Under
     ``parameterization='ar'``, the shifted next-token NLL of x0
     (``svdd_tpu/diffusion.py:152-172``), which draws no noise.
-    Differentiable in the backbone's parameters."""
+    Differentiable in the backbone's parameters. ``apply_fn`` replaces
+    the backbone's forward (``svdd_tpu/diffusion.py:137-150``): the
+    pipelined DiT (``parallel.pipeline.pipelined_backbone_apply``)
+    computes the same logits with its blocks split over a pipe grid."""
     cfg = self.config
+    backbone = self.backbone if apply_fn is None else apply_fn
     drop = {} if masks is None else {'masks': masks}
     if self.parameterization == 'ar':
       if x0.shape[1] > cfg.model.length:
@@ -154,7 +158,7 @@ class Diffusion:
       if attention_mask is None:
         attention_mask = torch.ones(x0.shape, device=x0.device)
       mask = attention_mask[:, 1:]
-      logprobs = self.backbone(x0[:, :-1], None, train=train,
+      logprobs = backbone(x0[:, :-1], None, train=train,
                                generator=generator, **drop)
       nll = -logprobs.gather(-1, x0[:, 1:, None].long())[..., 0]
       nlls = nll * mask
@@ -172,8 +176,8 @@ class Diffusion:
     sigma, dsigma = self.schedule(t)
     move_chance = (1 - torch.exp(-sigma))[:, None]
     xt = mdlm.q_xt(x0, move_chance, self.mask_index, q_u)
-    logits = self.backbone(xt, self._process_sigma(sigma), train=train,
-                           generator=generator, **drop)
+    logits = backbone(xt, self._process_sigma(sigma), train=train,
+                      generator=generator, **drop)
     model_output = self._parameterize(logits, xt, sigma)
     if self.parameterization == 'sedd':
       loss = dsigma[:, None] * mdlm.score_entropy(
@@ -183,8 +187,8 @@ class Diffusion:
       if self.parameterization == 'd3pm':
         sigma_t0 = self.schedule.total(torch.zeros(x0.shape[0],
                                                    device=x0.device))
-        logits0 = self.backbone(x0, self._process_sigma(sigma_t0),
-                                train=train, generator=generator, **drop)
+        logits0 = backbone(x0, self._process_sigma(sigma_t0), train=train,
+                           generator=generator, **drop)
         out0 = self._parameterize(logits0, x0, sigma_t0)
         loss = loss - torch.gather(out0, -1, x0[..., None].long())[..., 0]
     else:

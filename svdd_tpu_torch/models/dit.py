@@ -239,14 +239,20 @@ class DIT(nn.Module):
   def forward(self, indices: torch.Tensor, sigma: torch.Tensor, *,
               x_onehot: torch.Tensor | None = None, train: bool = False,
               generator: torch.Generator | None = None,
-              masks=None) -> torch.Tensor:
+              masks=None, blocks_fn=None) -> torch.Tensor:
+    """``blocks_fn(x, c, cos, sin) -> (x, c)`` runs the block stack in
+    place of the loop over ``blocks`` (the pipelined forward's schedule,
+    ``parallel/pipeline.py``)."""
     cdt = self.compute_dtype
     x = embed_tokens(self.vocab_embed, indices, x_onehot, cdt)
     c = F.silu(self.sigma_map(sigma)).to(cdt)
     cos, sin = rotary_cos_sin(x.shape[1], x.shape[2] // self.n_heads,
                               device=x.device)
     cos, sin = cos.to(cdt), sin.to(cdt)
-    drop = training_masks(train, self.dropout, generator, masks)
-    for block in self.blocks:
-      x = block(x, cos, sin, c, drop)
+    if blocks_fn is not None:
+      x, c = blocks_fn(x, c, cos, sin)
+    else:
+      drop = training_masks(train, self.dropout, generator, masks)
+      for block in self.blocks:
+        x = block(x, cos, sin, c, drop)
     return self.output_layer(x, c).float()

@@ -19,7 +19,15 @@ collectives; here each process runs its share and calls them itself:
                         head split Megatron-style over ``model``
                         (``tp_value_spec``, ``models.enformer.
                         tp_shard_value_params``): one all-reduce after
-                        each attention, each FFN and the head.
+                        each attention, each FFN and the head;
+  sequence parallel     attention's keys and values gathered along the
+                        sequence over an axis (``all_gather_grad``,
+                        ``ops.attention.sp_mha``);
+  pipeline              the DiT's blocks split into stages over a
+                        ``pipe`` grid of its own (``make_pipe_mesh``,
+                        ``parallel/pipeline.py``): activations handed on
+                        by ``ring_permute``, the last stage's output
+                        replicated by ``broadcast``.
 
 A world of one process is a grid of one, and its collectives are still
 issued. ``COLLECTIVES`` counts the collectives issued through this
@@ -43,6 +51,7 @@ import torch.distributed as dist
 
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
+PIPE_AXIS = 'pipe'
 
 COLLECTIVES: collections.Counter = collections.Counter()
 
@@ -153,12 +162,51 @@ def make_mesh(data: int = -1, model: int = 1,
               model_groups[r // model])
 
 
-def local_shard_info(mesh: Optional[Mesh] = None) -> tuple:
+@dataclasses.dataclass(frozen=True)
+class PipeMesh:
+  """This process's place in a pipe-only grid of ``stages`` processes,
+  JAX's ``Mesh(devices[:s], ('pipe',))`` (``svdd_tpu/cli/main_gosai.py:117``):
+  ``rank`` is its stage index, the index of its global rank in ``ranks``;
+  ``group`` holds the stages."""
+  stages: int
+  rank: int
+  ranks: tuple
+  group: object
+
+  @property
+  def stage(self) -> int:
+    return self.rank
+
+  @property
+  def shape(self) -> dict:
+    return {PIPE_AXIS: self.stages}
+
+
+def make_pipe_mesh(stages: int, ranks: Optional[list] = None
+                   ) -> Optional[PipeMesh]:
+  """A pipe grid of ``stages`` processes over ``ranks`` (the first
+  ``stages`` processes by default). Every process of the group calls it;
+  a process outside ``ranks`` gets None."""
+  if not dist.is_initialized():
+    raise RuntimeError('make_pipe_mesh: no process group '
+                       '(initialize_multihost)')
+  ranks = list(range(stages) if ranks is None else ranks)
+  if len(ranks) != stages:
+    raise ValueError(f'a pipe grid of {stages} stages over {len(ranks)} '
+                     'processes')
+  group = dist.new_group(ranks)
+  me = dist.get_rank()
+  if me not in ranks:
+    return None
+  return PipeMesh(stages, ranks.index(me), tuple(ranks), group)
+
+
+def local_shard_info(mesh=None) -> tuple:
   """(num_shards, shard_index) of the data iterator
   (``svdd_tpu/parallel/mesh.py:207``): one shard a data index (the
   processes of a model group read the same rows); (1, 0) without a
-  grid."""
-  if mesh is None:
+  grid, and on a pipe grid, whose every stage reads the whole batch."""
+  if mesh is None or DATA_AXIS not in mesh.shape:
     return 1, 0
   return mesh.data, mesh.data_index
 
@@ -218,6 +266,77 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_grad(t: torch.Tensor, group) -> torch.Tensor:
   """The sum of ``t`` over ``group``, differentiable."""
   return _AllReduceSum.apply(t, group)
+
+
+class _AllGatherGrad(torch.autograd.Function):
+  """The group's tensors concatenated along ``dim`` with a gradient: the
+  backward reduce-scatters, each rank keeping the summed gradient of its
+  own block (JAX's transpose of a tiled ``all_gather``)."""
+
+  @staticmethod
+  def forward(ctx, t, group, dim):
+    ctx.group, ctx.dim = group, dim
+    return all_gather(t, group, dim)
+
+  @staticmethod
+  def backward(ctx, grad):
+    n = _group_size(ctx.group)
+    parts = torch.stack(grad.chunk(n, ctx.dim))
+    return reduce_scatter(parts, ctx.group)[0], None, None
+
+
+def all_gather_grad(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+  """``all_gather`` along ``dim``, differentiable."""
+  return _AllGatherGrad.apply(t, group, dim)
+
+
+def broadcast(t: torch.Tensor, mesh: PipeMesh, stage: int) -> torch.Tensor:
+  """``t`` as the process of ``stage`` holds it, on every process of the
+  pipe grid (in place; returns it)."""
+  COLLECTIVES['broadcast'] += 1
+  dist.broadcast(t, src=mesh.ranks[stage], group=mesh.group)
+  return t
+
+
+def _permute(t: torch.Tensor, mesh: PipeMesh, shift: int) -> torch.Tensor:
+  """What the stage ``shift`` places before this one holds of ``t``."""
+  COLLECTIVES['permute'] += 1
+  s = mesh.stages
+  if s == 1:
+    return t.clone()
+  t = t.contiguous()
+  out = torch.empty_like(t)
+  ops = [dist.P2POp(dist.isend, t, mesh.ranks[(mesh.rank + shift) % s],
+                    mesh.group),
+         dist.P2POp(dist.irecv, out, mesh.ranks[(mesh.rank - shift) % s],
+                    mesh.group)]
+  for req in dist.batch_isend_irecv(ops):
+    req.wait()
+  return out
+
+
+class _RingPermute(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, t, mesh, shift):
+    ctx.mesh, ctx.shift = mesh, shift
+    return _permute(t, mesh, shift)
+
+  @staticmethod
+  def backward(ctx, grad):
+    return _permute(grad, ctx.mesh, -ctx.shift), None, None
+
+
+def ring_permute(t: torch.Tensor, mesh: PipeMesh,
+                 shift: int = 1) -> torch.Tensor:
+  """JAX's ``lax.ppermute`` over the pipe ring: stage i sends ``t`` to
+  stage (i + shift) mod S and returns what stage (i - shift) mod S sent
+  (every stage calls it with a tensor of one shape and type). One send
+  and one receive in a ``batch_isend_irecv``, which neither gloo nor NCCL
+  can deadlock. Differentiable: the backward is the reverse permute. At
+  one stage the permute maps the stage to itself and is a copy (no
+  send: a process does not send to itself), counted all the same."""
+  return _RingPermute.apply(t, mesh, shift)
 
 
 def sum_gradients_(params, group, extra: Optional[torch.Tensor] = None):

@@ -37,8 +37,13 @@ all-reduce with the loss. Under ``parallel.fsdp`` the parameters,
 AdamW's moments and the EMA shadow are shards (``parallel/fsdp.py``):
 the parameters gathered for a step's forward and backward and freed
 after it, the gradients reduce-scattered, the clip's norm the whole
-gradient's. Process 0 writes the
-checkpoints, gathered whole and in the single-process format, so a
+gradient's. On a pipe grid (``parallel.pipeline_stages`` > 1, the DiT;
+JAX's ``_pipeline_apply_fn``, ``svdd_tpu/train/diffusion.py:78-97``)
+every process holds the whole state and the whole global batch, draws
+the same noise, and runs the loss through the pipelined forward
+(``parallel/pipeline.py``), whose backward leaves the whole gradient on
+every process, so the updates agree on every process. Process 0 writes
+the checkpoints, gathered whole and in the single-process format, so a
 checkpoint resumes at any grid size; every process reads them.
 """
 
@@ -51,7 +56,7 @@ import logging
 import os
 import re
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -63,6 +68,8 @@ from svdd_tpu_torch.parallel import mesh as mesh_lib
 from svdd_tpu_torch.parallel import fsdp as fsdp_lib
 from svdd_tpu_torch.parallel import rows as rows_lib
 from svdd_tpu_torch.parallel.fsdp import ShardedParams
+from svdd_tpu_torch.parallel.pipeline import (PIPE_AXIS,
+                                              pipelined_backbone_apply)
 
 LOGGER = logging.getLogger(__name__)
 FORMAT = 'svdd_tpu_torch.train.diffusion/1'
@@ -151,15 +158,18 @@ def make_optimizer(config: Config, params, sharded=None) -> Optimizer:
 class TrainState:
   """The trained model (its backbone's parameters and buffers), the
   optimizer, the EMA of the parameters and the generator of the noise;
-  ``step`` counts the optimizer updates. On a grid, ``mesh``, and under
-  FSDP ``sharded``, whose parts the optimizer and the EMA hold."""
+  ``step`` counts the optimizer updates. On a grid, ``mesh`` (a
+  ``Mesh``, or a ``PipeMesh``), and under FSDP ``sharded``, whose parts
+  the optimizer and the EMA hold; ``apply_fn``, the denoiser's forward in
+  the loss where it is not the backbone's own (the pipelined DiT's)."""
   step: int
   model: Diffusion
   optimizer: Optimizer
   ema: ema_lib.EMAState
   generator: torch.Generator
-  mesh: Optional[mesh_lib.Mesh] = None
+  mesh: Any = None
   sharded: Optional[ShardedParams] = None
+  apply_fn: Optional[Callable] = None
 
   def trained(self) -> dict:
     """name -> the tensors the optimizer and the EMA update: the
@@ -169,16 +179,52 @@ class TrainState:
     return dict(self.model.backbone.named_parameters())
 
 
+def _data_mesh(mesh):
+  """The grid's data axis: ``mesh``, or None on a pipe grid (every stage
+  holds the whole batch) and without one."""
+  return (mesh if mesh is not None and mesh_lib.DATA_AXIS in mesh.shape
+          else None)
+
+
+def _pipeline_apply_fn(model: Diffusion, config: Config, mesh):
+  """The pipelined denoiser forward where ``parallel.pipeline_stages`` >
+  1 (``svdd_tpu/train/diffusion.py:78``), else None: the DiT's blocks
+  over ``mesh``'s pipe axis."""
+  stages = config.parallel.pipeline_stages
+  if stages <= 1:
+    return None
+  if config.backbone != 'dit':
+    raise ValueError('pipeline_stages>1 supports the dit backbone '
+                     f'only (got {config.backbone!r})')
+  if mesh is None or PIPE_AXIS not in mesh.shape:
+    raise ValueError("pipeline_stages>1 needs a mesh with a 'pipe' "
+                     'axis (parallel.pipeline.PIPE_AXIS)')
+  if mesh.shape[PIPE_AXIS] != stages:
+    raise ValueError(f"mesh 'pipe' axis {mesh.shape[PIPE_AXIS]} != "
+                     f'pipeline_stages {stages}')
+  return pipelined_backbone_apply(
+      model.backbone, mesh=mesh,
+      num_microbatches=config.parallel.pipeline_microbatches,
+      virtual=config.parallel.pipeline_virtual)
+
+
 def init_state(model: Diffusion, config: Config,
                generator: Optional[torch.Generator] = None,
-               mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
+               mesh=None) -> TrainState:
   """A fresh state on ``model``'s backbone (trained in place); the
   generator is seeded from ``config.seed`` unless given. ``mesh``: the
-  process grid (``parallel.fsdp`` shards the state over it)."""
+  process grid (``parallel.fsdp`` shards the state over it), or a pipe
+  grid, over which the pipelined forward runs."""
   if generator is None:
     generator = torch.Generator(model.device).manual_seed(config.seed)
+  apply_fn = _pipeline_apply_fn(model, config, mesh)
   sharded = None
   if mesh is not None and config.parallel.fsdp:
+    if mesh_lib.DATA_AXIS not in mesh.shape:
+      raise ValueError(
+          "parallel.fsdp needs a 'data' mesh axis (pipe-only "
+          'meshes replicate params; stage weights are already '
+          'split by the GPipe shard_map)')
     sharded = ShardedParams(model.backbone, mesh,
                             config.parallel.fsdp_min_size)
   params = (sharded.local if sharded is not None
@@ -186,7 +232,7 @@ def init_state(model: Diffusion, config: Config,
   return TrainState(0, model, make_optimizer(config, params.values(),
                                              sharded),
                     ema_lib.init(params, config.training.ema), generator,
-                    mesh, sharded)
+                    mesh, sharded, apply_fn)
 
 
 def _batch_to(batch, device) -> dict:
@@ -217,8 +263,9 @@ def train_step(state: TrainState, batch, config: Config, noise=None,
   (module docstring); with none, the process still draws the
   microbatch's noise (a forward on no rows), so every generator stays in
   step. Without a grid the process holds every row and no collective
-  runs."""
-  mesh = state.mesh
+  runs; on a pipe grid too, but for the pipelined forward's
+  (``state.apply_fn``)."""
+  mesh = _data_mesh(state.mesh)
   accum = max(1, config.training.accum_steps)
   model = state.model
   b = _batch_to(batch, model.device)
@@ -248,7 +295,7 @@ def train_step(state: TrainState, batch, config: Config, noise=None,
         out = model.loss(b['seqs'][lo - row0:hi - row0],
                          None if mask is None else mask[lo - row0:hi - row0],
                          train=True, generator=state.generator, noise=nz,
-                         masks=mk)
+                         masks=mk, apply_fn=state.apply_fn)
       part = out.nlls.sum() / _data_sum(out.token_mask.sum(), mesh)
       if hi > lo:
         part.backward()
@@ -271,13 +318,16 @@ def train_step(state: TrainState, batch, config: Config, noise=None,
   return loss
 
 
-def eval_step(model: Diffusion, batch, generator=None, noise=None):
+def eval_step(model: Diffusion, batch, generator=None, noise=None,
+              apply_fn=None):
   """(sum of the masked token NLLs, token count), 0-dim device tensors,
-  of ``model`` (the EMA weights, as the trainer passes it) on ``batch``."""
+  of ``model`` (the EMA weights, as the trainer passes it) on ``batch``;
+  ``apply_fn``: the pipelined forward of ``model``'s backbone
+  (``svdd_tpu/train/diffusion.py:153``)."""
   b = _batch_to(batch, model.device)
   with torch.inference_mode():
     out = model.loss(b['seqs'], b.get('attention_mask'),
-                     generator=generator, noise=noise)
+                     generator=generator, noise=noise, apply_fn=apply_fn)
   return out.nlls.sum(), out.token_mask.sum()
 
 
@@ -292,7 +342,7 @@ class Trainer:
   ckpt_dir: Optional[str] = None
   logger: Any = None
   sample_eval_fn: Any = None
-  mesh: Optional[mesh_lib.Mesh] = None
+  mesh: Any = None
 
   def __post_init__(self):
     self._ema_model = None
@@ -384,14 +434,16 @@ class Trainer:
     """Token-mean NLL over ``max_batches`` validation batches on the EMA
     weights, the noise from a generator seeded 0 (or ``noise``, a pair a
     batch). On a grid each process holds its rows of the global batches,
-    draws their noise and sums with the others."""
+    draws their noise and sums with the others; on a pipe grid each
+    process holds the whole batches, through the pipelined forward."""
     model = self.eval_model(state)
+    apply_fn = _pipeline_apply_fn(model, self.config, self.mesh)
     gen = torch.Generator(model.device).manual_seed(0)
     total, count = 0.0, 0.0
     for i, batch in zip(range(max_batches), iter(valid_iter)):
       nz = None if noise is None else noise[i]
-      if self.mesh is None:
-        nll, n = eval_step(model, batch, gen, nz)
+      if _data_mesh(self.mesh) is None:
+        nll, n = eval_step(model, batch, gen, nz, apply_fn)
       else:
         rows = len(batch['seqs'])
         with rows_lib.global_rows(self.mesh.data_index * rows,

@@ -319,10 +319,10 @@ def test_text_shards_match_jax(tmp_path):
 
 
 def test_no_port_message_names_the_ported_parallel_paths():
-  """The port's texts no longer call the data-parallel paths unported:
-  what stays refused names A16.3 (pipeline parallelism), the sharded
-  loaders' docstring describes them, and ``cli.train --fsdp`` says what
-  it does."""
+  """The port's texts no longer call the parallel paths unported: none
+  names A16 without its item (A16.1-A16.3, the pipeline included, are
+  ported), the sharded loaders' docstring describes them, and
+  ``cli.train --fsdp`` says what it does."""
   import pathlib
   import re
   from svdd_tpu_torch.cli import train as cli_train

@@ -44,8 +44,7 @@ from svdd_tpu.train import diffusion as jtrain
 
 from svdd_tpu_torch import mdlm, schedules, utils
 from svdd_tpu_torch.cli import main_gosai
-from svdd_tpu_torch.config import (check_single_device, dna_config,
-                                   tiny_test_config)
+from svdd_tpu_torch.config import dna_config, tiny_test_config
 from svdd_tpu_torch.data import gosai
 from svdd_tpu_torch.diffusion import Diffusion
 from svdd_tpu_torch.models import ema
@@ -145,17 +144,24 @@ def test_dna_config_sections_match_svdd_tpu(section):
     ('pipeline_stages', 2), ('fsdp', True), ('model_axis', 2),
     ('data_axis', 4), ('pipeline_virtual', 2)])
 def test_parallel_settings_past_one_device_raise_a16(field, value):
-  """Pipeline parallelism raises, naming A16.3, the one parallel part
-  not ported; the data and model axes and FSDP pass (they run on
-  torch.distributed, tests/test_torch_parallel.py)."""
-  cfg = dna_config()
-  check_single_device(cfg)
-  setattr(cfg.parallel, field, value)
-  if field.startswith('pipeline'):
-    with pytest.raises(NotImplementedError, match='A16.3'):
-      check_single_device(cfg)
+  """Each parallel setting past one device meets the trainer as JAX's
+  does (``_pipeline_apply_fn`` without a grid): the data and model axes,
+  FSDP and ``pipeline_virtual`` at one stage give the plain apply (None);
+  ``pipeline_stages=2`` on the CNN raises JAX's ValueError, with its
+  words (the pipeline runs the DiT alone,
+  tests/test_torch_parallel_pipe.py)."""
+  cfg, jcfg = dna_config(), jax_dna_config()
+  for c in (cfg, jcfg):
+    setattr(c.parallel, field, value)
+  if field == 'pipeline_stages':
+    with pytest.raises(ValueError) as want:
+      jtrain._pipeline_apply_fn(None, jcfg, None)
+    with pytest.raises(ValueError) as got:
+      train_diff._pipeline_apply_fn(None, cfg, None)
+    assert str(got.value) == str(want.value)
   else:
-    check_single_device(cfg)
+    assert jtrain._pipeline_apply_fn(None, jcfg, None) is None
+    assert train_diff._pipeline_apply_fn(None, cfg, None) is None
 
 
 def test_q_xt_matches_svdd_tpu():

@@ -3,7 +3,7 @@
   python tests/torch_parallel_worker.py SUITE RANK WORLD STORE_DIR OUT_DIR
 
 joins a gloo group of WORLD processes through a FileStore under
-STORE_DIR, runs SUITE ('train', 'value' or 'decode') and writes its
+STORE_DIR, runs SUITE ('train', 'value', 'decode' or 'pipe') and writes its
 results to OUT_DIR/rank<RANK>.pt; the test files start the processes and
 compare. It imports torch and the port only: the parent computes the
 JAX references, and reads its inputs from OUT_DIR/inputs.pt.
@@ -338,7 +338,243 @@ def suite_decode(rank, world, out):
   return res
 
 
-SUITES = {'train': suite_train, 'value': suite_value, 'decode': suite_decode}
+# ---------------------------------------------------------------------------
+# Pipeline parallelism and sequence-parallel attention
+# ---------------------------------------------------------------------------
+
+
+def _tanh_stage(params, h, c=None):
+  for p in params:
+    h = h @ p['w'] + p['b'] if 'b' in p else h @ p['w']
+    if c is not None:
+      h = h + c[:, None, :]
+    h = torch.tanh(h)
+  return h
+
+
+def _leaf_blocks(per_block):
+  return [{k: torch.as_tensor(v).clone().requires_grad_()
+           for k, v in blk.items()} for blk in per_block]
+
+
+def _pipe_grads(run, blocks, *inputs):
+  """The output of ``run(blocks, *inputs)`` and the gradients of
+  sum(out ** 2) with respect to the inputs and every block's leaves."""
+  inputs = [t.clone().requires_grad_() for t in inputs]
+  out = run(blocks, *inputs)
+  (out ** 2).sum().backward()
+  return {'out': _np(out), 'inputs': [_np(t.grad) for t in inputs],
+          'blocks': [{k: _np(v.grad) for k, v in b.items()} for b in blocks]}
+
+
+def _pipe_generic(inp, mesh, stages):
+  """gpipe with conditioning as a per-microbatch argument at each
+  microbatch count, and the interleaved schedule at V=2."""
+  from svdd_tpu_torch.parallel import pipeline as P
+  g = inp['gpipe']
+  res = {}
+  for m in g['microbatches']:
+    blocks = _leaf_blocks(g['blocks'])
+    res[f'gpipe_m{m}'] = _pipe_grads(
+        lambda bl, x, c: P.gpipe(_tanh_stage, P.stack_stage_params(
+            bl, len(bl) // stages), x, (c,), mesh=mesh, num_microbatches=m),
+        blocks, g['x'], g['cond'])
+  it = inp['interleaved']
+  k = len(it['blocks']) // (stages * 2)
+  blocks = _leaf_blocks(it['blocks'])
+  res['interleaved'] = _pipe_grads(
+      lambda bl, x: P.gpipe_interleaved(
+          _tanh_stage, P.stack_stage_params_interleaved(bl, k, 2), x,
+          mesh=mesh, virtual=2), blocks, it['x'])
+  return res
+
+
+def _pipe_dit(inp, mesh):
+  """Real DDiTBlocks through gpipe (c per microbatch, the rotary tables
+  broadcast), and ``pipeline_dit_forward`` at M=4 and V=2."""
+  from svdd_tpu_torch.models.dit import rotary_cos_sin
+  from svdd_tpu_torch.parallel import pipeline as P
+  dit = torch.load(inp['dit'], weights_only=False)
+  d = inp['dit_inputs']
+  cos, sin = rotary_cos_sin(d['h'].shape[1],
+                            d['h'].shape[2] // dit.n_heads)
+  blocks = list(dit.blocks)
+  with torch.no_grad():
+    res = {'blocks': _np(P.gpipe(
+        P._dit_stage, P.stack_stage_params(blocks, len(blocks) //
+                                           mesh.stages),
+        d['h'], (d['c'],), (cos, sin), mesh=mesh, num_microbatches=4))}
+    for name, kw in (('forward_m4', dict(num_microbatches=4)),
+                     ('forward_v2', dict(num_microbatches=0, virtual=2))):
+      res[name] = _np(P.pipeline_dit_forward(dit, d['idx'], d['sigma'],
+                                             mesh=mesh, **kw))
+  return res
+
+
+def _pipe_cfg(virtual=1, stages=4):
+  cfg = tiny_test_config('dna')
+  cfg.backbone = 'dit'
+  cfg.model.length = 16
+  cfg.model.n_blocks = 8
+  cfg.model.dropout = 0.0
+  cfg.optim.warmup_steps = 0
+  cfg.optim.lr = 1e-3
+  cfg.parallel.pipeline_stages = stages
+  cfg.parallel.pipeline_microbatches = 4
+  cfg.parallel.pipeline_virtual = virtual
+  return cfg
+
+
+def _adam(state, name):
+  return {k: _np(state.optimizer.adamw.state[p][name])
+          for k, p in state.model.backbone.named_parameters()}
+
+
+def _pipe_train(inp, mesh, virtual):
+  """One pipelined step on JAX's uniforms, then the eval step on the
+  updated EMA weights: loss, parameters, EMA, Adam's moments, eval sums;
+  and the step's collectives."""
+  from svdd_tpu_torch.train import diffusion as T
+  t = inp['train']
+  cfg = _pipe_cfg(virtual)
+  model = Diffusion(cfg, device='cpu',
+                    backbone=torch.load(t['backbone'], weights_only=False))
+  state = T.init_state(model, cfg, mesh=mesh)
+  M.reset_collectives()
+  loss = float(T.train_step(state, {'seqs': t['seqs']}, cfg, [t['noise']]))
+  collectives = M.collectives()
+  ema = Diffusion(cfg, device='cpu', backbone=torch.load(
+      t['backbone'], weights_only=False))
+  with torch.no_grad():
+    for k, p in ema.backbone.named_parameters():
+      p.copy_(state.ema.shadow[k])
+  nll, n = T.eval_step(ema, {'seqs': t['seqs']}, noise=t['eval_noise'],
+                       apply_fn=T._pipeline_apply_fn(ema, cfg, mesh))
+  return {'loss': loss, 'collectives': collectives,
+          'params': {k: _np(p) for k, p in
+                     model.backbone.named_parameters()},
+          'ema': {k: _np(v) for k, v in state.ema.shadow.items()},
+          'mu': _adam(state, 'exp_avg'), 'nu': _adam(state, 'exp_avg_sq'),
+          'eval': (float(nll), float(n))}
+
+
+def _world1_bitwise(inp, mesh):
+  """Three steps of the pipelined DiT on a one-stage grid against the
+  plain step on the same weights and batches: at M=1 (V=1 and V=2)
+  the same ops, so the losses and every parameter, EMA and moment bit for
+  bit; at M=4 the largest differences."""
+  from svdd_tpu_torch.parallel import pipeline as P
+  from svdd_tpu_torch.train import diffusion as T
+  t = inp['train']
+  cfg = _pipe_cfg(stages=1)
+
+  def run(apply):
+    model = Diffusion(cfg, device='cpu', backbone=torch.load(
+        t['backbone'], weights_only=False))
+    state = T.init_state(model, cfg)
+    if apply is not None:
+      state.apply_fn = P.pipelined_backbone_apply(model.backbone, mesh=mesh,
+                                                  **apply)
+    losses = [float(T.train_step(state, {'seqs': t['seqs'][i::2]}, cfg))
+              for i in range(2)]
+    return losses, {'params': {k: _np(p) for k, p in
+                               model.backbone.named_parameters()},
+                    'ema': {k: _np(v) for k, v in state.ema.shadow.items()},
+                    'mu': _adam(state, 'exp_avg'),
+                    'nu': _adam(state, 'exp_avg_sq')}
+
+  plain = run(None)
+  res = {}
+  for name, apply in (('m1', dict(num_microbatches=1)),
+                      ('v2', dict(virtual=2)),
+                      ('m4', dict(num_microbatches=4))):
+    losses, tree = run(apply)
+    res[name] = {'bitwise': losses == plain[0] and _same(tree, plain[1]),
+                 'loss_rel': max(abs(a - b) / abs(b)
+                                 for a, b in zip(losses, plain[0])),
+                 'max_abs': max(float((tree[part][k] - v).abs().max())
+                                for part in tree
+                                for k, v in plain[1][part].items())}
+  return res
+
+
+def _sp_attention(inp, mesh):
+  """sp_mha on this process's sequence block: the output block and the
+  input gradients of sum(out * w), causal and not."""
+  from svdd_tpu_torch.ops.attention import sp_mha
+  a = inp['sp']
+  n, idx = mesh.model, mesh.model_index
+  blk = a['q'].shape[1] // n
+  sl = slice(idx * blk, (idx + 1) * blk)
+  res = {}
+  for causal in (False, True):
+    q, k, v = (a[x][:, sl].clone().requires_grad_() for x in 'qkv')
+    out = sp_mha(q, k, v, mesh, axis='model', causal=causal)
+    (out * a['w'][:, sl]).sum().backward()
+    res[causal] = {'out': _np(out), 'grads': [_np(x.grad) for x in (q, k, v)],
+                   'slice': (sl.start, sl.stop)}
+  return res
+
+
+def _permute(mesh):
+  """ring_permute of a tensor holding the stage's index, and its
+  gradient: what each stage received, and the gradient of its input
+  under the loss sum(received * (stage + 1))."""
+  t = torch.full((3,), float(mesh.stage), requires_grad=True)
+  got = M.ring_permute(t, mesh)
+  (got * (mesh.stage + 1)).sum().backward()
+  return {'received': _np(got), 'grad': _np(t.grad)}
+
+
+def _pipe_cli(out, rank):
+  """``main_gosai --mode train`` with pipeline_stages=2 over the world of
+  four: processes 0 and 1 the stages, 2 and 3 past the grid."""
+  from svdd_tpu_torch.cli import main_gosai
+  from svdd_tpu_torch.train import diffusion as T
+  cfg = _pipe_cfg(stages=2)
+  cfg.parallel.pipeline_microbatches = 2
+  cfg.eval.val_check_interval = 2
+  cfg.checkpointing.every_n_steps = 1000
+  ckpt = os.path.join(out, 'pipe_ckpt')
+  args = main_gosai.parser().parse_args(
+      ['--mode', 'train', '--device', 'cpu', '--max_steps', '2',
+       '--ckpt_dir', ckpt, '--log_dir', os.path.join(out, 'pipe_log'),
+       '--no_sample_eval', '--data_dir', os.path.join(out, 'no_data')])
+  M.reset_collectives()
+  r = main_gosai.run(args, cfg)
+  state = r['state']
+  if state is None:
+    return {'past_grid': True}
+  return {'mesh': state.mesh.shape, 'stage': state.mesh.stage,
+          'step': state.step, 'collectives': M.collectives(),
+          'params': {k: _np(p) for k, p in T.model_params(state).items()},
+          'ema': {k: _np(v) for k, v in T.ema_shadow(state).items()},
+          'mu': _adam(state, 'exp_avg'),
+          'ckpt': T.latest_checkpoint(ckpt)}
+
+
+def suite_pipe(rank, world, out):
+  inp = torch.load(os.path.join(out, 'inputs.pt'), weights_only=False)
+  pipes = {4: M.make_pipe_mesh(4), 2: M.make_pipe_mesh(2, [0, 1]),
+           1: M.make_pipe_mesh(1, [3])}
+  grids = {'1x4': M.make_mesh(1, 4), '2x2': M.make_mesh(2, 2)}
+  res = {'permute': _permute(pipes[4]),
+         'generic4': _pipe_generic(inp, pipes[4], 4),
+         'dit4': _pipe_dit(inp, pipes[4])}
+  for v in (1, 2):
+    res[f'train_v{v}'] = _pipe_train(inp, pipes[4], v)
+  for name, grid in grids.items():
+    res[f'sp{name}'] = _sp_attention(inp, grid)
+  if pipes[2] is not None:
+    res['generic2'] = _pipe_generic(inp, pipes[2], 2)
+  if pipes[1] is not None:
+    res['world1'] = _world1_bitwise(inp, pipes[1])
+  res['cli'] = _pipe_cli(out, rank)
+  return res
+
+
+SUITES = {'train': suite_train, 'value': suite_value, 'decode': suite_decode,
+          'pipe': suite_pipe}
 
 
 def start(suite: str, world: int, out: str) -> list:
